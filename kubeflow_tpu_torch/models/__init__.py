@@ -1,0 +1,6 @@
+"""Models of the PyTorch port."""
+
+from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
+from kubeflow_tpu_torch.models.registry import get_model, list_models
+
+__all__ = ["Llama", "LlamaConfig", "get_model", "list_models"]

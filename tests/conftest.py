@@ -45,6 +45,11 @@ def pytest_configure(config):
         "slow: multi-second integration benches excluded from tier-1 "
         "(-m 'not slow'); CI smoke stages cover their invariants",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skips without one",
+    )
 
 
 @pytest.fixture(scope="module", autouse=True)
