@@ -4,19 +4,33 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. device — CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build — compiles the flash-attention kernel from
-   kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a) and prints the seconds
-   and the register/spill report;
-3. kernel — holds the kernel against its plain PyTorch version at the
-   serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at Sq=Skv 32, 128
-   and 512; one full-attention case; one D=64 case; one flash_attention_lse
-   case whose offset masks rows fully). o within atol = rtol = 2e-2, lse
-   within 1e-2, masked rows exactly 0 and -1e30. Times, on the device
-   (CUDA-graph replays), the kernel, the plain version and, as a yardstick
-   the port never calls, torch.nn.functional.scaled_dot_product_attention;
-   also the kernel's eager call time, host overhead included; and
-   computes the card's least time for the same work;
-4. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
+2. build — compiles both flash-attention kernels from
+   kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one nvcc per source,
+   started together, and prints the seconds and each register/spill
+   report;
+3. kernel (K1, forward) — holds the kernel against its plain PyTorch
+   version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
+   Sq=Skv 32, 128 and 512; one full-attention case; one D=64 case; one
+   flash_attention_lse case whose offset masks rows fully). o within
+   atol = rtol = 2e-2, lse within 1e-2, masked rows exactly 0 and -1e30.
+   Times, on the device (CUDA-graph replays), the kernel, the plain version
+   and, as a yardstick the port never calls,
+   torch.nn.functional.scaled_dot_product_attention; also the kernel's
+   eager call time, host overhead included; and computes the card's least
+   time for the same work;
+4. kernel (K2, backward) — holds the kernel against its plain version
+   (flash_attention_backward_reference) on the same inputs at the training
+   shape (bf16, B=12, S=2048, H=16, Hkv=8, D=128, causal), bf16 S=512 at
+   D=64 and D=128, one full-attention case, one ragged case (S=1000), one
+   flash_attention_lse case whose offset masks rows fully with a non-zero
+   lse cotangent, and one f32 case: each of dq/dk/dv within
+   2e-2 x max|plain| (bf16; 1e-4 in f32), masked rows' grads exactly 0.
+   Times the kernel (CUDA-graph replays, and the eager autograd backward),
+   the plain version and, as a yardstick, the backward of
+   scaled_dot_product_attention(enable_gqa=True) (grads of a retained
+   graph, captured the same way), beside the bound
+   max(bytes / 3.35 TB/s, 10 B H live D / 989 TFLOP/s);
+5. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card) and sends 9
    concurrent /v1/generate requests over HTTP across the prefill buckets,
    one past the largest (chunked prefill), one streamed and one sampled.
@@ -28,18 +42,35 @@ Phases (any failure exits non-zero, and no result line is printed):
    max. Prints tok/s, p50 TTFT, weight bytes
    and peak device memory, then profiles one full-batch decode chunk
    (wall time, device busy time, idle share, top device kernels);
-5. prints the {"kernels": [...]} line, then the result line.
+6. train — runs the training runner in-process (the KFTPU_* env) on the
+   ~700M-parameter Llama of ``bench.py train`` at full width and depth
+   (vocab 32000, embed 2048, 12 layers, 16/8 heads, head_dim 128, MLP
+   5632; batch 12 x seq 2048; bf16 params, bf16 Adam mu, bf16 logits;
+   remat "qkv_attn"; flash attention) for 10 steps with a checkpoint every
+   5, then again to 12 steps, which resumes from step 10. Checks the loss
+   is finite and falls, that K2 ran once per layer per step and K1 twice
+   (the forward, and its replay for lse in the backward under
+   "qkv_attn"), counts zeroed just before each run and read just after;
+   prints tokens/s, MFU, median synchronised step ms, peak device memory
+   and one profiled step. Then one step's grads of a 2-layer model of the
+   same width with attn_impl="flash" against attn_impl="full": each
+   parameter's relative error ||g_flash - g_full|| / ||g_full|| within
+   GRAD_REL_BOUND;
+7. prints the {"kernels": [...]} line, then the result line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -49,6 +80,19 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 H, HKV = 32, 8      # llama3-8b's query and kv heads
+TRAIN_H, TRAIN_HKV = 16, 8      # the 700M training model's heads
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# flash vs full attention, one step's grads of the 2-layer model in bf16:
+# each parameter's ||g_flash - g_full|| / ||g_full|| (PERF.md gives the
+# prediction this bound was set from).
+GRAD_REL_BOUND = 5e-2
+TRAIN_MODEL_KW = {
+    "vocab_size": 32000, "embed_dim": 2048, "num_layers": 12,
+    "num_heads": 16, "num_kv_heads": 8, "head_dim": 128, "mlp_dim": 5632,
+    "max_seq_len": 2048, "param_dtype": "bfloat16", "logits_f32": False,
+    "scan_layers": True, "remat": True, "remat_policy": "qkv_attn",
+}
+TRAIN_BATCH, TRAIN_SEQ = 12, 2048
 
 
 def log(msg: str) -> None:
@@ -66,19 +110,21 @@ def _elapsed_ms(run, n: int) -> float:
     return start.elapsed_time(end)
 
 
-def device_ms(fn, calls: int = 10, replays: int = 5) -> float:
+def device_ms(fn, calls: int = 10, replays: int = 5, side=None) -> float:
     """Device time of one ``fn`` call: ``calls`` calls captured in one CUDA
     graph, replayed ``replays`` times between CUDA events, so the Python
     and launch overhead of the wrapper does not pace the device. Warmed
-    up on a side stream first, as capture requires."""
-    side = torch.cuda.Stream()
+    up on a side stream first, as capture requires; a backward passes the
+    stream its forward ran on, so autograd issues it on the capture
+    stream."""
+    side = side or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -187,6 +233,134 @@ def kernel_phase():
             f"{ms:.4f} ms (eager call {call_ms:.4f} ms) plain "
             f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
             f"{bound * 1e3:.2f} us ({bound_by})")
+    return rows, max_err
+
+
+def backward_bound_ms(b, sq, skv, h, hkv, d, causal, offset):
+    """Least time of the backward on this card: the larger of the bytes
+    it must move (q, o, do, k, v and the f32 lse and delta read once; dq,
+    dk, dv written once) over the memory rate, and its five products over
+    the live (q, kv) pairs, 10 B H live D FLOPs, over the bf16 peak."""
+    qpos = np.arange(sq)[:, None] + offset
+    live = (qpos >= np.arange(skv)[None, :]).sum() if causal else sq * skv
+    flops = 10.0 * b * h * d * float(live)
+    nbytes = 2 * (4 * b * sq * h * d + 4 * b * skv * hkv * d) + 8 * b * h * sq
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def backward_phase():
+    """K2 against its plain version; returns (rows, max_abs_err)."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # (name, B, Sq, Skv, d, causal, q_offset, kv_offset, dtype, dlse)
+    cases = [
+        ("train_b12_s2048", 12, 2048, 2048, 128, True, 0, 0,
+         torch.bfloat16, False),
+        ("causal_b8_s512", 8, 512, 512, 128, True, 0, 0,
+         torch.bfloat16, False),
+        ("causal_b8_s512_d64", 8, 512, 512, 64, True, 0, 0,
+         torch.bfloat16, False),
+        ("full_b4_s512", 4, 512, 512, 128, False, 0, 0,
+         torch.bfloat16, False),
+        ("ragged_b4_s1000", 4, 1000, 1000, 128, True, 0, 0,
+         torch.bfloat16, False),
+        ("lse_masked_dlse_b4_s256", 4, 256, 256, 128, True, 0, 128,
+         torch.bfloat16, True),
+        ("f32_b2_s256", 2, 256, 256, 128, True, 0, 0, torch.float32, False),
+    ]
+    rows, max_err = [], 0.0
+    for name, b, sq, skv, d, causal, q_off, kv_off, dtype, with_dlse in cases:
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+        q, k, v = rand(b, sq, TRAIN_H, d), rand(b, skv, TRAIN_HKV, d), \
+            rand(b, skv, TRAIN_HKV, d)
+        do = rand(b, sq, TRAIN_H, d)
+        dlse = (torch.randn(b, TRAIN_H, sq, generator=gen, device="cuda")
+                if with_dlse else None)
+        off = q_off - kv_off
+        scale = d ** -0.5
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o, lse = fa.flash_attention_lse(*leaves, causal=causal,
+                                        q_offset=q_off, kv_offset=kv_off)
+        o_, lse_ = o.detach(), lse.detach()
+        delta = fa._delta(o_, do, dlse)
+        off_t = fa._offset_tensor(off, q.device)
+
+        def kernel():
+            return fa._bwd_kernel(q, k, v, do, lse_, delta, off_t, causal,
+                                  scale)
+
+        outs, cots = ((o, lse), (do, dlse)) if with_dlse else ((o,), (do,))
+
+        def eager():
+            return torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+
+        def plain():
+            return fa.flash_attention_backward_reference(
+                q, k, v, o_, lse_, do, dlse, causal=causal, scale=scale,
+                offset=off)
+
+        got = eager()
+        want = plain()
+        torch.cuda.synchronize()
+        errs = []
+        for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
+            err = (g.float() - w.float()).abs().max().item()
+            ref = w.float().abs().max().item()
+            if not err <= BWD_TOL[dtype] * ref:
+                raise AssertionError(f"K2 {name} {gname}: max err {err:.3e} "
+                                     f"> {BWD_TOL[dtype]} x {ref:.3e}")
+            errs.append(err)
+        if off < 0:
+            dead = -off                 # q rows that see no kv column
+            if not torch.all(got[0][:, :dead] == 0):
+                raise AssertionError(f"K2 {name}: masked rows' dq not 0")
+        if not torch.equal(kernel()[0], got[0]):
+            raise AssertionError(f"K2 {name}: wrapper and autograd differ")
+        err = max(errs)
+        big = sq >= 2048
+        ms = device_ms(kernel)
+        call_ms = eager_ms(eager)
+        plain_ms = device_ms(plain, calls=2 if big else 10,
+                             replays=2 if big else 5)
+        del got, want
+        library_ms = None
+        if dtype == torch.bfloat16 and off == 0:
+            # SDPA's is_causal aligns row 0 with col 0: the cases with no
+            # offset. Its forward runs on the capture stream.
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                          for x in (q, k, v))
+            with torch.cuda.stream(side):
+                os_ = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+            dot = do.transpose(1, 2)
+
+            def library():
+                return torch.autograd.grad(os_, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+            library_ms = device_ms(library, side=side)
+        bound, bound_by = backward_bound_ms(b, sq, skv, TRAIN_H, TRAIN_HKV,
+                                            d, causal, off)
+        max_err = max(max_err, err)
+        row = dict(case=name, max_abs_err=err, ms=ms, call_ms=call_ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                   bound_by=bound_by)
+        rows.append(row)
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"K2 {name}: err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
+            f"{errs[2]:.3e} kernel {ms:.4f} ms (eager backward "
+            f"{call_ms:.4f} ms) plain {plain_ms:.4f} ms sdpa-bwd {lib} "
+            f"bound {bound * 1e3:.2f} us ({bound_by})")
+        del q, k, v, do, leaves, o, lse
+        torch.cuda.empty_cache()
     return rows, max_err
 
 
@@ -382,6 +556,184 @@ def greedy_check(model, bodies, outs):
     return gaps, bounds
 
 
+def train_phase():
+    """The runner on the 700M config: 10 steps with checkpoints, then a
+    resume to 12. Returns the first run's stats. Its checkpoints (5.6 GB
+    each) go to a temporary directory that is removed however it ends."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="kftpu-smoke-train-")
+    try:
+        return _train_runs(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _train_runs(work: str):
+    from kubeflow_tpu_torch.models.llama import LlamaConfig
+    from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+    from kubeflow_tpu_torch.train import runner
+    from kubeflow_tpu_torch.train.checkpoint import CheckpointService
+    from kubeflow_tpu_torch.train.flops import train_flops_per_token
+    from kubeflow_tpu_torch.train.trainer import Trainer
+
+    ckdir = os.path.join(work, "ckpt")
+    os.environ.update({
+        "KFTPU_MODEL": "llama-tiny", "KFTPU_MODEL_KW": json.dumps(
+            TRAIN_MODEL_KW),
+        "KFTPU_HPARAMS": json.dumps({"warmup_steps": 2,
+                                     "mu_dtype": "bfloat16"}),
+        "KFTPU_BATCH_PER_HOST": str(TRAIN_BATCH),
+        "KFTPU_SEQ_LEN": str(TRAIN_SEQ), "KFTPU_ATTN_IMPL": "flash",
+        "KFTPU_CHECKPOINT_DIR": ckdir, "KFTPU_CHECKPOINT_EVERY": "5",
+        "KFTPU_TERMINATION_LOG": os.path.join(work, "termination.json"),
+    })
+    os.environ.pop("KFTPU_PLATFORM", None)          # cuda
+    layers = TRAIN_MODEL_KW["num_layers"]
+
+    # Each step is timed between synchronisations and its loss read; the
+    # last (trainer, state, batch) is kept for the profiled step.
+    record = {"losses": [], "step_ms": [], "last": None}
+    plain_step = Trainer.step
+
+    def timed_step(self, state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = plain_step(self, state, batch)
+        loss = float(metrics["loss"])
+        record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        record["losses"].append(loss)
+        record["last"] = (self, state, batch)
+        return state, metrics
+
+    Trainer.step = timed_step
+    runs = []
+    try:
+        for steps, resumed_from in ((10, 0), (12, 10)):
+            os.environ["KFTPU_TRAIN_STEPS"] = str(steps)
+            record["losses"], record["step_ms"] = [], []
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.fwd_launches = flash_attention.bwd_launches = 0
+            t0 = time.time()
+            runner.run(runner.env_config())
+            wall = time.time() - t0
+            fwd, bwd = (flash_attention.fwd_launches,
+                        flash_attention.bwd_launches)
+            peak = torch.cuda.max_memory_allocated()
+            ran = steps - resumed_from
+            losses = record["losses"]
+            with open(os.environ["KFTPU_TERMINATION_LOG"]) as f:
+                report = json.load(f)
+            if len(losses) != ran or record["last"][1].step != steps:
+                raise AssertionError(f"train to {steps}: ran {len(losses)} "
+                                     f"steps, expected {ran} from "
+                                     f"{resumed_from}")
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"non-finite loss: {losses}")
+            # K2 once per layer per step; K1 twice: the forward and, under
+            # remat "qkv_attn", its replay in the backward (lse is not
+            # saved), as the JAX policy replays it.
+            if bwd != layers * ran or fwd != 2 * layers * ran:
+                raise AssertionError(
+                    f"launches over {ran} steps: K1 {fwd} (want "
+                    f"{2 * layers * ran}), K2 {bwd} (want {layers * ran})")
+            runs.append(dict(steps=steps, losses=list(losses),
+                             step_ms=list(record["step_ms"]), wall=wall,
+                             fwd=fwd, bwd=bwd, peak=peak, report=report))
+            log(f"train to step {steps} (from {resumed_from}): losses "
+                + " ".join(f"{x:.4f}" for x in losses)
+                + f"; K1 {fwd} K2 {bwd} launches; runner tokens/s "
+                f"{report['tokens_per_sec']:.0f}; wall {wall:.1f} s; peak "
+                f"device memory {peak / 1e9:.2f} GB")
+        first = runs[0]
+        if not first["losses"][-1] < first["losses"][0]:
+            raise AssertionError(f"loss did not fall: {first['losses']}")
+        saved = CheckpointService(ckdir).all_steps()
+        if saved != [5, 10, 12]:
+            raise AssertionError(f"checkpoints {saved}, want [5, 10, 12]")
+        trainer, state, batch = record["last"]
+    finally:
+        Trainer.step = plain_step
+        record.clear()
+    cfg = LlamaConfig(**TRAIN_MODEL_KW)
+    step_ms = float(np.median(first["step_ms"][1:]))   # first: warm-up
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tok_s = tokens / (step_ms / 1e3)
+    mfu = train_flops_per_token(cfg, TRAIN_SEQ) * tok_s / PEAK_BF16_FLOPS
+    log(f"train: {tokens} tokens/step, median synchronised step "
+        f"{step_ms:.1f} ms (steps 2-10: " + " ".join(
+            f"{x:.1f}" for x in first["step_ms"][1:]) + f"), {tok_s:.0f} "
+        f"tokens/s, MFU {mfu:.4f} ({train_flops_per_token(cfg, TRAIN_SEQ)}"
+        f" FLOP/token), peak device memory {first['peak'] / 1e9:.2f} GB; "
+        f"resumed from step 10 to 12; checkpoints {saved}")
+    train_breakdown(trainer, state, batch)
+    return dict(first, step_ms_median=step_ms, tok_s=tok_s, mfu=mfu)
+
+
+def train_breakdown(trainer, state, batch):
+    """One train step under torch.profiler: wall time, device busy time
+    (the sum of the device kernels' own times), idle share, top kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        trainer.step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    log(f"train step profiled: wall {wall_ms:.2f} ms, device busy "
+        + (f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}"
+           if busy_ms > 0 else "not measured (no device events)"))
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:10]:
+        log(f"  {e.key[:70]}: {e.device_time_total / 1e3:.2f} ms over "
+            f"{e.count} calls")
+
+
+def grad_check():
+    """One step's grads of a 2-layer model of the training width, flash
+    attention (K1 + K2) against the plain attention, same bf16 weights and
+    batch: each parameter's relative error within GRAD_REL_BOUND."""
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.train.data import (
+        SyntheticTextConfig,
+        synthetic_text,
+    )
+    from kubeflow_tpu_torch.train.losses import cross_entropy_loss
+
+    with torch.device("cuda"):
+        model, _ = get_model("llama-tiny",
+                             **dict(TRAIN_MODEL_KW, num_layers=2))
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.as_tensor(next(synthetic_text(SyntheticTextConfig(
+        batch_size=2, seq_len=TRAIN_SEQ, vocab_size=32000, seed=5)))[
+        "inputs"], device="cuda").long()
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+
+    def grads(impl):
+        logits = model(tokens[:, :-1], attn_impl=impl)
+        loss, _ = cross_entropy_loss(logits, tokens[:, 1:],
+                                     z_loss_weight=1e-4)
+        return torch.autograd.grad(loss, params)
+
+    rel = {}
+    for n, a, b in zip(names, grads("flash"), grads("full")):
+        rel[n] = ((a.float() - b.float()).norm()
+                  / b.float().norm().clamp_min(1e-30)).item()
+    worst = max(rel, key=rel.get)
+    log(f"grad check (2 layers, flash vs full, bf16): relative error max "
+        f"{rel[worst]:.3e} ({worst}), median "
+        f"{float(np.median(list(rel.values()))):.3e} over {len(rel)} "
+        f"parameters; bound {GRAD_REL_BOUND}")
+    if rel[worst] > GRAD_REL_BOUND:
+        raise AssertionError(f"flash vs full grads: {worst} relative error "
+                             f"{rel[worst]:.3e} > {GRAD_REL_BOUND}")
+    return rel
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs an "
@@ -397,29 +749,45 @@ def main() -> int:
     from kubeflow_tpu_torch.ops import _build
 
     t0 = time.time()
-    lib = _build.build("flash_attention_fwd.cu")
-    log(f"build: flash_attention_fwd.cu in {time.time() - t0:.1f} s")
-    with open(lib[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("  " + line.strip())
+    sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
+    with ThreadPoolExecutor(len(sources)) as pool:     # one nvcc each
+        libs = dict(zip(sources, pool.map(_build.build, sources)))
+    log(f"build: {', '.join(sources)} in {time.time() - t0:.1f} s")
+    for src, lib in libs.items():
+        with open(lib[:-3] + ".log") as f:
+            for line in f:
+                if "Compiling entry" in line:
+                    log(f"  {src}: " + line.strip().split("'")[1])
+                elif "registers" in line or "spill" in line:
+                    log("    " + line.strip())
 
     rows, max_err = kernel_phase()
+    bwd_rows, bwd_err = backward_phase()
     launches = serve_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_check()
     main_row = next(r for r in rows if r["case"] == "causal_b8_s512")
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-        "replaces": "kubeflow_tpu/ops/flash_attention.py:115",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }]}), flush=True)
+    bwd_row = next(r for r in bwd_rows if r["case"] == "train_b12_s2048")
+
+    def entry(name, source, replaces, n, err, row):
+        return {"name": name, "route": "cuda",
+                "source": f"kubeflow_tpu_torch/ops/csrc/{source}",
+                "replaces": f"kubeflow_tpu/ops/flash_attention.py:{replaces}",
+                "launches": n, "max_abs_err": err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+
+    print(json.dumps({"kernels": [
+        entry("flash_attention_fwd", "flash_attention_fwd.cu", 115,
+              launches, max_err, main_row),
+        entry("flash_attention_bwd", "flash_attention_bwd.cu", 265,
+              train["bwd"], bwd_err, bwd_row),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

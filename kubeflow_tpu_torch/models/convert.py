@@ -16,8 +16,11 @@ lm_head        [E, V]             [V, E]
 embed, norms   as they are        as they are
 =============  =================  ======================
 
-Only the unrolled layout (``layer_{i}`` subtrees) converts; a scanned
-tree (one ``layers`` subtree stacked over depth) raises for now.
+Both layer layouts convert: unrolled (``layer_{i}`` subtrees) and scanned
+(one ``layers`` subtree stacked over depth, as ``scan_layers=True``
+training writes it). ``llama_params_to_jax`` writes the layout that
+``cfg.scan_layers`` names. Gradients have the params' tree, so they convert
+with the same functions.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.models.layout import adapt_layout, to_layer_layout
 from kubeflow_tpu_torch.models.llama import LlamaConfig
 
 
@@ -45,12 +49,10 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 
 def llama_params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
-    """JAX Llama param tree -> the port's state_dict (CPU tensors)."""
-    p = tree["params"] if "params" in tree else tree
-    if "layers" in p:
-        raise NotImplementedError(
-            "scanned (layers-stacked) Llama params do not convert yet; "
-            "unroll them to layer_{i} subtrees first")
+    """JAX Llama param tree (scanned or unrolled) -> the port's state_dict
+    (CPU tensors)."""
+    p = to_layer_layout(tree["params"] if "params" in tree else tree,
+                        cfg.num_layers)
     E = cfg.embed_dim
     sd = {"embed": _tensor(p["embed"])}
     for i in range(cfg.num_layers):
@@ -75,8 +77,9 @@ def llama_params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
 
 def llama_params_to_jax(state_dict: Dict[str, torch.Tensor],
                         cfg: LlamaConfig) -> dict:
-    """The port's state_dict -> ``{"params": ...}`` in the JAX layouts
-    (numpy; bf16 tensors come back as f32, which holds them exactly)."""
+    """The port's state_dict -> ``{"params": ...}`` in the JAX layouts,
+    scanned when ``cfg.scan_layers`` (numpy; bf16 tensors come back as f32,
+    which holds them exactly)."""
     H, Hkv, Dh, E = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                      cfg.embed_dim)
     sd = {k: _array(v) for k, v in state_dict.items()}
@@ -102,4 +105,4 @@ def llama_params_to_jax(state_dict: Dict[str, torch.Tensor],
     if not cfg.tie_embeddings:
         p["lm_head"] = {"kernel": np.ascontiguousarray(
             sd["lm_head.weight"].T)}
-    return {"params": p}
+    return {"params": adapt_layout(p, cfg.num_layers, cfg.scan_layers)}

@@ -9,9 +9,11 @@ dtype, attention logits are f32, and the logits come out f32
 
 Three forward modes (``Llama.forward``):
 
-- no cache (the training layout, forward only here): causal attention
-  through ``flash_attention`` (``attn_impl="flash"``) or the plain
-  ``mha_reference`` (``attn_impl="full"``);
+- no cache (the training layout, differentiable): causal attention
+  through ``flash_attention`` (``attn_impl="flash"``: K1 forward, K2
+  backward on the card) or the plain ``mha_reference``
+  (``attn_impl="full"``). With ``remat`` and grad enabled each layer runs
+  under ``torch.utils.checkpoint`` (see ``remat_policy``);
 - ``decode="prefill"``: fresh cache rows; k/v are written to the cache
   and attention runs causally over the incoming tokens through the flash
   kernel;
@@ -33,6 +35,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.ops.attention import mha_reference
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
@@ -70,6 +73,21 @@ class LlamaConfig:
     tie_embeddings: bool = False
     logits_softcap: float = 0.0
     logits_f32: bool = True
+    # Layout only: the port always runs its layers as a Python loop;
+    # ``scan_layers`` says which tree ``models/convert.py`` writes for the
+    # JAX package (stacked ``layers`` or ``layer_{i}``).
+    scan_layers: bool = True
+    # Rematerialisation in the training forward (grad enabled, no cache):
+    #   "full"     - each layer under one checkpoint: saves the layer input,
+    #                the backward replays the whole layer;
+    #   "qkv_attn" - saves q/k/v (post-RoPE) and the attention output (the
+    #                JAX policy's "qkv" and "attn_out" names): the backward
+    #                replays the norms and projections before them, the
+    #                attention forward (for its lse) and the o_proj + MLP
+    #                after them.
+    # The JAX package's other policy names are later work and raise.
+    remat: bool = True
+    remat_policy: str = "full"
     # Options of the JAX model that later slices port; setting one raises
     # NotImplementedError when the model is built.
     fused_qkv: bool = False
@@ -110,13 +128,20 @@ class LlamaConfig:
         kw.setdefault("head_dim", 16)
         kw.setdefault("mlp_dim", 128)
         kw.setdefault("max_seq_len", 128)
+        kw.setdefault("scan_layers", False)
+        kw.setdefault("remat", False)
         return cls(**kw)
 
 
+#: remat_policy names of the JAX package (models/llama.py::_remat_policy).
+REMAT_POLICIES = ("full", "minimal", "qkv_attn", "qkv_attn_lse",
+                  "attn_only", "mlp_only", "dots")
+PORTED_REMAT_POLICIES = ("full", "qkv_attn")
+
 #: Config options whose JAX code paths are later slices of the port.
 _LATER_SLICES = {
-    "fused_qkv": "training",
-    "fused_gate_up": "training",
+    "fused_qkv": "fused projections",
+    "fused_gate_up": "fused projections",
     "kv_cache_dtype": "int8 serving",
     "decode_staging": "staged serving",
     "paged_kv_blocks": "paged serving",
@@ -133,6 +158,13 @@ def _check_supported(cfg: LlamaConfig) -> None:
         raise NotImplementedError(
             "LlamaConfig.pipeline_stages > 1 is not ported yet (the "
             "multi-GPU slice)")
+    if cfg.remat:
+        if cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+        if cfg.remat_policy not in PORTED_REMAT_POLICIES:
+            raise NotImplementedError(
+                f"LlamaConfig.remat_policy={cfg.remat_policy!r} is not "
+                f"ported yet (ported: {', '.join(PORTED_REMAT_POLICIES)})")
 
 
 class Dense(nn.Module):
@@ -173,26 +205,40 @@ class Attention(nn.Module):
         self.v_proj = Dense(E, Hkv * Dh, cfg)
         self.o_proj = Dense(H * Dh, E, cfg)
 
-    def forward(self, x, positions, cos, sin, *,
-                cache: Optional[LayerCache] = None,
-                decode: Union[bool, str] = False,
-                attn_impl: str = "flash") -> torch.Tensor:
+    def project(self, x, positions, cos, sin):
+        """q [B, S, H, D], k and v [B, S, Hkv, D] of the normed input, with
+        RoPE applied to q and k."""
         cfg = self.cfg
         B, S, _ = x.shape
         q = self.q_proj(x).view(B, S, cfg.num_heads, cfg.head_dim)
         k = self.k_proj(x).view(B, S, cfg.num_kv_heads, cfg.head_dim)
         v = self.v_proj(x).view(B, S, cfg.num_kv_heads, cfg.head_dim)
-        q = apply_rope(q, cos, sin, positions=positions)
-        k = apply_rope(k, cos, sin, positions=positions)
+        return (apply_rope(q, cos, sin, positions=positions),
+                apply_rope(k, cos, sin, positions=positions), v)
+
+    @staticmethod
+    def attend(q, k, v, attn_impl: str = "flash") -> torch.Tensor:
+        """Causal attention of the training layout: [B, S, H, D]."""
+        if attn_impl == "flash":
+            return flash_attention(q, k, v, causal=True)
+        if attn_impl == "full":
+            return mha_reference(q, k, v, causal=True)
+        raise ValueError(f"attn_impl {attn_impl!r} (flash or full)")
+
+    def out_proj(self, out: torch.Tensor) -> torch.Tensor:
+        B, S = out.shape[:2]
+        return self.o_proj(out.reshape(B, S, -1))
+
+    def forward(self, x, positions, cos, sin, *,
+                cache: Optional[LayerCache] = None,
+                decode: Union[bool, str] = False,
+                attn_impl: str = "flash") -> torch.Tensor:
+        q, k, v = self.project(x, positions, cos, sin)
         if decode:
             out = self._decode_attention(q, k, v, cache, mode=decode)
-        elif attn_impl == "flash":
-            out = flash_attention(q, k, v, causal=True)
-        elif attn_impl == "full":
-            out = mha_reference(q, k, v, causal=True)
         else:
-            raise ValueError(f"attn_impl {attn_impl!r} (flash or full)")
-        return self.o_proj(out.reshape(B, S, cfg.num_heads * cfg.head_dim))
+            out = self.attend(q, k, v, attn_impl)
+        return self.out_proj(out)
 
     def _decode_attention(self, q, k, v, cache: LayerCache, mode):
         """Write k/v at each row's ``cache_index`` and attend.
@@ -250,8 +296,33 @@ class DecoderLayer(nn.Module):
                 attn_impl="flash") -> torch.Tensor:
         h = self.attn(self.input_norm(x), positions, cos, sin, cache=cache,
                       decode=decode, attn_impl=attn_impl)
+        return self._after_attention(x, h)
+
+    def _qkv(self, x, positions, cos, sin):
+        return self.attn.project(self.input_norm(x), positions, cos, sin)
+
+    def _after_attention(self, x, h):
         x = x + h
         return x + self.mlp(self.post_attn_norm(x))
+
+    def _post_attention(self, x, out):
+        return self._after_attention(x, self.attn.out_proj(out))
+
+    def forward_qkv_attn(self, x, positions, cos, sin, *,
+                         attn_impl="flash") -> torch.Tensor:
+        """The training forward under the ``qkv_attn`` policy: three
+        checkpointed segments, so what stays saved between forward and
+        backward is the layer input, q/k/v and the attention output; the
+        backward replays each segment for the rest."""
+        q, k, v = _ckpt(self._qkv, x, positions, cos, sin)
+        out = _ckpt(self.attn.attend, q, k, v, attn_impl)
+        return _ckpt(self._post_attention, x, out)
+
+
+def _ckpt(fn, *args, **kwargs):
+    # The layers draw no random numbers, so no RNG state is kept.
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kwargs)
 
 
 class Llama(nn.Module):
@@ -327,10 +398,17 @@ class Llama(nn.Module):
             positions = torch.arange(S, device=tokens.device).expand(B, S)
         cos, sin = self.rope_tables(tokens.device)
         x = F.embedding(tokens, self.embed).to(cfg.dtype)
+        remat = cfg.remat and not decode and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, cos, sin,
-                      cache=cache[i] if decode else None, decode=decode,
-                      attn_impl=attn_impl)
+            if remat and cfg.remat_policy == "qkv_attn":
+                x = layer.forward_qkv_attn(x, positions, cos, sin,
+                                           attn_impl=attn_impl)
+            elif remat:
+                x = _ckpt(layer, x, positions, cos, sin, attn_impl=attn_impl)
+            else:
+                x = layer(x, positions, cos, sin,
+                          cache=cache[i] if decode else None, decode=decode,
+                          attn_impl=attn_impl)
         x = self.final_norm(x)
         out = x if return_hidden else self.head_logits(x)
         return (out, cache) if decode else out

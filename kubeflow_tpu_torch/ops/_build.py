@@ -1,10 +1,11 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
 Each kernel is one ``.cu`` file under ``ops/csrc`` with a plain C
-interface. ``nvcc`` compiles it for ``sm_90a`` into a shared library under
-``kubeflow_tpu_torch/_build/``, named by a hash of the source and the
-flags, so an edit rebuilds and an unchanged source loads the library that
-is already there. Importing this module needs neither ``nvcc`` nor CUDA:
+interface (shared device helpers live in ``.cuh`` headers beside it).
+``nvcc`` compiles it for ``sm_90a`` into a shared library under
+``kubeflow_tpu_torch/_build/``, named by a hash of the source, the headers
+and the flags, so an edit rebuilds and an unchanged source loads the
+library that is already there. Importing this module needs neither ``nvcc`` nor CUDA:
 only :func:`load_library` does, and it raises when the compiler is missing
 or the build fails, with the compiler's output in the message.
 """
@@ -60,10 +61,14 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str, nvcc: str) -> str:
-    """Where the library built from ``source`` by ``nvcc`` lives."""
+    """Where the library built from ``source`` by ``nvcc`` lives. The name
+    hashes the source, every header of ``ops/csrc`` (the kernels share
+    ``flash_common.cuh``) and the flags."""
     h = hashlib.sha256()
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")

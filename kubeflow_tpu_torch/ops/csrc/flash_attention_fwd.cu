@@ -30,21 +30,14 @@
 // f32: a plain FMA kernel, one warp per q row (correctness path; the
 // serving model runs bf16).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;   // finite: fully masked rows stay NaN-free
-constexpr float kMClamp = -1e29f;   // exp2(s - max(m, kMClamp)) -> 0 when m == kNegInf
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace flash;
+
 constexpr int kBlockM = 64;         // q rows per block
 constexpr int kBlockN = 64;         // kv rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;             // bf16 row padding: breaks smem bank conflicts
 
 struct Params {
   const void* q;
@@ -61,41 +54,6 @@ struct Params {
   float scale_log2;
   int causal;
 };
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> packed bf16x2; ``lo`` lands in the low half (the smaller
-// column index of an mma fragment pair).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copies ``rows_valid`` rows of D bf16 (row stride ``row_stride`` elements)
-// into a 64-row shared tile with 16-byte loads; rows past the edge are
-// zero so the products over them stay finite.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* src,
-                                          long long row_stride, int rows_valid) {
-  constexpr int kChunks = D / 8;
-  constexpr int kLd = D + kPad;
-  for (int c = threadIdx.x; c < kBlockN * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int cc = c % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid) {
-      val = *reinterpret_cast<const uint4*>(src + r * row_stride + cc * 8);
-    }
-    *reinterpret_cast<uint4*>(smem + r * kLd + cc * 8) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
@@ -123,7 +81,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  load_tile<D>(sQ, qb, p.q_ss, min(kBlockM, p.Sq - m0));
+  load_tile<D, kBlockN>(sQ, qb, p.q_ss, min(kBlockM, p.Sq - m0));
   __syncthreads();
 
   // This warp's 16 q rows as mma A fragments, kept in registers.
@@ -158,8 +116,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   for (int t = 0; t < n_tiles; ++t) {
     const int n0 = t * kBlockN;
     __syncthreads();   // every warp is done reading the previous tile
-    load_tile<D>(sK, kb + n0 * p.k_ss, p.k_ss, min(kBlockN, p.Skv - n0));
-    load_tile<D>(sV, vb + n0 * p.v_ss, p.v_ss, min(kBlockN, p.Skv - n0));
+    load_tile<D, kBlockN>(sK, kb + n0 * p.k_ss, p.k_ss, min(kBlockN, p.Skv - n0));
+    load_tile<D, kBlockN>(sV, vb + n0 * p.v_ss, p.v_ss, min(kBlockN, p.Skv - n0));
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 kv columns (8 n-tiles of 8).
@@ -329,15 +287,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
 template <int D>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   constexpr int kSmem = (kBlockM + 2 * kBlockN) * (D + kPad) * 2;
-  // Above 48 KB of dynamic shared memory needs an opt-in, once per
-  // kernel (racing first calls set the same value).
   static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
+  cudaError_t err = allow_smem(flash_fwd_bf16<D>, kSmem, smem_set);
+  if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.H, p.B);
   flash_fwd_bf16<D><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();

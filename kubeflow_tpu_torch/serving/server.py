@@ -329,7 +329,6 @@ _LATER_SLICES = (
     ("quantize", "KFTPU_SERVING_QUANTIZE", "int8 serving"),
     ("quantize_kv", "KFTPU_SERVING_QUANTIZE_KV", "int8 serving"),
     ("mesh", "KFTPU_SERVING_MESH", "multi-GPU"),
-    ("checkpoint_dir", "KFTPU_SERVING_CHECKPOINT_DIR", "checkpoint"),
     ("tokenizer", "KFTPU_SERVING_TOKENIZER", "tooling"),
 )
 
@@ -338,22 +337,42 @@ def build_server(cfg: dict) -> ServingServer:
     """Model, weights and engine on the device ``KFTPU_PLATFORM`` selects
     (``cpu``, else ``cuda``, which raises without a card).
 
-    The weights are random, made on the device directly in the serving
-    dtype from a seeded generator (an f32 host init of an 8B model would
-    take 32 GB and minutes): N(0, 0.02) for projections and embeddings,
-    ones for norms. Decode staging, which the JAX server turns on, is a
-    scheduling optimisation with the same output and a later slice; this
-    server decodes unstaged."""
+    With ``checkpoint_dir`` the weights are the newest complete checkpoint
+    of the port's trainer (``train.checkpoint.CheckpointService``: only
+    its params are read, never the optimizer moments), cast to the serving
+    dtype; a directory without one raises. Otherwise they are random,
+    made on the device directly in the serving dtype from a seeded
+    generator (an f32 host init of an 8B model would take 32 GB and
+    minutes): N(0, 0.02) for projections and embeddings, ones for norms.
+    Decode staging, which the JAX server turns on, is a scheduling
+    optimisation with the same output and a later slice; this server
+    decodes unstaged."""
     for key, env, slice_ in _LATER_SLICES:
         if cfg.get(key):
             raise NotImplementedError(
                 f"{env}={cfg[key]!r} is not supported by the PyTorch port "
                 f"yet (the {slice_} slice)")
     device = platform_device()
+    restored = None
+    if cfg.get("checkpoint_dir"):
+        from kubeflow_tpu_torch.train.checkpoint import CheckpointService
+
+        ckpt = CheckpointService(cfg["checkpoint_dir"])
+        restored = ckpt.restore_params_latest()
+        ckpt.close()
+        if restored is None:
+            raise RuntimeError(
+                f"no checkpoint found in {cfg['checkpoint_dir']!r} "
+                "(serving a trained model requires one)")
     param_dtype = cfg.get("param_dtype") or "bfloat16"
     with torch.device(device):
         model, _ = get_model(cfg["model"], param_dtype=param_dtype)
-    model.init_weights(torch.Generator(device=device).manual_seed(0))
+    if restored is not None:
+        model.load_state_dict(restored["params"])
+        log.info("serving from checkpoint", kv={
+            "dir": cfg["checkpoint_dir"], "step": restored["step"]})
+    else:
+        model.init_weights(torch.Generator(device=device).manual_seed(0))
     log.info("serving model build", kv={"model": cfg["model"],
                                         "device": str(device),
                                         "param_dtype": param_dtype})

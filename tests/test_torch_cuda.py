@@ -5,9 +5,13 @@ one. This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: bf16 o atol = rtol = 2e-2 (the JAX package's own bf16 bound,
-tests/test_flash_attention.py); lse atol 1e-2 in bf16; f32 o 2e-5 and lse
-1e-5; fully masked rows exactly o = 0 and lse = -1e30.
+Tolerances, forward (K1): bf16 o atol = rtol = 2e-2 (the JAX package's own
+bf16 bound, tests/test_flash_attention.py); lse atol 1e-2 in bf16; f32 o
+2e-5 and lse 1e-5; fully masked rows exactly o = 0 and lse = -1e30.
+Backward (K2), each of dq/dk/dv against the plain version on the same
+inputs: max |got - plain| <= 2e-2 * max |plain| in bf16 (p and ds are
+rounded to bf16 before their products, as in the TPU kernel), 1e-4 in f32;
+grads of fully masked rows exactly 0.
 """
 
 import pytest
@@ -16,6 +20,7 @@ import torch
 from kubeflow_tpu_torch.ops.flash_attention import (
     NEG_INF,
     flash_attention,
+    flash_attention_backward_reference,
     flash_attention_lse,
     flash_attention_reference,
 )
@@ -94,11 +99,90 @@ def test_launch_count_and_refusals():
     with torch.no_grad():
         flash_attention(q, k, v, causal=True)
     assert flash_attention.fwd_launches == before + 1
-    with pytest.raises(NotImplementedError, match="K2"):
-        flash_attention(q.requires_grad_(), k, v, causal=True)
+    bwd_before = flash_attention.bwd_launches
+    qg = q.detach().requires_grad_()
+    flash_attention(qg, k, v, causal=True).float().sum().backward()
+    assert flash_attention.bwd_launches == bwd_before + 1
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()
+    before += 1          # the forward of that backward pass
     q96, k96, v96 = _qkv(1, 64, 64, 4, 2, 96, torch.bfloat16)
     with torch.no_grad(), pytest.raises(ValueError, match="head_dim"):
         flash_attention(q96, k96, v96)
     with torch.no_grad(), pytest.raises(ValueError, match="bf16 or f32"):
         flash_attention(q.detach().half(), k.half(), v.half())
     assert flash_attention.fwd_launches == before + 1
+
+
+def _bwd_tol(dtype):
+    return 2e-2 if dtype == torch.bfloat16 else 1e-4
+
+
+def _check_grads(got, want, dtype):
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == w.dtype, name
+        err = (g.float() - w.float()).abs().max().item()
+        ref = w.float().abs().max().item()
+        assert err <= _bwd_tol(dtype) * ref, f"{name}: {err} vs max {ref}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv,causal", [
+    (64, 64, True), (100, 100, True), (512, 512, True),
+    (96, 200, False), (64, 130, True),
+])
+def test_backward_kernel_matches_plain(dtype, d, sq, skv, causal):
+    q, k, v = _qkv(2, sq, skv, 8, 2, d, dtype, seed=3)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    dlse = torch.randn(2, 8, sq, generator=g, device="cuda")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.bwd_launches
+    o, lse = flash_attention_lse(*leaves, causal=causal, q_offset=skv - sq)
+    torch.autograd.backward((o, lse), (do, dlse))
+    assert flash_attention.bwd_launches == before + 1
+    want = flash_attention_backward_reference(
+        q, k, v, o.detach(), lse.detach(), do, dlse, causal=causal,
+        scale=d ** -0.5, offset=skv - sq)
+    torch.cuda.synchronize()
+    _check_grads([t.grad for t in leaves], want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_masked_rows_from_device_offset(dtype):
+    q, k, v = _qkv(2, 128, 128, 4, 2, 128, dtype, seed=5)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    kv_off = torch.tensor(64, device="cuda")      # rows 0..63 see nothing
+    o, lse = flash_attention_lse(*leaves, causal=True, q_offset=0,
+                                 kv_offset=kv_off)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    do = torch.randn(o.shape, generator=g, device="cuda").to(dtype)
+    dlse = torch.randn(lse.shape, generator=g, device="cuda")
+    torch.autograd.backward((o, lse), (do, dlse))
+    assert torch.all(leaves[0].grad[:, :64] == 0)
+    # kv rows 64.. are seen by no q row at this offset.
+    assert torch.all(leaves[1].grad[:, 64:] == 0)
+    assert torch.all(leaves[2].grad[:, 64:] == 0)
+    want = flash_attention_backward_reference(
+        q, k, v, o.detach(), lse.detach(), do, dlse, causal=True,
+        scale=128 ** -0.5, offset=-64)
+    _check_grads([t.grad for t in leaves], want, dtype)
+
+
+def test_backward_strided_views():
+    # q/k/v as views into one fused [B, S, H + 2 Hkv, D] projection.
+    g = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn(2, 256, 12, 128, generator=g, device="cuda").bfloat16()
+    qkv.requires_grad_()
+    o = flash_attention(qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:],
+                        causal=True)
+    do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
+    o.backward(do)
+    q, k, v = (qkv.detach()[:, :, a:b].contiguous()
+               for a, b in ((0, 8), (8, 10), (10, 12)))
+    o_ref, lse_ref = flash_attention_reference(q, k, v, causal=True,
+                                               scale=128 ** -0.5)
+    want = flash_attention_backward_reference(
+        q, k, v, o.detach(), lse_ref, do, causal=True, scale=128 ** -0.5)
+    got = (qkv.grad[:, :, :8], qkv.grad[:, :, 8:10], qkv.grad[:, :, 10:])
+    _check_grads(got, want, torch.bfloat16)

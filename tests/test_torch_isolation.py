@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops import flash_attention as fa
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.serving.server import build_server, env_config
 from kubeflow_tpu_torch.utils.device import platform_device, resolve_device
@@ -88,10 +89,53 @@ def test_build_failure_shows_compiler_output(monkeypatch, tmp_path):
 
 
 def test_kernel_path_never_falls_back(monkeypatch):
-    """A tensor that is not on the CPU never takes the plain version."""
+    """A tensor that is not on the CPU never takes the plain version, and a
+    CUDA call whose K1 or K2 build or launch fails raises instead of
+    computing the plain version."""
     q = torch.empty(1, 8, 2, 64, device="meta")
     with pytest.raises(ValueError, match="not meta"):
         flash_attention(q, q, q)
+
+    calls = []
+    monkeypatch.setattr(fa, "_on_device", lambda t: True)
+    monkeypatch.setattr(fa, "flash_attention_reference",
+                        lambda *a, **k: calls.append("fwd"))
+    monkeypatch.setattr(fa, "flash_attention_backward_reference",
+                        lambda *a, **k: calls.append("bwd"))
+    monkeypatch.setattr(fa, "_offset_tensor",
+                        lambda off, dev: torch.zeros(1, dtype=torch.int32))
+
+    def no_nvcc(source):
+        raise _build.KernelBuildError(f"nvcc not found building {source}")
+
+    monkeypatch.setattr(_build, "load_library", no_nvcc)
+    fa._fwd_kernel_fn.cache_clear()
+    fa._bwd_kernel_fn.cache_clear()
+    try:
+        q, k, v = (torch.randn(1, 8, h, 64, requires_grad=True)
+                   for h in (2, 1, 1))
+        with pytest.raises(_build.KernelBuildError,
+                           match="flash_attention_fwd.cu"):
+            flash_attention(q, k, v, causal=True)
+        # K2, with stand-ins for the forward's o and lse.
+        o, lse = torch.zeros(1, 8, 2, 64), torch.zeros(1, 2, 8)
+        with pytest.raises(_build.KernelBuildError,
+                           match="flash_attention_bwd.cu"):
+            fa._bwd_kernel(q.detach(), k.detach(), v.detach(),
+                           torch.ones_like(o), lse, torch.zeros_like(lse),
+                           torch.zeros(1, dtype=torch.int32), True, 0.125)
+
+        class Ctx:
+            saved_tensors = (q.detach(), k.detach(), v.detach(), o, lse)
+            offset, causal, scale = 0, True, 0.125
+
+        with pytest.raises(_build.KernelBuildError,
+                           match="flash_attention_bwd.cu"):
+            fa._FlashAttention.backward(Ctx, torch.ones_like(o), None)
+        assert calls == []
+    finally:
+        fa._fwd_kernel_fn.cache_clear()
+        fa._bwd_kernel_fn.cache_clear()
 
 
 def test_default_device_needs_cuda(monkeypatch):

@@ -96,17 +96,33 @@ def test_head_logits_tied_softcap_matches_jax():
 @pytest.mark.parametrize("flag,value", [
     ("fused_qkv", True), ("fused_gate_up", True), ("kv_cache_dtype", "int8"),
     ("decode_staging", 8), ("paged_kv_blocks", 64), ("pipeline_stages", 2),
+    ("remat_policy", "minimal"),
 ])
 def test_unported_options_raise(flag, value):
+    # A remat policy is only read with remat on, as in the JAX model.
+    extra = {"remat": True} if flag == "remat_policy" else {}
     with pytest.raises(NotImplementedError, match=flag):
-        Llama(LlamaConfig.tiny(**{flag: value}))
+        Llama(LlamaConfig.tiny(**{flag: value}, **extra))
 
 
 def test_scanned_tree_raises():
+    # Scanned trees (one "layers" subtree stacked over depth, as the JAX
+    # bench trains) now convert, bitwise equal to their unrolled form.
+    from kubeflow_tpu.models.layout import to_layer_layout
+
+    jcfg = JaxLlamaConfig.tiny(dtype=jnp.float32, scan_layers=True)
+    params = jax.device_get(nn.meta.unbox(JaxLlama(jcfg).init(
+        jax.random.PRNGKey(0), jnp.ones((1, 8), jnp.int32))))
+    assert "layers" in params["params"]
     cfg = LlamaConfig.tiny()
-    with pytest.raises(NotImplementedError, match="scanned"):
-        llama_params_from_jax({"params": {"embed": np.zeros((256, 64)),
-                                          "layers": {}}}, cfg)
+    got = llama_params_from_jax(params, cfg)
+    want = llama_params_from_jax(
+        to_layer_layout(params["params"], cfg.num_layers), cfg)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    with pytest.raises(ValueError, match="stacked layers"):
+        llama_params_from_jax(params, LlamaConfig.tiny(num_layers=3))
 
 
 def test_registry_names():

@@ -255,8 +255,16 @@ def test_http_roundtrip_from_env(monkeypatch):
 @pytest.mark.parametrize("env", ["KFTPU_SERVING_QUANTIZE",
                                  "KFTPU_SERVING_QUANTIZE_KV",
                                  "KFTPU_SERVING_CHECKPOINT_DIR"])
-def test_unported_server_options_raise(monkeypatch, env):
+def test_unported_server_options_raise(monkeypatch, tmp_path, env):
     monkeypatch.setenv("KFTPU_PLATFORM", "cpu")
+    if env == "KFTPU_SERVING_CHECKPOINT_DIR":
+        # Ported with the training slice: a directory without a complete
+        # checkpoint raises instead of serving random weights
+        # (tests/test_torch_train.py serves a trained one).
+        monkeypatch.setenv(env, str(tmp_path))
+        with pytest.raises(RuntimeError, match="no checkpoint found"):
+            build_server(env_config())
+        return
     monkeypatch.setenv(env, "int8")
     with pytest.raises(NotImplementedError, match="later|slice"):
         build_server(env_config())
