@@ -7,17 +7,20 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build — compiles both flash-attention kernels from
    kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one nvcc per source,
    started together, and prints the seconds and each register/spill
-   report;
+   report; then checks K1's SASS: every bf16 instantiation holds wgmma
+   (HGMMA) and TMA loads (UTMALDG), and ptxas reports no spills;
 3. kernel (K1, forward) — holds the kernel against its plain PyTorch
    version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
    Sq=Skv 32, 128 and 512; one full-attention case; one D=64 case; one
-   flash_attention_lse case whose offset masks rows fully). o within
+   flash_attention_lse case whose offset masks rows fully) and at the
+   training forward's (B=12, S=2048, H=16, Hkv=8, causal). o within
    atol = rtol = 2e-2, lse within 1e-2, masked rows exactly 0 and -1e30.
    Times, on the device (CUDA-graph replays), the kernel, the plain version
    and, as a yardstick the port never calls,
    torch.nn.functional.scaled_dot_product_attention; also the kernel's
-   eager call time, host overhead included; and computes the card's least
-   time for the same work;
+   eager call time, host overhead included (best of three runs of 20
+   calls), and the host time of its C entry alone (tensor maps and
+   launch); and computes the card's least time for the same work;
 4. kernel (K2, backward) — holds the kernel against its plain version
    (flash_attention_backward_reference) on the same inputs at the training
    shape (bf16, B=12, S=2048, H=16, Hkv=8, D=128, causal), bf16 S=512 at
@@ -56,7 +59,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    same width with attn_impl="flash" against attn_impl="full": each
    parameter's relative error ||g_flash - g_full|| / ||g_full|| within
    GRAD_REL_BOUND;
-7. prints the {"kernels": [...]} line, then the result line.
+7. prints the {"kernels": [...]} line (K1's entry at the serving prefill
+   shape, with its training-shape ms, SDPA ms and bound under train_
+   keys), then the result line.
 """
 
 from __future__ import annotations
@@ -131,12 +136,40 @@ def device_ms(fn, calls: int = 10, replays: int = 5, side=None) -> float:
     return _elapsed_ms(graph.replay, replays) / (calls * replays)
 
 
-def eager_ms(fn, iters: int = 20) -> float:
+def eager_ms(fn, iters: int = 20, repeats: int = 3) -> float:
     """Time per call issued eagerly (host overhead included when the host
-    is slower than the device)."""
+    is slower than the device): the best of ``repeats`` runs of ``iters``
+    calls, so that a hiccup of the shared host does not set it."""
     for _ in range(3):
         fn()
-    return _elapsed_ms(fn, iters) / iters
+    return min(_elapsed_ms(fn, iters) for _ in range(repeats)) / iters
+
+
+def entry_us(q, k, v, off, causal, scale, n: int = 200) -> float:
+    """Host time of one call of K1's C entry alone (tensor maps and
+    launch, no Python checks or allocations), best of three runs of ``n``
+    calls: the part of the eager call that the kernel's design sets."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    b, sq, h, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, sq, device=q.device)
+    off_t = fa._offset_tensor(off, q.device)
+    fn = fa._fwd_kernel_fn()
+    args = (1, d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), off_t.data_ptr(), b, h, k.shape[2], sq,
+            k.shape[1], *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], scale, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*args)
+        best = min(best, (time.perf_counter() - t0) / n)
+    torch.cuda.synchronize()
+    return best * 1e6
 
 
 def attention_bound_ms(b, sq, skv, h, hkv, d, causal, offset):
@@ -153,6 +186,36 @@ def attention_bound_ms(b, sq, skv, h, hkv, d, causal, offset):
             "operations" if t_ops > t_bytes else "bytes")
 
 
+def check_fwd_build(lib: str) -> None:
+    """K1's build is the Hopper design: every bf16 forward instantiation's
+    SASS holds wgmma (HGMMA) and TMA loads (UTMALDG), and ptxas reports no
+    spills for any kernel of the library."""
+    import re
+
+    from kubeflow_tpu_torch.ops import _build
+
+    cuobjdump = (shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.find_nvcc()), "cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    found = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if "flash_fwd_bf16" in name:
+            found[name] = (chunk.count("HGMMA"), chunk.count("UTMALDG"),
+                           chunk.count("UTMASTG"))
+    if len(found) != 4 or not all(h and t for h, t, _ in found.values()):
+        raise AssertionError(f"K1 bf16 SASS lacks HGMMA/UTMALDG: {found}")
+    for name, (h, t, st) in sorted(found.items()):
+        tiles = name.split("flash_fwd_bf16")[1].split("EEEEE")[0]
+        log(f"  sass flash_fwd_bf16{tiles}: HGMMA {h}, UTMALDG {t}, "
+            f"UTMASTG {st}")
+    with open(lib[:-3] + ".log") as f:
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", f.read())]
+    if any(spills):
+        raise AssertionError(f"K1 spills registers: {spills}")
+
+
 def kernel_phase():
     from kubeflow_tpu_torch.ops.flash_attention import (
         NEG_INF,
@@ -167,18 +230,21 @@ def kernel_phase():
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
 
-    # (name, B, Sq, Skv, d, causal, q_offset, kv_offset)
+    # (name, B, Sq, Skv, d, causal, q_offset, kv_offset, heads, kv heads):
+    # the serving shapes, then the training forward's.
     cases = [
-        ("causal_b8_s32", 8, 32, 32, 128, True, 0, 0),
-        ("causal_b8_s128", 8, 128, 128, 128, True, 0, 0),
-        ("causal_b8_s512", 8, 512, 512, 128, True, 0, 0),
-        ("full_b8_s256", 8, 256, 256, 128, False, 0, 0),
-        ("causal_b8_s512_d64", 8, 512, 512, 64, True, 0, 0),
-        ("lse_masked_b4_s256", 4, 256, 256, 128, True, 0, 128),
+        ("causal_b8_s32", 8, 32, 32, 128, True, 0, 0, H, HKV),
+        ("causal_b8_s128", 8, 128, 128, 128, True, 0, 0, H, HKV),
+        ("causal_b8_s512", 8, 512, 512, 128, True, 0, 0, H, HKV),
+        ("full_b8_s256", 8, 256, 256, 128, False, 0, 0, H, HKV),
+        ("causal_b8_s512_d64", 8, 512, 512, 64, True, 0, 0, H, HKV),
+        ("lse_masked_b4_s256", 4, 256, 256, 128, True, 0, 128, H, HKV),
+        ("causal_b12_s2048_h16", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 128,
+         True, 0, 0, TRAIN_H, TRAIN_HKV),
     ]
     rows, max_err = [], 0.0
-    for name, b, sq, skv, d, causal, q_off, kv_off in cases:
-        q, k, v = rand(b, sq, H, d), rand(b, skv, HKV, d), rand(b, skv, HKV, d)
+    for name, b, sq, skv, d, causal, q_off, kv_off, h, hkv in cases:
+        q, k, v = rand(b, sq, h, d), rand(b, skv, hkv, d), rand(b, skv, hkv, d)
         off = q_off - kv_off
         scale = d ** -0.5
 
@@ -218,21 +284,27 @@ def kernel_phase():
                 if not (torch.all(o[:, :dead] == 0)
                         and torch.all(lse[:, :, :dead] == NEG_INF)):
                     raise AssertionError(f"{name}: masked rows not 0/-1e30")
+            big = sq >= 2048
             ms = device_ms(kernel)
             call_ms = eager_ms(kernel)
-            plain_ms = device_ms(plain)
+            host_us = entry_us(q, k, v, off, causal, scale)
+            plain_ms = device_ms(plain, calls=2 if big else 10,
+                                 replays=2 if big else 5)
             library_ms = device_ms(library)
-        bound, bound_by = attention_bound_ms(b, sq, skv, H, HKV, d, causal,
+        bound, bound_by = attention_bound_ms(b, sq, skv, h, hkv, d, causal,
                                              off)
         max_err = max(max_err, err)
         row = dict(case=name, max_abs_err=err, lse_err=lse_err, ms=ms,
-                   call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound, bound_by=bound_by)
+                   call_ms=call_ms, entry_us=host_us, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound, bound_by=bound_by)
         rows.append(row)
         log(f"kernel {name}: err {err:.3e} lse_err {lse_err:.3e} kernel "
-            f"{ms:.4f} ms (eager call {call_ms:.4f} ms) plain "
+            f"{ms:.4f} ms (eager call {call_ms:.4f} ms, C entry "
+            f"{host_us:.2f} us of host time) plain "
             f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
             f"{bound * 1e3:.2f} us ({bound_by})")
+        del q, k, v
+        torch.cuda.empty_cache()
     return rows, max_err
 
 
@@ -690,6 +762,11 @@ def train_breakdown(trainer, state, batch):
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:10]:
         log(f"  {e.key[:70]}: {e.device_time_total / 1e3:.2f} ms over "
             f"{e.count} calls")
+    for name in ("flash_fwd", "flash_bwd"):       # K1, K2: the ports' share
+        own = [e for e in kernels if name in e.key]
+        log(f"  {name}* (all instantiations): "
+            f"{sum(e.device_time_total for e in own) / 1e3:.2f} ms over "
+            f"{sum(e.count for e in own)} calls")
 
 
 def grad_check():
@@ -758,8 +835,10 @@ def main() -> int:
             for line in f:
                 if "Compiling entry" in line:
                     log(f"  {src}: " + line.strip().split("'")[1])
-                elif "registers" in line or "spill" in line:
+                elif ("registers" in line or "spill" in line
+                      or "arning" in line):
                     log("    " + line.strip())
+    check_fwd_build(libs["flash_attention_fwd.cu"])
 
     rows, max_err = kernel_phase()
     bwd_rows, bwd_err = backward_phase()
@@ -771,6 +850,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     grad_check()
     main_row = next(r for r in rows if r["case"] == "causal_b8_s512")
+    train_row = next(r for r in rows if r["case"] == "causal_b12_s2048_h16")
     bwd_row = next(r for r in bwd_rows if r["case"] == "train_b12_s2048")
 
     def entry(name, source, replaces, n, err, row):
@@ -782,9 +862,12 @@ def main() -> int:
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
 
+    fwd = entry("flash_attention_fwd", "flash_attention_fwd.cu", 115,
+                launches, max_err, main_row)
+    fwd.update({f"train_{key}": train_row[key]
+                for key in ("ms", "library_ms", "bound_ms")})
     print(json.dumps({"kernels": [
-        entry("flash_attention_fwd", "flash_attention_fwd.cu", 115,
-              launches, max_err, main_row),
+        fwd,
         entry("flash_attention_bwd", "flash_attention_bwd.cu", 265,
               train["bwd"], bwd_err, bwd_row),
     ]}), flush=True)

@@ -65,8 +65,8 @@ def default_blocks(sq: int, skv: int) -> Tuple[int, int]:
     """The (block_q, block_kv) the JAX wrappers resolve when the caller
     passes nothing, including any KFTPU_FLASH_BLOCK_* override: the
     contract ring attention's path selection reads (a later slice). The
-    CUDA kernel tiles with its own fixed 64 x 64 tiles and takes any
-    Sq/Skv, so the blocks select nothing in it."""
+    CUDA kernels tile with their own tiles (K1: 64 or 128 q rows by Sq)
+    and take any Sq/Skv, so the blocks select nothing in them."""
     return (min(_block_default("KFTPU_FLASH_BLOCK_Q", 1024), sq),
             min(_block_default("KFTPU_FLASH_BLOCK_KV", 1024), skv))
 

@@ -113,6 +113,85 @@ def test_launch_count_and_refusals():
     assert flash_attention.fwd_launches == before + 1
 
 
+# The bf16 kernel's tiles: Sq <= 64 takes 64-row q and kv tiles (one
+# consumer warpgroup), longer q 128-row tiles (two); k/v arrive by TMA, whose
+# zero fill pads the ragged edges the kernel then masks.
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv,causal,offset", [
+    (200, 200, True, 0), (1000, 1000, True, 0), (64, 130, True, 66),
+    (96, 200, False, 0), (128, 384, True, 256), (300, 700, True, 100),
+    (256, 256, True, -100), (1, 1, True, 0), (17, 300, True, 283),
+    (48, 48, True, 0), (64, 64, False, 0), (40, 1000, False, 0),
+])
+def test_forward_tiles_match_plain(d, sq, skv, causal, offset):
+    q, k, v = _qkv(2, sq, skv, 8, 2, d, torch.bfloat16, seed=8)
+    with torch.no_grad():
+        o, lse = flash_attention_lse(q, k, v, causal=causal, q_offset=offset)
+        o_ref, lse_ref = flash_attention_reference(
+            q, k, v, causal=causal, scale=d ** -0.5, offset=offset)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-2, rtol=0)
+    if causal and offset < 0:
+        assert torch.all(o[:, :-offset] == 0)
+        assert torch.all(lse[:, :, :-offset] == NEG_INF)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("sq", [32, 512])
+def test_forward_query_groups(group, sq):
+    q, k, v = _qkv(2, sq, sq, 8, 8 // group, 128, torch.bfloat16, seed=9)
+    with torch.no_grad():
+        o, lse = flash_attention_lse(q, k, v, causal=True)
+        o_ref, lse_ref = flash_attention_reference(q, k, v, causal=True,
+                                                   scale=128 ** -0.5)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("sq,kv_off", [(48, 40), (640, 300)])
+def test_forward_masked_rows_from_device_offset(sq, kv_off):
+    q, k, v = _qkv(2, sq, sq, 4, 2, 128, torch.bfloat16, seed=10)
+    with torch.no_grad():
+        o, lse = flash_attention_lse(q, k, v, causal=True, q_offset=0,
+                                     kv_offset=torch.tensor(kv_off,
+                                                            device="cuda"))
+        o_ref, lse_ref = flash_attention_reference(
+            q, k, v, causal=True, scale=128 ** -0.5, offset=-kv_off)
+    assert torch.all(o[:, :kv_off] == 0)
+    assert torch.all(lse[:, :, :kv_off] == NEG_INF)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("s", [48, 1000])
+@pytest.mark.parametrize("d", [64, 128])
+def test_forward_strided_views_of_fused_projection(s, d):
+    # q/k/v as views into one fused [B, S, H + 2 Hkv, D] projection; the
+    # tensor maps read them through their strides.
+    g = torch.Generator(device="cuda").manual_seed(11)
+    qkv = torch.randn(2, s, 16, d, generator=g, device="cuda").bfloat16()
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:12], qkv[:, :, 12:]
+    with torch.no_grad():
+        o, lse = flash_attention_lse(q, k, v, causal=True)
+        o_ref, lse_ref = flash_attention_reference(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+            scale=d ** -0.5)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-2, rtol=0)
+
+
+def test_forward_refuses_misaligned_stride():
+    # Rows 132 elements apart: not a multiple of 16 bytes, so no tensor map.
+    q, k, v = _qkv(1, 64, 64, 4, 2, 128, torch.bfloat16)
+    wide = torch.zeros(1, 64, 4, 132, device="cuda", dtype=torch.bfloat16)
+    wide[..., :128] = q
+    before = flash_attention.fwd_launches
+    with torch.no_grad(), pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(wide[..., :128], k, v, causal=True)
+    assert flash_attention.fwd_launches == before
+
+
 def _bwd_tol(dtype):
     return 2e-2 if dtype == torch.bfloat16 else 1e-4
 
