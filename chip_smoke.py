@@ -7,8 +7,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build — compiles both flash-attention kernels from
    kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one nvcc per source,
    started together, and prints the seconds and each register/spill
-   report; then checks K1's SASS: every bf16 instantiation holds wgmma
-   (HGMMA) and TMA loads (UTMALDG), and ptxas reports no spills;
+   report; then checks K1's and K2's SASS: every bf16 instantiation of
+   K1's kernel and of K2's dk/dv and dq kernels holds wgmma (HGMMA) and
+   TMA loads (UTMALDG), and ptxas reports no spills in either library;
 3. kernel (K1, forward) — holds the kernel against its plain PyTorch
    version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
    Sq=Skv 32, 128 and 512; one full-attention case; one D=64 case; one
@@ -32,7 +33,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    the plain version and, as a yardstick, the backward of
    scaled_dot_product_attention(enable_gqa=True) (grads of a retained
    graph, captured the same way), beside the bound
-   max(bytes / 3.35 TB/s, 10 B H live D / 989 TFLOP/s);
+   max(bytes / 3.35 TB/s, 10 B H live D / 989 TFLOP/s) and the bound of
+   K2's seven-product split (14 B H live D); at the train shape also the
+   device ms of K2's dk/dv and dq kernels apart (torch.profiler, by
+   kernel name);
 5. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card) and sends 9
    concurrent /v1/generate requests over HTTP across the prefill buckets,
@@ -61,7 +65,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    GRAD_REL_BOUND;
 7. prints the {"kernels": [...]} line (K1's entry at the serving prefill
    shape, with its training-shape ms, SDPA ms and bound under train_
-   keys), then the result line.
+   keys; K2's at the train shape with dkdv_ms, dq_ms and split_bound_ms),
+   then the result line.
 """
 
 from __future__ import annotations
@@ -186,10 +191,11 @@ def attention_bound_ms(b, sq, skv, h, hkv, d, causal, offset):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def check_fwd_build(lib: str) -> None:
-    """K1's build is the Hopper design: every bf16 forward instantiation's
-    SASS holds wgmma (HGMMA) and TMA loads (UTMALDG), and ptxas reports no
-    spills for any kernel of the library."""
+def check_build(lib: str, families: dict) -> None:
+    """A kernel library's build is the Hopper design: every bf16
+    instantiation of each family (name -> how many the library must hold)
+    has wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS, and ptxas
+    reports no spills for any kernel of the library."""
     import re
 
     from kubeflow_tpu_torch.ops import _build
@@ -198,22 +204,29 @@ def check_fwd_build(lib: str) -> None:
         os.path.dirname(_build.find_nvcc()), "cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
-    found = {}
+    found = {family: {} for family in families}
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if "flash_fwd_bf16" in name:
-            found[name] = (chunk.count("HGMMA"), chunk.count("UTMALDG"),
-                           chunk.count("UTMASTG"))
-    if len(found) != 4 or not all(h and t for h, t, _ in found.values()):
-        raise AssertionError(f"K1 bf16 SASS lacks HGMMA/UTMALDG: {found}")
-    for name, (h, t, st) in sorted(found.items()):
-        tiles = name.split("flash_fwd_bf16")[1].split("EEEEE")[0]
-        log(f"  sass flash_fwd_bf16{tiles}: HGMMA {h}, UTMALDG {t}, "
-            f"UTMASTG {st}")
+        for family in families:
+            if family in name:
+                found[family][name] = (chunk.count("HGMMA"),
+                                       chunk.count("UTMALDG"),
+                                       chunk.count("UTMASTG"))
+    for family, want in families.items():
+        got = found[family]
+        if len(got) != want or not all(h and t for h, t, _ in got.values()):
+            raise AssertionError(
+                f"{family} SASS lacks HGMMA/UTMALDG (want {want} "
+                f"instantiations): {got}")
+        for name, (h, t, st) in sorted(got.items()):
+            tiles = name.split(family)[1].split("EEEEE")[0]
+            log(f"  sass {family}{tiles}: HGMMA {h}, UTMALDG {t}, "
+                f"UTMASTG {st}")
     with open(lib[:-3] + ".log") as f:
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill", f.read())]
     if any(spills):
-        raise AssertionError(f"K1 spills registers: {spills}")
+        raise AssertionError(f"{os.path.basename(lib)} spills registers: "
+                             f"{spills}")
 
 
 def kernel_phase():
@@ -308,18 +321,39 @@ def kernel_phase():
     return rows, max_err
 
 
-def backward_bound_ms(b, sq, skv, h, hkv, d, causal, offset):
+def backward_bound_ms(b, sq, skv, h, hkv, d, causal, offset, products=5):
     """Least time of the backward on this card: the larger of the bytes
     it must move (q, o, do, k, v and the f32 lse and delta read once; dq,
-    dk, dv written once) over the memory rate, and its five products over
-    the live (q, kv) pairs, 10 B H live D FLOPs, over the bf16 peak."""
+    dk, dv written once) over the memory rate, and its products over the
+    live (q, kv) pairs, 2 B H live D FLOPs each, over the bf16 peak. The
+    function needs five; K2's deterministic split computes s, p and dp in
+    both of its kernels, seven (``products=7``: the split's own bound)."""
     qpos = np.arange(sq)[:, None] + offset
     live = (qpos >= np.arange(skv)[None, :]).sum() if causal else sq * skv
-    flops = 10.0 * b * h * d * float(live)
+    flops = 2.0 * products * b * h * d * float(live)
     nbytes = 2 * (4 * b * sq * h * d + 4 * b * skv * hkv * d) + 8 * b * h * sq
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops > t_bytes else "bytes")
+
+
+def kernel_split_ms(fn, names, runs: int = 5) -> dict:
+    """Device ms per call of the kernels whose names hold each of
+    ``names``, from a short torch.profiler pass over ``runs`` calls of
+    ``fn``; None where the profiler saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for name in names:
+        total = sum(e.device_time_total for e in events if name in e.key)
+        out[name] = total / 1e3 / runs if total > 0 else None
+    return out
 
 
 def backward_phase():
@@ -421,16 +455,28 @@ def backward_phase():
             library_ms = device_ms(library, side=side)
         bound, bound_by = backward_bound_ms(b, sq, skv, TRAIN_H, TRAIN_HKV,
                                             d, causal, off)
+        split_bound, _ = backward_bound_ms(b, sq, skv, TRAIN_H, TRAIN_HKV,
+                                           d, causal, off, products=7)
         max_err = max(max_err, err)
         row = dict(case=name, max_abs_err=err, ms=ms, call_ms=call_ms,
                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                   bound_by=bound_by)
+                   bound_by=bound_by, split_bound_ms=split_bound)
         rows.append(row)
         lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"K2 {name}: err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/"
             f"{errs[2]:.3e} kernel {ms:.4f} ms (eager backward "
             f"{call_ms:.4f} ms) plain {plain_ms:.4f} ms sdpa-bwd {lib} "
-            f"bound {bound * 1e3:.2f} us ({bound_by})")
+            f"bound {bound * 1e3:.2f} us ({bound_by}; the 7-product "
+            f"split's {split_bound * 1e3:.2f} us)")
+        if big:
+            # The two kernels of K2 apart, by name, at the train shape.
+            split = kernel_split_ms(kernel, ("flash_bwd_dkdv",
+                                             "flash_bwd_dq"))
+            row["dkdv_ms"], row["dq_ms"] = (split["flash_bwd_dkdv"],
+                                            split["flash_bwd_dq"])
+            log(f"K2 {name} by kernel (profiler): " + ", ".join(
+                f"{k} " + ("not measured" if v is None else f"{v:.4f} ms")
+                for k, v in split.items()))
         del q, k, v, do, leaves, o, lse
         torch.cuda.empty_cache()
     return rows, max_err
@@ -838,7 +884,11 @@ def main() -> int:
                 elif ("registers" in line or "spill" in line
                       or "arning" in line):
                     log("    " + line.strip())
-    check_fwd_build(libs["flash_attention_fwd.cu"])
+    # K1: D 64/128 x one or two consumer warpgroups; K2: the dk/dv kernel
+    # at D 64/128, the dq kernel at D 64/128 x one or two consumers.
+    check_build(libs["flash_attention_fwd.cu"], {"flash_fwd_bf16": 4})
+    check_build(libs["flash_attention_bwd.cu"],
+                {"flash_bwd_dkdv_bf16": 2, "flash_bwd_dq_bf16": 4})
 
     rows, max_err = kernel_phase()
     bwd_rows, bwd_err = backward_phase()
@@ -866,11 +916,11 @@ def main() -> int:
                 launches, max_err, main_row)
     fwd.update({f"train_{key}": train_row[key]
                 for key in ("ms", "library_ms", "bound_ms")})
-    print(json.dumps({"kernels": [
-        fwd,
-        entry("flash_attention_bwd", "flash_attention_bwd.cu", 265,
-              train["bwd"], bwd_err, bwd_row),
-    ]}), flush=True)
+    bwd = entry("flash_attention_bwd", "flash_attention_bwd.cu", 265,
+                train["bwd"], bwd_err, bwd_row)
+    bwd.update({key: bwd_row[key]
+                for key in ("dkdv_ms", "dq_ms", "split_bound_ms")})
+    print(json.dumps({"kernels": [fwd, bwd]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,59 +10,75 @@
 // kv head). delta = rowsum(do * o) - dlse [B, H, Sq] f32 is computed by the
 // wrapper, as the JAX wrapper computes it outside its kernel. A fully
 // masked row (lse = -1e30) gives p = 0 through the same
-// max(lse * log2e, -1e29) clamp as the TPU kernel, so its grads are exactly
-// 0. The causal offset (q position of row 0 minus kv position of col 0) is
-// read from a device int32 pointer, as in the forward.
+// max(lse * log2e, -1e29) clamp as the TPU kernel, masked scores being
+// -inf before the exponent, so its grads are exactly 0. The causal offset
+// (q position of row 0 minus kv position of col 0) is read from a device
+// int32 pointer, as in the forward.
 //
 // Layout: q, do, dq [B, Sq, H, D] and k, v, dk, dv [B, Skv, Hkv, D] are read
-// and written through their strides (last dim contiguous).
-//
-// Bound on this card: the five products over the live (q, kv) pairs,
-// 10 * B * H * live * D FLOPs, against the bytes of q, k, v, do, dq, dk, dv
-// and the statistics: at the training shape (S = 2048, D = 128) about 850
-// FLOP per byte, so the tensor cores bound it and the design keeps the
-// S x S matrices out of device memory and runs every product on them
-// (mma.sync m16n8k16, bf16 in, f32 accumulate).
+// and written through their strides (last dim contiguous, strides a
+// multiple of 8 elements); lse and delta are contiguous.
 //
 // The TPU kernel is one fused pass that keeps the whole query group's dq in
 // VMEM across a sequential grid. CUDA blocks run in any order with no state
 // between them, so this file splits the work into two deterministic
-// kernels and needs no atomics:
+// kernels and needs no atomics: every element of dq, dk and dv is written
+// by exactly one block, and two calls give bitwise-equal grads.
 //
-// (a) dk/dv: one block per (64-row kv tile, kv head, batch). Each warp owns
-//     16 kv rows and works in the transposed domain: s^T = K Q^T puts the
-//     kv rows on the accumulator rows, so p^T and ds^T re-pack into A
-//     fragments in registers (as the forward re-packs P) and the products
-//     p^T do and ds^T q need no transpose through shared memory. The block
-//     loops over the G query heads and over the q tiles that the causal
-//     bound lets through, with dk/dv in f32 registers.
-// (b) dq: one block per (64-row q tile, head, batch), four warps of 16 q
-//     rows, looping over the live kv tiles and recomputing s, p and dp.
+// Bound on this card: the function needs five products over the live
+// (q, kv) pairs, 10 B H D x live FLOPs; the split recomputes s and p in
+// both kernels and dp in both, seven products, 14 B H D x live. At the
+// training shape (B=12, S=2048, H=16/8, D=128, causal) that is 7.22e11
+// FLOP = 0.730 ms at 989 TFLOP/s against 0.521 ms for the five, and about
+// 850 FLOP per byte moved: the tensor cores bound it. So every product runs
+// on wgmma, the only path to their full rate, fed by TMA so that no thread
+// spends registers or issue slots on loads; the S x S matrices never leave
+// registers. The skeleton is the forward's (flash_attention_fwd.cu): a
+// producer warpgroup (setmaxnreg 24) whose one thread issues every TMA
+// load into a 2-stage ring on full/empty mbarriers, and consumer
+// warpgroups (setmaxnreg 240) of 64 rows each.
 //
-// The cost of the split: s and p are computed twice (once per kernel), and
-// dp twice, against the fused pass's once: 7 products instead of 5. A
-// first version that is right; a fused pass with a cross-block dq
-// reduction, ldmatrix fragments, cp.async/TMA and wgmma are later work.
+// (a) dk/dv: one block per (128-row kv tile, kv head, batch), low kv tiles
+//     (the heaviest under the causal mask) first. K and V are loaded once.
+//     The ring streams 64-row Q and dO tiles over the G query heads of the
+//     kv head and, for each, the q tiles the causal bound lets through: one
+//     flat tile counter for the ring's phase, the same count on both sides.
+//     Each stage also holds the tile's lse2 = max(lse log2e, -1e29) and
+//     delta, written by the producer's first warp with plain loads (an
+//     [B, H, Sq] f32 row breaks TMA's 16-byte stride rule when Sq % 4 != 0),
+//     lse2 = +1e30 past Sq so that those rows' p is 0. Each consumer owns
+//     64 kv rows and works in the transposed domain, so p^T and ds^T are
+//     accumulator rows that re-pack into wgmma's register A operand:
+//       s^T = K Q^T, dp^T = V dO^T   (wgmma SS, both K-major),
+//       p^T = exp2(s^T scale log2e - lse2), ds^T = p^T (dp^T - delta),
+//       dV += p^T dO, dK += ds^T Q   (wgmma RS, dO and Q MN-major).
+//     Only tiles the causal frontier cuts are masked; kv rows past Skv are
+//     computed and never stored. dK scale and dV go out in bf16 through the
+//     consumer's own rows of the K and V tiles and a TMA store, which clips
+//     rows >= Skv; a block with no live q tile stores zeros.
+// (b) dq: one block per (q tile, head, batch), heavy q tiles first: 128
+//     rows (two consumers) when Sq > 64, else 64 rows (one consumer, two
+//     blocks per SM). Q, dO, lse2 and delta stay put; 64-row K and V tiles
+//     stream through the ring over the live kv tiles (the forward's causal
+//     frontier):
+//       s = Q K^T, dp = dO V^T (SS), p, ds = p (dp - delta),
+//       dQ += ds K (RS, K MN-major),
+//     masked where the diagonal or the ragged kv edge cuts the tile; dQ
+//     scale goes out through the consumer's rows of the Q tile by TMA.
 //
 // f32: plain FMA kernels, one warp per kv row (dk/dv) and per q row (dq);
 // a correctness path (the model trains bf16).
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
 constexpr float kPosBig = 1e30f;    // lse2 of q rows past the edge: p = 0
-constexpr int kBlockKV = 64;        // kv rows per dk/dv block and per dq tile
-constexpr int kBlockQ = 64;         // q rows per dq block
-
-// q rows per tile of the dk/dv kernel: 32 at D = 128 keeps its f32 dk and
-// dv accumulators (2 x 64 registers a thread) beside s and dp in registers.
-template <int D>
-struct DkDvTile {
-  static constexpr int kRows = D == 128 ? 32 : 64;
-};
+constexpr int kProducerRegs = 24;
 
 struct Params {
   const void* q;
@@ -92,307 +108,439 @@ __device__ __forceinline__ long long stat_index(const Params& p, int b, int h, i
   return (static_cast<long long>(b) * p.H + h) * p.Sq + row;
 }
 
-// Writes this thread's two accumulator rows (r, r + 8 within the tile at
-// ``row0``) of a [.., D] f32 accumulator, times ``mul``, as bf16.
+// The bf16 kernels' arguments: tensor maps (loads and stores), passed by
+// value in parameter space, and what the maps do not carry.
+struct HopperParams {
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_out0, tm_out1;   // out: (dk, dv) or (dq, -)
+  const float* lse;
+  const float* delta;
+  const int* offset;
+  int B, H, Hkv, Sq, Skv;
+  float scale;
+  float scale_log2;
+  int causal;
+};
+
+// lse2 and delta of q row ``row`` of head h: lse2 = +1e30 and delta = 0
+// past Sq, so that p = 0 there.
+__device__ __forceinline__ void load_stats(const HopperParams& p, int b, int h, int row,
+                                           float& lse2, float& delta) {
+  const bool ok = row < p.Sq;
+  const long long idx = (static_cast<long long>(b) * p.H + h) * p.Sq + row;
+  lse2 = ok ? fmaxf(p.lse[idx] * kLog2e, kMClamp) : kPosBig;
+  delta = ok ? p.delta[idx] : 0.f;
+}
+
+// Stages this thread's rows (r0, r0 + 8) of a 64 x D f32 accumulator,
+// times ``mul``, as bf16 into ``box0``: the 64-row sub-tile of a tile whose
+// 64-column boxes lie ``box_stride`` bytes apart, in the 128-byte swizzle
+// of a TMA box (the 16-byte chunk ch of row r sits at chunk ch ^ (r % 8);
+// r % 8 == g).
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long row_stride,
-                                           int row0, int rows_valid, int r, int t4,
-                                           const float (&acc)[D / 8][4], float mul) {
+__device__ __forceinline__ void stage_rows(unsigned char* box0, int box_stride, int r0, int g,
+                                           int t4, const float (&acc)[D / 2], float mul) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int rr = r + 8 * i;
-    if (rr >= rows_valid) continue;
-    __nv_bfloat16* out = base + (row0 + rr) * row_stride + t4 * 2;
+  for (int jj = 0; jj < D / 8; ++jj) {
+    unsigned char* box = box0 + (jj >> 3) * box_stride;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      *reinterpret_cast<__nv_bfloat162*>(out + dn * 8) =
-          __floats2bfloat162_rn(acc[dn][2 * i] * mul, acc[dn][2 * i + 1] * mul);
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      *reinterpret_cast<uint32_t*>(box + r * 128 + (((jj & 7) ^ g) << 4) + 4 * t4) =
+          pack_bf16(acc[4 * jj + 2 * i] * mul, acc[4 * jj + 2 * i + 1] * mul);
+    }
+  }
+}
+
+// The m16n8k16 A fragments of a 64 x N accumulator (the wgmma accumulator
+// gives each warp mma.sync's m16n8 pattern), rounded to bf16: the register
+// A operand of a product over N.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&acc)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(acc[8 * kk + 2 * j], acc[8 * kk + 2 * j + 1]);
+  }
+}
+
+// acc (64 x N) = A (64 rows at a_addr) B^T (N rows at b_addr) over D, both
+// K-major bf16 tiles of 64-column boxes ``a_box`` / ``b_box`` bytes apart.
+template <int D, int N>
+__device__ __forceinline__ void product_ss(float (&acc)[N / 2], uint32_t a_addr, int a_box,
+                                           uint32_t b_addr, int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk & 3) * 32;      // 16 bf16 within a 128-byte row
+    const uint64_t da = sw128_desc(a_addr + (kk >> 2) * a_box + col, 16, 1024);
+    const uint64_t db = sw128_desc(b_addr + (kk >> 2) * b_box + col, 16, 1024);
+    if constexpr (N == 128) {
+      wgmma_ss_m64n128k16(acc, da, db, kk > 0);
+    } else {
+      wgmma_ss_m64n64k16(acc, da, db, kk > 0);
+    }
+  }
+}
+
+// acc (64 x D) += A (registers, 64 x K) B (K rows x D at b_addr, MN-major:
+// D contiguous, 64-column boxes ``b_box`` bytes apart).
+template <int D, int K>
+__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
+                                           uint32_t b_addr, int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    // 16 rows = two 8-row groups of 1024 bytes; the next 64 columns are
+    // the next box.
+    const uint64_t db = sw128_desc(b_addr + kk * 16 * 128, b_box, 1024);
+    if constexpr (D == 128) {
+      wgmma_rs_m64n128k16_mn(acc, a[kk], db);
+    } else {
+      wgmma_rs_m64n64k16_mn(acc, a[kk], db);
     }
   }
 }
 
 // ---------------------------------------------------------------- bf16 (a)
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_bf16(Params p) {
-  constexpr int kBQ = DkDvTile<D>::kRows;
-  constexpr int kLd = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kBlockKV * kLd;
-  __nv_bfloat16* sQ = sV + kBlockKV * kLd;
-  __nv_bfloat16* sDo = sQ + kBQ * kLd;
-  float* sLse = reinterpret_cast<float*>(sDo + kBQ * kLd);
-  float* sDelta = sLse + kBQ;
+template <int D_>
+struct DkDvTiles {
+  static constexpr int D = D_;
+  static constexpr int kBlockN = 128;   // kv rows per block: two consumers of 64
+  static constexpr int kBlockM = 64;    // q rows per ring tile
+  static constexpr int kConsumers = 2;
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kConsumerRegs = 240;   // 128 x 24 + 256 x 240 <= 64 K
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kKVBytes = kBlockN * D * 2;
+  static constexpr int kQBytes = kBlockM * D * 2;
+  // A stage: the q tile, the do tile, lse2 and delta (64 f32 each), padded
+  // to keep the next stage's tiles on a 1024-byte boundary.
+  static constexpr int kStageBytes = 2 * kQBytes + 1024;
+  // 1024 bytes of slack to align the tiles, k, v, the ring, 5 barriers.
+  static constexpr int kSmem = 1024 + 2 * kKVBytes + kStages * kStageBytes + 64;
+  static constexpr int kFullArrivals = 1 + 32;   // the loads' arrive + one per stats lane
+};
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  // Low kv tiles first: under the causal mask they see the most q tiles.
-  const int n0 = blockIdx.x * kBlockKV;
+template <class T>
+__global__ void __launch_bounds__(T::kThreads, 1)
+    flash_bwd_dkdv_bf16(const __grid_constant__ HopperParams p) {
+  constexpr int D = T::D;
+  constexpr int kBlockM = T::kBlockM;
+  constexpr int kBlockN = T::kBlockN;
+  constexpr int kStages = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sV = sK + T::kKVBytes;
+  unsigned char* sRing = sV + T::kKVBytes;   // kStages x (q, do, lse2, delta)
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(sRing + kStages * T::kStageBytes);
+  uint64_t* full = full_kv + 1;                // [kStages]
+  uint64_t* empty = full + kStages;            // [kStages]
+
+  const int n0 = blockIdx.x * kBlockN;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int G = p.H / p.Hkv;
   const int off = p.causal ? *p.offset : 0;
-  const int kv_valid = min(kBlockKV, p.Skv - n0);
+  // Causal: q row i sees kv row j iff i + off >= j, so no q row before
+  // n0 - off reaches this kv tile. Both roles walk the same tiles: for each
+  // query head of the group, q tiles t_begin .. n_m - 1.
+  const int n_m = (p.Sq + kBlockM - 1) / kBlockM;
+  const int t_begin = p.causal ? min(n_m, max(0, n0 - off) / kBlockM) : 0;
+  const int per_head = n_m - t_begin;
+  const int n_tiles = G * per_head;
 
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb +
-                            n0 * p.k_ss + hk * p.k_sh;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb +
-                            n0 * p.v_ss + hk * p.v_sh;
-  load_tile<D, kBlockKV>(sK, kb, p.k_ss, kv_valid);
-  load_tile<D, kBlockKV>(sV, vb, p.v_ss, kv_valid);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], T::kFullArrivals);
+      mbar_init(&empty[s], T::kConsumers * 128);
+    }
+    mbar_fence_init();
   }
-  const int r0 = warp * 16 + g;        // this thread's kv rows: r0, r0 + 8
+  __syncthreads();
 
-  // Causal: q row i sees kv col j iff i + off >= j, so no q row before
-  // n0 - off reaches this tile.
-  const int m_first = p.causal ? max(0, n0 - off) : 0;
-  const int t_begin = m_first / kBQ;
-  const int t_end = (p.Sq + kBQ - 1) / kBQ;
-
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    const __nv_bfloat16* qh = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* doh =
-        static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    for (int t = t_begin; t < t_end; ++t) {
-      const int m0 = t * kBQ;
-      const int q_valid = min(kBQ, p.Sq - m0);
-      __syncthreads();   // every warp is done with the previous q tile
-      load_tile<D, kBQ>(sQ, qh + m0 * p.q_ss, p.q_ss, q_valid);
-      load_tile<D, kBQ>(sDo, doh + m0 * p.do_ss, p.do_ss, q_valid);
-      for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-        const bool ok = i < q_valid;
-        const long long idx = stat_index(p, b, h, m0 + i);
-        // Rows past the edge: lse2 = +1e30 makes p = 0 (and do is 0).
-        sLse[i] = ok ? fmaxf(p.lse[idx] * kLog2e, kMClamp) : kPosBig;
-        sDelta[i] = ok ? p.delta[idx] : 0.f;
-      }
-      __syncthreads();
-
-      // s^T = K Q^T: this warp's 16 kv rows x kBQ q columns.
-      float s[kBQ / 8][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: thread 0 issues every TMA load, the first warp writes the
+    // statistics of each tile.
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        prefetch_tensor_map(&p.tm_q);
+        prefetch_tensor_map(&p.tm_do);
+        mbar_arrive_expect_tx(full_kv, 2 * T::kKVBytes);
 #pragma unroll
-      for (int nt = 0; nt < kBQ / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        uint32_t a[4];
-        load_a_frag<D>(a, sK, r0, kc * 16 + t4 * 2);
-#pragma unroll
-        for (int nt = 0; nt < kBQ / 8; ++nt) {
-          uint32_t b0, b1;
-          load_b_rows<D>(b0, b1, sQ, nt * 8 + g, kc * 16 + t4 * 2);
-          mma_16816(s[nt], a, b0, b1);
+        for (int bx = 0; bx < T::kBoxes; ++bx) {
+          tma_load_4d(sK + bx * kBlockN * 128, &p.tm_k, full_kv, bx * 64, n0, hk, b);
+          tma_load_4d(sV + bx * kBlockN * 128, &p.tm_v, full_kv, bx * 64, n0, hk, b);
         }
       }
-
-      // p^T = exp2(s^T * scale * log2e - lse2[q]); only tiles the causal
-      // diagonal cuts are masked (the ragged edges need no mask: q rows
-      // past Sq have p = 0, kv rows past Skv are never stored).
-      const bool need_mask = p.causal && (m0 + off < n0 + kBlockKV - 1);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int h = hk * G + i / per_head;
+        const int m0 = (t_begin + i % per_head) * kBlockM;
+        const int s = i % kStages;
+        unsigned char* stage = sRing + s * T::kStageBytes;
+        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);   // the first kStages pass at once
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], 2 * T::kQBytes);
 #pragma unroll
-      for (int nt = 0; nt < kBQ / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = nt * 8 + t4 * 2 + (e & 1);
-          float x = s[nt][e] * p.scale_log2;
-          if (need_mask && m0 + qc + off < n0 + r0 + (e >> 1) * 8) x = kNegInf;
-          s[nt][e] = exp2f(x - sLse[qc]);
+          for (int bx = 0; bx < T::kBoxes; ++bx) {
+            tma_load_4d(stage + bx * kBlockM * 128, &p.tm_q, &full[s], bx * 64, m0, h, b);
+            tma_load_4d(stage + T::kQBytes + bx * kBlockM * 128, &p.tm_do, &full[s], bx * 64,
+                        m0, h, b);
+          }
         }
-      }
-
-      // dv += p^T do: p^T re-packs into A fragments; do gathered by column.
+        float* lse2 = reinterpret_cast<float*>(stage + 2 * T::kQBytes);
 #pragma unroll
-      for (int kk = 0; kk < kBQ / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          uint32_t b0, b1;
-          load_b_cols<D>(b0, b1, sDo, kk * 16 + t4 * 2, dn * 8 + g);
-          mma_16816(dv[dn], pa, b0, b1);
+        for (int r = lane; r < kBlockM; r += 32) {
+          load_stats(p, b, h, m0 + r, lse2[r], lse2[kBlockM + r]);
         }
-      }
-
-      // dp^T = V do^T, then ds^T = p^T (dp^T - delta[q]) in place.
-      float dp[kBQ / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < kBQ / 8; ++nt) dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        uint32_t a[4];
-        load_a_frag<D>(a, sV, r0, kc * 16 + t4 * 2);
-#pragma unroll
-        for (int nt = 0; nt < kBQ / 8; ++nt) {
-          uint32_t b0, b1;
-          load_b_rows<D>(b0, b1, sDo, nt * 8 + g, kc * 16 + t4 * 2);
-          mma_16816(dp[nt], a, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < kBQ / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = nt * 8 + t4 * 2 + (e & 1);
-          dp[nt][e] = s[nt][e] * (dp[nt][e] - sDelta[qc]);
-        }
-      }
-
-      // dk += ds^T q (scaled at the store).
-#pragma unroll
-      for (int kk = 0; kk < kBQ / 16; ++kk) {
-        uint32_t da[4];
-        da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-        da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-        da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-        da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
-          uint32_t b0, b1;
-          load_b_cols<D>(b0, b1, sQ, kk * 16 + t4 * 2, dn * 8 + g);
-          mma_16816(dk[dn], da, b0, b1);
-        }
+        mbar_arrive(&full[s]);
       }
     }
-  }
+  } else {
+    // Consumer warpgroup c: kv rows n0 + 64 c .. n0 + 64 c + 63.
+    reg_alloc<T::kConsumerRegs>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int g = (tid & 31) >> 2;            // row within the 8-row half of a warp's 16
+    const int t4 = tid & 3;                   // column pair within the quad
+    const int r0 = (tid >> 5) * 16 + g;       // this thread's rows: r0 and r0 + 8
+    const int kv_row0 = n0 + 64 * c + r0;     // absolute kv row of r0
+    unsigned char* sKc = sK + c * 64 * 128;
+    unsigned char* sVc = sV + c * 64 * 128;
+    const uint32_t k_addr = smem_u32(sKc);
+    const uint32_t v_addr = smem_u32(sVc);
 
-  __nv_bfloat16* dkb = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
-  __nv_bfloat16* dvb = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
-  store_rows<D>(dkb, p.dk_ss, n0, kv_valid, r0, t4, dk, p.scale);
-  store_rows<D>(dvb, p.dv_ss, n0, kv_valid, r0, t4, dv, 1.f);
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    float st[kBlockM / 2], dpt[kBlockM / 2];   // s^T (then p^T) and dp^T (then ds^T)
+    uint32_t pa[kBlockM / 16][4], da[kBlockM / 16][4];
+
+    mbar_wait(full_kv, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int m0 = (t_begin + i % per_head) * kBlockM;
+      const int s = i % kStages;
+      unsigned char* stage = sRing + s * T::kStageBytes;
+      const uint32_t q_addr = smem_u32(stage);
+      const uint32_t do_addr = q_addr + T::kQBytes;
+      const float* lse2 = reinterpret_cast<const float*>(stage + 2 * T::kQBytes);
+      const float* delta = lse2 + kBlockM;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      wgmma_fence();
+      product_ss<D, kBlockM>(st, k_addr, kBlockN * 128, q_addr, kBlockM * 128);
+      product_ss<D, kBlockM>(dpt, v_addr, kBlockN * 128, do_addr, kBlockM * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(st);
+      fence_operands(dpt);
+
+      // Element e of s^T: kv row r0 (+ 8 for e & 2), q column
+      // 8 (e >> 2) + 2 t4 + (e & 1). Only tiles the diagonal cuts are
+      // masked; masked scores are -inf before the exponent, so p is 0.
+      const bool need_mask = p.causal && (m0 + off < n0 + kBlockN - 1);
+#pragma unroll
+      for (int e = 0; e < kBlockM / 2; ++e) {
+        const int qc = (e >> 2) * 8 + t4 * 2 + (e & 1);
+        float x = st[e];
+        if (need_mask && m0 + qc + off < kv_row0 + ((e >> 1) & 1) * 8) x = -INFINITY;
+        const float pe = fast_exp2(fmaf(x, p.scale_log2, -lse2[qc]));
+        st[e] = pe;
+        dpt[e] = pe * (dpt[e] - delta[qc]);
+      }
+      pack_a<kBlockM>(pa, st);
+      pack_a<kBlockM>(da, dpt);
+      wgmma_fence();
+      product_rs<D, kBlockM>(dv, pa, do_addr, kBlockM * 128);
+      product_rs<D, kBlockM>(dk, da, q_addr, kBlockM * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dv);
+      fence_operands(dk);
+      mbar_arrive(&empty[s]);
+    }
+
+    // dK scale and dV in bf16 over this consumer's rows of the K and V
+    // tiles, which no product reads any more (and which TMA filled: the
+    // wait on full_kv above runs for a block with no q tile too); one
+    // thread stores them, rows >= Skv clipped.
+    stage_rows<D>(sKc, kBlockN * 128, r0, g, t4, dk, p.scale);
+    stage_rows<D>(sVc, kBlockN * 128, r0, g, t4, dv, 1.f);
+    fence_proxy_async();
+    named_bar_sync(1 + c, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int bx = 0; bx < T::kBoxes; ++bx) {
+        tma_store_4d(&p.tm_out0, sKc + bx * kBlockN * 128, bx * 64, n0 + 64 * c, hk, b);
+        tma_store_4d(&p.tm_out1, sVc + bx * kBlockN * 128, bx * 64, n0 + 64 * c, hk, b);
+      }
+      tma_store_commit();
+      tma_store_wait_read();
+    }
+  }
 }
 
 // ---------------------------------------------------------------- bf16 (b)
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Params p) {
-  constexpr int kLd = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sDo = sQ + kBlockQ * kLd;
-  __nv_bfloat16* sK = sDo + kBlockQ * kLd;
-  __nv_bfloat16* sV = sK + kBlockKV * kLd;
+template <int D_, int kConsumers_>
+struct DqTiles {
+  static constexpr int D = D_;
+  static constexpr int kConsumers = kConsumers_;    // warpgroups of 64 q rows
+  static constexpr int kBlockM = 64 * kConsumers;
+  static constexpr int kBlockN = 64;                // kv rows per ring tile
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kMinBlocks = kConsumers == 2 ? 1 : 2;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 232;
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kQBytes = kBlockM * D * 2;
+  static constexpr int kKVBytes = kBlockN * D * 2;
+  // 1024 bytes of slack to align the tiles, q, do, the k and v rings and
+  // 2 + 2 kStages barriers.
+  static constexpr int kSmem = 1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 64;
+};
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
+template <class T>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+    flash_bwd_dq_bf16(const __grid_constant__ HopperParams p) {
+  constexpr int D = T::D;
+  constexpr int kBlockM = T::kBlockM;
+  constexpr int kBlockN = T::kBlockN;
+  constexpr int kStages = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sDo = sQ + T::kQBytes;
+  unsigned char* sK = sDo + T::kQBytes;               // kStages k tiles
+  unsigned char* sV = sK + kStages * T::kKVBytes;      // kStages v tiles
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sV + kStages * T::kKVBytes);
+  uint64_t* full = full_q + 1;                          // [kStages]
+  uint64_t* empty = full + kStages;                     // [kStages]
+
   // Last q tiles first: under the causal mask they carry the most kv tiles.
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
   const int off = p.causal ? *p.offset : 0;
-  const int q_valid = min(kBlockQ, p.Sq - m0);
-
-  load_tile<D, kBlockQ>(sQ, static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb +
-                                m0 * p.q_ss + h * p.q_sh,
-                        p.q_ss, q_valid);
-  load_tile<D, kBlockQ>(sDo, static_cast<const __nv_bfloat16*>(p.dout) + b * p.do_sb +
-                                 m0 * p.do_ss + h * p.do_sh,
-                        p.do_ss, q_valid);
-  const int r0 = warp * 16 + g;        // this thread's q rows: r0, r0 + 8
-  float lse2[2], delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = m0 + r0 + 8 * i;
-    const bool ok = row < p.Sq;
-    lse2[i] = ok ? fmaxf(p.lse[stat_index(p, b, h, row)] * kLog2e, kMClamp) : kPosBig;
-    delta[i] = ok ? p.delta[stat_index(p, b, h, row)] : 0.f;
-  }
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
-
+  // Causal skip: kv columns past the tile's last live q position are dead.
   int n_end = p.Skv;
-  if (p.causal) n_end = min(n_end, m0 + q_valid - 1 + off + 1);
-  const int n_tiles = n_end > 0 ? (n_end + kBlockKV - 1) / kBlockKV : 0;
-  const int q_pos0 = m0 + r0 + off;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  if (p.causal) n_end = min(n_end, min(m0 + kBlockM, p.Sq) + off);
+  const int n_tiles = n_end > 0 ? (n_end + kBlockN - 1) / kBlockN : 0;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int n0 = t * kBlockKV;
-    const int kv_valid = min(kBlockKV, p.Skv - n0);
-    __syncthreads();   // every warp is done with the previous kv tile
-    load_tile<D, kBlockKV>(sK, kb + n0 * p.k_ss, p.k_ss, kv_valid);
-    load_tile<D, kBlockKV>(sV, vb + n0 * p.v_ss, p.v_ss, kv_valid);
-    __syncthreads();
-
-    // s = Q K^T and dp = dO V^T for this warp's 16 q rows x 64 kv columns.
-    float s[kBlockKV / 8][4], dp[kBlockKV / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockKV / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], T::kConsumers * 128);
     }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread issues every load.
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_tensor_map(&p.tm_k);
+      prefetch_tensor_map(&p.tm_v);
+      mbar_arrive_expect_tx(full_q, 2 * T::kQBytes);
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t qa[4], da[4];
-      load_a_frag<D>(qa, sQ, r0, kc * 16 + t4 * 2);
-      load_a_frag<D>(da, sDo, r0, kc * 16 + t4 * 2);
-#pragma unroll
-      for (int nt = 0; nt < kBlockKV / 8; ++nt) {
-        uint32_t b0, b1;
-        load_b_rows<D>(b0, b1, sK, nt * 8 + g, kc * 16 + t4 * 2);
-        mma_16816(s[nt], qa, b0, b1);
-        load_b_rows<D>(b0, b1, sV, nt * 8 + g, kc * 16 + t4 * 2);
-        mma_16816(dp[nt], da, b0, b1);
+      for (int bx = 0; bx < T::kBoxes; ++bx) {
+        tma_load_4d(sQ + bx * kBlockM * 128, &p.tm_q, full_q, bx * 64, m0, h, b);
+        tma_load_4d(sDo + bx * kBlockM * 128, &p.tm_do, full_q, bx * 64, m0, h, b);
       }
-    }
-
-    // p = exp2(s * scale * log2e - lse2), masked where the ragged kv edge
-    // or the causal diagonal cuts the tile; ds = p (dp - delta) in place.
-    const bool need_mask =
-        (n0 + kBlockKV > p.Skv) || (p.causal && (m0 + off < n0 + kBlockKV - 1));
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * T::kKVBytes);
 #pragma unroll
-    for (int nt = 0; nt < kBlockKV / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * p.scale_log2;
-        if (need_mask) {
-          const int col = n0 + nt * 8 + t4 * 2 + (e & 1);
-          const int qp = q_pos0 + (e >> 1) * 8;
-          const bool live = col < p.Skv && (!p.causal || qp >= col);
-          x = live ? x : kNegInf;
+        for (int bx = 0; bx < T::kBoxes; ++bx) {
+          tma_load_4d(sK + s * T::kKVBytes + bx * kBlockN * 128, &p.tm_k, &full[s], bx * 64,
+                      t * kBlockN, hk, b);
+          tma_load_4d(sV + s * T::kKVBytes + bx * kBlockN * 128, &p.tm_v, &full[s], bx * 64,
+                      t * kBlockN, hk, b);
         }
-        const float pe = exp2f(x - lse2[e >> 1]);
-        dp[nt][e] = pe * (dp[nt][e] - delta[e >> 1]);
       }
     }
+  } else {
+    // Consumer warpgroup c: q rows m0 + 64 c .. m0 + 64 c + 63.
+    reg_alloc<T::kConsumerRegs>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int g = (tid & 31) >> 2;
+    const int t4 = tid & 3;
+    const int r0 = (tid >> 5) * 16 + g;       // this thread's rows: r0 and r0 + 8
+    const int mw = m0 + 64 * c;
+    unsigned char* sQc = sQ + c * 64 * 128;
+    const uint32_t q_addr = smem_u32(sQc);
+    const uint32_t do_addr = smem_u32(sDo + c * 64 * 128);
 
-    // dq += ds K (scaled at the store): ds re-packs into A fragments, K is
-    // gathered by column.
+    float lse2[2], delta[2];
 #pragma unroll
-    for (int kk = 0; kk < kBlockKV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-      pa[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-      pa[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      pa[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+    for (int i = 0; i < 2; ++i) load_stats(p, b, h, mw + r0 + 8 * i, lse2[i], delta[i]);
+    float dq[D / 2];
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        uint32_t b0, b1;
-        load_b_cols<D>(b0, b1, sK, kk * 16 + t4 * 2, dn * 8 + g);
-        mma_16816(dq[dn], pa, b0, b1);
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    float sc[kBlockN / 2], dp[kBlockN / 2];   // s (then p) and dp (then ds)
+    uint32_t da[kBlockN / 16][4];
+
+    mbar_wait(full_q, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int n0 = t * kBlockN;
+      const int s = t % kStages;
+      const uint32_t k_addr = smem_u32(sK + s * T::kKVBytes);
+      const uint32_t v_addr = smem_u32(sV + s * T::kKVBytes);
+      mbar_wait(&full[s], (t / kStages) & 1);
+      wgmma_fence();
+      product_ss<D, kBlockN>(sc, q_addr, kBlockM * 128, k_addr, kBlockN * 128);
+      product_ss<D, kBlockN>(dp, do_addr, kBlockM * 128, v_addr, kBlockN * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(sc);
+      fence_operands(dp);
+
+      // Only tiles cut by the ragged kv edge or by the diagonal are masked.
+      const bool need_mask =
+          (n0 + kBlockN > p.Skv) || (p.causal && (mw + off < n0 + kBlockN - 1));
+#pragma unroll
+      for (int e = 0; e < kBlockN / 2; ++e) {
+        const int row = (e >> 1) & 1;
+        float x = sc[e];
+        if (need_mask) {
+          const int col = n0 + (e >> 2) * 8 + t4 * 2 + (e & 1);
+          const int qp = mw + r0 + row * 8 + off;
+          if (col >= p.Skv || (p.causal && qp < col)) x = -INFINITY;
+        }
+        const float pe = fast_exp2(fmaf(x, p.scale_log2, -lse2[row]));
+        dp[e] = pe * (dp[e] - delta[row]);
       }
+      pack_a<kBlockN>(da, dp);
+      wgmma_fence();
+      product_rs<D, kBlockN>(dq, da, k_addr, kBlockN * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dq);
+      mbar_arrive(&empty[s]);
+    }
+
+    // dQ scale in bf16 over this consumer's rows of the Q tile (read by no
+    // product any more; the wait on full_q above ran for every block); one
+    // thread stores, rows >= Sq clipped.
+    stage_rows<D>(sQc, kBlockM * 128, r0, g, t4, dq, p.scale);
+    fence_proxy_async();
+    named_bar_sync(1 + c, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int bx = 0; bx < T::kBoxes; ++bx) {
+        tma_store_4d(&p.tm_out0, sQc + bx * kBlockM * 128, bx * 64, mw, h, b);
+      }
+      tma_store_commit();
+      tma_store_wait_read();
     }
   }
-
-  __nv_bfloat16* dqb = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  store_rows<D>(dqb, p.dq_ss, m0, q_valid, r0, t4, dq, p.scale);
 }
 
 // ---------------------------------------------------------------- f32
@@ -516,24 +664,71 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(Params p) {
 
 // ---------------------------------------------------------------- launch
 
+// The fields of the bf16 kernels' parameters that the maps do not carry.
+HopperParams hopper_params(const Params& a) {
+  HopperParams p;
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.offset = a.offset;
+  p.B = a.B;
+  p.H = a.H;
+  p.Hkv = a.Hkv;
+  p.Sq = a.Sq;
+  p.Skv = a.Skv;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale_log2;
+  p.causal = a.causal;
+  return p;
+}
+
+template <class T>
+cudaError_t launch_dkdv_bf16(const Params& a, cudaStream_t stream) {
+  constexpr int D = T::D;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(flash_bwd_dkdv_bf16<T>, T::kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  HopperParams p = hopper_params(a);
+  const bool maps =
+      encode_bshd_bf16(&p.tm_q, a.q, a.B, a.Sq, a.H, D, a.q_ss, a.q_sh, a.q_sb, T::kBlockM) &&
+      encode_bshd_bf16(&p.tm_do, a.dout, a.B, a.Sq, a.H, D, a.do_ss, a.do_sh, a.do_sb,
+                       T::kBlockM) &&
+      encode_bshd_bf16(&p.tm_k, a.k, a.B, a.Skv, a.Hkv, D, a.k_ss, a.k_sh, a.k_sb, T::kBlockN) &&
+      encode_bshd_bf16(&p.tm_v, a.v, a.B, a.Skv, a.Hkv, D, a.v_ss, a.v_sh, a.v_sb, T::kBlockN) &&
+      encode_bshd_bf16(&p.tm_out0, a.dk, a.B, a.Skv, a.Hkv, D, a.dk_ss, a.dk_sh, a.dk_sb, 64) &&
+      encode_bshd_bf16(&p.tm_out1, a.dv, a.B, a.Skv, a.Hkv, D, a.dv_ss, a.dv_sh, a.dv_sb, 64);
+  if (!maps) return cudaErrorInvalidValue;
+  const dim3 grid((a.Skv + T::kBlockN - 1) / T::kBlockN, a.Hkv, a.B);
+  flash_bwd_dkdv_bf16<T><<<grid, T::kThreads, T::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_dq_bf16(const Params& a, cudaStream_t stream) {
+  constexpr int D = T::D;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(flash_bwd_dq_bf16<T>, T::kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  HopperParams p = hopper_params(a);
+  const bool maps =
+      encode_bshd_bf16(&p.tm_q, a.q, a.B, a.Sq, a.H, D, a.q_ss, a.q_sh, a.q_sb, T::kBlockM) &&
+      encode_bshd_bf16(&p.tm_do, a.dout, a.B, a.Sq, a.H, D, a.do_ss, a.do_sh, a.do_sb,
+                       T::kBlockM) &&
+      encode_bshd_bf16(&p.tm_k, a.k, a.B, a.Skv, a.Hkv, D, a.k_ss, a.k_sh, a.k_sb, T::kBlockN) &&
+      encode_bshd_bf16(&p.tm_v, a.v, a.B, a.Skv, a.Hkv, D, a.v_ss, a.v_sh, a.v_sb, T::kBlockN) &&
+      encode_bshd_bf16(&p.tm_out0, a.dq, a.B, a.Sq, a.H, D, a.dq_ss, a.dq_sh, a.dq_sb, 64);
+  if (!maps) return cudaErrorInvalidValue;
+  const dim3 grid((a.Sq + T::kBlockM - 1) / T::kBlockM, a.H, a.B);
+  flash_bwd_dq_bf16<T><<<grid, T::kThreads, T::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  constexpr int kLd = D + kPad;
-  constexpr int kBQ = DkDvTile<D>::kRows;
-  constexpr int kSmemDkDv = (2 * kBlockKV + 2 * kBQ) * kLd * 2 + 2 * kBQ * 4;
-  constexpr int kSmemDq = (2 * kBlockQ + 2 * kBlockKV) * kLd * 2;
-  static bool dkdv_set = false, dq_set = false;
-  cudaError_t err = allow_smem(flash_bwd_dkdv_bf16<D>, kSmemDkDv, dkdv_set);
+  cudaError_t err = launch_dkdv_bf16<DkDvTiles<D>>(p, stream);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_dq_bf16<D>, kSmemDq, dq_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_kv((p.Skv + kBlockKV - 1) / kBlockKV, p.Hkv, p.B);
-  flash_bwd_dkdv_bf16<D><<<grid_kv, kThreads, kSmemDkDv, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((p.Sq + kBlockQ - 1) / kBlockQ, p.H, p.B);
-  flash_bwd_dq_bf16<D><<<grid_q, kThreads, kSmemDq, stream>>>(p);
-  return cudaGetLastError();
+  // Sq <= 64 takes 64-row q tiles (one consumer, two blocks per SM).
+  return p.Sq <= 64 ? launch_dq_bf16<DqTiles<D, 1>>(p, stream)
+                    : launch_dq_bf16<DqTiles<D, 2>>(p, stream);
 }
 
 template <int D>

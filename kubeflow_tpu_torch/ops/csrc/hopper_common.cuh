@@ -2,8 +2,8 @@
 // memory accelerator (TMA) with its tensor maps, mbarriers, named barriers,
 // wgmma (shared-memory descriptors, fence/commit/wait and the products
 // themselves), setmaxnreg and exp2 on the special-function unit. The
-// flash-attention forward (flash_attention_fwd.cu) is built from them; a
-// redesigned backward can take the same pieces. ops/_build.py hashes every
+// flash-attention forward (flash_attention_fwd.cu) and backward
+// (flash_attention_bwd.cu) are built from them. ops/_build.py hashes every
 // header of this directory into each library's name.
 //
 // Layout convention: a tile of R rows x 64 bf16 (128 bytes a row) is one

@@ -265,3 +265,97 @@ def test_backward_strided_views():
         q, k, v, o.detach(), lse_ref, do, causal=True, scale=128 ** -0.5)
     got = (qkv.grad[:, :, :8], qkv.grad[:, :, 8:10], qkv.grad[:, :, 10:])
     _check_grads(got, want, torch.bfloat16)
+
+
+# The bf16 backward's tiles: the dk/dv kernel takes 128-row kv tiles (two
+# consumer warpgroups of 64) and streams 64-row q tiles over the query
+# group; the dq kernel takes 128-row q tiles (64 when Sq <= 64) and streams
+# 64-row kv tiles. TMA's zero fill pads the ragged edges, whose rows the
+# stores clip.
+def _bwd_case(b, sq, skv, h, hkv, d, causal, q_off, kv_off=0, seed=12):
+    q, k, v = _qkv(b, sq, skv, h, hkv, d, torch.bfloat16, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+    dlse = torch.randn(b, h, sq, generator=g, device="cuda")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o, lse = flash_attention_lse(*leaves, causal=causal, q_offset=q_off,
+                                 kv_offset=kv_off)
+    torch.autograd.backward((o, lse), (do, dlse))
+    off = q_off - (kv_off if isinstance(kv_off, int) else int(kv_off))
+    want = flash_attention_backward_reference(
+        q, k, v, o.detach(), lse.detach(), do, dlse, causal=causal,
+        scale=d ** -0.5, offset=off)
+    torch.cuda.synchronize()
+    got = [t.grad for t in leaves]
+    _check_grads(got, want, torch.bfloat16)
+    return got
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv,causal,offset", [
+    (77, 77, True, 0), (129, 129, True, 0), (1000, 1000, True, 0),
+    (77, 300, True, 223), (300, 77, True, 0), (129, 1000, False, 0),
+    (1000, 129, False, 0), (200, 200, True, -100), (64, 200, True, 136),
+    (1, 1, True, 0), (48, 48, True, 0), (256, 384, True, 128),
+])
+def test_backward_tiles_match_plain(d, sq, skv, causal, offset):
+    got = _bwd_case(2, sq, skv, 8, 2, d, causal, offset)
+    if causal and offset < 0:
+        assert torch.all(got[0][:, :-offset] == 0)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_backward_query_groups(group, d):
+    _bwd_case(2, 333, 333, 8, 8 // group, d, True, 0, seed=14)
+
+
+@pytest.mark.parametrize("sq,kv_off", [(640, 300), (129, 100)])
+def test_backward_masked_tiles_from_device_offset(sq, kv_off):
+    # q rows < kv_off see no kv column (whole 64-row q tiles at 640), and
+    # kv rows >= sq - kv_off are seen by no q row (whole 128-row kv tiles
+    # at 640): their grads are exactly 0.
+    dq, dk, dv = _bwd_case(2, sq, sq, 4, 2, 128, True, 0,
+                           kv_off=torch.tensor(kv_off, device="cuda"),
+                           seed=16)
+    assert torch.all(dq[:, :kv_off] == 0)
+    assert torch.all(dk[:, sq - kv_off:] == 0)
+    assert torch.all(dv[:, sq - kv_off:] == 0)
+
+
+@pytest.mark.parametrize("s", [48, 1000])
+@pytest.mark.parametrize("d", [64, 128])
+def test_backward_strided_views_of_fused_projection(s, d):
+    # q/k/v as views into one fused [B, S, H + 2 Hkv, D] projection; the
+    # tensor maps read them, and the grads land in the fused grad, through
+    # their strides.
+    g = torch.Generator(device="cuda").manual_seed(18)
+    qkv = torch.randn(2, s, 16, d, generator=g, device="cuda").bfloat16()
+    qkv.requires_grad_()
+    o = flash_attention(qkv[:, :, :8], qkv[:, :, 8:12], qkv[:, :, 12:],
+                        causal=True)
+    do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
+    o.backward(do)
+    q, k, v = (qkv.detach()[:, :, a:b].contiguous()
+               for a, b in ((0, 8), (8, 12), (12, 16)))
+    _, lse_ref = flash_attention_reference(q, k, v, causal=True,
+                                           scale=d ** -0.5)
+    want = flash_attention_backward_reference(
+        q, k, v, o.detach(), lse_ref, do, causal=True, scale=d ** -0.5)
+    got = (qkv.grad[:, :, :8], qkv.grad[:, :, 8:12], qkv.grad[:, :, 12:])
+    _check_grads(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_backward_is_deterministic(d):
+    # No atomics: every grad element is written by one block, so two calls
+    # on the same inputs agree bit for bit.
+    q, k, v = _qkv(2, 1000, 1000, 16, 8, d, torch.bfloat16, seed=20)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    do = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = flash_attention(*leaves, causal=True)
+    first = torch.autograd.grad(o, leaves, do, retain_graph=True)
+    second = torch.autograd.grad(o, leaves, do)
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
