@@ -163,6 +163,37 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&a
   }
 }
 
+// The m16n8k16 A fragments of this thread's rows (r0, r0 + 8) of a 64-row
+// K-major bf16 tile over D, read from its 128-byte-swizzled boxes
+// ``box_stride`` bytes apart (row r's 16-byte chunk ch sits at ch ^ (r % 8);
+// r % 8 == g): the register A operand of a product over D.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const unsigned char* tile,
+                                       int box_stride, int r0, int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const unsigned char* box = tile + (kk >> 2) * box_stride + 4 * t4;
+    const int lo = ((2 * (kk & 3)) ^ g) << 4;         // columns 16 kk + 2 t4, + 1
+    const int hi = ((2 * (kk & 3) + 1) ^ g) << 4;     // and 8 on
+    a[kk][0] = *reinterpret_cast<const uint32_t*>(box + r0 * 128 + lo);
+    a[kk][1] = *reinterpret_cast<const uint32_t*>(box + (r0 + 8) * 128 + lo);
+    a[kk][2] = *reinterpret_cast<const uint32_t*>(box + r0 * 128 + hi);
+    a[kk][3] = *reinterpret_cast<const uint32_t*>(box + (r0 + 8) * 128 + hi);
+  }
+}
+
+// acc (64 x 64) = A (registers, 64 x D) B^T (64 rows at b_addr, K-major
+// bf16 in 64-column boxes ``b_box`` bytes apart).
+template <int D>
+__device__ __forceinline__ void product_rs_k(float (&acc)[32], const uint32_t (&a)[D / 16][4],
+                                             uint32_t b_addr, int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t db = sw128_desc(b_addr + (kk >> 2) * b_box + (kk & 3) * 32, 16, 1024);
+    wgmma_rs_m64n64k16(acc, a[kk], db, kk > 0);
+  }
+}
+
 // acc (64 x N) = A (64 rows at a_addr) B^T (N rows at b_addr) over D, both
 // K-major bf16 tiles of 64-column boxes ``a_box`` / ``b_box`` bytes apart.
 template <int D, int N>
@@ -475,8 +506,6 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     const int r0 = (tid >> 5) * 16 + g;       // this thread's rows: r0 and r0 + 8
     const int mw = m0 + 64 * c;
     unsigned char* sQc = sQ + c * 64 * 128;
-    const uint32_t q_addr = smem_u32(sQc);
-    const uint32_t do_addr = smem_u32(sDo + c * 64 * 128);
 
     float lse2[2], delta[2];
 #pragma unroll
@@ -487,7 +516,13 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     float sc[kBlockN / 2], dp[kBlockN / 2];   // s (then p) and dp (then ds)
     uint32_t da[kBlockN / 16][4];
 
+    // Q and dO stay put: their rows of this consumer move once into
+    // registers, the A operands of s and dp, so that those products read
+    // only K and V from shared memory.
+    uint32_t qa[D / 16][4], doa[D / 16][4];
     mbar_wait(full_q, 0);
+    load_a<D>(qa, sQc, kBlockM * 128, r0, g, t4);
+    load_a<D>(doa, sDo + c * 64 * 128, kBlockM * 128, r0, g, t4);
     for (int t = 0; t < n_tiles; ++t) {
       const int n0 = t * kBlockN;
       const int s = t % kStages;
@@ -495,8 +530,8 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
       const uint32_t v_addr = smem_u32(sV + s * T::kKVBytes);
       mbar_wait(&full[s], (t / kStages) & 1);
       wgmma_fence();
-      product_ss<D, kBlockN>(sc, q_addr, kBlockM * 128, k_addr, kBlockN * 128);
-      product_ss<D, kBlockN>(dp, do_addr, kBlockM * 128, v_addr, kBlockN * 128);
+      product_rs_k<D>(sc, qa, k_addr, kBlockN * 128);
+      product_rs_k<D>(dp, doa, v_addr, kBlockN * 128);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(sc);
@@ -526,9 +561,9 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
       mbar_arrive(&empty[s]);
     }
 
-    // dQ scale in bf16 over this consumer's rows of the Q tile (read by no
-    // product any more; the wait on full_q above ran for every block); one
-    // thread stores, rows >= Sq clipped.
+    // dQ scale in bf16 over this consumer's rows of the Q tile, once every
+    // thread has its Q fragments; one thread stores, rows >= Sq clipped.
+    named_bar_sync(1 + c, 128);
     stage_rows<D>(sQc, kBlockM * 128, r0, g, t4, dq, p.scale);
     fence_proxy_async();
     named_bar_sync(1 + c, 128);
