@@ -359,14 +359,16 @@ __global__ void __launch_bounds__(T::kThreads, 1)
       const uint32_t do_addr = q_addr + T::kQBytes;
       const float* lse2 = reinterpret_cast<const float*>(stage + 2 * T::kQBytes);
       const float* delta = lse2 + kBlockM;
+      // Four products in four groups, each awaited only where its result is
+      // needed: p^T is computed while dp^T runs, ds^T while dV does.
       mbar_wait(&full[s], (i / kStages) & 1);
       wgmma_fence();
       product_ss<D, kBlockM>(st, k_addr, kBlockN * 128, q_addr, kBlockM * 128);
+      wgmma_commit();
       product_ss<D, kBlockM>(dpt, v_addr, kBlockN * 128, do_addr, kBlockM * 128);
       wgmma_commit();
-      wgmma_wait<0>();
+      wgmma_wait<1>();
       fence_operands(st);
-      fence_operands(dpt);
 
       // Element e of s^T: kv row r0 (+ 8 for e & 2), q column
       // 8 (e >> 2) + 2 t4 + (e & 1). Only tiles the diagonal cuts are
@@ -377,14 +379,21 @@ __global__ void __launch_bounds__(T::kThreads, 1)
         const int qc = (e >> 2) * 8 + t4 * 2 + (e & 1);
         float x = st[e];
         if (need_mask && m0 + qc + off < kv_row0 + ((e >> 1) & 1) * 8) x = -INFINITY;
-        const float pe = fast_exp2(fmaf(x, p.scale_log2, -lse2[qc]));
-        st[e] = pe;
-        dpt[e] = pe * (dpt[e] - delta[qc]);
+        st[e] = fast_exp2(fmaf(x, p.scale_log2, -lse2[qc]));
       }
       pack_a<kBlockM>(pa, st);
-      pack_a<kBlockM>(da, dpt);
       wgmma_fence();
       product_rs<D, kBlockM>(dv, pa, do_addr, kBlockM * 128);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_operands(dpt);
+#pragma unroll
+      for (int e = 0; e < kBlockM / 2; ++e) {
+        const int qc = (e >> 2) * 8 + t4 * 2 + (e & 1);
+        dpt[e] = st[e] * (dpt[e] - delta[qc]);
+      }
+      pack_a<kBlockM>(da, dpt);
+      wgmma_fence();
       product_rs<D, kBlockM>(dk, da, q_addr, kBlockM * 128);
       wgmma_commit();
       wgmma_wait<0>();
