@@ -51,17 +51,24 @@
 //     accumulator rows that re-pack into wgmma's register A operand:
 //       s^T = K Q^T, dp^T = V dO^T   (wgmma SS, both K-major),
 //       p^T = exp2(s^T scale log2e - lse2), ds^T = p^T (dp^T - delta),
-//       dV += p^T dO, dK += ds^T Q   (wgmma RS, dO and Q MN-major).
-//     Only tiles the causal frontier cuts are masked; kv rows past Skv are
-//     computed and never stored. dK scale and dV go out in bf16 through the
-//     consumer's own rows of the K and V tiles and a TMA store, which clips
-//     rows >= Skv; a block with no live q tile stores zeros.
+//       dV += p^T dO, dK += ds^T Q   (wgmma RS, dO and Q MN-major),
+//     each product its own group, awaited only where its result is needed:
+//     p^T is computed while dp^T runs and ds^T while dV does. Registers
+//     per consumer thread at D = 128: dK and dV 64 f32 each, s^T and dp^T
+//     32 each, p^T and ds^T 16 b32 each, under setmaxnreg 240 with no
+//     spills; so K and V stay in shared memory (in registers they would
+//     need 64 more and ptxas spills). Only tiles the causal frontier cuts
+//     are masked; kv rows past Skv are computed and never stored. dK scale
+//     and dV go out in bf16 through the consumer's own rows of the K and V
+//     tiles and a TMA store, which clips rows >= Skv; a block with no live
+//     q tile stores zeros.
 // (b) dq: one block per (q tile, head, batch), heavy q tiles first: 128
 //     rows (two consumers) when Sq > 64, else 64 rows (one consumer, two
-//     blocks per SM). Q, dO, lse2 and delta stay put; 64-row K and V tiles
-//     stream through the ring over the live kv tiles (the forward's causal
-//     frontier):
-//       s = Q K^T, dp = dO V^T (SS), p, ds = p (dp - delta),
+//     blocks per SM). Q, dO, lse2 and delta stay put, Q and dO as register
+//     A fragments (64 b32 a thread), so that s and dp read only K and V
+//     from shared memory; 64-row K and V tiles stream through the ring over
+//     the live kv tiles (the forward's causal frontier):
+//       s = Q K^T, dp = dO V^T (RS, K and V K-major), p, ds = p (dp - delta),
 //       dQ += ds K (RS, K MN-major),
 //     masked where the diagonal or the ragged kv edge cuts the tile; dQ
 //     scale goes out through the consumer's rows of the Q tile by TMA.
@@ -522,7 +529,7 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     float dq[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
-    float sc[kBlockN / 2], dp[kBlockN / 2];   // s (then p) and dp (then ds)
+    float sc[kBlockN / 2], dp[kBlockN / 2];   // s, and dp (then ds)
     uint32_t da[kBlockN / 16][4];
 
     // Q and dO stay put: their rows of this consumer move once into

@@ -26,6 +26,7 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "kernel_ab.py")
 
 
 def _imported(tree):
