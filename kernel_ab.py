@@ -31,6 +31,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops import flash_attention as fa
+
 SHAPES = {             # B, S, H, Hkv, D
     "train": (12, 2048, 16, 8, 128),
     "s512": (8, 512, 16, 8, 128),
@@ -41,11 +44,17 @@ SOURCE = os.path.join("kubeflow_tpu_torch", "ops", "csrc",
                       "flash_attention_bwd.cu")
 
 
+def kernel_name(name: str) -> str:
+    """``flash_bwd_...`` and its template arguments, from a mangled or a
+    demangled kernel name."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name[max(name.find("flash_bwd"), 0):]
+    return name.split("EEEEE")[0].split("(")[0].split("'")[0]
+
+
 def build(root: str, lib: str) -> list:
     """Compile ``root``'s K2 source into ``lib``; returns ptxas's report
     lines for the bf16 kernels."""
-    from kubeflow_tpu_torch.ops import _build
-
     proc = subprocess.run(
         [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib,
          os.path.join(root, SOURCE)], capture_output=True, text=True)
@@ -56,26 +65,16 @@ def build(root: str, lib: str) -> list:
         if "Compiling entry" in line:
             bf16 = "bf16" in line
             if bf16:
-                report.append("  " + line.split("'")[1][-60:])
+                report.append("  " + kernel_name(line.split("'")[1]))
         elif bf16 and ("registers" in line or "spill" in line):
-            report.append("    " + line.strip())
-        elif "C75" in line:
-            report.append("    " + line.strip()[:200])
+            report.append("    " + line.split(":", 1)[-1].strip())
+        elif "C75" in line:     # e.g. C7512: wgmma serialised for lack of registers
+            report.append(f"    {line.split(')')[0].split('(')[-1]} in "
+                          f"{kernel_name(line.split(chr(39))[1])}")
     return report
 
 
-def entry(lib: str):
-    fn = ctypes.CDLL(lib).kftpu_flash_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    return fn
-
-
 def run_shape(name: str, fns: dict) -> bool:
-    from kubeflow_tpu_torch.ops import flash_attention as fa
-
     b, s, h, hkv, d = SHAPES[name]
     gen = torch.Generator(device="cuda").manual_seed(1)
 
@@ -153,8 +152,7 @@ def run_shape(name: str, fns: dict) -> bool:
             for _ in range(5):
                 call(fn)
             torch.cuda.synchronize()
-        parts = [f"{e.key.split('(')[0].split('::')[-1][:50]} "
-                 f"{e.device_time_total / e.count / 1e3:.4f}"
+        parts = [f"{kernel_name(e.key)} {e.device_time_total / e.count / 1e3:.4f}"
                  for e in prof.key_averages() if "flash_bwd" in e.key]
         print(f"  {name} {label} by kernel (ms): " + "; ".join(parts),
               flush=True)
@@ -169,7 +167,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
@@ -181,7 +178,8 @@ def main() -> int:
             reports = list(pool.map(build, args.dirs, libs))
         for root, report in zip(args.dirs, reports):
             print(f"build {root}:\n" + "\n".join(report), flush=True)
-        fns = {root: entry(lib) for root, lib in zip(args.dirs, libs)}
+        fns = {root: fa.bind_bwd(ctypes.CDLL(lib))
+               for root, lib in zip(args.dirs, libs)}
     ok = True
     for name in args.shapes.split(","):
         ok &= run_shape(name, fns)

@@ -156,17 +156,23 @@ def _fwd_kernel_fn():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_kernel_fn():
-    """K2's C entry point with its ctypes signature."""
-    from kubeflow_tpu_torch.ops._build import load_library
-
-    fn = load_library(_BWD_SOURCE).kftpu_flash_attention_bwd
+def bind_bwd(lib: ctypes.CDLL):
+    """K2's C entry point in a loaded build of ``flash_attention_bwd.cu``,
+    with its ctypes signature (``kernel_ab.py`` binds other builds)."""
+    fn = lib.kftpu_flash_attention_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p]
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel_fn():
+    """K2's C entry point, built and loaded at first use."""
+    from kubeflow_tpu_torch.ops._build import load_library
+
+    return bind_bwd(load_library(_BWD_SOURCE))
 
 
 def _kernel(q, k, v, off: torch.Tensor, causal: bool,
