@@ -36,10 +36,14 @@
 // registers. The skeleton is the forward's (flash_attention_fwd.cu): a
 // producer warpgroup (setmaxnreg 24) whose one thread issues every TMA
 // load into a 2-stage ring on full/empty mbarriers, and consumer
-// warpgroups (setmaxnreg 240) of 64 rows each.
+// warpgroups of 64 rows each (setmaxnreg 240; 232 where two blocks share an
+// SM).
 //
-// (a) dk/dv: one block per (128-row kv tile, kv head, batch), low kv tiles
-//     (the heaviest under the causal mask) first. K and V are loaded once.
+// (a) dk/dv: one block per (128-row kv tile, kv head, batch). The blocks
+//     walk windows of 8 (kv head, batch) groups with the kv tile slowest:
+//     a window's low kv tiles (the heaviest under the causal mask) start
+//     first and its last blocks are light, while the groups whose Q and dO
+//     the blocks share through L2 run together. K and V are loaded once.
 //     The ring streams 64-row Q and dO tiles over the G query heads of the
 //     kv head and, for each, the q tiles the causal bound lets through: one
 //     flat tile counter for the ring's phase, the same count on both sides.
@@ -62,16 +66,17 @@
 //     and dV go out in bf16 through the consumer's own rows of the K and V
 //     tiles and a TMA store, which clips rows >= Skv; a block with no live
 //     q tile stores zeros.
-// (b) dq: one block per (q tile, head, batch), heavy q tiles first: 128
-//     rows (two consumers) when Sq > 64, else 64 rows (one consumer, two
-//     blocks per SM). Q, dO, lse2 and delta stay put, Q and dO as register
-//     A fragments (64 b32 a thread), so that s and dp read only K and V
-//     from shared memory; 64-row K and V tiles stream through the ring over
-//     the live kv tiles (the forward's causal frontier):
+// (b) dq: one block per (64-row q tile, head, batch), heavy q tiles first,
+//     with one consumer warpgroup and two blocks per SM (as fast as one
+//     block of two consumers over 128 rows at the training shape, faster
+//     at shorter ones: PERF.md). Q, dO, lse2 and delta stay put, Q and dO
+//     as register A fragments (64 b32 a thread), so that s and dp read only
+//     K and V from shared memory; 64-row K and V tiles stream through the
+//     ring over the live kv tiles (the forward's causal frontier):
 //       s = Q K^T, dp = dO V^T (RS, K and V K-major), p, ds = p (dp - delta),
 //       dQ += ds K (RS, K MN-major),
 //     masked where the diagonal or the ragged kv edge cuts the tile; dQ
-//     scale goes out through the consumer's rows of the Q tile by TMA.
+//     scale goes out through the Q tile by TMA.
 //
 // f32: plain FMA kernels, one warp per kv row (dk/dv) and per q row (dq);
 // a correctness path (the model trains bf16).
@@ -237,6 +242,22 @@ __device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (
   }
 }
 
+// Block ``block`` of a 1-D grid over n_groups x n_tiles blocks, walked in
+// windows of kWindow groups: a window takes its tile index slowest and its
+// groups fastest, so the heaviest tiles (index 0) of the window start
+// first and the last blocks to start are light ones, while the window's
+// groups, whose operands the blocks share through L2, run together (8
+// groups x 16 tiles: about one wave of blocks at the training shape).
+__device__ __forceinline__ void window_order(int block, int n_tiles, int n_groups, int& tile,
+                                             int& group) {
+  constexpr int kWindow = 8;
+  const int w = block / (kWindow * n_tiles);
+  const int size = min(kWindow, n_groups - w * kWindow);
+  const int r = block - w * kWindow * n_tiles;
+  tile = r / size;
+  group = w * kWindow + r % size;
+}
+
 // ---------------------------------------------------------------- bf16 (a)
 
 template <int D_>
@@ -274,9 +295,11 @@ __global__ void __launch_bounds__(T::kThreads, 1)
   uint64_t* full = full_kv + 1;                // [kStages]
   uint64_t* empty = full + kStages;            // [kStages]
 
-  const int n0 = blockIdx.x * kBlockN;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  int kv_tile, group;
+  window_order(blockIdx.x, (p.Skv + kBlockN - 1) / kBlockN, p.Hkv * p.B, kv_tile, group);
+  const int n0 = kv_tile * kBlockN;   // low kv tiles see the most q tiles
+  const int hk = group % p.Hkv;
+  const int b = group / p.Hkv;
   const int G = p.H / p.Hkv;
   const int off = p.causal ? *p.offset : 0;
   // Causal: q row i sees kv row j iff i + off >= j, so no q row before
@@ -431,21 +454,20 @@ __global__ void __launch_bounds__(T::kThreads, 1)
 
 // ---------------------------------------------------------------- bf16 (b)
 
-template <int D_, int kConsumers_>
+template <int D_>
 struct DqTiles {
   static constexpr int D = D_;
-  static constexpr int kConsumers = kConsumers_;    // warpgroups of 64 q rows
-  static constexpr int kBlockM = 64 * kConsumers;
-  static constexpr int kBlockN = 64;                // kv rows per ring tile
+  static constexpr int kBlockM = 64;       // q rows per block: one consumer warpgroup
+  static constexpr int kBlockN = 64;       // kv rows per ring tile
   static constexpr int kStages = 2;
-  static constexpr int kThreads = 128 * (kConsumers + 1);
-  static constexpr int kMinBlocks = kConsumers == 2 ? 1 : 2;
-  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 232;
+  static constexpr int kThreads = 256;     // the producer and the consumer warpgroup
+  static constexpr int kMinBlocks = 2;     // 2 x 128 x (24 + 232) = 64 K registers
+  static constexpr int kConsumerRegs = 232;
   static constexpr int kBoxes = D / 64;
   static constexpr int kQBytes = kBlockM * D * 2;
   static constexpr int kKVBytes = kBlockN * D * 2;
   // 1024 bytes of slack to align the tiles, q, do, the k and v rings and
-  // 2 + 2 kStages barriers.
+  // 1 + 2 kStages barriers.
   static constexpr int kSmem = 1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 64;
 };
 
@@ -466,6 +488,7 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
   uint64_t* empty = full + kStages;                     // [kStages]
 
   // Last q tiles first: under the causal mask they carry the most kv tiles.
+  // (The dk/dv kernel's windowed order measured slower here: PERF.md.)
   const int m0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -480,14 +503,13 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     mbar_init(full_q, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], T::kConsumers * 128);
+      mbar_init(&empty[s], 128);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
+  if (threadIdx.x < 128) {
     // Producer: one thread issues every load.
     reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
@@ -513,32 +535,29 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
       }
     }
   } else {
-    // Consumer warpgroup c: q rows m0 + 64 c .. m0 + 64 c + 63.
+    // Consumer: q rows m0 .. m0 + 63.
     reg_alloc<T::kConsumerRegs>();
-    const int c = wg - 1;
     const int tid = threadIdx.x % 128;
     const int g = (tid & 31) >> 2;
     const int t4 = tid & 3;
     const int r0 = (tid >> 5) * 16 + g;       // this thread's rows: r0 and r0 + 8
-    const int mw = m0 + 64 * c;
-    unsigned char* sQc = sQ + c * 64 * 128;
 
     float lse2[2], delta[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) load_stats(p, b, h, mw + r0 + 8 * i, lse2[i], delta[i]);
+    for (int i = 0; i < 2; ++i) load_stats(p, b, h, m0 + r0 + 8 * i, lse2[i], delta[i]);
     float dq[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
     float sc[kBlockN / 2], dp[kBlockN / 2];   // s, and dp (then ds)
     uint32_t da[kBlockN / 16][4];
 
-    // Q and dO stay put: their rows of this consumer move once into
-    // registers, the A operands of s and dp, so that those products read
-    // only K and V from shared memory.
+    // Q and dO stay put: they move once into registers, the A operands of
+    // s and dp, so that those products read only K and V from shared
+    // memory.
     uint32_t qa[D / 16][4], doa[D / 16][4];
     mbar_wait(full_q, 0);
-    load_a<D>(qa, sQc, kBlockM * 128, r0, g, t4);
-    load_a<D>(doa, sDo + c * 64 * 128, kBlockM * 128, r0, g, t4);
+    load_a<D>(qa, sQ, kBlockM * 128, r0, g, t4);
+    load_a<D>(doa, sDo, kBlockM * 128, r0, g, t4);
     for (int t = 0; t < n_tiles; ++t) {
       const int n0 = t * kBlockN;
       const int s = t % kStages;
@@ -555,14 +574,14 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
 
       // Only tiles cut by the ragged kv edge or by the diagonal are masked.
       const bool need_mask =
-          (n0 + kBlockN > p.Skv) || (p.causal && (mw + off < n0 + kBlockN - 1));
+          (n0 + kBlockN > p.Skv) || (p.causal && (m0 + off < n0 + kBlockN - 1));
 #pragma unroll
       for (int e = 0; e < kBlockN / 2; ++e) {
         const int row = (e >> 1) & 1;
         float x = sc[e];
         if (need_mask) {
           const int col = n0 + (e >> 2) * 8 + t4 * 2 + (e & 1);
-          const int qp = mw + r0 + row * 8 + off;
+          const int qp = m0 + r0 + row * 8 + off;
           if (col >= p.Skv || (p.causal && qp < col)) x = -INFINITY;
         }
         const float pe = fast_exp2(fmaf(x, p.scale_log2, -lse2[row]));
@@ -577,16 +596,16 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
       mbar_arrive(&empty[s]);
     }
 
-    // dQ scale in bf16 over this consumer's rows of the Q tile, once every
-    // thread has its Q fragments; one thread stores, rows >= Sq clipped.
-    named_bar_sync(1 + c, 128);
-    stage_rows<D>(sQc, kBlockM * 128, r0, g, t4, dq, p.scale);
+    // dQ scale in bf16 over the Q tile, once every thread has its Q
+    // fragments; one thread stores, rows >= Sq clipped.
+    named_bar_sync(1, 128);
+    stage_rows<D>(sQ, kBlockM * 128, r0, g, t4, dq, p.scale);
     fence_proxy_async();
-    named_bar_sync(1 + c, 128);
+    named_bar_sync(1, 128);
     if (tid == 0) {
 #pragma unroll
       for (int bx = 0; bx < T::kBoxes; ++bx) {
-        tma_store_4d(&p.tm_out0, sQc + bx * kBlockM * 128, bx * 64, mw, h, b);
+        tma_store_4d(&p.tm_out0, sQ + bx * kBlockM * 128, bx * 64, m0, h, b);
       }
       tma_store_commit();
       tma_store_wait_read();
@@ -748,7 +767,7 @@ cudaError_t launch_dkdv_bf16(const Params& a, cudaStream_t stream) {
       encode_bshd_bf16(&p.tm_out0, a.dk, a.B, a.Skv, a.Hkv, D, a.dk_ss, a.dk_sh, a.dk_sb, 64) &&
       encode_bshd_bf16(&p.tm_out1, a.dv, a.B, a.Skv, a.Hkv, D, a.dv_ss, a.dv_sh, a.dv_sb, 64);
   if (!maps) return cudaErrorInvalidValue;
-  const dim3 grid((a.Skv + T::kBlockN - 1) / T::kBlockN, a.Hkv, a.B);
+  const int grid = (a.Skv + T::kBlockN - 1) / T::kBlockN * a.Hkv * a.B;
   flash_bwd_dkdv_bf16<T><<<grid, T::kThreads, T::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -777,9 +796,7 @@ template <int D>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   cudaError_t err = launch_dkdv_bf16<DkDvTiles<D>>(p, stream);
   if (err != cudaSuccess) return err;
-  // Sq <= 64 takes 64-row q tiles (one consumer, two blocks per SM).
-  return p.Sq <= 64 ? launch_dq_bf16<DqTiles<D, 1>>(p, stream)
-                    : launch_dq_bf16<DqTiles<D, 2>>(p, stream);
+  return launch_dq_bf16<DqTiles<D>>(p, stream);
 }
 
 template <int D>

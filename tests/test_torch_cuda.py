@@ -269,9 +269,8 @@ def test_backward_strided_views():
 
 # The bf16 backward's tiles: the dk/dv kernel takes 128-row kv tiles (two
 # consumer warpgroups of 64) and streams 64-row q tiles over the query
-# group; the dq kernel takes 128-row q tiles (64 when Sq <= 64) and streams
-# 64-row kv tiles. TMA's zero fill pads the ragged edges, whose rows the
-# stores clip.
+# group; the dq kernel takes 64-row q tiles and streams 64-row kv tiles.
+# TMA's zero fill pads the ragged edges, whose rows the stores clip.
 def _bwd_case(b, sq, skv, h, hkv, d, causal, q_off, kv_off=0, seed=12):
     q, k, v = _qkv(b, sq, skv, h, hkv, d, torch.bfloat16, seed=seed)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
