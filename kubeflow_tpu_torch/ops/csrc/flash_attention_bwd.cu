@@ -206,21 +206,18 @@ __device__ __forceinline__ void product_rs_k(float (&acc)[32], const uint32_t (&
   }
 }
 
-// acc (64 x N) = A (64 rows at a_addr) B^T (N rows at b_addr) over D, both
-// K-major bf16 tiles of 64-column boxes ``a_box`` / ``b_box`` bytes apart.
-template <int D, int N>
-__device__ __forceinline__ void product_ss(float (&acc)[N / 2], uint32_t a_addr, int a_box,
+// acc (64 x 64) = A (64 rows at a_addr) B^T (64 rows at b_addr) over D,
+// both K-major bf16 tiles of 64-column boxes ``a_box`` / ``b_box`` bytes
+// apart.
+template <int D>
+__device__ __forceinline__ void product_ss(float (&acc)[32], uint32_t a_addr, int a_box,
                                            uint32_t b_addr, int b_box) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk & 3) * 32;      // 16 bf16 within a 128-byte row
     const uint64_t da = sw128_desc(a_addr + (kk >> 2) * a_box + col, 16, 1024);
     const uint64_t db = sw128_desc(b_addr + (kk >> 2) * b_box + col, 16, 1024);
-    if constexpr (N == 128) {
-      wgmma_ss_m64n128k16(acc, da, db, kk > 0);
-    } else {
-      wgmma_ss_m64n64k16(acc, da, db, kk > 0);
-    }
+    wgmma_ss_m64n64k16(acc, da, db, kk > 0);
   }
 }
 
@@ -393,9 +390,9 @@ __global__ void __launch_bounds__(T::kThreads, 1)
       // needed: p^T is computed while dp^T runs, ds^T while dV does.
       mbar_wait(&full[s], (i / kStages) & 1);
       wgmma_fence();
-      product_ss<D, kBlockM>(st, k_addr, kBlockN * 128, q_addr, kBlockM * 128);
+      product_ss<D>(st, k_addr, kBlockN * 128, q_addr, kBlockM * 128);
       wgmma_commit();
-      product_ss<D, kBlockM>(dpt, v_addr, kBlockN * 128, do_addr, kBlockM * 128);
+      product_ss<D>(dpt, v_addr, kBlockN * 128, do_addr, kBlockM * 128);
       wgmma_commit();
       wgmma_wait<1>();
       fence_operands(st);
