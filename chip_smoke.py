@@ -4,12 +4,13 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. device — CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build — compiles both flash-attention kernels from
-   kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one nvcc per source,
-   started together, and prints the seconds and each register/spill
-   report; then checks K1's and K2's SASS: every bf16 instantiation of
-   K1's kernel and of K2's dk/dv and dq kernels holds wgmma (HGMMA) and
-   TMA loads (UTMALDG), and ptxas reports no spills in either library;
+2. build — compiles the flash-attention kernels (K1, K2) and the decode
+   attention (K3) from kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one
+   nvcc per source, started together, and prints the seconds and each
+   register/spill report; then checks K1's and K2's SASS: every bf16
+   instantiation of K1's kernel and of K2's dk/dv and dq kernels holds
+   wgmma (HGMMA) and TMA loads (UTMALDG), and ptxas reports no spills in
+   either library;
 3. kernel (K1, forward) — holds the kernel against its plain PyTorch
    version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
    Sq=Skv 32, 128 and 512; one full-attention case; one D=64 case; one
@@ -37,19 +38,35 @@ Phases (any failure exits non-zero, and no result line is printed):
    K2's seven-product split (14 B H live D); at the train shape also the
    device ms of K2's dk/dv and dq kernels apart (torch.profiler, by
    kernel name);
-5. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
-   (full width, random bf16 weights made on the card) and sends 9
-   concurrent /v1/generate requests over HTTP across the prefill buckets,
-   one past the largest (chunked prefill), one streamed and one sampled.
-   Checks the token counts and ids, that the flash kernel ran once per
-   layer per grouped prefill (its launch count is zeroed just before),
-   and re-forwards two greedy requests through the model with the plain
-   attention in f32 and in bf16, asserting each served token's logit is
-   within twice the bf16 re-forward's measured rounding noise of the f32
-   max. Prints tok/s, p50 TTFT, weight bytes
-   and peak device memory, then profiles one full-batch decode chunk
-   (wall time, device busy time, idle share, top device kernels);
-6. train — runs the training runner in-process (the KFTPU_* env) on the
+5. kernel (K3, decode attention) — holds the kernel against its plain
+   version (decode_attention_reference) at the decode shape (bf16 q, B=8,
+   H=32, Hkv=8, D=128, L=1024, the burst's ragged live lengths) over the
+   bf16 and the int8 cache, unstaged and staged (8 staging rows, all
+   live): max |kernel - plain| <= 2e-2 x max |plain|. Times, on the
+   device (CUDA-graph replays), the kernel and the plain version and, for
+   the unstaged bf16 case, scaled_dot_product_attention(enable_gqa=True)
+   with a bool mask over the cache, as a yardstick the port never calls;
+   computes the bound (bytes of the live rows, q and o over 3.35 TB/s);
+6. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
+   (full width, random bf16 weights made on the card; staged decode and
+   CUDA graphs, as the server runs by default) and sends 9 concurrent
+   /v1/generate requests over HTTP across the prefill buckets, one past
+   the largest (chunked prefill), one streamed and one sampled, twice:
+   the cold burst captures the graphs its new shapes need, the warm one
+   finds them; then all again with KFTPU_SERVING_QUANTIZE_KV=int8.
+   Checks the token counts and
+   ids, that K1 ran once per layer per grouped prefill or chunked-prefill
+   chunk and K3 once per layer per decode step (launch counts zeroed just
+   before the burst, graph replays counted), and re-forwards two greedy
+   requests through the model with the plain attention in f32 and in
+   bf16 (for the int8 burst with the decode rows' k/v quantized and
+   dequantized, as the cache holds them), asserting each served token's
+   logit is within twice the bf16 re-forward's measured rounding noise of
+   the f32 max. Prints tok/s, p50 TTFT, weight bytes and peak device
+   memory, then profiles one full-batch decode chunk (wall time, device
+   busy time, idle share, top device kernels) and times three more
+   without the profiler;
+7. train — runs the training runner in-process (the KFTPU_* env) on the
    ~700M-parameter Llama of ``bench.py train`` at full width and depth
    (vocab 32000, embed 2048, 12 layers, 16/8 heads, head_dim 128, MLP
    5632; batch 12 x seq 2048; bf16 params, bf16 Adam mu, bf16 logits;
@@ -63,10 +80,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    same width with attn_impl="flash" against attn_impl="full": each
    parameter's relative error ||g_flash - g_full|| / ||g_full|| within
    GRAD_REL_BOUND;
-7. prints the {"kernels": [...]} line (K1's entry at the serving prefill
+8. prints the {"kernels": [...]} line (K1's entry at the serving prefill
    shape, with its training-shape ms, SDPA ms and bound under train_
-   keys; K2's at the train shape with dkdv_ms, dq_ms and split_bound_ms),
-   then the result line.
+   keys; K2's at the train shape with dkdv_ms, dq_ms and split_bound_ms;
+   K3's at the served path's case, bf16 staged, with the other cases'
+   times and SDPA's under unstaged_/int8_ keys), then the result line.
 """
 
 from __future__ import annotations
@@ -88,6 +106,7 @@ import torch
 # The card's published peaks (H100 SXM data sheet, dense): bf16 tensor-core
 # rate and memory bandwidth. Times below them are the least possible.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12          # outside the tensor cores (K3's FMAs)
 PEAK_BYTES_PER_S = 3.35e12
 H, HKV = 32, 8      # llama3-8b's query and kv heads
 TRAIN_H, TRAIN_HKV = 16, 8      # the 700M training model's heads
@@ -482,6 +501,102 @@ def backward_phase():
     return rows, max_err
 
 
+# The burst's prompt lengths (serve phase) 16 tokens into decoding: the
+# live rows of K3's eight slots at the decode shape.
+DECODE_LENGTHS = [36, 46, 116, 136, 216, 266, 416, 516]
+DECODE_L, DECODE_C = 1024, 8
+
+
+def decode_bound_ms(lengths, h, hkv, d, cache_bytes, stage_rows):
+    """Least time of K3 on this card: the larger of the bytes it must move
+    (each live cache row's k and v, and their f32 scales for int8; the
+    live staging rows; q read and o written once) over the memory rate,
+    and its f32 FMAs (4 D flops a query head per live row) over the f32
+    rate outside the tensor cores."""
+    rows = sum(min(n, DECODE_L) for n in lengths)
+    b = len(lengths)
+    nbytes = rows * hkv * d * 2 * cache_bytes + 4 * b * h * d
+    if cache_bytes == 1:
+        nbytes += rows * hkv * 2 * 4
+    nbytes += stage_rows * b * hkv * d * 2 * 2
+    flops = 4.0 * h * d * (rows + stage_rows * b)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def decode_phase():
+    """K3 against its plain version at the decode shape; returns (rows,
+    max_abs_err)."""
+    from kubeflow_tpu_torch.models.llama import quantize_kv_rows
+    from kubeflow_tpu_torch.ops.attention import decode_attention_reference
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, d = len(DECODE_LENGTHS), 128
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q = rand(b, 1, H, d)
+    k, v = rand(b, DECODE_L, HKV, d), rand(b, DECODE_L, HKV, d)
+    (k8, ks), (v8, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    sk, sv = rand(b, DECODE_C, HKV, d), rand(b, DECODE_C, HKV, d)
+    idx = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    live = torch.arange(DECODE_L, device="cuda")[None, :] < idx[:, None]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=live[:, None, None, :], enable_gqa=True)
+
+    cases = [("bf16", {}, None), ("int8", {"k_scale": ks, "v_scale": vs},
+                                  None),
+             ("bf16_staged", {}, DECODE_C - 1),
+             ("int8_staged", {"k_scale": ks, "v_scale": vs}, DECODE_C - 1)]
+    rows, max_err = [], 0.0
+    for name, scales, step in cases:
+        ck, cv = (k8, v8) if scales else (k, v)
+        stage = ({} if step is None else
+                 {"stage_key": sk, "stage_value": sv, "stage_step": step})
+
+        def kernel():
+            return decode_attention(q, ck, cv, idx, **scales, **stage)
+
+        def plain():
+            return decode_attention_reference(q, ck, cv, idx, **scales,
+                                              **stage)
+
+        with torch.no_grad():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ref = want.float().abs().max().item()
+            if not err <= 2e-2 * ref:
+                raise AssertionError(f"K3 {name}: max err {err:.3e} > 2e-2 x "
+                                     f"{ref:.3e}")
+            ms = device_ms(kernel)
+            plain_ms = device_ms(plain)
+            library_ms = device_ms(library) if name == "bf16" else None
+            if name == "bf16":
+                sdpa_err = (library().transpose(1, 2).float()
+                            - want.float()).abs().max().item()
+        bound, bound_by = decode_bound_ms(
+            DECODE_LENGTHS, H, HKV, d, 1 if scales else 2,
+            0 if step is None else step + 1)
+        max_err = max(max_err, err)
+        rows.append(dict(case=name, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound, bound_by=bound_by))
+        lib = "n/a" if library_ms is None else (
+            f"{library_ms:.4f} ms (its err {sdpa_err:.3e})")
+        log(f"K3 {name}: err {err:.3e} kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms sdpa {lib} bound {bound * 1e3:.2f} us "
+            f"({bound_by})")
+    return rows, max_err
+
+
 def post(base: str, body: dict):
     req = urllib.request.Request(
         f"{base}/v1/generate", data=json.dumps(body).encode(),
@@ -494,7 +609,10 @@ def post(base: str, body: dict):
         return json.load(r)
 
 
-def serve_phase():
+def serve_phase(quantize_kv: str = ""):
+    """One HTTP burst against the llama3-8b server; ``quantize_kv`` "int8"
+    serves from the int8 KV cache. Returns the burst's figures."""
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
     from kubeflow_tpu_torch.ops.flash_attention import flash_attention
     from kubeflow_tpu_torch.serving.server import build_server, env_config
 
@@ -502,17 +620,25 @@ def serve_phase():
         "KFTPU_SERVING_MODEL": "llama3-8b", "KFTPU_SERVING_MAX_BATCH": "8",
         "KFTPU_SERVING_MAX_LEN": "1024", "KFTPU_SERVING_DECODE_CHUNK": "8",
         "KFTPU_SERVING_HOST": "127.0.0.1", "KFTPU_SERVING_PORT": "0",
+        "KFTPU_SERVING_QUANTIZE_KV": quantize_kv,
     })
     os.environ.pop("KFTPU_PLATFORM", None)          # cuda
+    tag = f"serve [{quantize_kv or 'bf16'} KV cache]"
     t0 = time.time()
     server = build_server(env_config())
     engine = server.engine
     model = engine.model
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    log(f"serve: llama3-8b built in {time.time() - t0:.1f} s, weights "
-        f"{weight_bytes / 1e9:.2f} GB")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for layer in engine._cache for t in layer.values())
+    log(f"{tag}: llama3-8b built in {time.time() - t0:.1f} s, weights "
+        f"{weight_bytes / 1e9:.2f} GB, KV cache {cache_bytes / 1e9:.3f} GB "
+        f"(staging {model.cfg.decode_staging} rows)")
+    t0 = time.time()
     engine.warmup(512)
+    log(f"{tag}: warmup (bucket 512's greedy prefill graphs, the decode "
+        f"chunk's graph of each sampling variant) {time.time() - t0:.1f} s")
     server.start()
     base = f"http://127.0.0.1:{server.port}"
     V = model.cfg.vocab_size
@@ -524,19 +650,25 @@ def serve_phase():
              (700, {})]                                 # 700 > bucket 512
     bodies = [{"tokens": rs.randint(0, V, n).tolist(), "max_new_tokens": new,
                **extra} for n, extra in specs]
-    outs = [None] * len(bodies)
-    errors = []
+    layers = model.cfg.num_layers
+    chunk = engine.cfg.decode_chunk
 
-    def client(i):
-        try:
-            outs[i] = post(base, bodies[i])
-        except Exception as e:  # noqa: BLE001 — reported below, then fail
-            errors.append(f"request {i}: {e!r}")
+    def burst(name):
+        """All requests at once; checks the tokens and the launch counts
+        (graph replays count their captured launches) of this burst."""
+        outs = [None] * len(bodies)
+        errors = []
 
-    try:
+        def client(i):
+            try:
+                outs[i] = post(base, bodies[i])
+            except Exception as e:  # noqa: BLE001 — reported, then fail
+                errors.append(f"request {i}: {e!r}")
+
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.fwd_launches = 0
-        engine.prefill_dispatches = 0
+        flash_attention.fwd_launches = decode_attention.launches = 0
+        engine.prefill_dispatches = engine.extend_dispatches = 0
+        engine.decode_dispatches = 0
         t0 = time.time()
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(len(bodies))]
@@ -545,41 +677,63 @@ def serve_phase():
         for t in threads:
             t.join(timeout=900)
         wall = time.time() - t0
-        launches = flash_attention.fwd_launches
-        dispatches = engine.prefill_dispatches
+        k1, k3 = flash_attention.fwd_launches, decode_attention.launches
+        prefills, extends, decodes = (engine.prefill_dispatches,
+                                      engine.extend_dispatches,
+                                      engine.decode_dispatches)
         peak = torch.cuda.max_memory_allocated()      # the burst's own
+        if errors or any(o is None for o in outs):
+            raise RuntimeError(f"serve failed: {errors}")
+        for body, out in zip(bodies, outs):
+            toks = out["tokens"]
+            if len(toks) != new or not all(0 <= t < V for t in toks):
+                raise AssertionError(f"bad tokens for a "
+                                     f"{len(body['tokens'])}-token prompt: "
+                                     f"{toks}")
+        if prefills < 1 or k1 != layers * (prefills + extends):
+            raise AssertionError(f"K1 launches {k1} != {layers} x "
+                                 f"({prefills} prefill + {extends} extend "
+                                 "dispatches)")
+        if decodes < 1 or k3 != layers * chunk * decodes:
+            raise AssertionError(f"K3 launches {k3} != {layers} x {chunk} "
+                                 f"steps x {decodes} decode dispatches")
+        generated = sum(len(o["tokens"]) for o in outs)
+        ttft_p50 = float(np.median([o["ttft_s"] for o in outs]))
+        log(f"{tag} {name} burst: {len(outs)} requests, {generated} tokens "
+            f"in {wall:.2f} s = {generated / wall:.1f} tok/s, p50 TTFT "
+            f"{ttft_p50 * 1e3:.1f} ms, {prefills} prefill + {extends} "
+            f"extend + {decodes} decode dispatches, K1 launches {k1}, K3 "
+            f"launches {k3}, peak device memory {peak / 1e9:.2f} GB; "
+            f"{len(engine._graphs)} graphs so far")
+        return dict(outs=outs, k1=k1, k3=k3, tok_s=generated / wall,
+                    ttft_p50=ttft_p50, peak=peak)
+
+    try:
+        # The first burst after warmup captures the graphs its new shapes
+        # need; the second finds them.
+        cold = burst("cold")
+        warm = burst("warm")
     finally:
         server.stop()
-    if errors or any(o is None for o in outs):
-        raise RuntimeError(f"serve failed: {errors}")
-    for body, out in zip(bodies, outs):
-        toks = out["tokens"]
-        if len(toks) != new or not all(0 <= t < V for t in toks):
-            raise AssertionError(f"bad tokens for a {len(body['tokens'])}-"
-                                 f"token prompt: {toks}")
-    layers = model.cfg.num_layers
-    if dispatches < 1 or launches != layers * dispatches:
-        raise AssertionError(f"flash launches {launches} != {layers} x "
-                             f"{dispatches} prefill dispatches")
+    outs = cold.pop("outs")
+    warm.pop("outs")
     gaps, bounds = greedy_check(model, [bodies[2], bodies[6]],
-                                [outs[2], outs[6]])
-    decode_breakdown(engine, rs)
-    generated = sum(len(o["tokens"]) for o in outs)
-    ttft_p50 = float(np.median([o["ttft_s"] for o in outs]))
-    log(f"serve: {len(outs)} requests, {generated} tokens in {wall:.2f} s "
-        f"= {generated / wall:.1f} tok/s, p50 TTFT {ttft_p50 * 1e3:.1f} ms, "
-        f"{dispatches} prefill dispatches, flash launches {launches}, "
-        f"weights {weight_bytes / 1e9:.2f} GB, peak device memory "
-        f"{peak / 1e9:.2f} GB; greedy f32 re-forward: {len(gaps)} tokens, "
-        f"{sum(g == 0 for g in gaps)} exact, max gap {max(gaps):.4f}, "
-        f"bounds (2 x bf16 noise) {min(bounds):.4f}-{max(bounds):.4f}")
-    return launches
+                                [outs[2], outs[6]],
+                                kv_int8=quantize_kv == "int8")
+    log(f"{tag}: graphs {sorted(engine._graphs)}; weights "
+        f"{weight_bytes / 1e9:.2f} GB; greedy f32 re-forward: {len(gaps)} "
+        f"tokens, {sum(g == 0 for g in gaps)} exact, max gap "
+        f"{max(gaps):.4f}, bounds (2 x bf16 noise) "
+        f"{min(bounds):.4f}-{max(bounds):.4f}")
+    chunk_stats = decode_breakdown(engine, rs)
+    return dict(cold, warm=warm, **chunk_stats)
 
 
 def decode_breakdown(engine, rs):
     """One decode chunk (decode_chunk steps for every slot, all slots
     busy) under torch.profiler: wall time, device busy time (the sum of
-    the device kernels' own times) and the device's idle share."""
+    the device kernels' own times) and the device's idle share; then the
+    wall time of three more chunks without the profiler."""
     V = engine.model.cfg.vocab_size
     for _ in range(engine.cfg.max_batch):
         engine.submit(rs.randint(0, V, 100).tolist(), max_new_tokens=64)
@@ -598,19 +752,32 @@ def decode_breakdown(engine, rs):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     steps = engine.cfg.decode_chunk
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:6]
+    plain = []
+    for _ in range(3):                  # each step ends in a host fetch
+        t0 = time.perf_counter()
+        engine.step()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    idle = 1 - busy_ms / wall_ms if busy_ms > 0 else None
     log(f"decode chunk: {steps} steps x {engine.cfg.max_batch} slots, wall "
         f"{wall_ms:.2f} ms ({wall_ms / steps:.2f} ms/step), device busy "
-        + (f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}"
-           if busy_ms > 0 else "not measured (no device events)"))
-    for e in top:
+        + (f"{busy_ms:.2f} ms, idle share {idle:.3f}"
+           if busy_ms > 0 else "not measured (no device events)")
+        + "; unprofiled chunks " + " ".join(f"{x:.2f}" for x in plain)
+        + f" ms ({float(np.median(plain)) / steps:.3f} ms/step median)")
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
         log(f"  {e.key[:70]}: {e.device_time_total / 1e3:.2f} ms over "
             f"{e.count} calls")
+    attn = [e for e in kernels if "decode_attn" in e.key]
+    log(f"  decode_attn* (K3, both kernels): "
+        f"{sum(e.device_time_total for e in attn) / 1e3:.3f} ms over "
+        f"{sum(e.count for e in attn)} calls")
     while engine.active_slots:
         engine.step()
+    return dict(chunk_wall_ms=wall_ms, chunk_busy_ms=busy_ms, idle=idle,
+                step_ms=float(np.median(plain)) / steps)
 
 
-def greedy_check(model, bodies, outs):
+def greedy_check(model, bodies, outs, kv_int8: bool = False):
     """Re-forward each served greedy request's own sequence with the plain
     attention (attn_impl="full") twice on the same bf16 weights: in f32
     activations, the reference, and in bf16, as the engine computes. At
@@ -628,7 +795,40 @@ def greedy_check(model, bodies, outs):
     prompt 0..L-1, then generated token i at L + 1 + i (the JAX engine's
     decode RoPE positions, which the port follows), so one causal forward
     of prompt + served tokens gives every step's logits from row L - 1
-    on. Returns the gaps and the bounds."""
+    on. With ``kv_int8`` the re-forwards read k/v as the int8 cache holds
+    them where the engine read the cache (the decode steps, query rows >=
+    L): quantized and dequantized per row (quantize_kv_rows); the
+    prefill's own rows (< L) read the live k/v, as the engine's prefill
+    does. Returns the gaps and the bounds."""
+    from kubeflow_tpu_torch.models.llama import (
+        Attention,
+        Llama,
+        quantize_kv_rows,
+    )
+
+    plain_attend = Attention.attend
+    prompt_len = [0]
+
+    def attend_int8(q, k, v, attn_impl="flash"):
+        def dequant(x):
+            x8, s = quantize_kv_rows(x)
+            return (x8.float() * s).to(x.dtype)
+
+        live = plain_attend(q, k, v, attn_impl)
+        cached = plain_attend(q, dequant(k), dequant(v), attn_impl)
+        decode_rows = torch.arange(q.shape[1], device=q.device) \
+            >= prompt_len[0]
+        return torch.where(decode_rows[None, :, None, None], cached, live)
+
+    if kv_int8:
+        Attention.attend = staticmethod(attend_int8)
+    try:
+        return _greedy_check(model, bodies, outs, prompt_len)
+    finally:
+        Attention.attend = staticmethod(plain_attend)
+
+
+def _greedy_check(model, bodies, outs, prompt_len):
     import dataclasses
 
     from kubeflow_tpu_torch.models.llama import Llama
@@ -643,7 +843,7 @@ def greedy_check(model, bodies, outs):
     with torch.no_grad():
         for body, out in zip(bodies, outs):
             prompt, gen = body["tokens"], out["tokens"]
-            L = len(prompt)
+            L = prompt_len[0] = len(prompt)
             tokens = torch.tensor([prompt + gen[:-1]], device=dev)
             pos = torch.tensor([list(range(L)) + [L + 1 + j for j in
                                                   range(len(gen) - 1)]],
@@ -872,7 +1072,8 @@ def main() -> int:
     from kubeflow_tpu_torch.ops import _build
 
     t0 = time.time()
-    sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
+    sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
+               "decode_attention.cu")
     with ThreadPoolExecutor(len(sources)) as pool:     # one nvcc each
         libs = dict(zip(sources, pool.map(_build.build, sources)))
     log(f"build: {', '.join(sources)} in {time.time() - t0:.1f} s")
@@ -892,9 +1093,22 @@ def main() -> int:
 
     rows, max_err = kernel_phase()
     bwd_rows, bwd_err = backward_phase()
-    launches = serve_phase()
+    dec_rows, dec_err = decode_phase()
+    serve = serve_phase()
     gc.collect()
     torch.cuda.empty_cache()
+    serve_int8 = serve_phase("int8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, s in (("bf16", serve), ("int8", serve_int8)):
+        w = s["warm"]
+        log(f"serve summary [{name} KV cache]: cold burst {s['tok_s']:.1f} "
+            f"tok/s, p50 TTFT {s['ttft_p50'] * 1e3:.1f} ms, peak device "
+            f"memory {s['peak'] / 1e9:.2f} GB; warm burst {w['tok_s']:.1f} "
+            f"tok/s, p50 TTFT {w['ttft_p50'] * 1e3:.1f} ms, peak "
+            f"{w['peak'] / 1e9:.2f} GB; decode {s['step_ms']:.3f} ms/step "
+            f"unprofiled, profiled chunk idle share "
+            + ("not measured" if s["idle"] is None else f"{s['idle']:.3f}"))
     train = train_phase()
     gc.collect()
     torch.cuda.empty_cache()
@@ -906,21 +1120,35 @@ def main() -> int:
     def entry(name, source, replaces, n, err, row):
         return {"name": name, "route": "cuda",
                 "source": f"kubeflow_tpu_torch/ops/csrc/{source}",
-                "replaces": f"kubeflow_tpu/ops/flash_attention.py:{replaces}",
+                "replaces": replaces,
                 "launches": n, "max_abs_err": err, "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
 
-    fwd = entry("flash_attention_fwd", "flash_attention_fwd.cu", 115,
-                launches, max_err, main_row)
+    fwd = entry("flash_attention_fwd", "flash_attention_fwd.cu",
+                "kubeflow_tpu/ops/flash_attention.py:115", serve["k1"],
+                max_err, main_row)
     fwd.update({f"train_{key}": train_row[key]
                 for key in ("ms", "library_ms", "bound_ms")})
-    bwd = entry("flash_attention_bwd", "flash_attention_bwd.cu", 265,
-                train["bwd"], bwd_err, bwd_row)
+    bwd = entry("flash_attention_bwd", "flash_attention_bwd.cu",
+                "kubeflow_tpu/ops/flash_attention.py:265", train["bwd"],
+                bwd_err, bwd_row)
     bwd.update({key: bwd_row[key]
                 for key in ("dkdv_ms", "dq_ms", "split_bound_ms")})
-    print(json.dumps({"kernels": [fwd, bwd]}), flush=True)
+    # K3 at the case the served path runs (staged, bf16 cache); its other
+    # cases beside it, SDPA's time at the unstaged bf16 one.
+    dec = {r["case"]: r for r in dec_rows}
+    k3 = entry("decode_attention", "decode_attention.cu",
+               "kubeflow_tpu/models/llama.py:337", serve["k3"], dec_err,
+               dec["bf16_staged"])
+    k3["int8_launches"] = serve_int8["k3"]
+    for case in ("bf16", "int8", "int8_staged"):
+        prefix = {"bf16": "unstaged_", "int8": "int8_",
+                  "int8_staged": "int8_staged_"}[case]
+        k3.update({prefix + key: dec[case][key]
+                   for key in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    print(json.dumps({"kernels": [fwd, bwd, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

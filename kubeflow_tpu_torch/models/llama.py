@@ -18,13 +18,23 @@ Three forward modes (``Llama.forward``):
   and attention runs causally over the incoming tokens through the flash
   kernel;
 - ``decode=True``: one or more tokens per row against a dense cache with
-  a per-row ``cache_index``, through ``mha_reference`` with a mask.
+  a per-row ``cache_index``. One token per row goes through
+  ``ops/decode_attention.py`` (the decode-attention kernel on the card);
+  several (a chunked-prefill extend) through the flash kernel over the
+  row's cache on the card, and through the masked plain attention on the
+  CPU. With ``stage_step`` (``decode_staging > 0``) the step writes its
+  k/v into the chunk's staging rows instead of the cache, and the
+  serving engine flushes them once per chunk.
 
 The KV cache is explicit state: a list with one dict per layer holding
-``cached_key`` / ``cached_value`` [B, max_len, Hkv, D] and
-``cache_index`` [B] int32 (see :meth:`Llama.init_cache`). Cache tensors
-are written IN PLACE (a functional update would copy the whole cache
-every decode step) and the list is returned.
+``cached_key`` / ``cached_value`` [B, max_len, Hkv, D] (int8 with f32
+``key_scale`` / ``value_scale`` [B, max_len, Hkv, 1] when
+``kv_cache_dtype == "int8"``), ``stage_key`` / ``stage_value``
+[B, decode_staging, Hkv, D] when staging, and ``cache_index`` [B] int32
+(see :meth:`Llama.init_cache`). Every cache tensor, ``cache_index``
+included, is written IN PLACE (a functional update would copy the whole
+cache every decode step, and a captured CUDA graph keeps the buffers it
+was captured with) and the list is returned.
 """
 
 from __future__ import annotations
@@ -38,7 +48,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.ops.attention import mha_reference
-from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+from kubeflow_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_lse,
+)
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -88,12 +102,16 @@ class LlamaConfig:
     # The JAX package's other policy names are later work and raise.
     remat: bool = True
     remat_policy: str = "full"
+    # Serving cache options: "int8" stores the KV cache as absmax int8
+    # rows with f32 scales (quantize_kv_rows); decode_staging = C > 0
+    # stages each decode chunk's k/v in [B, C, Hkv, D] rows that the
+    # engine flushes into the cache once per chunk.
+    kv_cache_dtype: str = ""
+    decode_staging: int = 0
     # Options of the JAX model that later slices port; setting one raises
     # NotImplementedError when the model is built.
     fused_qkv: bool = False
     fused_gate_up: bool = False
-    kv_cache_dtype: str = ""
-    decode_staging: int = 0
     paged_kv_blocks: int = 0
     pipeline_stages: int = 1
 
@@ -142,10 +160,9 @@ PORTED_REMAT_POLICIES = ("full", "qkv_attn")
 _LATER_SLICES = {
     "fused_qkv": "fused projections",
     "fused_gate_up": "fused projections",
-    "kv_cache_dtype": "int8 serving",
-    "decode_staging": "staged serving",
     "paged_kv_blocks": "paged serving",
 }
+KV_CACHE_DTYPES = ("", "int8")
 
 
 def _check_supported(cfg: LlamaConfig) -> None:
@@ -154,6 +171,11 @@ def _check_supported(cfg: LlamaConfig) -> None:
             raise NotImplementedError(
                 f"LlamaConfig.{name}={getattr(cfg, name)!r} is not ported "
                 f"yet (the {slice_} slice); leave it unset")
+    if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r} (one of "
+                         f"{KV_CACHE_DTYPES})")
+    if cfg.decode_staging < 0:
+        raise ValueError(f"decode_staging {cfg.decode_staging} must be >= 0")
     if cfg.pipeline_stages > 1:
         raise NotImplementedError(
             "LlamaConfig.pipeline_stages > 1 is not ported yet (the "
@@ -232,22 +254,34 @@ class Attention(nn.Module):
     def forward(self, x, positions, cos, sin, *,
                 cache: Optional[LayerCache] = None,
                 decode: Union[bool, str] = False,
-                attn_impl: str = "flash") -> torch.Tensor:
+                attn_impl: str = "flash",
+                stage_step: Optional[int] = None) -> torch.Tensor:
         q, k, v = self.project(x, positions, cos, sin)
         if decode:
-            out = self._decode_attention(q, k, v, cache, mode=decode)
+            out = self._decode_attention(q, k, v, cache, mode=decode,
+                                         stage_step=stage_step)
         else:
             out = self.attend(q, k, v, attn_impl)
         return self.out_proj(out)
 
-    def _decode_attention(self, q, k, v, cache: LayerCache, mode):
-        """Write k/v at each row's ``cache_index`` and attend.
+    def _decode_attention(self, q, k, v, cache: LayerCache, mode,
+                          stage_step: Optional[int] = None):
+        """Write k/v and attend, as the JAX model's
+        ``Attention._decode_attention`` does.
 
+        Staged step (``mode is True`` with ``stage_step``, which needs
+        ``decode_staging``): k/v go to staging column ``stage_step`` of
+        every row, and attention spans the flushed cache (``<
+        cache_index``) and staging rows ``0..stage_step``; the engine's
+        flush writes the cache and advances ``cache_index``.
+
+        Otherwise k/v are written at each row's ``cache_index`` (quantized
+        for an int8 cache) and ``cache_index`` advances in place.
         ``mode == "prefill"``: the rows are fresh (index 0), so attention
         runs causally over the incoming tokens through the flash kernel
         and reads the live k/v, not the cache. ``mode is True``: attend
-        the whole cache with a per-row causal mask (the not-yet-written
-        tail is masked too).
+        the cache with a per-row causal mask (the not-yet-written tail is
+        masked too).
 
         The write start is CLAMPED to ``max_len - S_new``, as JAX's
         dynamic_update_slice clamps it: idle batch slots decode every
@@ -256,21 +290,66 @@ class Attention(nn.Module):
         the clamp (the engine retires them at max_len - 1)."""
         ck, cv, idx = (cache["cached_key"], cache["cached_value"],
                        cache["cache_index"])
+        ks, vs = cache.get("key_scale"), cache.get("value_scale")
         B, S_new = q.shape[:2]
+        if mode is True and stage_step is not None:
+            if "stage_key" not in cache:
+                raise ValueError("stage_step needs a staging cache "
+                                 "(LlamaConfig.decode_staging > 0)")
+            sk, sv = cache["stage_key"], cache["stage_value"]
+            sk[:, stage_step:stage_step + 1] = k.to(sk.dtype)
+            sv[:, stage_step:stage_step + 1] = v.to(sv.dtype)
+            return decode_attention(q, ck, cv, idx, k_scale=ks, v_scale=vs,
+                                    stage_key=sk, stage_value=sv,
+                                    stage_step=stage_step)
         L = ck.shape[1]
         steps = torch.arange(S_new, device=q.device)
         start = idx.long().clamp(0, max(L - S_new, 0))
         rows = start[:, None] + steps[None, :]                 # [B, S_new]
         batch = torch.arange(B, device=q.device)[:, None]
-        ck[batch, rows] = k.to(ck.dtype)
-        cv[batch, rows] = v.to(cv.dtype)
-        cache["cache_index"] = idx + S_new
+        if ks is not None:
+            k8, k_s = quantize_kv_rows(k)
+            v8, v_s = quantize_kv_rows(v)
+            ck[batch, rows] = k8
+            ks[batch, rows] = k_s
+            cv[batch, rows] = v8
+            vs[batch, rows] = v_s
+        else:
+            ck[batch, rows] = k.to(ck.dtype)
+            cv[batch, rows] = v.to(cv.dtype)
+        idx.add_(S_new)
         if mode == "prefill":
             return flash_attention(q, k, v, causal=True)
-        q_pos = idx.long()[:, None] + steps[None, :]            # [B, S]
-        kv_pos = torch.arange(L, device=q.device)
-        mask = kv_pos[None, None, :] <= q_pos[:, :, None]        # [B, S, L]
-        return mha_reference(q, ck, cv, mask=mask[:, None])
+        if S_new == 1 or not q.is_cuda:
+            return decode_attention(q, ck, cv, idx, k_scale=ks, v_scale=vs)
+        return self._extend_attention(q, ck, cv, ks, vs, start)
+
+    @staticmethod
+    def _extend_attention(q, ck, cv, ks, vs, q_start):
+        """Several query rows of ONE cache row on the card (a chunked-
+        prefill extend): the flash kernel over the row's cache, causal
+        from the device position ``q_start`` of query row 0 (rows past
+        the new tokens are masked). An int8 row is first dequantized to
+        a temporary in q's dtype."""
+        if q.shape[0] != 1:
+            raise ValueError("a multi-token decode step on the card takes "
+                             f"one cache row, got {q.shape[0]}")
+        if ks is not None:
+            ck = (ck.float() * ks).to(q.dtype)
+            cv = (cv.float() * vs).to(q.dtype)
+        out, _ = flash_attention_lse(q, ck, cv, causal=True,
+                                     q_offset=q_start, kv_offset=0)
+        return out
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """Absmax int8 per (.., position, kv-head) row: (int8 rows, f32 scales
+    [..., 1]), scale = max(max|x| / 127, 1e-8), rows rounded half to
+    even. The cache write and the engine's staged flush share it, as in
+    the JAX model."""
+    xf = x.float()
+    s = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    return torch.round(xf / s).to(torch.int8), s
 
 
 class Mlp(nn.Module):
@@ -293,9 +372,10 @@ class DecoderLayer(nn.Module):
         self.mlp = Mlp(cfg)
 
     def forward(self, x, positions, cos, sin, *, cache=None, decode=False,
-                attn_impl="flash") -> torch.Tensor:
+                attn_impl="flash", stage_step=None) -> torch.Tensor:
         h = self.attn(self.input_norm(x), positions, cos, sin, cache=cache,
-                      decode=decode, attn_impl=attn_impl)
+                      decode=decode, attn_impl=attn_impl,
+                      stage_step=stage_step)
         return self._after_attention(x, h)
 
     def _qkv(self, x, positions, cos, sin):
@@ -364,18 +444,37 @@ class Llama(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, *,
                    device=None) -> List[LayerCache]:
-        """Zeroed dense decode cache: per layer, k/v [batch, max_len,
-        Hkv, D] in the activation dtype and cache_index [batch] int32."""
+        """Zeroed dense decode cache, per layer: k/v [batch, max_len, Hkv,
+        D] in the activation dtype, or int8 with f32 ``key_scale`` /
+        ``value_scale`` [batch, max_len, Hkv, 1] (``kv_cache_dtype ==
+        "int8"``); ``stage_key`` / ``stage_value`` [batch,
+        decode_staging, Hkv, D] in the activation dtype when staging (an
+        int8 cache quantizes at the flush); cache_index [batch] int32."""
         cfg = self.cfg
         device = self.embed.device if device is None else device
         shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-        return [{
-            "cached_key": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "cached_value": torch.zeros(shape, dtype=cfg.dtype,
-                                        device=device),
-            "cache_index": torch.zeros(batch, dtype=torch.int32,
-                                       device=device),
-        } for _ in range(cfg.num_layers)]
+        quant = cfg.kv_cache_dtype == "int8"
+
+        def zeros(shp, dtype):
+            return torch.zeros(shp, dtype=dtype, device=device)
+
+        caches = []
+        for _ in range(cfg.num_layers):
+            layer = {
+                "cached_key": zeros(shape, torch.int8 if quant else cfg.dtype),
+                "cached_value": zeros(shape,
+                                      torch.int8 if quant else cfg.dtype),
+                "cache_index": zeros(batch, torch.int32),
+            }
+            if quant:
+                layer["key_scale"] = zeros(shape[:3] + (1,), torch.float32)
+                layer["value_scale"] = zeros(shape[:3] + (1,), torch.float32)
+            if cfg.decode_staging > 0:
+                stage = (batch, cfg.decode_staging) + shape[2:]
+                layer["stage_key"] = zeros(stage, cfg.dtype)
+                layer["stage_value"] = zeros(stage, cfg.dtype)
+            caches.append(layer)
+        return caches
 
     def forward(
         self,
@@ -386,10 +485,13 @@ class Llama(nn.Module):
         decode: Union[bool, str] = False,
         return_hidden: bool = False,
         attn_impl: str = "flash",
+        stage_step: Optional[int] = None,
     ):
         """tokens [B, S] -> logits [B, S, V] (or the final hidden state
         [B, S, E] with ``return_hidden``). With ``decode`` (True or
-        "prefill") the cache is required and ``(out, cache)`` returns."""
+        "prefill") the cache is required and ``(out, cache)`` returns;
+        ``stage_step`` makes a decode step a staged one (see
+        ``Attention._decode_attention``)."""
         cfg = self.cfg
         B, S = tokens.shape
         if decode and cache is None:
@@ -408,7 +510,7 @@ class Llama(nn.Module):
             else:
                 x = layer(x, positions, cos, sin,
                           cache=cache[i] if decode else None, decode=decode,
-                          attn_impl=attn_impl)
+                          attn_impl=attn_impl, stage_step=stage_step)
         x = self.final_norm(x)
         out = x if return_hidden else self.head_logits(x)
         return (out, cache) if decode else out

@@ -85,3 +85,78 @@ def mha_reference(
     w = weights.to(q.dtype).float().reshape(B, Hkv, G * Sq, Skv)
     out = torch.matmul(w, vf).reshape(B, Hkv, G, Sq, D)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cache_index: torch.Tensor,
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    stage_key: Optional[torch.Tensor] = None,
+    stage_value: Optional[torch.Tensor] = None,
+    stage_step: Optional[int] = None,
+) -> torch.Tensor:
+    """Decode attention over a dense KV cache in plain PyTorch: the
+    function ``ops/decode_attention.py``'s kernel computes, and the path
+    CPU tensors take.
+
+    q [B, Sq, H, D]; k, v [B, L, Hkv, D] (the activation dtype, or int8
+    with ``k_scale``/``v_scale`` [B, L, Hkv, 1] f32); ``cache_index`` [B]
+    counts the cache rows the LAST query row sees, so query row i sees
+    rows ``< cache_index - (Sq - 1 - i)`` (an index past L sees all L).
+
+    Unstaged (no ``stage_key``): the masked ``mha_reference`` over the
+    cache that the JAX model's decode step runs, scales included
+    (kubeflow_tpu/models/llama.py, ``Attention._decode_attention``).
+
+    Staged: ``stage_key``/``stage_value`` [B, C, Hkv, D] hold this chunk's
+    rows, and rows ``0..stage_step`` are live; ``cache_index`` is the
+    flushed length. One softmax spans both parts, as in the JAX model's
+    ``_staged_decode_attention`` (Sq == 1): f32 logits, k's scale on the
+    cache logits, v's scale on the cache weights, the weights rounded to
+    q's dtype before their products, the two products summed in f32."""
+    B, Sq, H, D = q.shape
+    L = k.shape[1]
+    if stage_key is None:
+        q_last = cache_index.long()[:, None] - Sq + torch.arange(
+            1, Sq + 1, device=q.device)[None, :]                # [B, Sq]
+        mask = torch.arange(L, device=q.device)[None, None, :] \
+            < q_last[:, :, None]                                 # [B, Sq, L]
+        return mha_reference(q, k, v, mask=mask[:, None], k_scale=k_scale,
+                             v_scale=v_scale)
+    if Sq != 1 or stage_step is None:
+        raise ValueError("staged decode attention takes one query row and a "
+                         "stage_step")
+    Hkv = k.shape[2]
+    G = H // Hkv
+    C = stage_key.shape[1]
+    scale = D ** -0.5
+    qg = q.reshape(B, Hkv, G, D).float()                    # Sq == 1
+
+    def logits(keys):                                       # -> [B, Hkv, G, S]
+        kf = keys.to(q.dtype).float().permute(0, 2, 3, 1)   # [B, Hkv, D, S]
+        return torch.matmul(qg, kf) * scale
+
+    s1 = logits(k)
+    if k_scale is not None:
+        s1 = s1 * k_scale[..., 0].permute(0, 2, 1).float()[:, :, None, :]
+    live = torch.arange(L, device=q.device)[None, :] \
+        < cache_index.long()[:, None]                        # [B, L]
+    s1 = s1.masked_fill(~live[:, None, None, :], float("-inf"))
+    s2 = logits(stage_key)
+    staged = torch.arange(C, device=q.device) <= stage_step
+    s2 = s2.masked_fill(~staged, float("-inf"))
+    w = torch.softmax(torch.cat([s1, s2], dim=-1), dim=-1)
+    w1, w2 = w[..., :L], w[..., L:]
+    if v_scale is not None:
+        w1 = w1 * v_scale[..., 0].permute(0, 2, 1).float()[:, :, None, :]
+
+    def weighted(wt, values):                               # -> [B, Hkv, G, D]
+        vf = values.to(q.dtype).float().permute(0, 2, 1, 3)  # [B, Hkv, S, D]
+        return torch.matmul(wt.to(q.dtype).float(), vf)
+
+    out = weighted(w1, v) + weighted(w2, stage_value)
+    return out.reshape(B, 1, H, D).to(q.dtype)

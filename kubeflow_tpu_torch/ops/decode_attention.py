@@ -1,0 +1,201 @@
+"""Decode attention: the CUDA kernel (K3) and its plain PyTorch version.
+
+:func:`decode_attention` attends one query row per slot (q [B, 1, H, D])
+against the dense KV cache (k, v [B, L, Hkv, D], bf16, or int8 with f32
+``k_scale``/``v_scale`` [B, L, Hkv, 1]) up to each slot's ``cache_index``
+(a device tensor), and, when staged, against the chunk's staging rows
+``0..stage_step``. It dispatches on where the tensors live:
+
+- CUDA tensors launch ``ops/csrc/decode_attention.cu``, built at first use
+  by ``ops/_build.py``, or raise: the kernel takes bf16 q and staging
+  rows, a bf16 or int8 cache, head_dim 64 or 128 and query groups
+  H / Hkv of 1, 2, 4 or 8. It reads only the live rows, accumulates in
+  f32 and writes bf16. It is capture-safe (no host read of the lengths,
+  no allocation in the C code, the caller's stream), and the split count
+  depends only on L, so one captured CUDA graph serves every length.
+- CPU tensors take :func:`kubeflow_tpu_torch.ops.attention.
+  decode_attention_reference`, which computes the same function in plain
+  PyTorch (and also takes several query rows, unstaged). It is also what
+  ``chip_smoke.py`` holds the kernel against on the card.
+
+Each kernel call adds one to ``decode_attention.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from kubeflow_tpu_torch.ops.attention import decode_attention_reference
+
+_SOURCE = "decode_attention.cu"
+_HEAD_DIMS = (64, 128)
+_GROUPS = (1, 2, 4, 8)
+#: A split covers at most this many cache rows while L allows
+#: ``MAX_SPLITS`` of them; past that the splits grow instead.
+SPLIT_ROWS = 64
+MAX_SPLITS = 64
+
+
+def split_plan(max_len: int) -> Tuple[int, int]:
+    """(splits, rows per split) for a cache of ``max_len`` rows: a
+    function of ``max_len`` alone, so a captured graph serves any
+    length."""
+    splits = min(-(-max_len // SPLIT_ROWS), MAX_SPLITS)
+    return splits, -(-max_len // splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    """K3's C entry point with its ctypes signature, built and loaded at
+    first use."""
+    from kubeflow_tpu_torch.ops._build import load_library
+
+    fn = load_library(_SOURCE).kftpu_decode_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def _check_rows(name: str, t: torch.Tensor, device: torch.device,
+                strides: Tuple[int, ...]) -> None:
+    """Head dim contiguous; 16-byte rows: base and strides aligned for the
+    kernel's 16-byte (bf16) or 8-byte (int8) loads."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, q on {device}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}'s head dim must be contiguous")
+    align = 16 if t.dtype == torch.bfloat16 else 8
+    per = align // t.element_size()
+    if t.data_ptr() % align or any(st % per for st in strides):
+        raise ValueError(f"{name} must be {align}-byte aligned with strides "
+                         f"a multiple of {per} elements")
+
+
+def _kernel(q, k, v, cache_index, k_scale, v_scale, stage_key, stage_value,
+            stage_step) -> torch.Tensor:
+    B, Sq, H, D = q.shape
+    _, L, Hkv, _ = k.shape
+    if Sq != 1:
+        raise ValueError(f"decode_attention kernel takes one query row per "
+                         f"slot, got {Sq}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"decode_attention kernel takes head_dim in "
+                         f"{_HEAD_DIMS}, got {D}")
+    if H % Hkv or H // Hkv not in _GROUPS:
+        raise ValueError(f"decode_attention kernel takes query groups "
+                         f"{_GROUPS}, got {H} heads over {Hkv}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"decode_attention kernel takes bf16 q, got "
+                         f"{q.dtype}")
+    quant = k.dtype == torch.int8
+    if k.dtype not in (torch.bfloat16, torch.int8) or v.dtype != k.dtype:
+        raise ValueError(f"decode_attention kernel takes a bf16 or int8 "
+                         f"cache, got {k.dtype}/{v.dtype}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
+            or k.stride() != v.stride():
+        raise ValueError(f"bad cache shapes/strides {tuple(k.shape)}/"
+                         f"{tuple(v.shape)} for q {tuple(q.shape)}")
+    if quant != (k_scale is not None) or (v_scale is None) != (k_scale
+                                                                is None):
+        raise ValueError("an int8 cache needs k_scale and v_scale, a bf16 "
+                         "one neither")
+    _check_rows("q", q, q.device, (q.stride(0), q.stride(2)))
+    for name, t in (("k", k), ("v", v)):
+        _check_rows(name, t, q.device, t.stride()[:3])
+    scale_strides = (0, 0, 0)
+    if quant:
+        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if s.dtype != torch.float32 or s.shape != (B, L, Hkv, 1) \
+                    or s.device != q.device:
+                raise ValueError(f"{name} must be f32 [B, L, Hkv, 1] on "
+                                 f"{q.device}")
+        if k_scale.stride() != v_scale.stride():
+            raise ValueError("k_scale and v_scale strides differ")
+        scale_strides = k_scale.stride()[:3]
+    staged = stage_key is not None
+    stage_strides = (0, 0, 0)
+    stage_rows = 0
+    if staged:
+        C = stage_key.shape[1]
+        if stage_step is None or not 0 <= int(stage_step) < C:
+            raise ValueError(f"stage_step {stage_step} outside the {C} "
+                             "staging rows")
+        if stage_key.dtype != torch.bfloat16 or stage_value is None \
+                or stage_value.dtype != torch.bfloat16 \
+                or stage_key.shape != (B, C, Hkv, D) \
+                or stage_value.shape != stage_key.shape \
+                or stage_key.stride() != stage_value.stride():
+            raise ValueError("staging rows must be bf16 [B, C, Hkv, D] "
+                             "pairs of one layout")
+        for name, t in (("stage_key", stage_key),
+                        ("stage_value", stage_value)):
+            _check_rows(name, t, q.device, t.stride()[:3])
+        stage_strides = stage_key.stride()[:3]
+        stage_rows = int(stage_step) + 1
+    lengths = cache_index.to(device=q.device, dtype=torch.int32).contiguous()
+    if lengths.shape != (B,):
+        raise ValueError(f"cache_index must be [B], got "
+                         f"{tuple(lengths.shape)}")
+    splits, split_rows = split_plan(L)
+    total = splits + (1 if staged else 0)
+    o = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    part_acc = torch.empty((B, H, total, D), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, H, total, 2), dtype=torch.float32,
+                          device=q.device)
+    strides = (ctypes.c_longlong * 11)(
+        q.stride(0), q.stride(2), *k.stride()[:3], *scale_strides,
+        *stage_strides)
+    fn = _kernel_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(D, H // Hkv, int(quant), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), k_scale.data_ptr() if quant else None,
+                v_scale.data_ptr() if quant else None, lengths.data_ptr(),
+                stage_key.data_ptr() if staged else None,
+                stage_value.data_ptr() if staged else None, stage_rows,
+                o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, Hkv,
+                L, splits, split_rows, ctypes.addressof(strides),
+                float(D ** -0.5), stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention launch failed: CUDA error {rc} "
+                           f"(q {tuple(q.shape)}, cache {tuple(k.shape)} "
+                           f"{k.dtype}, staged {staged})")
+    decode_attention.launches += 1
+    return o
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cache_index: torch.Tensor,
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    stage_key: Optional[torch.Tensor] = None,
+    stage_value: Optional[torch.Tensor] = None,
+    stage_step: Optional[int] = None,
+) -> torch.Tensor:
+    """[B, Sq, H, D] in q's dtype; arguments as
+    :func:`~kubeflow_tpu_torch.ops.attention.decode_attention_reference`
+    (the kernel takes Sq == 1)."""
+    if q.device.type == "cuda":
+        return _kernel(q, k, v, cache_index, k_scale, v_scale, stage_key,
+                       stage_value, stage_step)
+    if q.device.type != "cpu":
+        raise ValueError(f"decode_attention runs on cuda (kernel) or cpu "
+                         f"(plain version), not {q.device}")
+    return decode_attention_reference(
+        q, k, v, cache_index, k_scale=k_scale, v_scale=v_scale,
+        stage_key=stage_key, stage_value=stage_value, stage_step=stage_step)
+
+
+decode_attention.launches = 0

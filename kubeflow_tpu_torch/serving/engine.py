@@ -16,6 +16,16 @@ of kubeflow_tpu.serving.engine.
   cross to the host.
 - ``run()`` keeps ``pipeline_depth`` decode dispatches in flight, the
   next chained off the previous one's device-resident last tokens.
+- With a staging model (``LlamaConfig.decode_staging`` >= ``decode_chunk``)
+  each decode step writes its k/v into per-chunk staging rows, and the
+  chunk ends with one flush into the cache (``_flush_staging``); an int8
+  KV cache (``kv_cache_dtype="int8"``) quantizes rows at the write or the
+  flush.
+- On the card each decode chunk (every step plus the flush) and each
+  grouped prefill ``(bucket, k_pad)`` run as captured CUDA graphs, one per
+  sampling variant, as the JAX engine compiles each into one XLA program
+  (see ``_Graph``); the CPU path, and a chunked-prefill extend, run
+  eagerly.
 
 Positions follow the JAX engine exactly, including its decode RoPE
 positions, which run one past the cache slot they are written to
@@ -24,8 +34,8 @@ greedy tokens match the JAX engine's, and a full re-forward reproduces
 them only with the same positions.
 
 Out of scope in this slice (each raises NotImplementedError): the
-physically paged cache with copy-on-write, staged decode, int8 weights,
-mesh serving and the step profiler.
+physically paged cache with copy-on-write, int8 weights, mesh serving and
+the step profiler.
 """
 
 from __future__ import annotations
@@ -40,7 +50,9 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.models.llama import Llama
+from kubeflow_tpu_torch.models.llama import Llama, quantize_kv_rows
+from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.serving.blocks import (
     BlocksExhausted,
     KVBlockAllocator,
@@ -63,6 +75,9 @@ SERVING_LATENCY_BUCKETS = (
 
 #: Only queue waits observed inside this window feed the load() p50/p95.
 LOAD_WINDOW_S = 60.0
+
+#: Per-slot cache leaves [B, max_len, ...] (the scales with an int8 cache).
+_ROW_LEAVES = ("cached_key", "cached_value", "key_scale", "value_scale")
 
 
 class EngineOverloaded(RuntimeError):
@@ -150,11 +165,85 @@ class _Slot:
         self.first_token_at: Optional[float] = None
 
 
+#: The Python launch counters of the kernels a captured step holds
+#: (K1's forward, K3): a replay launches without running Python, so each
+#: graph counts its captured launches once and adds them per replay.
+_LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
+                    (decode_attention, "launches"))
+
+
+def _launch_counts() -> List[int]:
+    return [getattr(fn, name) for fn, name in _LAUNCH_COUNTERS]
+
+
+def _add_launches(deltas: List[int]) -> None:
+    for (fn, name), d in zip(_LAUNCH_COUNTERS, deltas):
+        setattr(fn, name, getattr(fn, name) + d)
+
+
+def sampling_variant(samp: np.ndarray) -> str:
+    """The sampler branch a host [B, 3] (temperature, top_k, top_p) array
+    needs: "greedy" (no row samples), "restricted" (a sampled row asks for
+    top-k or top-p) or "plain". The JAX step picks these with lax.cond
+    inside one program; the port picks on the host, and captures one
+    graph per variant."""
+    temps, ks, ps = samp[:, 0], samp[:, 1], samp[:, 2]
+    if not np.any(temps > 0):
+        return "greedy"
+    if np.any((temps > 0) & ((ks > 0) | (ps < 1.0))):
+        return "restricted"
+    return "plain"
+
+
+class _Graph:
+    """One engine step captured as a CUDA graph: the static device buffers
+    its inputs are copied into before each replay, its outputs, and the
+    kernel launches it holds.
+
+    Hazards, each held by a card test (tests/test_torch_cuda.py):
+
+    - **Outputs are overwritten by the next replay.** Chained decode
+      (``pipeline_depth`` 2) feeds a dispatch's last tokens to the next
+      one and reads its tokens after the next one is queued, so
+      :meth:`replay` hands back device COPIES of the outputs, one set per
+      dispatch, made on the stream before any later replay.
+    - **Graphs share one memory pool.** One graph's replay may reuse
+      memory another graph's outputs occupied at capture. The copies above
+      are made before any other replay, so no graph's output is ever read
+      after another graph runs; inputs live outside the pool.
+    - **The sampler's generator.** A sampled variant's graph registers the
+      engine's ``torch.Generator`` before capture, so every replay draws
+      fresh Gumbel noise (advancing the generator) instead of repeating
+      the captured draw, and the engine's seed reproduces the sequence.
+    - **Python counters do not count replays.** The launches counted
+      while capturing are taken back out of the counters and added again
+      on every replay (``_LAUNCH_COUNTERS``).
+    """
+
+    def __init__(self, graph, inputs: Dict[str, torch.Tensor], outputs,
+                 launches: List[int]):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = launches
+
+    def replay(self, **inputs: torch.Tensor):
+        for name, src in inputs.items():
+            self.inputs[name].copy_(src, non_blocking=True)
+        self.graph.replay()
+        _add_launches(self.launches)
+        return tuple(o.clone() for o in self.outputs)
+
+
 class ServingEngine:
     """Serves ``model`` (its own parameters) on ``device`` — ``cuda``
     unless the caller asks for ``"cpu"``. The engine casts the model's
     floating parameters to ``cfg.param_dtype`` IN PLACE (a copy would
-    double the weights' device memory) and turns their gradients off."""
+    double the weights' device memory) and turns their gradients off.
+
+    On the card the decode chunk and the grouped prefill run as CUDA
+    graphs; ``_eager=True`` runs them eagerly instead (the card tests hold
+    the graphs' tokens against it)."""
 
     def __init__(
         self,
@@ -165,6 +254,7 @@ class ServingEngine:
         registry: MetricsRegistry = global_registry,
         mesh=None,
         profiler=None,
+        _eager: bool = False,
     ):
         if mesh is not None:
             raise NotImplementedError(
@@ -184,7 +274,20 @@ class ServingEngine:
             )
         if cfg.decode_chunk < 1:
             raise ValueError(f"decode_chunk {cfg.decode_chunk} must be >= 1")
+        staging = model.cfg.decode_staging
+        if staging and staging < cfg.decode_chunk:
+            # A chunk longer than the staging rows would wrap and overwrite
+            # rows not yet flushed.
+            raise ValueError(
+                f"model decode_staging {staging} < engine decode_chunk "
+                f"{cfg.decode_chunk}")
         self.device = resolve_device(device)
+        self._staging = staging > 0
+        self._graphed = self.device.type == "cuda" and not _eager
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._graph_pool = None
+        self._capture_stream = (torch.cuda.Stream(self.device)
+                                if self._graphed else None)
         self.model = model
         self.cfg = cfg
         self._queue: Deque[GenerationRequest] = collections.deque()
@@ -257,9 +360,10 @@ class ServingEngine:
                                        device=self.device)
         self.tokens_generated = 0
         self.decode_dispatches = 0
-        # Grouped prefills (one flash launch per layer each); chunked
-        # prefill chunks run the decode attention and are not counted.
+        # Grouped prefills and chunked-prefill chunks: one flash launch per
+        # layer each on the card.
         self.prefill_dispatches = 0
+        self.extend_dispatches = 0
 
     # ------------- public API -------------
 
@@ -452,7 +556,10 @@ class ServingEngine:
         """Run the decode step and every k-bucket prefill for
         ``prompt_len``'s bucket once with dummy inputs (kernel build and
         load, library handles, allocator pools), then reset the cache.
-        Only legal while the engine is idle."""
+        On the card this captures those prefills' greedy graphs and the
+        decode chunk's graph of every sampling variant: the JAX engine
+        compiles one decode program for all of them. Only legal while the
+        engine is idle."""
         if self._queue or any(s is not None for s in self._slots):
             raise RuntimeError(
                 "warmup() resets the KV cache; call it before submitting "
@@ -469,18 +576,23 @@ class ServingEngine:
             k *= 2
         ks.append(self.cfg.max_batch)
         for k in ks:
-            self._prefill_step(np.ones((k, bucket), np.int64),
-                               np.full((k,), bucket, np.int64),
-                               np.zeros((k,), np.int64),
-                               np.zeros((k, 3), np.float32))
+            self._run_prefill(np.ones((k, bucket), np.int64),
+                              np.full((k,), bucket, np.int64),
+                              np.zeros((k,), np.int64),
+                              np.zeros((k, 3), np.float32))
         B = self.cfg.max_batch
-        toks, _ = self._decode_step(
-            torch.zeros((B, 1), dtype=torch.long, device=self.device),
-            np.full((B, 1), bucket, np.int64), np.zeros((B, 3), np.float32))
+        # (temperature, top_k, top_p): greedy, plain, restricted.
+        variants = ((0.0, 0.0, 1.0), (1.0, 0.0, 1.0), (1.0, 1.0, 1.0))
+        for row in variants:
+            toks, _ = self._run_decode(
+                self._upload(np.zeros((B, 1), np.int64)),
+                np.full((B, 1), bucket, np.int64),
+                np.tile(np.asarray(row, np.float32), (B, 1)))
         toks.cpu()
-        self._cache = self.model.init_cache(self.cfg.max_batch,
-                                            self.cfg.max_len,
-                                            device=self.device)
+        # In place: the captured graphs hold these buffers.
+        for layer in self._cache:
+            for t in layer.values():
+                t.zero_()
 
     # ------------- internals -------------
 
@@ -545,19 +657,87 @@ class ServingEngine:
             k *= 2
         return min(k, self.cfg.max_batch)
 
-    def _prefill_step(self, tokens: np.ndarray, lengths: np.ndarray,
-                      slot_idxs: np.ndarray, samp: np.ndarray):
-        """Prefill a [k, bucket] padded group against fresh cache rows,
-        install the rows at ``slot_idxs`` and sample each row's first
-        token from its last prompt position. Pad tokens past a row's
-        length write junk K/V beyond its ``cache_index``, which stays
-        masked until decode overwrites it."""
-        dev = self.device
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. On the card the copy is
+        asynchronous, from pinned memory that PyTorch's host allocator
+        does not hand out again before the copy has run, so a dispatch
+        never waits for the chunks already queued."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _run_step(self, key: tuple, fn, variant: str, **inputs):
+        """``fn(**inputs)``: eagerly off the card (or with ``_eager``);
+        on the card through the graph captured for ``key``. Its first use
+        runs ``fn`` eagerly on the capture stream (the warm-up capture
+        needs, and this call's result), then captures it."""
+        if not self._graphed:
+            return fn(**inputs)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph.replay(**inputs)
+        cur, side = torch.cuda.current_stream(self.device), \
+            self._capture_stream
+        side.wait_stream(cur)
+        for t in inputs.values():         # uploaded on cur, read on side
+            t.record_stream(side)
+        with torch.cuda.stream(side):
+            outputs = fn(**inputs)
+        cur.wait_stream(side)
+        for t in outputs:                 # made on side, read on cur
+            t.record_stream(cur)
+        self._graphs[key] = self._capture(fn, variant, inputs)
+        return outputs
+
+    def _capture(self, fn, variant: str, inputs) -> _Graph:
+        """Capture ``fn`` on static copies of ``inputs``. A failed capture
+        raises: there is no eager fallback on the card."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        static = {name: t.clone() for name, t in inputs.items()}
+        graph = torch.cuda.CUDAGraph()
+        if variant != "greedy":
+            register = getattr(graph, "register_generator_state", None)
+            if register is None:
+                raise RuntimeError(
+                    "this torch cannot register a generator with a CUDA "
+                    "graph: a sampled graph would replay the same noise")
+            register(self._gen)
+        before = _launch_counts()
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              stream=self._capture_stream,
+                              capture_error_mode="thread_local"):
+            outputs = fn(**static)
+        captured = [a - b for a, b in zip(_launch_counts(), before)]
+        _add_launches([-d for d in captured])    # nothing ran yet
+        return _Graph(graph, static, outputs, captured)
+
+    def _run_prefill(self, tokens: np.ndarray, lengths: np.ndarray,
+                     slot_idxs: np.ndarray, samp: np.ndarray):
+        """One grouped prefill dispatch (graph ``(bucket, k, variant)`` on
+        the card); returns device ([k] tokens, [k] logprobs)."""
         k, S = tokens.shape
+        variant = sampling_variant(samp)
         self.prefill_dispatches += 1
-        tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
-        lens = torch.as_tensor(lengths, dtype=torch.long, device=dev)
-        slots = torch.as_tensor(slot_idxs, dtype=torch.long, device=dev)
+
+        def fn(tokens, lengths, slots, samp):
+            return self._prefill_step(tokens, lengths, slots, samp, variant)
+
+        return self._run_step(
+            ("prefill", S, k, variant), fn, variant,
+            tokens=self._upload(tokens), lengths=self._upload(lengths),
+            slots=self._upload(slot_idxs), samp=self._upload(samp))
+
+    def _prefill_step(self, tok: torch.Tensor, lens: torch.Tensor,
+                      slots: torch.Tensor, samp: torch.Tensor, variant: str):
+        """Prefill a [k, bucket] padded group against fresh cache rows,
+        install the rows at ``slots`` and sample each row's first token
+        from its last prompt position. Pad tokens past a row's length
+        write junk K/V beyond its ``cache_index``, which stays masked
+        until decode overwrites it. Device inputs only (it is captured)."""
+        dev = self.device
+        k, S = tok.shape
         rows = self.model.init_cache(k, S, device=dev)
         positions = torch.arange(S, device=dev).expand(k, S)
         hidden, rows = self.model(tok, positions=positions, cache=rows,
@@ -571,13 +751,14 @@ class ServingEngine:
         # write lands last leaves the same cache.
         width = min(S, self.cfg.max_len)
         for layer, new in zip(self._cache, rows):
-            for name in ("cached_key", "cached_value"):
-                layer[name].index_fill_(0, slots, 0)
-                layer[name][slots, :width] = new[name][:, :width]
+            for name in _ROW_LEAVES:
+                if name in layer:
+                    layer[name].index_fill_(0, slots, 0)
+                    layer[name][slots, :width] = new[name][:, :width]
             layer["cache_index"][slots] = lens.to(torch.int32)
         last_h = hidden[torch.arange(k, device=dev), lens - 1][:, None]
         logits = self.model.head_logits(last_h)[:, 0]
-        return self._sample_logits(logits.float(), samp)
+        return self._sample_logits(logits.float(), samp, variant)
 
     def _prefill_group(self, bucket: int, group: List[tuple]) -> None:
         k = self._k_pad(len(group))
@@ -595,7 +776,7 @@ class ServingEngine:
             lengths[row] = lengths[0]
             slot_idxs[row] = slot_idxs[0]
             samp[row] = samp[0]
-        toks, lps = self._prefill_step(tokens, lengths, slot_idxs, samp)
+        toks, lps = self._run_prefill(tokens, lengths, slot_idxs, samp)
         toks = toks.cpu().numpy()
         lps = lps.cpu().numpy() if self.cfg.logprobs else None
         for row, (i, req) in enumerate(group):
@@ -608,13 +789,16 @@ class ServingEngine:
         """One chunk of chunked prefill for ONE slot: ``tokens`` [1, C]
         (always a full chunk) run in decode mode against the slot's live
         cache row at absolute position ``start`` — the model writes
-        through a view into the batch cache — then cache_index :=
-        start + true_len, and position true_len - 1 is sampled."""
+        through views into the batch cache (its attention runs through
+        the flash kernel on the card) — then cache_index := start +
+        true_len, and position true_len - 1 is sampled. Eager on the
+        card too."""
         dev = self.device
         C = tokens.shape[1]
+        self.extend_dispatches += 1
         rows = [{
-            "cached_key": layer["cached_key"][slot_idx:slot_idx + 1],
-            "cached_value": layer["cached_value"][slot_idx:slot_idx + 1],
+            **{name: layer[name][slot_idx:slot_idx + 1]
+               for name in _ROW_LEAVES if name in layer},
             "cache_index": torch.full((1,), start, dtype=torch.int32,
                                       device=dev),
         } for layer in self._cache]
@@ -652,10 +836,12 @@ class ServingEngine:
             generator=self._gen)
         return -torch.log(e.clamp_min(1e-30))
 
-    def _sample_logits(self, logits: torch.Tensor, samp: np.ndarray):
-        """On-device sampling of [B, V] f32 logits. ``samp`` is the host
-        [B, 3] array of (temperature, top_k, top_p) rows, so the branches
-        the JAX step takes with lax.cond are chosen here on the host.
+    def _sample_logits(self, logits: torch.Tensor, samp,
+                       variant: Optional[str] = None):
+        """On-device sampling of [B, V] f32 logits. ``samp`` holds the
+        [B, 3] (temperature, top_k, top_p) rows: a host array, whose
+        values choose the branch (:func:`sampling_variant`), or, with
+        ``variant`` given, a device tensor (a captured step's input).
 
         Temperature scales logits, top-k cuts the support, then top-p
         trims it to the smallest prefix holding >= top_p of the mass (the
@@ -665,19 +851,20 @@ class ServingEngine:
         at temperature 0 stay greedy. The noise comes from the engine's
         torch.Generator, so sampled tokens differ from the JAX engine's
         (same distribution, other bits)."""
+        if variant is None:
+            variant = sampling_variant(samp)
+            samp = torch.as_tensor(samp, dtype=torch.float32,
+                                   device=logits.device)
         greedy = torch.argmax(logits, dim=-1)
-        temps_h, ks_h, ps_h = samp[:, 0], samp[:, 1], samp[:, 2]
-        if np.any(temps_h > 0):
-            t = torch.as_tensor(samp, dtype=torch.float32,
-                                device=logits.device)
-            temps, top_ks, top_ps = t[:, 0], t[:, 1], t[:, 2]
+        if variant != "greedy":
+            temps, top_ks, top_ps = samp[:, 0], samp[:, 1], samp[:, 2]
             temps_safe = temps.clamp_min(1e-6)[:, None]
 
             def plain():
                 return torch.argmax(
                     logits / temps_safe + self._gumbel(logits.shape), dim=-1)
 
-            if np.any((temps_h > 0) & ((ks_h > 0) | (ps_h < 1.0))):
+            if variant == "restricted":
                 C = min(int(self.cfg.sample_candidates), logits.shape[-1])
                 vals, idx = torch.topk(logits, C, dim=-1)     # [B, C]
                 v = vals / temps_safe
@@ -710,22 +897,67 @@ class ServingEngine:
     def _samp_row(req: GenerationRequest) -> tuple:
         return (req.temperature, float(req.top_k), req.top_p)
 
-    def _decode_step(self, tokens: torch.Tensor, positions: np.ndarray,
-                     samp: np.ndarray):
+    def _run_decode(self, tokens: torch.Tensor, positions: np.ndarray,
+                    samp: np.ndarray):
+        """One decode chunk (graph ``variant`` on the card): [B, 1] device
+        tokens in, ([B, K] tokens, [B, K] logprobs) out."""
+        variant = sampling_variant(samp)
+
+        def fn(tokens, positions, samp):
+            return self._decode_step(tokens, positions, samp, variant)
+
+        return self._run_step(
+            ("decode", variant), fn, variant, tokens=tokens,
+            positions=self._upload(positions), samp=self._upload(samp))
+
+    def _decode_step(self, tokens: torch.Tensor, pos: torch.Tensor,
+                     samp: torch.Tensor, variant: str):
         """Decode ``decode_chunk`` tokens for every slot: each step feeds
         the previous step's device tokens back, with no host round trip
-        inside the chunk. Returns ([B, K] tokens, [B, K] logprobs)."""
-        pos = torch.as_tensor(positions, dtype=torch.long,
-                              device=self.device)
+        inside the chunk; a staging model writes step i's k/v at staging
+        column i, and the chunk ends with one flush. Device inputs only
+        (it is captured). Returns ([B, K] tokens, [B, K] logprobs)."""
         outs, lps = [], []
-        for _ in range(self.cfg.decode_chunk):
-            logits, self._cache = self.model(
-                tokens, positions=pos, cache=self._cache, decode=True)
-            nxt, lp = self._sample_logits(logits[:, 0], samp)
+        for i in range(self.cfg.decode_chunk):
+            logits, _ = self.model(
+                tokens, positions=pos, cache=self._cache, decode=True,
+                stage_step=i if self._staging else None)
+            nxt, lp = self._sample_logits(logits[:, 0], samp, variant)
             outs.append(nxt)
             lps.append(lp)
             tokens, pos = nxt[:, None], pos + 1
+        if self._staging:
+            self._flush_staging(self.cfg.decode_chunk)
         return torch.stack(outs, dim=1), torch.stack(lps, dim=1)
+
+    def _flush_staging(self, steps: int) -> None:
+        """Write each layer's staging rows [:, :steps] into its cache at
+        every slot's ``cache_index`` (quantized there for an int8 cache),
+        then advance ``cache_index``: the JAX engine's
+        ``_flush_staging``. The write start clamps at ``max_len - steps``
+        as dynamic_update_slice clamps it (idle slots' indices grow
+        without bound); the index itself does not clamp."""
+        dev = self.device
+        B = self.cfg.max_batch
+        batch = torch.arange(B, device=dev)[:, None]
+        cols = torch.arange(steps, device=dev)[None, :]
+        for layer in self._cache:
+            idx = layer["cache_index"]
+            L = layer["cached_key"].shape[1]
+            rows = idx.long().clamp(0, max(L - steps, 0))[:, None] + cols
+            sk = layer["stage_key"][:, :steps]
+            sv = layer["stage_value"][:, :steps]
+            if "key_scale" in layer:
+                k8, ks = quantize_kv_rows(sk)
+                v8, vs = quantize_kv_rows(sv)
+                layer["cached_key"][batch, rows] = k8
+                layer["key_scale"][batch, rows] = ks
+                layer["cached_value"][batch, rows] = v8
+                layer["value_scale"][batch, rows] = vs
+            else:
+                layer["cached_key"][batch, rows] = sk
+                layer["cached_value"][batch, rows] = sv
+            idx.add_(steps)
 
     def _dispatch_decode(self, chain: Optional[_InFlight] = None
                          ) -> _InFlight:
@@ -750,8 +982,8 @@ class ServingEngine:
                     continue
                 host[i, 0] = (slot.generated or slot.req.prompt)[-1]
                 positions[i, 0] = slot.pos
-            tokens = torch.as_tensor(host, device=self.device)
-        toks, lps = self._decode_step(tokens, positions, samp)
+            tokens = self._upload(host)
+        toks, lps = self._run_decode(tokens, positions, samp)
         self.decode_dispatches += 1
         return _InFlight(out=toks, lps=lps, positions=positions,
                          snapshot=list(self._slots))

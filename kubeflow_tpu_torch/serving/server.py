@@ -327,7 +327,6 @@ def env_config() -> dict:
 #: Env options of the JAX server that later slices of the port take up.
 _LATER_SLICES = (
     ("quantize", "KFTPU_SERVING_QUANTIZE", "int8 serving"),
-    ("quantize_kv", "KFTPU_SERVING_QUANTIZE_KV", "int8 serving"),
     ("mesh", "KFTPU_SERVING_MESH", "multi-GPU"),
     ("tokenizer", "KFTPU_SERVING_TOKENIZER", "tooling"),
 )
@@ -344,9 +343,10 @@ def build_server(cfg: dict) -> ServingServer:
     made on the device directly in the serving dtype from a seeded
     generator (an f32 host init of an 8B model would take 32 GB and
     minutes): N(0, 0.02) for projections and embeddings, ones for norms.
-    Decode staging, which the JAX server turns on, is a scheduling
-    optimisation with the same output and a later slice; this server
-    decodes unstaged."""
+
+    As the JAX server, it stages decode writes (``decode_staging =
+    decode_chunk``), and ``quantize_kv`` ("int8") selects the int8 KV
+    cache."""
     for key, env, slice_ in _LATER_SLICES:
         if cfg.get(key):
             raise NotImplementedError(
@@ -365,17 +365,22 @@ def build_server(cfg: dict) -> ServingServer:
                 f"no checkpoint found in {cfg['checkpoint_dir']!r} "
                 "(serving a trained model requires one)")
     param_dtype = cfg.get("param_dtype") or "bfloat16"
+    model_kw = {"param_dtype": param_dtype,
+                "decode_staging": cfg["decode_chunk"]}
+    if cfg.get("quantize_kv"):
+        model_kw["kv_cache_dtype"] = cfg["quantize_kv"]
     with torch.device(device):
-        model, _ = get_model(cfg["model"], param_dtype=param_dtype)
+        model, _ = get_model(cfg["model"], **model_kw)
     if restored is not None:
         model.load_state_dict(restored["params"])
         log.info("serving from checkpoint", kv={
             "dir": cfg["checkpoint_dir"], "step": restored["step"]})
     else:
         model.init_weights(torch.Generator(device=device).manual_seed(0))
-    log.info("serving model build", kv={"model": cfg["model"],
-                                        "device": str(device),
-                                        "param_dtype": param_dtype})
+    log.info("serving model build", kv={
+        "model": cfg["model"], "device": str(device),
+        "param_dtype": param_dtype, "decode_staging": cfg["decode_chunk"],
+        "kv_cache_dtype": model.cfg.kv_cache_dtype or "activation"})
     scfg_kw = dict(max_batch=cfg["max_batch"], max_len=cfg["max_len"],
                    decode_chunk=cfg["decode_chunk"])
     for key in ("max_queue", "kv_block_size", "kv_blocks", "param_dtype",

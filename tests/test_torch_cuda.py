@@ -12,6 +12,11 @@ Backward (K2), each of dq/dk/dv against the plain version on the same
 inputs: max |got - plain| <= 2e-2 * max |plain| in bf16 (p and ds are
 rounded to bf16 before their products, as in the TPU kernel), 1e-4 in f32;
 grads of fully masked rows exactly 0.
+Decode attention (K3) against its plain version on the same inputs:
+max |got - plain| <= 2e-2 * max |plain| (bf16 output; the kernel rounds
+the online softmax's unnormalised weights to bf16, the plain version the
+normalised ones). The serving engine's CUDA graphs against its eager
+path (``_eager=True``) on a small bf16 model: greedy tokens equal.
 """
 
 import pytest
@@ -358,3 +363,233 @@ def test_backward_is_deterministic(d):
     second = torch.autograd.grad(o, leaves, do)
     for a, b, name in zip(first, second, ("dq", "dk", "dv")):
         assert torch.equal(a, b), name
+
+
+# ---------------------------------------------------------------- K3
+
+DEC_L, DEC_C = 1024, 8
+# Live lengths the kernel must take: one row, ragged, nearly and exactly
+# full, and an idle slot whose index ran past the cache.
+DEC_LENGTHS = {"1": 1, "17": 17, "1000": 1000, "Lm1": DEC_L - 1,
+               "idle": 3 * DEC_L}
+
+
+def _decode_inputs(b, g, d, cache, seed=0, hkv=2):
+    from kubeflow_tpu_torch.models.llama import quantize_kv_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q = rnd(b, 1, hkv * g, d)
+    k, v = rnd(b, DEC_L, hkv, d), rnd(b, DEC_L, hkv, d)
+    scales = {}
+    if cache == "int8":
+        (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+        scales = {"k_scale": ks, "v_scale": vs}
+    stage = {"stage_key": rnd(b, DEC_C, hkv, d),
+             "stage_value": rnd(b, DEC_C, hkv, d)}
+    return q, k, v, scales, stage
+
+
+def _check_decode(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    assert torch.isfinite(got.float()).all()
+    assert err <= 2e-2 * ref, (err, ref)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("length", sorted(DEC_LENGTHS))
+def test_decode_kernel_matches_plain(length, b, g, d, cache):
+    from kubeflow_tpu_torch.ops.attention import decode_attention_reference
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+
+    q, k, v, scales, _ = _decode_inputs(b, g, d, cache)
+    lens = [DEC_LENGTHS[length], 1, 17, 1000, DEC_L - 1, 3 * DEC_L, 5,
+            512][:b]
+    idx = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        got = decode_attention(q, k, v, idx, **scales)
+        want = decode_attention_reference(q, k, v, idx, **scales)
+    _check_decode(got, want)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("stage_step", range(DEC_C))
+def test_decode_kernel_staged_matches_plain(stage_step, cache):
+    from kubeflow_tpu_torch.ops.attention import decode_attention_reference
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+
+    q, k, v, scales, stage = _decode_inputs(8, 4, 128, cache, seed=1,
+                                            hkv=8)
+    # Flushed lengths: none yet, ragged, full, and an idle slot.
+    idx = torch.tensor([0, 1, 17, 300, 1000, DEC_L - 1, DEC_L, 3 * DEC_L],
+                       dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        got = decode_attention(q, k, v, idx, stage_step=stage_step,
+                               **scales, **stage)
+        want = decode_attention_reference(q, k, v, idx,
+                                          stage_step=stage_step, **scales,
+                                          **stage)
+    _check_decode(got, want)
+
+
+def test_decode_kernel_counts_and_refusals():
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+
+    q, k, v, _, _ = _decode_inputs(2, 4, 128, "bf16")
+    idx = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    before = decode_attention.launches
+    with torch.no_grad():
+        decode_attention(q, k, v, idx)
+        assert decode_attention.launches == before + 1
+        with pytest.raises(ValueError, match="bf16 q"):
+            decode_attention(q.float(), k, v, idx)
+        with pytest.raises(ValueError, match="one query row"):
+            decode_attention(torch.cat([q, q], 1), k, v, idx)
+        with pytest.raises(ValueError, match="k_scale"):
+            decode_attention(q, k.to(torch.int8), v.to(torch.int8), idx)
+    assert decode_attention.launches == before + 1
+
+
+def test_decode_kernel_replays_in_a_graph_at_every_length():
+    """One capture serves every length: the lengths are device data."""
+    from kubeflow_tpu_torch.ops.attention import decode_attention_reference
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+
+    q, k, v, _, _ = _decode_inputs(8, 4, 128, "bf16", seed=2, hkv=8)
+    idx = torch.ones(8, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        decode_attention(q, k, v, idx)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph), torch.no_grad():
+        out = decode_attention(q, k, v, idx)
+    for lens in ([1] * 8, [5, 64, 65, 700, 1023, 1024, 1, 3000]):
+        idx.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        _check_decode(out, decode_attention_reference(q, k, v, idx))
+
+
+# ------------------------------------------------- the engine's graphs
+
+def _small_engine(option="staged", eager=False, **kw):
+    """llama of K1/K3's head_dim on the card, random bf16 weights from a
+    seed; the model options of the serving slice."""
+    from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
+    from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
+    from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
+
+    chunk = kw.pop("decode_chunk", 4)
+    model_kw = {"staged": {"decode_staging": chunk},
+                "int8_staged": {"decode_staging": chunk,
+                                "kv_cache_dtype": "int8"},
+                "unstaged": {}, "int8": {"kv_cache_dtype": "int8"}}[option]
+    cfg = LlamaConfig.tiny(vocab_size=512, embed_dim=256, num_heads=4,
+                           num_kv_heads=2, head_dim=64, mlp_dim=512,
+                           max_seq_len=256, **model_kw)
+    with torch.device("cuda"):
+        model = Llama(cfg)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    scfg = dict(max_batch=4, max_len=256, prefill_buckets=(16, 32),
+                decode_chunk=chunk, pipeline_depth=2)
+    scfg.update(kw)
+    return ServingEngine(model, ServingConfig(**scfg), device="cuda",
+                         registry=MetricsRegistry(), _eager=eager)
+
+
+# More prompts than slots, two buckets, and one past the largest bucket
+# (chunked prefill): admissions land between chained chunks.
+ENGINE_PROMPTS = [(list(range(3, 12)), 20), (list(range(40, 70)), 13),
+                  ([7] * 5, 30), (list(range(100, 150)), 9),
+                  ([2, 9, 4], 17), (list(range(200, 220)), 11)]
+
+
+def _serve(eng, prompts=ENGINE_PROMPTS, **req):
+    rids = [eng.submit(p, max_new_tokens=n, **req) for p, n in prompts]
+    eng.run()
+    return [eng.result(r).tokens for r in rids]
+
+
+@pytest.mark.parametrize("option", ["unstaged", "staged", "int8_staged"])
+def test_engine_graph_tokens_equal_eager(option):
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+    from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+
+    with torch.no_grad():
+        want = _serve(_small_engine(option, eager=True))
+        eng = _small_engine(option)
+        eng.warmup(16)
+        k1, k3 = flash_attention.fwd_launches, decode_attention.launches
+        eng.prefill_dispatches = eng.extend_dispatches = 0
+        eng.decode_dispatches = 0
+        got = _serve(eng)
+    assert got == want
+    assert {key[0] for key in eng._graphs} == {"decode", "prefill"}
+    # Replays count their captured launches: K1 once per layer per
+    # prefill or extend dispatch, K3 once per layer per decode step.
+    layers = eng.model.cfg.num_layers
+    assert flash_attention.fwd_launches - k1 == layers * (
+        eng.prefill_dispatches + eng.extend_dispatches)
+    assert decode_attention.launches - k3 == (
+        layers * eng.cfg.decode_chunk * eng.decode_dispatches)
+
+
+def test_chained_outputs_survive_the_next_replay():
+    import numpy as np
+
+    outs = {}
+    for eager in (True, False):
+        eng = _small_engine("staged", eager=eager)
+        with torch.no_grad():
+            for p, n in ENGINE_PROMPTS[:4]:
+                eng.submit(p, max_new_tokens=n)
+            eng._admit()
+            first = eng._dispatch_decode(None)
+            second = eng._dispatch_decode(first)   # replays the same graph
+            third = eng._dispatch_decode(second)
+            outs[eager] = [np.asarray(d.out.cpu())
+                           for d in (first, second, third)]
+    for a, b in zip(outs[True], outs[False]):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(outs[False][0], outs[False][1])
+
+
+def test_sampled_replays_differ_and_reproduce_by_seed():
+    prompts = [([5, 6, 7], 24), ([9, 8], 24)]
+    runs = []
+    for _ in range(2):
+        eng = _small_engine("staged")
+        with torch.no_grad():
+            runs.append([_serve(eng, prompts, temperature=1.0),
+                         _serve(eng, prompts, temperature=1.0, top_k=50)])
+            runs[-1].append(_serve(eng, prompts, temperature=1.0))
+    assert ("decode", "plain") in eng._graphs
+    assert ("decode", "restricted") in eng._graphs
+    assert runs[0] == runs[1]              # the engine's seed reproduces
+    assert runs[0][0] != runs[0][2]        # later replays draw new noise
+
+
+def test_card_serve_never_runs_the_plain_attention(monkeypatch):
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops import attention, decode_attention
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the card's serve path ran a plain attention")
+
+    monkeypatch.setattr(decode_attention, "decode_attention_reference",
+                        refuse)
+    monkeypatch.setattr(attention, "mha_reference", refuse)
+    monkeypatch.setattr(llama, "mha_reference", refuse)
+    for option in ("unstaged", "int8", "int8_staged"):
+        for eager in (True, False):
+            with torch.no_grad():
+                toks = _serve(_small_engine(option, eager=eager))
+            assert [len(t) for t in toks] == [n for _, n in ENGINE_PROMPTS]

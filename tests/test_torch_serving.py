@@ -5,9 +5,12 @@ with llama_params_from_jax) in f32 (``param_dtype=""``), projections
 scaled x8 so that attention is sharp (positions then matter) and greedy
 choices sit far apart. Greedy tokens must be identical; logprobs agree to
 atol 1e-4. Sampling draws different noise in the two frameworks, so the
-sampler is checked for support, not for tokens.
+sampler is checked for support, not for tokens. Staged decode
+(``decode_staging``) and the int8 KV cache (``kv_cache_dtype="int8"``)
+are model options: both engines are built with them on the same weights.
 """
 
+import dataclasses
 import json
 import urllib.request
 
@@ -48,16 +51,18 @@ def shared():
     return jmodel, params, tcfg, llama_params_from_jax(params, tcfg)
 
 
-def port_engine(shared, **kw):
+def port_engine(shared, model_kw=None, **kw):
     _, _, tcfg, sd = shared
-    model = Llama(tcfg)
+    model = Llama(dataclasses.replace(tcfg, **(model_kw or {})))
     model.load_state_dict(sd)
     return ServingEngine(model, ServingConfig(param_dtype="", **kw),
                          device="cpu", registry=MetricsRegistry())
 
 
-def jax_engine(shared, **kw):
+def jax_engine(shared, model_kw=None, **kw):
     jmodel, params, _, _ = shared
+    if model_kw:
+        jmodel = JaxLlama(dataclasses.replace(jmodel.cfg, **model_kw))
     return JaxServingEngine(jmodel, params,
                             JaxServingConfig(param_dtype="", **kw),
                             registry=JaxRegistry())
@@ -96,19 +101,71 @@ SCENARIOS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_greedy_tokens_match_jax_engine(shared, name):
-    kw, requests = SCENARIOS[name]
-    got = serve(port_engine(shared, **kw), requests)
-    want = serve(jax_engine(shared, **kw), requests)
+def assert_same_results(got, want, kw):
     for g, w in zip(got, want):
         assert g.tokens == w.tokens
         assert g.finished_reason == w.finished_reason
         assert g.prompt_len == w.prompt_len
         if kw.get("logprobs"):
             np.testing.assert_allclose(g.logprobs, w.logprobs, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_greedy_tokens_match_jax_engine(shared, name):
+    kw, requests = SCENARIOS[name]
+    got = serve(port_engine(shared, **kw), requests)
+    want = serve(jax_engine(shared, **kw), requests)
+    assert_same_results(got, want, kw)
     if name == "chained_past_max_len":
         assert len(got[0].tokens) == 64 - 1 - 6   # retired at the cap
+
+
+# decode_staging = decode_chunk, as the JAX server builds it; the int8 KV
+# cache alone and staged.
+CACHE_OPTIONS = {
+    "staged": lambda kw: {"decode_staging": kw.get("decode_chunk", 1)},
+    "int8": lambda kw: {"kv_cache_dtype": "int8"},
+    "int8_staged": lambda kw: {"kv_cache_dtype": "int8",
+                               "decode_staging": kw.get("decode_chunk", 1)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+@pytest.mark.parametrize("option", sorted(CACHE_OPTIONS))
+def test_cache_options_match_jax_engine(shared, option, name):
+    kw, requests = SCENARIOS[name]
+    model_kw = CACHE_OPTIONS[option](kw)
+    port = port_engine(shared, model_kw, **kw)
+    got = serve(port, requests)
+    want = serve(jax_engine(shared, model_kw, **kw), requests)
+    assert_same_results(got, want, kw)
+    layer = port._cache[0]
+    if "kv_cache_dtype" in model_kw:
+        assert layer["cached_key"].dtype == torch.int8
+        assert layer["key_scale"].dtype == torch.float32
+    assert ("stage_key" in layer) == ("decode_staging" in model_kw)
+
+
+@pytest.mark.parametrize("kv_dtype", ["", "int8"])
+def test_staged_matches_unstaged(shared, kv_dtype):
+    """Chunk 4 and 11 tokens: two flushes fall inside each generation."""
+    kw = dict(max_batch=2, max_len=64, decode_chunk=4, prefill_buckets=(8,))
+    requests = [([3, 1, 4, 1, 5], dict(max_new_tokens=11)),
+                ([2, 7, 1], dict(max_new_tokens=11))]
+    out = {}
+    for staging in (0, 4):
+        eng = port_engine(shared, {"kv_cache_dtype": kv_dtype,
+                                   "decode_staging": staging}, **kw)
+        eng.warmup(8)
+        out[staging] = [r.tokens for r in serve(eng, requests)]
+    assert all(len(t) == 11 for t in out[4])
+    assert out[4] == out[0]
+
+
+def test_chunk_longer_than_staging_refused(shared):
+    with pytest.raises(ValueError, match="decode_staging"):
+        port_engine(shared, {"decode_staging": 2}, max_batch=2, max_len=64,
+                    decode_chunk=4)
 
 
 def test_eos_stops_like_jax(shared):
@@ -266,6 +323,20 @@ def test_unported_server_options_raise(monkeypatch, tmp_path, env):
             build_server(env_config())
         return
     monkeypatch.setenv(env, "int8")
+    if env == "KFTPU_SERVING_QUANTIZE_KV":
+        # Ported: the env reaches the model, which the server builds
+        # staged as the JAX server does.
+        for key, value in {"KFTPU_SERVING_MODEL": "llama-tiny",
+                           "KFTPU_SERVING_MAX_LEN": "64",
+                           "KFTPU_SERVING_DECODE_CHUNK": "4",
+                           "KFTPU_SERVING_HOST": "127.0.0.1",
+                           "KFTPU_SERVING_PORT": "0"}.items():
+            monkeypatch.setenv(key, value)
+        server = build_server(env_config())
+        cfg = server.engine.model.cfg
+        assert (cfg.kv_cache_dtype, cfg.decode_staging) == ("int8", 4)
+        assert server.engine._cache[0]["cached_value"].dtype == torch.int8
+        return
     with pytest.raises(NotImplementedError, match="later|slice"):
         build_server(env_config())
 
