@@ -7,10 +7,11 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build — compiles the flash-attention kernels (K1, K2) and the decode
    attention (K3) from kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one
    nvcc per source, started together, and prints the seconds and each
-   register/spill report; then checks K1's and K2's SASS: every bf16
-   instantiation of K1's kernel and of K2's dk/dv and dq kernels holds
-   wgmma (HGMMA) and TMA loads (UTMALDG), and ptxas reports no spills in
-   either library;
+   register/spill report; then checks the SASS: every bf16 instantiation
+   of K1's kernel and of K2's dk/dv and dq kernels holds wgmma (HGMMA)
+   and TMA loads (UTMALDG), every one of K3's 16 (D 64/128, G 1/2/4/8,
+   bf16/int8 cache) TMA loads and mma.sync (HMMA), and ptxas reports no
+   spills in any of the three libraries;
 3. kernel (K1, forward) — holds the kernel against its plain PyTorch
    version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
    Sq=Skv 32, 128 and 512; one full-attention case; one D=64 case; one
@@ -42,10 +43,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    version (decode_attention_reference) at the decode shape (bf16 q, B=8,
    H=32, Hkv=8, D=128, L=1024, the burst's ragged live lengths) over the
    bf16 and the int8 cache, unstaged and staged (8 staging rows, all
-   live): max |kernel - plain| <= 2e-2 x max |plain|. Times, on the
-   device (CUDA-graph replays), the kernel and the plain version and, for
-   the unstaged bf16 case, scaled_dot_product_attention(enable_gqa=True)
-   with a bool mask over the cache, as a yardstick the port never calls;
+   live), and at the long context (L=8192, live rows 1024-8192, staged,
+   both caches): max |kernel - plain| <= 2e-2 x max |plain|, two calls
+   bitwise equal. Times, on the device (CUDA-graph replays), the kernel
+   cold (consecutive calls on different cache sets whose live rows
+   exceed twice the L2, as the served step reads each layer's cache) and
+   warm (one set), the plain version and, for the unstaged bf16 case,
+   scaled_dot_product_attention(enable_gqa=True) with a bool mask over
+   the cache, cold and warm, as a yardstick the port never calls;
    computes the bound (bytes of the live rows, q and o over 3.35 TB/s);
 6. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card; staged decode and
@@ -64,8 +69,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    logit is within twice the bf16 re-forward's measured rounding noise of
    the f32 max. Prints tok/s, p50 TTFT, weight bytes and peak device
    memory, then profiles one full-batch decode chunk (wall time, device
-   busy time, idle share, top device kernels) and times three more
-   without the profiler;
+   busy time, idle share, top device kernels, K3's kernel launches, which
+   must be one per layer per step: 256) and times three more without the
+   profiler;
 7. train — runs the training runner in-process (the KFTPU_* env) on the
    ~700M-parameter Llama of ``bench.py train`` at full width and depth
    (vocab 32000, embed 2048, 12 layers, 16/8 heads, head_dim 128, MLP
@@ -83,8 +89,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 8. prints the {"kernels": [...]} line (K1's entry at the serving prefill
    shape, with its training-shape ms, SDPA ms and bound under train_
    keys; K2's at the train shape with dkdv_ms, dq_ms and split_bound_ms;
-   K3's at the served path's case, bf16 staged, with the other cases'
-   times and SDPA's under unstaged_/int8_ keys), then the result line.
+   K3's at the served path's case, bf16 staged, cold, with its warm_ms,
+   the other cases' times and SDPA's under unstaged_/int8_ keys and the
+   long context under l8192_ keys), then the result line.
 """
 
 from __future__ import annotations
@@ -106,7 +113,6 @@ import torch
 # The card's published peaks (H100 SXM data sheet, dense): bf16 tensor-core
 # rate and memory bandwidth. Times below them are the least possible.
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12          # outside the tensor cores (K3's FMAs)
 PEAK_BYTES_PER_S = 3.35e12
 H, HKV = 32, 8      # llama3-8b's query and kv heads
 TRAIN_H, TRAIN_HKV = 16, 8      # the 700M training model's heads
@@ -210,11 +216,12 @@ def attention_bound_ms(b, sq, skv, h, hkv, d, causal, offset):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def check_build(lib: str, families: dict) -> None:
-    """A kernel library's build is the Hopper design: every bf16
-    instantiation of each family (name -> how many the library must hold)
-    has wgmma (HGMMA) and TMA loads (UTMALDG) in its SASS, and ptxas
-    reports no spills for any kernel of the library."""
+def check_build(lib: str, families: dict,
+                required=("HGMMA", "UTMALDG")) -> None:
+    """A kernel library's build is the Hopper design: every instantiation
+    of each family (name -> how many the library must hold) has each of
+    the ``required`` SASS instructions (wgmma is HGMMA, a TMA load UTMALDG),
+    and ptxas reports no spills for any kernel of the library."""
     import re
 
     from kubeflow_tpu_torch.ops import _build
@@ -228,19 +235,19 @@ def check_build(lib: str, families: dict) -> None:
         name = chunk.split("\n", 1)[0].strip()
         for family in families:
             if family in name:
-                found[family][name] = (chunk.count("HGMMA"),
-                                       chunk.count("UTMALDG"),
-                                       chunk.count("UTMASTG"))
+                found[family][name] = {op: chunk.count(op)
+                                       for op in (*required, "UTMASTG")}
     for family, want in families.items():
         got = found[family]
-        if len(got) != want or not all(h and t for h, t, _ in got.values()):
+        if len(got) != want or not all(counts[op] for counts in got.values()
+                                       for op in required):
             raise AssertionError(
-                f"{family} SASS lacks HGMMA/UTMALDG (want {want} "
+                f"{family} SASS lacks {'/'.join(required)} (want {want} "
                 f"instantiations): {got}")
-        for name, (h, t, st) in sorted(got.items()):
+        for name, counts in sorted(got.items()):
             tiles = name.split(family)[1].split("EEEEE")[0]
-            log(f"  sass {family}{tiles}: HGMMA {h}, UTMALDG {t}, "
-                f"UTMASTG {st}")
+            log(f"  sass {family}{tiles}: " + ", ".join(
+                f"{op} {n}" for op, n in counts.items()))
     with open(lib[:-3] + ".log") as f:
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill", f.read())]
     if any(spills):
@@ -505,32 +512,70 @@ def backward_phase():
 # live rows of K3's eight slots at the decode shape.
 DECODE_LENGTHS = [36, 46, 116, 136, 216, 266, 416, 516]
 DECODE_L, DECODE_C = 1024, 8
+# The long-context row: llama3-8b's max_seq_len, eight slots spread over it.
+LONG_L = 8192
+LONG_LENGTHS = [1024, 2048, 3072, 4096, 5120, 6144, 7168, 8192]
+L2_BYTES = 50e6                 # the H100's L2
 
 
-def decode_bound_ms(lengths, h, hkv, d, cache_bytes, stage_rows):
+def decode_bound_ms(lengths, h, hkv, d, cache_bytes, stage_rows,
+                    max_len=DECODE_L):
     """Least time of K3 on this card: the larger of the bytes it must move
     (each live cache row's k and v, and their f32 scales for int8; the
     live staging rows; q read and o written once) over the memory rate,
-    and its f32 FMAs (4 D flops a query head per live row) over the f32
-    rate outside the tensor cores."""
-    rows = sum(min(n, DECODE_L) for n in lengths)
+    and its products (4 D flops a query head per live row) over the bf16
+    tensor-core rate."""
+    rows = sum(min(n, max_len) for n in lengths)
     b = len(lengths)
     nbytes = rows * hkv * d * 2 * cache_bytes + 4 * b * h * d
     if cache_bytes == 1:
         nbytes += rows * hkv * 2 * 4
     nbytes += stage_rows * b * hkv * d * 2 * 2
     flops = 4.0 * h * d * (rows + stage_rows * b)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def decode_phase():
-    """K3 against its plain version at the decode shape; returns (rows,
-    max_abs_err)."""
+def cold_ms(fn, n_sets: int) -> float:
+    """Device time of one ``fn(i)`` call when each call reads another of
+    ``n_sets`` cache sets, in turn: the rows it reads were last touched
+    n_sets - 1 calls ago, so a set of sets larger than the L2 makes every
+    call read from device memory, as the served step does (the layers'
+    weights stream through the L2 between two calls on one layer)."""
+    turn = iter(range(1 << 30))
+    return device_ms(lambda: fn(next(turn) % n_sets), calls=2 * n_sets,
+                     replays=3)
+
+
+def decode_sets(gen, b, max_len, lengths, n_min=1):
+    """Seeded bf16 k/v cache sets and their int8 quantizations: enough
+    sets that the live rows of all of them exceed twice the L2 (int8
+    counted at its own size)."""
     from kubeflow_tpu_torch.models.llama import quantize_kv_rows
+
+    live_int8 = sum(min(n, max_len) for n in lengths) * HKV * (2 * 128 + 8)
+    n = max(n_min, int(np.ceil(2 * L2_BYTES / live_int8)))
+    bf16, int8 = [], []
+    for _ in range(n):
+        k = torch.randn(b, max_len, HKV, 128, generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn(b, max_len, HKV, 128, generator=gen,
+                        device="cuda").bfloat16()
+        bf16.append((k, v, {}))
+        (k8, ks), (v8, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+        int8.append((k8, v8, {"k_scale": ks, "v_scale": vs}))
+    return bf16, int8
+
+
+def decode_phase():
+    """K3 against its plain version at the decode shape and at the long
+    context; returns (rows, long rows, max_abs_err)."""
     from kubeflow_tpu_torch.ops.attention import decode_attention_reference
-    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+    from kubeflow_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        launch_cluster,
+    )
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -539,62 +584,118 @@ def decode_phase():
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
 
+    def check(name, kernel, plain):
+        """max |kernel - plain| within 2e-2 x max |plain|, two calls
+        bitwise equal; returns the error."""
+        with torch.no_grad():
+            got, want = kernel(), plain()
+            again = kernel()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        if not err <= 2e-2 * ref:
+            raise AssertionError(f"K3 {name}: max err {err:.3e} > 2e-2 x "
+                                 f"{ref:.3e}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K3 {name}: two calls differ")
+        return err
+
     q = rand(b, 1, H, d)
-    k, v = rand(b, DECODE_L, HKV, d), rand(b, DECODE_L, HKV, d)
-    (k8, ks), (v8, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
     sk, sv = rand(b, DECODE_C, HKV, d), rand(b, DECODE_C, HKV, d)
     idx = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    sets = dict(zip(("bf16", "int8"),
+                    decode_sets(gen, b, DECODE_L, DECODE_LENGTHS)))
     live = torch.arange(DECODE_L, device="cuda")[None, :] < idx[:, None]
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    qt = q.transpose(1, 2)
 
-    def library():
+    def library(i=0):
+        k, v, _ = sets["bf16"][i]
         return F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=live[:, None, None, :], enable_gqa=True)
+            qt, k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=live[:, None, None, :], enable_gqa=True)
 
-    cases = [("bf16", {}, None), ("int8", {"k_scale": ks, "v_scale": vs},
-                                  None),
-             ("bf16_staged", {}, DECODE_C - 1),
-             ("int8_staged", {"k_scale": ks, "v_scale": vs}, DECODE_C - 1)]
+    log(f"K3 plan: {launch_cluster(d, H // HKV, False, b, HKV, DECODE_L)} "
+        f"blocks a (slot, kv head) (bf16), "
+        f"{launch_cluster(d, H // HKV, True, b, HKV, DECODE_L)} (int8); "
+        f"{len(sets['bf16'])} cache sets for the cold times")
     rows, max_err = [], 0.0
-    for name, scales, step in cases:
-        ck, cv = (k8, v8) if scales else (k, v)
+    for name, cache, step in (("bf16", "bf16", None), ("int8", "int8", None),
+                              ("bf16_staged", "bf16", DECODE_C - 1),
+                              ("int8_staged", "int8", DECODE_C - 1)):
         stage = ({} if step is None else
                  {"stage_key": sk, "stage_value": sv, "stage_step": step})
 
-        def kernel():
-            return decode_attention(q, ck, cv, idx, **scales, **stage)
+        def kernel(i=0):
+            k, v, scales = sets[cache][i]
+            return decode_attention(q, k, v, idx, **scales, **stage)
 
         def plain():
-            return decode_attention_reference(q, ck, cv, idx, **scales,
+            k, v, scales = sets[cache][0]
+            return decode_attention_reference(q, k, v, idx, **scales,
                                               **stage)
 
+        err = check(name, kernel, plain)
         with torch.no_grad():
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ref = want.float().abs().max().item()
-            if not err <= 2e-2 * ref:
-                raise AssertionError(f"K3 {name}: max err {err:.3e} > 2e-2 x "
-                                     f"{ref:.3e}")
-            ms = device_ms(kernel)
+            ms = cold_ms(kernel, len(sets[cache]))
+            warm_ms = device_ms(kernel)
             plain_ms = device_ms(plain)
-            library_ms = device_ms(library) if name == "bf16" else None
+            library_ms = library_warm_ms = None
             if name == "bf16":
+                library_ms = cold_ms(library, len(sets["bf16"]))
+                library_warm_ms = device_ms(library)
                 sdpa_err = (library().transpose(1, 2).float()
-                            - want.float()).abs().max().item()
+                            - plain().float()).abs().max().item()
         bound, bound_by = decode_bound_ms(
-            DECODE_LENGTHS, H, HKV, d, 1 if scales else 2,
+            DECODE_LENGTHS, H, HKV, d, 1 if cache == "int8" else 2,
             0 if step is None else step + 1)
         max_err = max(max_err, err)
-        rows.append(dict(case=name, max_abs_err=err, ms=ms,
+        rows.append(dict(case=name, max_abs_err=err, ms=ms, warm_ms=warm_ms,
                          plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound, bound_by=bound_by))
+                         library_warm_ms=library_warm_ms, bound_ms=bound,
+                         bound_by=bound_by))
         lib = "n/a" if library_ms is None else (
-            f"{library_ms:.4f} ms (its err {sdpa_err:.3e})")
-        log(f"K3 {name}: err {err:.3e} kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms sdpa {lib} bound {bound * 1e3:.2f} us "
-            f"({bound_by})")
-    return rows, max_err
+            f"{library_ms:.4f} ms cold, {library_warm_ms:.4f} warm (its err "
+            f"{sdpa_err:.3e})")
+        log(f"K3 {name}: err {err:.3e}, two calls equal; kernel {ms:.4f} ms "
+            f"cold, {warm_ms:.4f} warm; plain {plain_ms:.4f} ms; sdpa {lib}; "
+            f"bound {bound * 1e3:.2f} us ({bound_by})")
+    del sets
+    torch.cuda.empty_cache()
+
+    # The long context: L = 8192, staged, bf16 and int8 caches. One set's
+    # live rows (~150 MB bf16) exceed the L2, so every call is cold.
+    idx_long = torch.tensor(LONG_LENGTHS, dtype=torch.int32, device="cuda")
+    long_sets = dict(zip(("bf16", "int8"), decode_sets(
+        gen, b, LONG_L, LONG_LENGTHS, n_min=2)))
+    long_rows = []
+    for cache in ("bf16", "int8"):
+        stage = {"stage_key": sk, "stage_value": sv,
+                 "stage_step": DECODE_C - 1}
+
+        def kernel(i=0):
+            k, v, scales = long_sets[cache][i]
+            return decode_attention(q, k, v, idx_long, **scales, **stage)
+
+        def plain():
+            k, v, scales = long_sets[cache][0]
+            return decode_attention_reference(q, k, v, idx_long, **scales,
+                                              **stage)
+
+        name = f"l8192_{cache}_staged"
+        err = check(name, kernel, plain)
+        with torch.no_grad():
+            ms = cold_ms(kernel, len(long_sets[cache]))
+        bound, bound_by = decode_bound_ms(
+            LONG_LENGTHS, H, HKV, d, 1 if cache == "int8" else 2,
+            DECODE_C, max_len=LONG_L)
+        max_err = max(max_err, err)
+        long_rows.append(dict(case=name, max_abs_err=err, ms=ms,
+                              bound_ms=bound, bound_by=bound_by))
+        log(f"K3 {name}: err {err:.3e}, two calls equal; kernel {ms:.4f} ms "
+            f"cold; bound {bound * 1e3:.2f} us ({bound_by})")
+    del long_sets
+    torch.cuda.empty_cache()
+    return rows, long_rows, max_err
 
 
 def post(base: str, body: dict):
@@ -768,13 +869,19 @@ def decode_breakdown(engine, rs):
         log(f"  {e.key[:70]}: {e.device_time_total / 1e3:.2f} ms over "
             f"{e.count} calls")
     attn = [e for e in kernels if "decode_attn" in e.key]
-    log(f"  decode_attn* (K3, both kernels): "
-        f"{sum(e.device_time_total for e in attn) / 1e3:.3f} ms over "
-        f"{sum(e.count for e in attn)} calls")
+    k3_launches = sum(e.count for e in attn)
+    log(f"  decode_attn (K3): {sum(e.device_time_total for e in attn) / 1e3:.3f}"
+        f" ms over {k3_launches} launches")
+    # One kernel a call: a launch per layer per step of the chunk.
+    want = engine.model.cfg.num_layers * steps
+    if busy_ms > 0 and k3_launches != want:
+        raise AssertionError(f"K3 launched {k3_launches} kernels in the "
+                             f"profiled chunk, want {want} (one a call)")
     while engine.active_slots:
         engine.step()
     return dict(chunk_wall_ms=wall_ms, chunk_busy_ms=busy_ms, idle=idle,
-                step_ms=float(np.median(plain)) / steps)
+                step_ms=float(np.median(plain)) / steps,
+                k3_chunk_launches=k3_launches)
 
 
 def greedy_check(model, bodies, outs, kv_int8: bool = False):
@@ -1090,10 +1197,14 @@ def main() -> int:
     check_build(libs["flash_attention_fwd.cu"], {"flash_fwd_bf16": 4})
     check_build(libs["flash_attention_bwd.cu"],
                 {"flash_bwd_dkdv_bf16": 2, "flash_bwd_dq_bf16": 2})
+    # K3: D 64/128 x G 1/2/4/8 x bf16/int8 cache, each fed by TMA (its
+    # products are mma.sync, HMMA, not wgmma).
+    check_build(libs["decode_attention.cu"], {"decode_attn": 16},
+                required=("UTMALDG", "HMMA"))
 
     rows, max_err = kernel_phase()
     bwd_rows, bwd_err = backward_phase()
-    dec_rows, dec_err = decode_phase()
+    dec_rows, dec_long, dec_err = decode_phase()
     serve = serve_phase()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1136,18 +1247,27 @@ def main() -> int:
                 bwd_err, bwd_row)
     bwd.update({key: bwd_row[key]
                 for key in ("dkdv_ms", "dq_ms", "split_bound_ms")})
-    # K3 at the case the served path runs (staged, bf16 cache); its other
-    # cases beside it, SDPA's time at the unstaged bf16 one.
+    # K3 at the case the served path runs (staged, bf16 cache), cold (each
+    # call on other cache rows, as in the served step), its warm time
+    # beside it; its other cases under prefixes, SDPA's times at the
+    # unstaged bf16 one; the long context (L = 8192) under l8192_.
     dec = {r["case"]: r for r in dec_rows}
     k3 = entry("decode_attention", "decode_attention.cu",
                "kubeflow_tpu/models/llama.py:337", serve["k3"], dec_err,
                dec["bf16_staged"])
+    k3["warm_ms"] = dec["bf16_staged"]["warm_ms"]
     k3["int8_launches"] = serve_int8["k3"]
+    k3["chunk_launches"] = serve["k3_chunk_launches"]
     for case in ("bf16", "int8", "int8_staged"):
         prefix = {"bf16": "unstaged_", "int8": "int8_",
                   "int8_staged": "int8_staged_"}[case]
         k3.update({prefix + key: dec[case][key]
-                   for key in ("ms", "plain_ms", "bound_ms", "library_ms")})
+                   for key in ("ms", "warm_ms", "plain_ms", "bound_ms",
+                               "library_ms", "library_warm_ms")})
+    for row in dec_long:
+        prefix = row["case"].replace("_staged", "") + "_"
+        k3.update({prefix + key: row[key]
+                   for key in ("ms", "bound_ms", "max_abs_err")})
     print(json.dumps({"kernels": [fwd, bwd, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""A/B device timing of builds of the flash-attention backward (K2) on one
-NVIDIA GPU: ``python3 kernel_ab.py DIR [DIR ...] [--shapes train,s512]``.
+"""A/B device timing of builds of one kernel on one NVIDIA GPU: the
+flash-attention backward (K2, the default) or the decode attention (K3):
+``python3 kernel_ab.py DIR [DIR ...] [--kernel bwd|decode] [--shapes ...]``.
 
 Each DIR is the root of a checkout, or of a copy of its
 ``kubeflow_tpu_torch/ops/csrc`` (for instance ``git archive <rev>
@@ -16,12 +17,25 @@ least per build), and each build's kernels are timed apart by name under
 torch.profiler. Shapes (B, S, H/Hkv, D, all causal): ``train`` 12, 2048,
 16/8, 128 (the 700M model's); ``s512`` 8, 512, 16/8, 128; ``d64`` 8, 512,
 16/8, 64. Exits 2 without CUDA and 1 when a build disagrees.
+
+``--kernel decode`` does the same for ``decode_attention.cu``: each build
+is held against ``decode_attention_reference`` (within 2e-2 x max|plain|,
+two calls bitwise equal) over the bf16 and the int8 cache, staged (8
+staging rows, all live), and timed in turns warm (every call on one set of
+rows, which the 50 MB L2 keeps from the second call on) and cold (calls
+rotating over enough cache sets that the live rows of all of them exceed
+twice the L2). A build whose source still holds the earlier split and
+merge kernels is called through their C interface (its f32 partials
+allocated here). Shapes (B, H/Hkv, D, L, live rows): ``served`` 8, 32/8, 128, 1024,
+the serve burst's 36-516; ``long`` 8, 32/8, 128, 8192, 1024-8192; ``even``
+and ``one`` the served rows spread evenly, or one slot's 516 alone.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import os
 import statistics
 import subprocess
@@ -32,6 +46,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops import decode_attention as da
 from kubeflow_tpu_torch.ops import flash_attention as fa
 
 SHAPES = {             # B, S, H, Hkv, D
@@ -40,38 +55,77 @@ SHAPES = {             # B, S, H, Hkv, D
     "d64": (8, 512, 16, 8, 64),
 }
 TOL = 2e-2             # the bf16 bound of chip_smoke.py and the card tests
-SOURCE = os.path.join("kubeflow_tpu_torch", "ops", "csrc",
-                      "flash_attention_bwd.cu")
+CSRC = os.path.join("kubeflow_tpu_torch", "ops", "csrc")
+# kernel -> (source, the kernels' name stem, the entries ptxas reports on)
+KERNELS = {"bwd": ("flash_attention_bwd.cu", "flash_bwd", "bf16"),
+           "decode": ("decode_attention.cu", "decode_attn", "decode_attn")}
 
 
-def kernel_name(name: str) -> str:
-    """``flash_bwd_...`` and its template arguments, from a mangled or a
+def kernel_name(name: str, stem: str = "flash_bwd") -> str:
+    """``stem...`` and its template arguments, from a mangled or a
     demangled kernel name."""
     name = name.replace("(anonymous namespace)::", "")
-    name = name[max(name.find("flash_bwd"), 0):]
+    name = name[max(name.find(stem), 0):]
     return name.split("EEEEE")[0].split("(")[0].split("'")[0]
 
 
-def build(root: str, lib: str) -> list:
-    """Compile ``root``'s K2 source into ``lib``; returns ptxas's report
-    lines for the bf16 kernels."""
+def build(root: str, lib: str, kernel: str = "bwd") -> list:
+    """Compile ``root``'s source of ``kernel`` into ``lib``; returns
+    ptxas's report lines for the kernels it times."""
+    source, stem, keep = KERNELS[kernel]
     proc = subprocess.run(
         [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib,
-         os.path.join(root, SOURCE)], capture_output=True, text=True)
+         os.path.join(root, CSRC, source)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {root}:\n{proc.stderr}")
     report, bf16 = [], False
     for line in (proc.stdout + proc.stderr).splitlines():
         if "Compiling entry" in line:
-            bf16 = "bf16" in line
+            bf16 = keep in line
             if bf16:
-                report.append("  " + kernel_name(line.split("'")[1]))
+                report.append("  " + kernel_name(line.split("'")[1], stem))
         elif bf16 and ("registers" in line or "spill" in line):
             report.append("    " + line.split(":", 1)[-1].strip())
         elif "C75" in line:     # e.g. C7512: wgmma serialised for lack of registers
             report.append(f"    {line.split(')')[0].split('(')[-1]} in "
                           f"{kernel_name(line.split(chr(39))[1])}")
     return report
+
+
+def turns(graphs: dict, per_replay: int, rounds: int = 6) -> dict:
+    """Device ms per call of each label's graph (``per_replay`` calls a
+    replay), timed in turns: forward order, then reverse, ``rounds``
+    times; each turn times two replays after one untimed."""
+    times = {label: [] for label in graphs}
+    order = list(graphs)
+    for rnd in range(rounds):
+        for label in (order if rnd % 2 == 0 else order[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            graphs[label].replay()
+            start.record()
+            graphs[label].replay()
+            graphs[label].replay()
+            end.record()
+            torch.cuda.synchronize()
+            times[label].append(start.elapsed_time(end) / (2 * per_replay))
+    return times
+
+
+def capture(fn, calls: int):
+    """``calls`` calls of ``fn`` in one CUDA graph, warmed up on the side
+    stream that captures them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    return graph
 
 
 def run_shape(name: str, fns: dict) -> bool:
@@ -116,32 +170,9 @@ def run_shape(name: str, fns: dict) -> bool:
               f"{same}{'' if good else '  FAIL'}", flush=True)
     del want
 
-    graphs = {}
-    for label, fn in fns.items():
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                call(fn)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            for _ in range(10):
-                call(fn)
-        graphs[label] = graph
-    times = {label: [] for label in fns}
-    order = list(fns)
-    for rnd in range(6):
-        for label in (order if rnd % 2 == 0 else order[::-1]):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            graphs[label].replay()
-            start.record()
-            graphs[label].replay()
-            graphs[label].replay()
-            end.record()
-            torch.cuda.synchronize()
-            times[label].append(start.elapsed_time(end) / 20)
+    graphs = {label: capture(lambda fn=fn: call(fn), 10)
+              for label, fn in fns.items()}
+    times = turns(graphs, 10)
     print(f"{name} device ms per call (median / least of 6 turns): " + "; ".join(
         f"{label} {statistics.median(t):.4f} / {min(t):.4f}"
         for label, t in times.items()), flush=True)
@@ -159,11 +190,173 @@ def run_shape(name: str, fns: dict) -> bool:
     return ok
 
 
+# name -> (L, the slots' live rows); B = 8, H/Hkv = 32/8, D = 128, staged.
+# "even" spreads the served rows evenly over the slots and "one" gives all
+# of the longest slot's rows to one slot: they tell load imbalance across
+# the card from the latency of one slot's blocks.
+DECODE_SHAPES = {
+    "served": (1024, [36, 46, 116, 136, 216, 266, 416, 516]),
+    "long": (8192, [1024, 2048, 3072, 4096, 5120, 6144, 7168, 8192]),
+    "even": (1024, [218] * 7 + [222]),
+    "one": (1024, [516] + [0] * 7),
+}
+DECODE_H, DECODE_HKV, DECODE_D, DECODE_C = 32, 8, 128, 8
+L2_BYTES = 50e6
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def decode_caller(root: str, lib: str):
+    """The build's C entry as ``call(q, k, v, idx, ks, vs, sk, sv,
+    stage_rows) -> o``: this checkout's interface, or the earlier one
+    (split and merge kernels, f32 partials passed in) where the source
+    holds it."""
+    with open(os.path.join(root, CSRC, KERNELS["decode"][0])) as f:
+        split_merge = "decode_attn_merge" in f.read()
+    fn = getattr(ctypes.CDLL(lib), "kftpu_decode_attention")
+    fn.restype = ctypes.c_int
+    if split_merge:
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+    else:
+        fn, plan = da.bind(ctypes.CDLL(lib))
+
+    def call(q, k, v, idx, ks, vs, sk, sv, stage_rows):
+        b, _, h, d = q.shape
+        _, L, hkv, _ = k.shape
+        o = torch.empty_like(q)
+        scale_strides = ks.stride()[:3] if ks is not None else (0, 0, 0)
+        strides = (ctypes.c_longlong * 11)(
+            q.stride(0), q.stride(2), *k.stride()[:3], *scale_strides,
+            *sk.stride()[:3])
+        head = (d, h // hkv, int(ks is not None), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), ks.data_ptr() if ks is not None else None,
+                vs.data_ptr() if vs is not None else None, idx.data_ptr(),
+                sk.data_ptr(), sv.data_ptr(), stage_rows)
+        tail = (ctypes.addressof(strides), d ** -0.5,
+                torch.cuda.current_stream().cuda_stream)
+        if split_merge:         # its plan: 64-row splits, at most 64
+            splits = min(-(-L // 64), 64)
+            total = splits + (1 if stage_rows else 0)
+            part_acc = torch.empty(b, h, total, d, device=q.device)
+            part_ml = torch.empty(b, h, total, 2, device=q.device)
+            rc = fn(*head, o.data_ptr(), part_acc.data_ptr(),
+                    part_ml.data_ptr(), b, hkv, L, splits, -(-L // splits),
+                    *tail)
+        else:
+            rc = fn(*head, sk.shape[1], o.data_ptr(), b, hkv, L,
+                    da.split_plan(L), *tail)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: CUDA error {rc}")
+        return o
+
+    def cluster(d, g, int8, b, hkv, L):
+        """The blocks a (slot, kv head) is split over."""
+        if split_merge:
+            return f"{min(-(-L // 64), 64)} splits + merge"
+        return plan(d, g, int8, b, hkv, da.split_plan(L))
+
+    call.cluster = cluster
+    return call
+
+
+def run_decode(name: str, calls: dict) -> bool:
+    """Every build at one decode shape, bf16 then int8 cache, staged."""
+    from kubeflow_tpu_torch.models.llama import quantize_kv_rows
+    from kubeflow_tpu_torch.ops.attention import decode_attention_reference
+
+    L, lengths = DECODE_SHAPES[name]
+    b, h, hkv, d = len(lengths), DECODE_H, DECODE_HKV, DECODE_D
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q = rand(b, 1, h, d)
+    sk, sv = rand(b, DECODE_C, hkv, d), rand(b, DECODE_C, hkv, d)
+    idx = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    rows = sum(lengths)
+    ok = True
+    for cache in ("bf16", "int8"):
+        row_bytes = hkv * d * 2 * (2 if cache == "bf16" else 1) \
+            + (hkv * 8 if cache == "int8" else 0)
+        n_sets = max(2, -(-int(2 * L2_BYTES) // (rows * row_bytes)))
+        sets = []
+        for _ in range(n_sets):
+            k, v = rand(b, L, hkv, d), rand(b, L, hkv, d)
+            if cache == "int8":
+                (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+            else:
+                ks = vs = None
+            sets.append((k, v, ks, vs))
+        k, v, ks, vs = sets[0]
+        scales = {} if ks is None else {"k_scale": ks, "v_scale": vs}
+        want = decode_attention_reference(
+            q, k, v, idx, **scales, stage_key=sk, stage_value=sv,
+            stage_step=DECODE_C - 1).float()
+        for label, call in calls.items():
+            got = call(q, k, v, idx, ks, vs, sk, sv, DECODE_C)
+            err = ((got.float() - want).abs().max()
+                   / want.abs().max()).item()
+            same = torch.equal(got, call(q, k, v, idx, ks, vs, sk, sv,
+                                         DECODE_C))
+            good = err <= TOL and same
+            ok &= good
+            print(f"{name} {cache} {label}: blocks a (slot, kv head) "
+                  f"{call.cluster(d, h // hkv, cache == 'int8', b, hkv, L)}; "
+                  f"max err / max|plain| {err:.3e}; "
+                  f"two calls bitwise equal: {same}"
+                  f"{'' if good else '  FAIL'}", flush=True)
+        nbytes = rows * row_bytes + b * hkv * DECODE_C * d * 4 + 4 * b * h * d
+        for mode, order in (("warm", [0] * 10),
+                            ("cold", list(range(n_sets)) * max(
+                                1, -(-10 // n_sets)))):
+            def rotating(call, order=order):
+                sets_in_turn = itertools.cycle(order)
+
+                def run():
+                    k, v, ks, vs = sets[next(sets_in_turn)]
+                    return call(q, k, v, idx, ks, vs, sk, sv, DECODE_C)
+                return run
+
+            graphs = {label: capture(rotating(c), len(order))
+                      for label, c in calls.items()}
+            times = turns(graphs, len(order))
+            print(f"{name} {cache} staged {mode} ({n_sets if mode == 'cold' else 1}"
+                  f" cache sets) device ms per call (median / least of 6 "
+                  f"turns): " + "; ".join(
+                      f"{label} {statistics.median(t):.5f} / {min(t):.5f}"
+                      for label, t in times.items())
+                  + f"; bound {1e3 * nbytes / PEAK_BYTES_PER_S:.5f} (bytes)",
+                  flush=True)
+            del graphs
+        for label, call in calls.items():
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call(q, k, v, idx, ks, vs, sk, sv, DECODE_C)
+                torch.cuda.synchronize()
+            parts = [f"{kernel_name(e.key, 'decode_attn')} x{e.count // 5} "
+                     f"{e.device_time_total / e.count / 1e3:.5f}"
+                     for e in prof.key_averages() if "decode_attn" in e.key]
+            print(f"  {name} {cache} {label} by kernel, warm (ms): "
+                  + "; ".join(parts), flush=True)
+        del sets, k, v, ks, vs
+        torch.cuda.empty_cache()
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+")
-    ap.add_argument("--shapes", default="train,s512")
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="bwd")
+    ap.add_argument("--shapes", default=None,
+                    help="bwd: train,s512,d64 (default train,s512); "
+                    "decode: served,long,even,one (default served,long)")
     args = ap.parse_args()
+    decode = args.kernel == "decode"
+    shapes = args.shapes or ("served,long" if decode else "train,s512")
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
@@ -172,17 +365,22 @@ def main() -> int:
                          text=True, check=True)
     print(smi.stdout.strip(), flush=True)
     with tempfile.TemporaryDirectory(prefix="kernel_ab-") as out_dir:
-        libs = [os.path.join(out_dir, f"k2_{i}.so")
+        libs = [os.path.join(out_dir, f"{args.kernel}_{i}.so")
                 for i in range(len(args.dirs))]
         with ThreadPoolExecutor(len(args.dirs)) as pool:   # one nvcc each
-            reports = list(pool.map(build, args.dirs, libs))
+            reports = list(pool.map(build, args.dirs, libs,
+                                    [args.kernel] * len(libs)))
         for root, report in zip(args.dirs, reports):
             print(f"build {root}:\n" + "\n".join(report), flush=True)
-        fns = {root: fa.bind_bwd(ctypes.CDLL(lib))
-               for root, lib in zip(args.dirs, libs)}
+        if decode:
+            fns = {root: decode_caller(root, lib)
+                   for root, lib in zip(args.dirs, libs)}
+        else:
+            fns = {root: fa.bind_bwd(ctypes.CDLL(lib))
+                   for root, lib in zip(args.dirs, libs)}
     ok = True
-    for name in args.shapes.split(","):
-        ok &= run_shape(name, fns)
+    for name in shapes.split(","):
+        ok &= run_decode(name, fns) if decode else run_shape(name, fns)
         torch.cuda.empty_cache()
     return 0 if ok else 1
 

@@ -9,10 +9,15 @@ against the dense KV cache (k, v [B, L, Hkv, D], bf16, or int8 with f32
 - CUDA tensors launch ``ops/csrc/decode_attention.cu``, built at first use
   by ``ops/_build.py``, or raise: the kernel takes bf16 q and staging
   rows, a bf16 or int8 cache, head_dim 64 or 128 and query groups
-  H / Hkv of 1, 2, 4 or 8. It reads only the live rows, accumulates in
-  f32 and writes bf16. It is capture-safe (no host read of the lengths,
-  no allocation in the C code, the caller's stream), and the split count
-  depends only on L, so one captured CUDA graph serves every length.
+  H / Hkv of 1, 2, 4 or 8. One launch a call: the blocks of a (slot, kv
+  head) form a thread-block cluster whose size depends only on the shapes
+  (:func:`launch_cluster`; so one captured CUDA graph serves every
+  length), split the slot's live rows among themselves on the device,
+  read them with TMA, multiply on the tensor cores (bf16 operands, f32
+  accumulators) and merge through distributed shared memory. It reads
+  only the live rows and writes bf16. It is capture-safe (no host read of
+  the lengths, no allocation in the C code, the caller's stream) and
+  deterministic.
 - CPU tensors take :func:`kubeflow_tpu_torch.ops.attention.
   decode_attention_reference`, which computes the same function in plain
   PyTorch (and also takes several query rows, unstaged). It is also what
@@ -34,47 +39,69 @@ from kubeflow_tpu_torch.ops.attention import decode_attention_reference
 _SOURCE = "decode_attention.cu"
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
-#: A split covers at most this many cache rows while L allows
-#: ``MAX_SPLITS`` of them; past that the splits grow instead.
-SPLIT_ROWS = 64
-MAX_SPLITS = 64
+#: The kernel shares a slot's live rows among a cluster's blocks in
+#: chunks of this many rows (its TMA box).
+CHUNK_ROWS = 16
+#: The portable thread-block cluster size.
+MAX_CLUSTER = 8
 
 
-def split_plan(max_len: int) -> Tuple[int, int]:
-    """(splits, rows per split) for a cache of ``max_len`` rows: a
-    function of ``max_len`` alone, so a captured graph serves any
-    length."""
-    splits = min(-(-max_len // SPLIT_ROWS), MAX_SPLITS)
-    return splits, -(-max_len // splits)
+def split_plan(max_len: int) -> int:
+    """Blocks a (slot, kv head) is split over (one cluster) for a cache of
+    ``max_len`` rows: a function of ``max_len`` alone, so a captured graph
+    serves any length, and no more blocks than a full cache has chunks.
+    The kernel gives block r chunks [r p + min(r, e), ...) of the slot's
+    ceil(live / 16), p = chunks // blocks and e = chunks % blocks."""
+    return max(1, min(MAX_CLUSTER, -(-max_len // CHUNK_ROWS)))
+
+
+def bind(lib: ctypes.CDLL):
+    """K3's C entry points in ``lib`` with their ctypes signatures: the
+    launch, and the cluster size it picks for (head_dim, group, int8, B,
+    Hkv, most blocks)."""
+    fn = lib.kftpu_decode_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+    cluster = lib.kftpu_decode_attention_cluster
+    cluster.restype = ctypes.c_int
+    cluster.argtypes = [ctypes.c_int] * 6
+    return fn, cluster
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """K3's C entry point with its ctypes signature, built and loaded at
-    first use."""
+def _kernel_fns():
+    """K3's C entry points, built and loaded at first use."""
     from kubeflow_tpu_torch.ops._build import load_library
 
-    fn = load_library(_SOURCE).kftpu_decode_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
-    return fn
+    return bind(load_library(_SOURCE))
+
+
+def launch_cluster(head_dim: int, group: int, kv_int8: bool, batch: int,
+                   kv_heads: int, max_len: int) -> int:
+    """Blocks a (slot, kv head) is split over when the kernel runs at these
+    shapes on the current card: ``split_plan(max_len)``, or fewer where
+    ``batch * kv_heads`` clusters of that size would not all be resident at
+    once."""
+    n = _kernel_fns()[1](head_dim, group, int(kv_int8), batch, kv_heads,
+                         split_plan(max_len))
+    if n < 1:
+        raise RuntimeError(f"decode_attention plan failed: CUDA error {-n}")
+    return n
 
 
 def _check_rows(name: str, t: torch.Tensor, device: torch.device,
                 strides: Tuple[int, ...]) -> None:
-    """Head dim contiguous; 16-byte rows: base and strides aligned for the
-    kernel's 16-byte (bf16) or 8-byte (int8) loads."""
+    """Head dim contiguous; base and strides 16-byte aligned, as the
+    kernel's 16-byte loads and TMA's tensor maps need."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
     if t.stride(-1) != 1:
         raise ValueError(f"{name}'s head dim must be contiguous")
-    align = 16 if t.dtype == torch.bfloat16 else 8
-    per = align // t.element_size()
-    if t.data_ptr() % align or any(st % per for st in strides):
-        raise ValueError(f"{name} must be {align}-byte aligned with strides "
+    per = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(st % per for st in strides):
+        raise ValueError(f"{name} must be 16-byte aligned with strides "
                          f"a multiple of {per} elements")
 
 
@@ -143,17 +170,11 @@ def _kernel(q, k, v, cache_index, k_scale, v_scale, stage_key, stage_value,
     if lengths.shape != (B,):
         raise ValueError(f"cache_index must be [B], got "
                          f"{tuple(lengths.shape)}")
-    splits, split_rows = split_plan(L)
-    total = splits + (1 if staged else 0)
     o = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((B, H, total, D), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, H, total, 2), dtype=torch.float32,
-                          device=q.device)
     strides = (ctypes.c_longlong * 11)(
         q.stride(0), q.stride(2), *k.stride()[:3], *scale_strides,
         *stage_strides)
-    fn = _kernel_fn()
+    fn = _kernel_fns()[0]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(D, H // Hkv, int(quant), q.data_ptr(), k.data_ptr(),
@@ -161,8 +182,9 @@ def _kernel(q, k, v, cache_index, k_scale, v_scale, stage_key, stage_value,
                 v_scale.data_ptr() if quant else None, lengths.data_ptr(),
                 stage_key.data_ptr() if staged else None,
                 stage_value.data_ptr() if staged else None, stage_rows,
-                o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, Hkv,
-                L, splits, split_rows, ctypes.addressof(strides),
+                stage_key.shape[1] if staged else 0, o.data_ptr(), B, Hkv, L,
+                split_plan(L),
+                ctypes.addressof(strides),
                 float(D ** -0.5), stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {rc} "

@@ -478,6 +478,140 @@ def test_decode_kernel_replays_in_a_graph_at_every_length():
         _check_decode(out, decode_attention_reference(q, k, v, idx))
 
 
+def _decode_pair(q, k, v, idx, scales, stage=None, stage_step=None):
+    from kubeflow_tpu_torch.ops.attention import decode_attention_reference
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+
+    extra = {} if stage is None else dict(stage, stage_step=stage_step)
+    with torch.no_grad():
+        got = decode_attention(q, k, v, idx, **scales, **extra)
+        want = decode_attention_reference(q, k, v, idx, **scales, **extra)
+    return got, want
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_decode_kernel_is_deterministic(cache, staged):
+    """The merge order is fixed and nothing is added atomically: two calls
+    on the same inputs are bitwise equal."""
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+
+    q, k, v, scales, stage = _decode_inputs(8, 4, 128, cache, seed=3, hkv=8)
+    idx = torch.tensor([0, 15, 129, 300, 777, 1000, DEC_L, 3 * DEC_L],
+                       dtype=torch.int32, device="cuda")
+    extra = dict(stage, stage_step=DEC_C - 1) if staged else {}
+    with torch.no_grad():
+        first = decode_attention(q, k, v, idx, **scales, **extra)
+        second = decode_attention(q, k, v, idx, **scales, **extra)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("length", [15, 16, 17, 127, 128, 129, 143, 144,
+                                    145, 1008, 1009])
+def test_decode_kernel_at_block_share_boundaries(length, cache):
+    """Lengths at the edges of the 16-row chunks and of the blocks' shares
+    (at L = 1024 a cluster of 8 blocks takes one chunk each at 128 rows,
+    and one block takes a second from 129)."""
+    q, k, v, scales, stage = _decode_inputs(4, 4, 128, cache, seed=4, hkv=2)
+    idx = torch.tensor([length, length - 1, length + 1, 2 * length],
+                       dtype=torch.int32, device="cuda")
+    _check_decode(*_decode_pair(q, k, v, idx, scales))
+    _check_decode(*_decode_pair(q, k, v, idx, scales, stage, DEC_C - 1))
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_decode_kernel_all_slots_empty_gives_zero(cache):
+    q, k, v, scales, _ = _decode_inputs(8, 4, 128, cache, seed=5, hkv=8)
+    idx = torch.zeros(8, dtype=torch.int32, device="cuda")
+    got, want = _decode_pair(q, k, v, idx, scales)
+    assert torch.equal(got, torch.zeros_like(got))
+    assert torch.equal(want, torch.zeros_like(want))
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("stage_step", [0, DEC_C - 1])
+def test_decode_kernel_staged_with_an_empty_slot(stage_step, cache):
+    """A slot with no flushed row still attends its staging rows."""
+    q, k, v, scales, stage = _decode_inputs(8, 4, 128, cache, seed=6, hkv=8)
+    idx = torch.tensor([0, 36, 46, 116, 136, 216, 266, 516],
+                       dtype=torch.int32, device="cuda")
+    got, want = _decode_pair(q, k, v, idx, scales, stage, stage_step)
+    _check_decode(got, want)
+    assert got[0].abs().max() > 0
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [2, 8])
+def test_decode_kernel_query_groups(g, d, cache, staged):
+    q, k, v, scales, stage = _decode_inputs(4, g, d, cache, seed=7, hkv=2)
+    idx = torch.tensor([1, 129, 700, DEC_L], dtype=torch.int32,
+                       device="cuda")
+    if staged:
+        _check_decode(*_decode_pair(q, k, v, idx, scales, stage, 3))
+    else:
+        _check_decode(*_decode_pair(q, k, v, idx, scales))
+
+
+LONG_L = 8192       # llama3-8b's max_seq_len
+
+
+def _long_inputs(cache, seed):
+    from kubeflow_tpu_torch.models.llama import quantize_kv_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q = rnd(8, 1, 32, 128)
+    k, v = rnd(8, LONG_L, 8, 128), rnd(8, LONG_L, 8, 128)
+    scales = {}
+    if cache == "int8":
+        (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+        scales = {"k_scale": ks, "v_scale": vs}
+    stage = {"stage_key": rnd(8, DEC_C, 8, 128),
+             "stage_value": rnd(8, DEC_C, 8, 128)}
+    return q, k, v, scales, stage
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_decode_kernel_long_cache(cache):
+    """L = 8192: a block walks up to 1024 rows through its ring."""
+    q, k, v, scales, stage = _long_inputs(cache, seed=8)
+    idx = torch.tensor([1, 1024, 2049, 4096, 5000, 8191, LONG_L,
+                        3 * LONG_L], dtype=torch.int32, device="cuda")
+    _check_decode(*_decode_pair(q, k, v, idx, scales))
+    _check_decode(*_decode_pair(q, k, v, idx, scales, stage, DEC_C - 1))
+
+
+def test_decode_kernel_long_cache_graph_replays_at_every_length():
+    """One capture at L = 8192 serves every length."""
+    from kubeflow_tpu_torch.ops.attention import decode_attention_reference
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+
+    q, k, v, _, stage = _long_inputs("bf16", seed=9)
+    idx = torch.ones(8, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        decode_attention(q, k, v, idx, **stage, stage_step=2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph), torch.no_grad():
+        out = decode_attention(q, k, v, idx, **stage, stage_step=2)
+    for lens in ([0] * 8, [1] * 8, [17, 128, 129, 1024, 4097, 8000, 8192,
+                                    30000], [8192] * 8):
+        idx.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        with torch.no_grad():
+            want = decode_attention_reference(q, k, v, idx, **stage,
+                                              stage_step=2)
+        _check_decode(out, want)
+
+
 # ------------------------------------------------- the engine's graphs
 
 def _small_engine(option="staged", eager=False, **kw):

@@ -23,6 +23,8 @@ from kubeflow_tpu.ops.attention import mha_reference as jax_mha_reference
 from kubeflow_tpu_torch.models.llama import quantize_kv_rows
 from kubeflow_tpu_torch.ops.attention import decode_attention_reference
 from kubeflow_tpu_torch.ops.decode_attention import (
+    CHUNK_ROWS,
+    MAX_CLUSTER,
     decode_attention,
     split_plan,
 )
@@ -146,6 +148,15 @@ def test_cpu_wrapper_is_the_plain_version():
 
 @pytest.mark.parametrize("max_len", [1, 17, 64, 1024, 4096, 8192, 10_000])
 def test_split_plan_covers_the_cache(max_len):
-    splits, rows = split_plan(max_len)
-    assert 1 <= splits <= 64 and splits * rows >= max_len
-    assert (splits - 1) * rows < max_len       # no split wholly past L
+    blocks = split_plan(max_len)
+    assert 1 <= blocks <= MAX_CLUSTER
+    chunks = -(-max_len // CHUNK_ROWS)
+    assert blocks == min(chunks, MAX_CLUSTER)  # no block idle at a full cache
+    # The kernel's split of a full cache: the blocks' chunk ranges tile
+    # [0, chunks) in order and differ by at most one chunk.
+    per, extra = divmod(chunks, blocks)
+    starts = [r * per + min(r, extra) for r in range(blocks)]
+    counts = [per + (r < extra) for r in range(blocks)]
+    assert starts[0] == 0 and starts[-1] + counts[-1] == chunks
+    assert all(a + n == c for a, n, c in zip(starts, counts, starts[1:]))
+    assert max(counts) - min(counts) <= 1 and min(counts) >= 1
