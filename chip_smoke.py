@@ -4,14 +4,16 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. device — CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
-2. build — compiles the flash-attention kernels (K1, K2) and the decode
-   attention (K3) from kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one
-   nvcc per source, started together, and prints the seconds and each
-   register/spill report; then checks the SASS: every bf16 instantiation
-   of K1's kernel and of K2's dk/dv and dq kernels holds wgmma (HGMMA)
-   and TMA loads (UTMALDG), every one of K3's 16 (D 64/128, G 1/2/4/8,
-   bf16/int8 cache) TMA loads and mma.sync (HMMA), and ptxas reports no
-   spills in any of the three libraries;
+2. build — compiles the flash-attention kernels (K1, K2), the decode
+   attention (K3) and the int8-weight product (K4) from
+   kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one nvcc per source,
+   started together, and prints the seconds and each register/spill
+   report; then checks the SASS: every bf16 instantiation of K1's kernel
+   and of K2's dk/dv and dq kernels holds wgmma (HGMMA) and TMA loads
+   (UTMALDG), every one of K3's 16 (D 64/128, G 1/2/4/8, bf16/int8 cache)
+   TMA loads and mma.sync (HMMA), every one of K4's 6 (decode at 8 or 16
+   tokens, prefill; per-row or per-column scales) mma.sync and cp.async
+   (LDGSTS), and ptxas reports no spills in any of the four libraries;
 3. kernel (K1, forward) — holds the kernel against its plain PyTorch
    version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
    Sq=Skv 32, 128 and 512; one full-attention case; one D=64 case; one
@@ -52,27 +54,46 @@ Phases (any failure exits non-zero, and no result line is printed):
    scaled_dot_product_attention(enable_gqa=True) with a bool mask over
    the cache, cold and warm, as a yardstick the port never calls;
    computes the bound (bytes of the live rows, q and o over 3.35 TB/s);
-6. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
+6. kernel (K4, int8-weight product) — holds the kernel against its plain
+   version (int8_linear_reference: the weight dequantized to bf16, then
+   F.linear, which sums in f32 as K4 does) at llama3-8b's seven
+   projections and lm_head at M = 8 (the decode step's; o_proj with its
+   per-head-dim scales) and at the gate shape for M = 1, 9, 64, 512 and
+   4096: max |kernel - plain| <= 1e-2 x max |plain|, two calls bitwise
+   equal. Times, on the device (CUDA-graph replays), the kernel cold
+   (consecutive calls rotating over weight sets larger than twice the L2,
+   as the served step reads each layer's weights once) and warm, the
+   plain version and, as the yardstick the port never calls, F.linear on
+   the weight dequantized beforehand (bf16: twice the bytes), cold and
+   warm; at M <= 16 also each split of K over a cluster (1, 2, 4, 8
+   blocks); the bound max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s), and
+   the sum over a decode step's 225 products;
+7. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card; staged decode and
    CUDA graphs, as the server runs by default) and sends 9 concurrent
    /v1/generate requests over HTTP across the prefill buckets, one past
    the largest (chunked prefill), one streamed and one sampled, twice:
    the cold burst captures the graphs its new shapes need, the warm one
-   finds them; then all again with KFTPU_SERVING_QUANTIZE_KV=int8.
+   finds them; then all again with KFTPU_SERVING_QUANTIZE_KV=int8, and
+   again with KFTPU_SERVING_QUANTIZE=int8 (int8 weights, bf16 KV cache).
    Checks the token counts and
    ids, that K1 ran once per layer per grouped prefill or chunked-prefill
-   chunk and K3 once per layer per decode step (launch counts zeroed just
-   before the burst, graph replays counted), and re-forwards two greedy
+   chunk, K3 once per layer per decode step and K4 once per int8
+   projection (7 a layer and the lm_head: 225) per decode step and per
+   grouped prefill or extend (launch counts zeroed just before the burst,
+   graph replays counted), and re-forwards two greedy
    requests through the model with the plain attention in f32 and in
-   bf16 (for the int8 burst with the decode rows' k/v quantized and
-   dequantized, as the cache holds them), asserting each served token's
+   bf16 (for the int8 KV burst with the decode rows' k/v quantized and
+   dequantized, as the cache holds them; for the int8-weight burst on the
+   dequantized bf16 weights), asserting each served token's
    logit is within twice the bf16 re-forward's measured rounding noise of
    the f32 max. Prints tok/s, p50 TTFT, weight bytes and peak device
-   memory, then profiles one full-batch decode chunk (wall time, device
-   busy time, idle share, top device kernels, K3's kernel launches, which
-   must be one per layer per step: 256) and times three more without the
-   profiler;
-7. train — runs the training runner in-process (the KFTPU_* env) on the
+   memory (and the build's peak), then profiles one full-batch decode
+   chunk (wall time, device busy time, idle share, top device kernels,
+   K3's kernel launches, which must be one per layer per step: 256, and
+   with int8 weights K4's: 225 a step, 1800) and times three more without
+   the profiler;
+8. train — runs the training runner in-process (the KFTPU_* env) on the
    ~700M-parameter Llama of ``bench.py train`` at full width and depth
    (vocab 32000, embed 2048, 12 layers, 16/8 heads, head_dim 128, MLP
    5632; batch 12 x seq 2048; bf16 params, bf16 Adam mu, bf16 logits;
@@ -86,12 +107,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    same width with attn_impl="flash" against attn_impl="full": each
    parameter's relative error ||g_flash - g_full|| / ||g_full|| within
    GRAD_REL_BOUND;
-8. prints the {"kernels": [...]} line (K1's entry at the serving prefill
+9. prints each phase's seconds and the total, the {"kernels": [...]} line (K1's entry at the serving prefill
    shape, with its training-shape ms, SDPA ms and bound under train_
    keys; K2's at the train shape with dkdv_ms, dq_ms and split_bound_ms;
    K3's at the served path's case, bf16 staged, cold, with its warm_ms,
    the other cases' times and SDPA's under unstaged_/int8_ keys and the
-   long context under l8192_ keys), then the result line.
+   long context under l8192_ keys; K4's at the gate shape, M = 8, cold,
+   with its warm time, F.linear's as library_ms, the launches of the
+   int8-weight burst and of its profiled chunk, the other shapes under
+   <name>_ keys), then the result line.
 """
 
 from __future__ import annotations
@@ -537,15 +561,17 @@ def decode_bound_ms(lengths, h, hkv, d, cache_bytes, stage_rows,
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def cold_ms(fn, n_sets: int) -> float:
+def cold_ms(fn, n_sets: int, calls: int = 0) -> float:
     """Device time of one ``fn(i)`` call when each call reads another of
     ``n_sets`` cache sets, in turn: the rows it reads were last touched
     n_sets - 1 calls ago, so a set of sets larger than the L2 makes every
     call read from device memory, as the served step does (the layers'
-    weights stream through the L2 between two calls on one layer)."""
+    weights stream through the L2 between two calls on one layer).
+    ``calls`` a replay: 2 n_sets unless more are asked for (a replay's
+    launch gap is spread over them)."""
     turn = iter(range(1 << 30))
-    return device_ms(lambda: fn(next(turn) % n_sets), calls=2 * n_sets,
-                     replays=3)
+    return device_ms(lambda: fn(next(turn) % n_sets),
+                     calls=max(calls, 2 * n_sets), replays=3)
 
 
 def decode_sets(gen, b, max_len, lengths, n_min=1):
@@ -698,6 +724,117 @@ def decode_phase():
     return rows, long_rows, max_err
 
 
+# llama3-8b's products with int8 weights at the decode step (M = 8 slots):
+# name -> (N, K, scale period S); then the gate shape at other token counts
+# (prefill groups k_pad x bucket up to 8 x 512, the extend's 512 rows).
+INT8_SHAPES = {
+    "q_proj": (4096, 4096, 1), "k_proj": (1024, 4096, 1),
+    "v_proj": (1024, 4096, 1), "o_proj": (4096, 4096, 128),
+    "gate_proj": (14336, 4096, 1), "up_proj": (14336, 4096, 1),
+    "down_proj": (4096, 14336, 1), "lm_head": (128256, 4096, 1),
+}
+INT8_GATE_M = (1, 9, 64, 512, 4096)
+INT8_TOL = 1e-2         # max |K4 - plain| <= INT8_TOL x max |plain|
+
+
+def int8_bound_ms(m, n, k, period):
+    """Least time of K4 on this card: the larger of the bytes it must move
+    (the int8 weight, its bf16 scales, x read once, y written once) over
+    the memory rate and its products over the bf16 tensor-core rate."""
+    nbytes = n * k + 2 * n * period + 2 * m * k + 2 * m * n
+    t_ops, t_bytes = 2.0 * m * n * k / PEAK_BF16_FLOPS, \
+        nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def int8_phase():
+    """K4 against its plain version at llama3-8b's decode products (M = 8)
+    and at the gate shape for other token counts; returns (rows,
+    max_abs_err). Cold times rotate over weight sets whose bytes exceed
+    twice the L2 (the served step reads each layer's weights once); the
+    library yardstick is F.linear on the weight dequantized beforehand
+    (bf16, twice the bytes), which the port never calls."""
+    from kubeflow_tpu_torch.ops import int8_linear as il
+    from kubeflow_tpu_torch.serving.engine import _quantize_leaf
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [(name, 8, *shape) for name, shape in INT8_SHAPES.items()]
+    cases += [(f"gate_m{m}", m, *INT8_SHAPES["gate_proj"])
+              for m in INT8_GATE_M]
+    rows, max_err = [], 0.0
+    for name, m, n, k, period in cases:
+        n_sets = max(2, int(np.ceil(2 * L2_BYTES / (n * k))))
+        sets, plain_w = [], []
+        for _ in range(n_sets):
+            w = torch.randn(n, k, generator=gen, device="cuda") * 0.02
+            q, scale = _quantize_leaf(w, period)
+            del w
+            sets.append((q, scale))
+        x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+        lib_sets = max(2, int(np.ceil(2 * L2_BYTES / (2 * n * k))))
+        for i in range(lib_sets):
+            plain_w.append(il.dequantize_int8(*sets[i % n_sets]))
+
+        def kernel(i=0, splits=0):
+            return il._kernel(x, *sets[i], None, splits=splits)
+
+        def plain():
+            return il.int8_linear_reference(x, *sets[0])
+
+        def library(i=0):
+            return F.linear(x, plain_w[i])
+
+        with torch.no_grad():
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ref = want.float().abs().max().item()
+            if not err <= INT8_TOL * ref:
+                raise AssertionError(f"K4 {name}: max err {err:.3e} > "
+                                     f"{INT8_TOL} x {ref:.3e}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"K4 {name}: two calls differ")
+            del got, again, want
+            ms = cold_ms(kernel, n_sets, calls=10)
+            warm_ms = device_ms(kernel)
+            plain_ms = device_ms(plain, calls=2, replays=3)
+            library_ms = cold_ms(library, lib_sets, calls=10)
+            library_warm_ms = device_ms(library)
+            splits = {}
+            if m <= 16:     # the decode kernel's K split over a cluster
+                for c in (1, 2, 4, 8):
+                    splits[c] = cold_ms(lambda i, c=c: kernel(i, c), n_sets,
+                                        calls=10)
+        bound, bound_by = int8_bound_ms(m, n, k, period)
+        max_err = max(max_err, err)
+        rows.append(dict(case=name, m=m, max_abs_err=err, ms=ms,
+                         warm_ms=warm_ms, plain_ms=plain_ms,
+                         library_ms=library_ms,
+                         library_warm_ms=library_warm_ms, bound_ms=bound,
+                         bound_by=bound_by))
+        log(f"K4 {name} (M {m}, N {n}, K {k}, S {period}): err {err:.3e}, "
+            f"two calls equal; kernel {ms * 1e3:.2f} us cold ({n_sets} "
+            f"weight sets), {warm_ms * 1e3:.2f} warm; plain "
+            f"{plain_ms * 1e3:.2f} us; F.linear on bf16 weights "
+            f"{library_ms * 1e3:.2f} us cold, {library_warm_ms * 1e3:.2f} "
+            f"warm; bound {bound * 1e3:.2f} us ({bound_by}; kernel at "
+            f"{bound / ms:.2f} of it); K split over a cluster of "
+            f"{il._kernel_fns()[1](m, n, k)}" + "".join(
+                f"; over {c}: {v * 1e3:.2f} us cold"
+                for c, v in splits.items()))
+        del sets, plain_w, x
+        torch.cuda.empty_cache()
+    decode = [r for r in rows if r["m"] == 8]
+    step = {key: sum(r[key] * (32 if r["case"] != "lm_head" else 1)
+                     for r in decode)
+            for key in ("ms", "warm_ms", "bound_ms", "library_ms")}
+    log("K4 over a decode step's 225 products (32 layers x 7 + lm_head): "
+        + ", ".join(f"{key} {v:.3f}" for key, v in step.items()))
+    return rows, max_err
+
+
 def post(base: str, body: dict):
     req = urllib.request.Request(
         f"{base}/v1/generate", data=json.dumps(body).encode(),
@@ -710,11 +847,15 @@ def post(base: str, body: dict):
         return json.load(r)
 
 
-def serve_phase(quantize_kv: str = ""):
+def serve_phase(quantize_kv: str = "", quantize: str = ""):
     """One HTTP burst against the llama3-8b server; ``quantize_kv`` "int8"
-    serves from the int8 KV cache. Returns the burst's figures."""
+    serves from the int8 KV cache, ``quantize`` "int8" with int8 weights.
+    Returns the burst's figures."""
+    import itertools
+
     from kubeflow_tpu_torch.ops.decode_attention import decode_attention
     from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+    from kubeflow_tpu_torch.ops.int8_linear import int8_linear
     from kubeflow_tpu_torch.serving.server import build_server, env_config
 
     os.environ.update({
@@ -722,20 +863,26 @@ def serve_phase(quantize_kv: str = ""):
         "KFTPU_SERVING_MAX_LEN": "1024", "KFTPU_SERVING_DECODE_CHUNK": "8",
         "KFTPU_SERVING_HOST": "127.0.0.1", "KFTPU_SERVING_PORT": "0",
         "KFTPU_SERVING_QUANTIZE_KV": quantize_kv,
+        "KFTPU_SERVING_QUANTIZE": quantize,
     })
     os.environ.pop("KFTPU_PLATFORM", None)          # cuda
-    tag = f"serve [{quantize_kv or 'bf16'} KV cache]"
+    tag = (f"serve [{quantize_kv or 'bf16'} KV cache"
+           + (f", {quantize} weights]" if quantize else "]"))
     t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
     server = build_server(env_config())
+    build_peak = torch.cuda.max_memory_allocated()
     engine = server.engine
     model = engine.model
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       itertools.chain(model.parameters(), model.buffers()))
     cache_bytes = sum(t.numel() * t.element_size()
                       for layer in engine._cache for t in layer.values())
     log(f"{tag}: llama3-8b built in {time.time() - t0:.1f} s, weights "
-        f"{weight_bytes / 1e9:.2f} GB, KV cache {cache_bytes / 1e9:.3f} GB "
-        f"(staging {model.cfg.decode_staging} rows)")
+        f"{weight_bytes / 1e9:.2f} GB ({len(engine.quantized)} int8 "
+        f"projections), KV cache {cache_bytes / 1e9:.3f} GB (staging "
+        f"{model.cfg.decode_staging} rows); peak device memory while "
+        f"building {build_peak / 1e9:.2f} GB")
     t0 = time.time()
     engine.warmup(512)
     log(f"{tag}: warmup (bucket 512's greedy prefill graphs, the decode "
@@ -753,6 +900,8 @@ def serve_phase(quantize_kv: str = ""):
                **extra} for n, extra in specs]
     layers = model.cfg.num_layers
     chunk = engine.cfg.decode_chunk
+    # K4 per forward pass: every projection of every layer and the lm_head.
+    per_pass = len(engine.quantized)
 
     def burst(name):
         """All requests at once; checks the tokens and the launch counts
@@ -768,6 +917,7 @@ def serve_phase(quantize_kv: str = ""):
 
         torch.cuda.reset_peak_memory_stats()
         flash_attention.fwd_launches = decode_attention.launches = 0
+        int8_linear.launches = 0
         engine.prefill_dispatches = engine.extend_dispatches = 0
         engine.decode_dispatches = 0
         t0 = time.time()
@@ -779,6 +929,7 @@ def serve_phase(quantize_kv: str = ""):
             t.join(timeout=900)
         wall = time.time() - t0
         k1, k3 = flash_attention.fwd_launches, decode_attention.launches
+        k4 = int8_linear.launches
         prefills, extends, decodes = (engine.prefill_dispatches,
                                       engine.extend_dispatches,
                                       engine.decode_dispatches)
@@ -798,15 +949,20 @@ def serve_phase(quantize_kv: str = ""):
         if decodes < 1 or k3 != layers * chunk * decodes:
             raise AssertionError(f"K3 launches {k3} != {layers} x {chunk} "
                                  f"steps x {decodes} decode dispatches")
+        if k4 != per_pass * (chunk * decodes + prefills + extends):
+            raise AssertionError(
+                f"K4 launches {k4} != {per_pass} x ({chunk} steps x "
+                f"{decodes} decode + {prefills} prefill + {extends} extend "
+                "dispatches)")
         generated = sum(len(o["tokens"]) for o in outs)
         ttft_p50 = float(np.median([o["ttft_s"] for o in outs]))
         log(f"{tag} {name} burst: {len(outs)} requests, {generated} tokens "
             f"in {wall:.2f} s = {generated / wall:.1f} tok/s, p50 TTFT "
             f"{ttft_p50 * 1e3:.1f} ms, {prefills} prefill + {extends} "
             f"extend + {decodes} decode dispatches, K1 launches {k1}, K3 "
-            f"launches {k3}, peak device memory {peak / 1e9:.2f} GB; "
-            f"{len(engine._graphs)} graphs so far")
-        return dict(outs=outs, k1=k1, k3=k3, tok_s=generated / wall,
+            f"launches {k3}, K4 launches {k4}, peak device memory "
+            f"{peak / 1e9:.2f} GB; {len(engine._graphs)} graphs so far")
+        return dict(outs=outs, k1=k1, k3=k3, k4=k4, tok_s=generated / wall,
                     ttft_p50=ttft_p50, peak=peak)
 
     try:
@@ -818,16 +974,33 @@ def serve_phase(quantize_kv: str = ""):
         server.stop()
     outs = cold.pop("outs")
     warm.pop("outs")
-    gaps, bounds = greedy_check(model, [bodies[2], bodies[6]],
+    check_model = model
+    if engine.quantized:
+        # The re-forwards run on the dequantized bf16 weights (Dense
+        # projections through cuBLAS), the function K4 computes.
+        from kubeflow_tpu_torch.models.llama import (
+            Llama,
+            dequantized_state_dict,
+        )
+
+        with torch.device("meta"):
+            check_model = Llama(model.cfg)
+        check_model.load_state_dict(dequantized_state_dict(model),
+                                    assign=True)
+    gaps, bounds = greedy_check(check_model, [bodies[2], bodies[6]],
                                 [outs[2], outs[6]],
                                 kv_int8=quantize_kv == "int8")
+    del check_model
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"{tag}: graphs {sorted(engine._graphs)}; weights "
         f"{weight_bytes / 1e9:.2f} GB; greedy f32 re-forward: {len(gaps)} "
         f"tokens, {sum(g == 0 for g in gaps)} exact, max gap "
         f"{max(gaps):.4f}, bounds (2 x bf16 noise) "
         f"{min(bounds):.4f}-{max(bounds):.4f}")
     chunk_stats = decode_breakdown(engine, rs)
-    return dict(cold, warm=warm, **chunk_stats)
+    return dict(cold, warm=warm, weight_bytes=weight_bytes,
+                build_peak=build_peak, **chunk_stats)
 
 
 def decode_breakdown(engine, rs):
@@ -877,11 +1050,22 @@ def decode_breakdown(engine, rs):
     if busy_ms > 0 and k3_launches != want:
         raise AssertionError(f"K3 launched {k3_launches} kernels in the "
                              f"profiled chunk, want {want} (one a call)")
+    k4 = [e for e in kernels if "int8_linear" in e.key]
+    k4_launches = sum(e.count for e in k4)
+    k4_ms = sum(e.device_time_total for e in k4) / 1e3
+    if k4 or engine.quantized:
+        log(f"  int8_linear (K4): {k4_ms:.3f} ms over {k4_launches} "
+            f"launches ({k4_ms / steps:.3f} ms a step)")
+        want = len(engine.quantized) * steps
+        if busy_ms > 0 and k4_launches != want:
+            raise AssertionError(f"K4 launched {k4_launches} kernels in the "
+                                 f"profiled chunk, want {want}")
     while engine.active_slots:
         engine.step()
     return dict(chunk_wall_ms=wall_ms, chunk_busy_ms=busy_ms, idle=idle,
                 step_ms=float(np.median(plain)) / steps,
-                k3_chunk_launches=k3_launches)
+                k3_chunk_launches=k3_launches,
+                k4_chunk_launches=k4_launches, k4_chunk_ms=k4_ms)
 
 
 def greedy_check(model, bodies, outs, kv_int8: bool = False):
@@ -1178,9 +1362,9 @@ def main() -> int:
 
     from kubeflow_tpu_torch.ops import _build
 
-    t0 = time.time()
+    t_start = t0 = time.time()
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-               "decode_attention.cu")
+               "decode_attention.cu", "int8_linear.cu")
     with ThreadPoolExecutor(len(sources)) as pool:     # one nvcc each
         libs = dict(zip(sources, pool.map(_build.build, sources)))
     log(f"build: {', '.join(sources)} in {time.time() - t0:.1f} s")
@@ -1201,29 +1385,45 @@ def main() -> int:
     # products are mma.sync, HMMA, not wgmma).
     check_build(libs["decode_attention.cu"], {"decode_attn": 16},
                 required=("UTMALDG", "HMMA"))
+    # K4: the decode kernel at 8 or 16 tokens and the prefill kernel, each
+    # with per-row or per-column scales; mma.sync (HMMA) fed by cp.async
+    # (LDGSTS).
+    check_build(libs["int8_linear.cu"], {"int8_linear_kernel": 6},
+                required=("HMMA", "LDGSTS"))
+    seconds = {"build": time.time() - t0}
 
-    rows, max_err = kernel_phase()
-    bwd_rows, bwd_err = backward_phase()
-    dec_rows, dec_long, dec_err = decode_phase()
-    serve = serve_phase()
-    gc.collect()
-    torch.cuda.empty_cache()
-    serve_int8 = serve_phase("int8")
-    gc.collect()
-    torch.cuda.empty_cache()
-    for name, s in (("bf16", serve), ("int8", serve_int8)):
+    def phase(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds[name] = time.time() - t0
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    rows, max_err = phase("K1", kernel_phase)
+    bwd_rows, bwd_err = phase("K2", backward_phase)
+    dec_rows, dec_long, dec_err = phase("K3", decode_phase)
+    k4_rows, k4_err = phase("K4", int8_phase)
+    serve = phase("serve bf16", serve_phase)
+    serve_int8 = phase("serve int8 KV", serve_phase, "int8")
+    serve_w8 = phase("serve int8 weights", serve_phase, "", "int8")
+    for name, s in (("bf16 KV cache", serve), ("int8 KV cache", serve_int8),
+                    ("int8 weights, bf16 KV cache", serve_w8)):
         w = s["warm"]
-        log(f"serve summary [{name} KV cache]: cold burst {s['tok_s']:.1f} "
+        log(f"serve summary [{name}]: cold burst {s['tok_s']:.1f} "
             f"tok/s, p50 TTFT {s['ttft_p50'] * 1e3:.1f} ms, peak device "
             f"memory {s['peak'] / 1e9:.2f} GB; warm burst {w['tok_s']:.1f} "
             f"tok/s, p50 TTFT {w['ttft_p50'] * 1e3:.1f} ms, peak "
-            f"{w['peak'] / 1e9:.2f} GB; decode {s['step_ms']:.3f} ms/step "
+            f"{w['peak'] / 1e9:.2f} GB; weights {s['weight_bytes'] / 1e9:.2f}"
+            f" GB; decode {s['step_ms']:.3f} ms/step "
             f"unprofiled, profiled chunk idle share "
             + ("not measured" if s["idle"] is None else f"{s['idle']:.3f}"))
-    train = train_phase()
-    gc.collect()
-    torch.cuda.empty_cache()
-    grad_check()
+    train = phase("train", train_phase)
+    phase("grad check", grad_check)
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                      seconds.items())
+        + f"; total {time.time() - t_start:.1f}")
     main_row = next(r for r in rows if r["case"] == "causal_b8_s512")
     train_row = next(r for r in rows if r["case"] == "causal_b12_s2048_h16")
     bwd_row = next(r for r in bwd_rows if r["case"] == "train_b12_s2048")
@@ -1268,7 +1468,24 @@ def main() -> int:
         prefix = row["case"].replace("_staged", "") + "_"
         k3.update({prefix + key: row[key]
                    for key in ("ms", "bound_ms", "max_abs_err")})
-    print(json.dumps({"kernels": [fwd, bwd, k3]}), flush=True)
+    # K4 at the gate shape, M = 8 (the decode step's), cold; its warm time
+    # and SDPA-style yardstick (F.linear on bf16 weights, cold and warm)
+    # beside it; the other products under their names, the gate shape at
+    # other token counts under gate_m<M>_.
+    k4_by = {r["case"]: r for r in k4_rows}
+    k4 = entry("int8_linear", "int8_linear.cu",
+               "kubeflow_tpu/serving/engine.py:1362", serve_w8["k4"], k4_err,
+               k4_by["gate_proj"])
+    k4.update(warm_ms=k4_by["gate_proj"]["warm_ms"],
+              library_warm_ms=k4_by["gate_proj"]["library_warm_ms"],
+              chunk_launches=serve_w8["k4_chunk_launches"],
+              chunk_ms=serve_w8["k4_chunk_ms"])
+    for case, row in k4_by.items():
+        if case != "gate_proj":
+            k4.update({f"{case}_{key}": row[key]
+                       for key in ("ms", "warm_ms", "plain_ms", "bound_ms",
+                                   "library_ms")})
+    print(json.dumps({"kernels": [fwd, bwd, k3, k4]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,7 @@
 """A/B device timing of builds of one kernel on one NVIDIA GPU: the
-flash-attention backward (K2, the default) or the decode attention (K3):
-``python3 kernel_ab.py DIR [DIR ...] [--kernel bwd|decode] [--shapes ...]``.
+flash-attention backward (K2, the default), the decode attention (K3) or
+the int8-weight product (K4):
+``python3 kernel_ab.py DIR [DIR ...] [--kernel bwd|decode|int8] [--shapes ...]``.
 
 Each DIR is the root of a checkout, or of a copy of its
 ``kubeflow_tpu_torch/ops/csrc`` (for instance ``git archive <rev>
@@ -29,6 +30,16 @@ merge kernels is called through their C interface (its f32 partials
 allocated here). Shapes (B, H/Hkv, D, L, live rows): ``served`` 8, 32/8, 128, 1024,
 the serve burst's 36-516; ``long`` 8, 32/8, 128, 8192, 1024-8192; ``even``
 and ``one`` the served rows spread evenly, or one slot's 516 alone.
+
+``--kernel int8`` does the same for ``int8_linear.cu``: each build is held
+against ``int8_linear_reference`` (within 1e-2 x max|plain|, two calls
+bitwise equal) and timed in turns warm (one weight set) and cold (calls
+rotating over weight sets larger than twice the L2), beside the bound
+max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s). Shapes: llama3-8b's decode
+products at M = 8 (``q``, ``kv``, ``o``, ``gate``, ``down``, ``lm_head``,
+the default; then each build's time over a decode step's 225 products is
+printed) and the gate shape at prefill token counts (``m512``,
+``m4096``).
 """
 
 from __future__ import annotations
@@ -58,7 +69,8 @@ TOL = 2e-2             # the bf16 bound of chip_smoke.py and the card tests
 CSRC = os.path.join("kubeflow_tpu_torch", "ops", "csrc")
 # kernel -> (source, the kernels' name stem, the entries ptxas reports on)
 KERNELS = {"bwd": ("flash_attention_bwd.cu", "flash_bwd", "bf16"),
-           "decode": ("decode_attention.cu", "decode_attn", "decode_attn")}
+           "decode": ("decode_attention.cu", "decode_attn", "decode_attn"),
+           "int8": ("int8_linear.cu", "int8_linear", "int8_linear")}
 
 
 def kernel_name(name: str, stem: str = "flash_bwd") -> str:
@@ -347,16 +359,104 @@ def run_decode(name: str, calls: dict) -> bool:
     return ok
 
 
+# name -> (M, N, K, scale period, launches in a decode step); M = 8 is the
+# decode step's (one row a slot).
+INT8_SHAPES = {
+    "q": (8, 4096, 4096, 1, 32), "kv": (8, 1024, 4096, 1, 64),
+    "o": (8, 4096, 4096, 128, 32), "gate": (8, 14336, 4096, 1, 64),
+    "down": (8, 4096, 14336, 1, 32), "lm_head": (8, 128256, 4096, 1, 1),
+    "m512": (512, 14336, 4096, 1, 0), "m4096": (4096, 14336, 4096, 1, 0),
+}
+
+
+def int8_caller(lib: str):
+    """The build's C entry as ``call(x, q, scale) -> y``; its last int
+    argument 0 leaves every build's own plan in force."""
+    fn = ctypes.CDLL(lib).kftpu_int8_linear
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+
+    def call(x, q, scale):
+        m, k = x.shape
+        y = torch.empty(m, q.shape[0], dtype=torch.bfloat16, device=x.device)
+        rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                m, q.shape[0], k, scale.shape[1], x.stride(0), 0,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: CUDA error {rc}")
+        return y
+
+    return call
+
+
+def run_int8(name: str, calls: dict, step: dict) -> bool:
+    """Every build at one product shape; adds each build's cold and warm
+    ms times the shape's launches in a decode step to ``step``."""
+    from kubeflow_tpu_torch.ops import int8_linear as il
+    from kubeflow_tpu_torch.serving.engine import _quantize_leaf
+
+    m, n, k, period, per_step = INT8_SHAPES[name]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n_sets = max(2, -(-int(2 * L2_BYTES) // (n * k)))
+    sets = []
+    for _ in range(n_sets):
+        w = torch.randn(n, k, generator=gen, device="cuda") * 0.02
+        sets.append(_quantize_leaf(w, period))
+        del w
+    x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    want = il.int8_linear_reference(x, *sets[0]).float()
+    ok = True
+    for label, call in calls.items():
+        got = call(x, *sets[0])
+        err = ((got.float() - want).abs().max() / want.abs().max()).item()
+        same = torch.equal(got, call(x, *sets[0]))
+        good = err <= 1e-2 and same
+        ok &= good
+        print(f"{name} {label}: max err / max|plain| {err:.3e}; two calls "
+              f"bitwise equal: {same}{'' if good else '  FAIL'}", flush=True)
+    nbytes = n * k + 2 * n * period + 2 * m * k + 2 * m * n
+    bound = 1e3 * max(nbytes / PEAK_BYTES_PER_S, 2.0 * m * n * k / 989e12)
+    calls_per = 10 if m <= 16 else 2
+    for mode, order in (("warm", [0] * calls_per),
+                        ("cold", list(range(n_sets)) * max(
+                            1, -(-calls_per // n_sets)))):
+        def rotating(call, order=order):
+            sets_in_turn = itertools.cycle(order)
+            return lambda: call(x, *sets[next(sets_in_turn)])
+
+        graphs = {label: capture(rotating(c), len(order))
+                  for label, c in calls.items()}
+        times = turns(graphs, len(order))
+        print(f"{name} (M {m}, N {n}, K {k}, S {period}) {mode} "
+              f"({n_sets if mode == 'cold' else 1} weight sets) device ms "
+              f"per call (median / least of 6 turns): " + "; ".join(
+                  f"{label} {statistics.median(t):.5f} / {min(t):.5f}"
+                  for label, t in times.items())
+              + f"; bound {bound:.5f}", flush=True)
+        for label, t in times.items():
+            step[(label, mode)] = step.get((label, mode), 0.0) + \
+                per_step * statistics.median(t)
+        del graphs
+    del sets, x, want
+    torch.cuda.empty_cache()
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+")
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="bwd")
     ap.add_argument("--shapes", default=None,
                     help="bwd: train,s512,d64 (default train,s512); "
-                    "decode: served,long,even,one (default served,long)")
+                    "decode: served,long,even,one (default served,long); "
+                    "int8: q,kv,o,gate,down,lm_head,m512,m4096 (default "
+                    "the first six)")
     args = ap.parse_args()
     decode = args.kernel == "decode"
-    shapes = args.shapes or ("served,long" if decode else "train,s512")
+    shapes = args.shapes or {
+        "decode": "served,long", "bwd": "train,s512",
+        "int8": "q,kv,o,gate,down,lm_head"}[args.kernel]
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
@@ -375,13 +475,24 @@ def main() -> int:
         if decode:
             fns = {root: decode_caller(root, lib)
                    for root, lib in zip(args.dirs, libs)}
+        elif args.kernel == "int8":
+            fns = {root: int8_caller(lib)
+                   for root, lib in zip(args.dirs, libs)}
         else:
             fns = {root: fa.bind_bwd(ctypes.CDLL(lib))
                    for root, lib in zip(args.dirs, libs)}
-    ok = True
+    ok, step = True, {}
     for name in shapes.split(","):
-        ok &= run_decode(name, fns) if decode else run_shape(name, fns)
+        if args.kernel == "int8":
+            ok &= run_int8(name, fns, step)
+        else:
+            ok &= run_decode(name, fns) if decode else run_shape(name, fns)
         torch.cuda.empty_cache()
+    if step:
+        print("int8 products of a decode step at these shapes (ms, median "
+              "x launches a step): " + "; ".join(
+                  f"{label} {mode} {v:.4f}"
+                  for (label, mode), v in sorted(step.items())), flush=True)
     return 0 if ok else 1
 
 

@@ -20,7 +20,8 @@ Both layer layouts convert: unrolled (``layer_{i}`` subtrees) and scanned
 (one ``layers`` subtree stacked over depth, as ``scan_layers=True``
 training writes it). ``llama_params_to_jax`` writes the layout that
 ``cfg.scan_layers`` names. Gradients have the params' tree, so they convert
-with the same functions.
+with the same functions. ``quantized_params_from_jax`` carries the JAX
+engine's int8 weights and their scales across (unrolled trees only).
 """
 
 from __future__ import annotations
@@ -106,3 +107,47 @@ def llama_params_to_jax(state_dict: Dict[str, torch.Tensor],
         p["lm_head"] = {"kernel": np.ascontiguousarray(
             sd["lm_head.weight"].T)}
     return {"params": adapt_layout(p, cfg.num_layers, cfg.scan_layers)}
+
+
+def _projections(p, cfg: LlamaConfig):
+    """(port module name, JAX subtree) of every projection of an unrolled
+    tree."""
+    for i in range(cfg.num_layers):
+        lp = p[f"layer_{i}"]
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            yield f"layers.{i}.attn.{n}", lp["attn"][n]
+        for n in ("gate_proj", "up_proj", "down_proj"):
+            yield f"layers.{i}.mlp.{n}", lp["mlp"][n]
+    if not cfg.tie_embeddings:
+        yield "lm_head", p["lm_head"]
+
+
+def quantized_params_from_jax(q_tree, scale_tree,
+                              cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+    """The JAX engine's int8 weights (``(eng.params, eng._scales)``, the
+    trees ``_quantize_int8`` returns) -> the port's: every leaf as
+    :func:`llama_params_from_jax` converts it (an int8 kernel becomes the
+    int8 ``<name>.weight`` [out, in]), plus ``<name>.scale`` bf16 [out, S]
+    for each quantized projection, the weights an ``Int8Dense`` holds.
+    JAX's scales [1, out...] are one an output row (S = 1) except
+    o_proj's [1, Dh, E], one a (head dim, output row) pair, which becomes
+    [E, Dh]: weight column h * Dh + d takes scale[:, d].
+
+    Only the unrolled tree the JAX server builds (``scan_layers=False``)
+    converts: a stacked tree's [L, E] norm leaves were quantized across
+    layers, which no port module holds, so it raises."""
+    p = q_tree["params"] if "params" in q_tree else q_tree
+    s = scale_tree["params"] if "params" in scale_tree else scale_tree
+    if "layers" in p:
+        raise ValueError("a stacked (scan_layers=True) quantized tree does "
+                         "not convert: its norms were quantized across "
+                         "layers; quantize the unrolled tree")
+    sd = llama_params_from_jax(q_tree, cfg)
+    scales = dict(_projections(s, cfg))
+    for name, _ in _projections(p, cfg):
+        sc = np.asarray(scales[name]["kernel"])
+        if sc.size == 0:                          # not quantized
+            continue
+        sc = sc[0].T if name.endswith("o_proj") else sc.reshape(-1, 1)
+        sd[f"{name}.scale"] = _tensor(np.ascontiguousarray(sc))
+    return sd

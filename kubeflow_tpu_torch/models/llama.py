@@ -53,6 +53,7 @@ from kubeflow_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_lse,
 )
+from kubeflow_tpu_torch.ops.int8_linear import dequantize_int8, int8_linear
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -203,6 +204,44 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+class Int8Dense(nn.Module):
+    """Inference-only projection with int8 weights, which the serving engine
+    swaps in for a :class:`Dense` (``ServingConfig.quantize="int8"``). It
+    holds ``weight`` int8 [out, in] and ``scale`` bf16 [out, S] as buffers;
+    the weight it applies is ``weight[n, k] * scale[n, k mod S]`` rounded
+    once to the activation dtype (S is 1, or head_dim for ``o_proj``), as
+    the JAX engine's jitted steps apply ``_materialize``'s kernels. The
+    product runs through :func:`~kubeflow_tpu_torch.ops.int8_linear.
+    int8_linear` (K4 on the card). It has no gradient."""
+
+    def __init__(self, weight: torch.Tensor, scale: torch.Tensor,
+                 cfg: LlamaConfig):
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.register_buffer("weight", weight)
+        self.register_buffer("scale", scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_linear(x.to(self.dtype), self.weight, self.scale,
+                           out_dtype=self.dtype)
+
+    def dequantized(self) -> torch.Tensor:
+        """The plain weight [out, in] in the activation dtype."""
+        return dequantize_int8(self.weight, self.scale, self.dtype)
+
+
+def dequantized_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s state dict with each :class:`Int8Dense` as the
+    :class:`Dense` it stands for (its dequantized weight, no scale): it
+    loads into a model built from the same config."""
+    sd = model.state_dict()
+    for name, m in model.named_modules():
+        if isinstance(m, Int8Dense):
+            sd[f"{name}.weight"] = m.dequantized()
+            del sd[f"{name}.scale"]
+    return sd
 
 
 class RMSNorm(nn.Module):

@@ -26,6 +26,9 @@ of kubeflow_tpu.serving.engine.
   sampling variant, as the JAX engine compiles each into one XLA program
   (see ``_Graph``); the CPU path, and a chunked-prefill extend, run
   eagerly.
+- ``quantize="int8"`` serves weight-only int8 projections
+  (``_quantize_int8``): every product of every step, and the lm_head,
+  reads the int8 bytes through ``ops/int8_linear.py`` (K4 on the card).
 
 Positions follow the JAX engine exactly, including its decode RoPE
 positions, which run one past the cache slot they are written to
@@ -34,8 +37,8 @@ greedy tokens match the JAX engine's, and a full re-forward reproduces
 them only with the same positions.
 
 Out of scope in this slice (each raises NotImplementedError): the
-physically paged cache with copy-on-write, int8 weights, mesh serving and
-the step profiler.
+physically paged cache with copy-on-write, mesh serving and the step
+profiler.
 """
 
 from __future__ import annotations
@@ -50,9 +53,15 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.models.llama import Llama, quantize_kv_rows
+from kubeflow_tpu_torch.models.llama import (
+    Dense,
+    Int8Dense,
+    Llama,
+    quantize_kv_rows,
+)
 from kubeflow_tpu_torch.ops.decode_attention import decode_attention
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+from kubeflow_tpu_torch.ops.int8_linear import int8_linear
 from kubeflow_tpu_torch.serving.blocks import (
     BlocksExhausted,
     KVBlockAllocator,
@@ -122,8 +131,13 @@ class ServingConfig:
     prefill_buckets: tuple = (32, 64, 128, 256, 512)
     # Cast float params to this dtype at engine start ("" keeps them).
     param_dtype: str = "bfloat16"
-    # Weight-only int8 quantization: a later slice (raises if set).
+    # Weight-only quantization: "int8" stores the projections (the
+    # embedding excluded) as int8 with bf16 scales, and every product reads
+    # them through ops/int8_linear.py; "" keeps the weights as they are.
     quantize: str = ""
+    # Leaves below this element count stay unquantized; tests lower it to
+    # exercise the path on tiny models.
+    quantize_min_size: int = 65536
     # Tokens decoded per dispatch.
     decode_chunk: int = 1
     # Decode dispatches kept in flight by run(); each chains off the
@@ -143,6 +157,11 @@ class ServingConfig:
     # Per-token logprobs in results (off by default: an extra logsumexp
     # over the vocab per step).
     logprobs: bool = False
+
+    def __post_init__(self):
+        if self.quantize not in ("", "int8"):
+            raise ValueError(f"unsupported quantize={self.quantize!r} "
+                             "(\"int8\" or \"\")")
 
 
 @dataclasses.dataclass
@@ -166,10 +185,11 @@ class _Slot:
 
 
 #: The Python launch counters of the kernels a captured step holds
-#: (K1's forward, K3): a replay launches without running Python, so each
+#: (K1's forward, K3, K4): a replay launches without running Python, so each
 #: graph counts its captured launches once and adds them per replay.
 _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
-                    (decode_attention, "launches"))
+                    (decode_attention, "launches"),
+                    (int8_linear, "launches"))
 
 
 def _launch_counts() -> List[int]:
@@ -179,6 +199,61 @@ def _launch_counts() -> List[int]:
 def _add_launches(deltas: List[int]) -> None:
     for (fn, name), d in zip(_LAUNCH_COUNTERS, deltas):
         setattr(fn, name, getattr(fn, name) + d)
+
+
+def _quantizable(name: str, p: torch.Tensor, min_size: int) -> bool:
+    """The JAX engine's ``_quantizable`` on the port's parameter names:
+    floating leaves of ndim >= 2 and at least ``min_size`` elements, no
+    name part containing "embed". So the projections and the lm_head
+    quantize; the embedding, the norms and small leaves do not."""
+    return (p.is_floating_point() and p.dim() >= 2
+            and p.numel() >= min_size
+            and not any("embed" in part for part in name.split(".")))
+
+
+def _quantize_leaf(w: torch.Tensor, period: int):
+    """The JAX engine's ``_quantize_leaf`` on a port weight [out, in]:
+    symmetric int8 with scale = max(amax / 127, 1e-12) in f32, amax over
+    the in-features that share a scale, q = clip(round(x / scale), -127,
+    127) with the f32 scale, which is then stored as bf16. ``period`` S:
+    in-feature k shares the scale of k mod S. S = 1 reduces over all of
+    K, as over axis 0 of a JAX kernel [in, out...]; o_proj's JAX kernel
+    [H, Dh, E] reduces over its heads only, so its weight [E, H * Dh] takes
+    S = head_dim. Returns (int8 [out, in], bf16 [out, S]); no copy of
+    ``w`` beyond one f32 leaf and its quotient is made."""
+    out, inn = w.shape
+    x = w.detach().float().view(out, inn // period, period)
+    amax = torch.maximum(x.amax(dim=1, keepdim=True),
+                         -x.amin(dim=1, keepdim=True))        # = max |x|
+    scale = (amax / 127.0).clamp_min(1e-12)
+    q = torch.div(x, scale).round_().clamp_(-127, 127).to(torch.int8)
+    return q.view(out, inn), scale.view(out, period).to(torch.bfloat16)
+
+
+@torch.no_grad()
+def _quantize_int8(model: Llama, min_size: int = 65536) -> List[str]:
+    """Replace every :class:`Dense` whose weight is ``_quantizable`` by an
+    :class:`Int8Dense`, IN PLACE and one leaf at a time: each bf16 weight
+    is freed before the next is quantized, so the peak is the model plus
+    one leaf's f32 copy. The model must be unrolled-equivalent (the port
+    always is): the JAX engine's stacked (``scan_layers=True``) tree would
+    quantize its [L, E] norm leaves across layers, which this does not
+    reproduce. Returns the quantized weights' names."""
+    names = [n for n, p in model.named_parameters()
+             if _quantizable(n, p, min_size)]
+    for name in names:
+        path = name.rsplit(".", 1)[0]
+        parent_name, _, child = path.rpartition(".")
+        parent = model.get_submodule(parent_name)
+        dense = getattr(parent, child)
+        if not isinstance(dense, Dense):
+            raise ValueError(f"{name}: only Dense projections quantize, "
+                             f"not {type(dense).__name__}")
+        period = model.cfg.head_dim if child == "o_proj" else 1
+        q, scale = _quantize_leaf(dense.weight, period)
+        setattr(parent, child, Int8Dense(q, scale, model.cfg))
+        del dense, q, scale
+    return names
 
 
 def sampling_variant(samp: np.ndarray) -> str:
@@ -239,7 +314,9 @@ class ServingEngine:
     """Serves ``model`` (its own parameters) on ``device`` — ``cuda``
     unless the caller asks for ``"cpu"``. The engine casts the model's
     floating parameters to ``cfg.param_dtype`` IN PLACE (a copy would
-    double the weights' device memory) and turns their gradients off.
+    double the weights' device memory), turns their gradients off and,
+    with ``cfg.quantize="int8"``, swaps its projections for int8 ones
+    (``_quantize_int8``; the model is changed in place).
 
     On the card the decode chunk and the grouped prefill run as CUDA
     graphs; ``_eager=True`` runs them eagerly instead (the card tests hold
@@ -263,10 +340,6 @@ class ServingEngine:
             raise NotImplementedError(
                 "the step profiler hook is not ported yet (the tooling "
                 "slice)")
-        if cfg.quantize:
-            raise NotImplementedError(
-                f"quantize={cfg.quantize!r}: int8 weights are not ported "
-                "yet (the int8 serving slice)")
         if model.cfg.max_seq_len < cfg.max_len:
             raise ValueError(
                 f"model max_seq_len {model.cfg.max_seq_len} < engine max_len "
@@ -356,6 +429,9 @@ class ServingEngine:
             for p in model.parameters():
                 if p.is_floating_point():
                     p.data = p.data.to(dt)
+        # After the cast, as the JAX engine quantizes the cast tree.
+        self.quantized = (_quantize_int8(model, cfg.quantize_min_size)
+                          if cfg.quantize else [])
         self._cache = model.init_cache(cfg.max_batch, cfg.max_len,
                                        device=self.device)
         self.tokens_generated = 0

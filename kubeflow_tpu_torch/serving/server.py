@@ -326,7 +326,6 @@ def env_config() -> dict:
 
 #: Env options of the JAX server that later slices of the port take up.
 _LATER_SLICES = (
-    ("quantize", "KFTPU_SERVING_QUANTIZE", "int8 serving"),
     ("mesh", "KFTPU_SERVING_MESH", "multi-GPU"),
     ("tokenizer", "KFTPU_SERVING_TOKENIZER", "tooling"),
 )
@@ -345,8 +344,10 @@ def build_server(cfg: dict) -> ServingServer:
     minutes): N(0, 0.02) for projections and embeddings, ones for norms.
 
     As the JAX server, it stages decode writes (``decode_staging =
-    decode_chunk``), and ``quantize_kv`` ("int8") selects the int8 KV
-    cache."""
+    decode_chunk``), ``quantize_kv`` ("int8") selects the int8 KV cache
+    and ``quantize`` ("int8") int8 weights, which the engine makes from
+    the loaded or random ones (``ServingEngine``; any other value raises
+    ValueError)."""
     for key, env, slice_ in _LATER_SLICES:
         if cfg.get(key):
             raise NotImplementedError(
@@ -380,11 +381,12 @@ def build_server(cfg: dict) -> ServingServer:
     log.info("serving model build", kv={
         "model": cfg["model"], "device": str(device),
         "param_dtype": param_dtype, "decode_staging": cfg["decode_chunk"],
-        "kv_cache_dtype": model.cfg.kv_cache_dtype or "activation"})
+        "kv_cache_dtype": model.cfg.kv_cache_dtype or "activation",
+        "quantize": cfg.get("quantize") or "none"})
     scfg_kw = dict(max_batch=cfg["max_batch"], max_len=cfg["max_len"],
                    decode_chunk=cfg["decode_chunk"])
     for key in ("max_queue", "kv_block_size", "kv_blocks", "param_dtype",
-                "pipeline_depth"):
+                "pipeline_depth", "quantize"):
         if cfg.get(key):
             scfg_kw[key] = cfg[key]
     if cfg.get("prefill_buckets"):

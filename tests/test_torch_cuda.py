@@ -15,8 +15,11 @@ grads of fully masked rows exactly 0.
 Decode attention (K3) against its plain version on the same inputs:
 max |got - plain| <= 2e-2 * max |plain| (bf16 output; the kernel rounds
 the online softmax's unnormalised weights to bf16, the plain version the
-normalised ones). The serving engine's CUDA graphs against its eager
-path (``_eager=True``) on a small bf16 model: greedy tokens equal.
+normalised ones). The int8-weight product (K4) against its plain
+version (the weight dequantized to bf16, then ``F.linear``, which sums in
+f32 as the kernel does): max |got - plain| <= 1e-2 * max |plain|. The
+serving engine's CUDA graphs against its eager path (``_eager=True``) on a
+small bf16 model: greedy tokens equal.
 """
 
 import pytest
@@ -727,3 +730,155 @@ def test_card_serve_never_runs_the_plain_attention(monkeypatch):
             with torch.no_grad():
                 toks = _serve(_small_engine(option, eager=eager))
             assert [len(t) for t in toks] == [n for _, n in ENGINE_PROMPTS]
+
+
+# ------------------------------------------------- int8 weights (K4)
+
+def _int8_operands(m, n, k, period, seed=0):
+    """bf16 x [m, k] and a weight quantized as the engine quantizes it:
+    int8 [n, k] and bf16 scales [n, period]."""
+    from kubeflow_tpu_torch.serving.engine import _quantize_leaf
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(n, k, generator=g, device="cuda") * 0.02
+    q, scale = _quantize_leaf(w, period)
+    x = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+    return x, q, scale
+
+
+def _int8_plain(x, q, scale):
+    from kubeflow_tpu_torch.ops.int8_linear import dequantize_int8
+
+    return torch.nn.functional.linear(x, dequantize_int8(q, scale))
+
+
+def _check_int8(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+# Ragged token counts around the decode kernel's 8- and 16-token blocks and
+# the prefill kernel's 64-token tiles; N with a ragged last 128-row tile;
+# K with a ragged last 64-wide span.
+@pytest.mark.parametrize("n,k,period", [
+    (1040, 1024, 1), (1040, 1024, 128), (512, 1280, 128), (256, 1040, 1),
+    (256, 1040, 16)])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 63, 65, 513])
+def test_int8_linear_matches_plain(m, n, k, period):
+    from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+
+    x, q, scale = _int8_operands(m, n, k, period)
+    before = int8_linear.launches
+    with torch.no_grad():
+        got = int8_linear(x, q, scale)
+    assert int8_linear.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _check_int8(got, _int8_plain(x, q, scale))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", [8, 16])
+@pytest.mark.parametrize("period", [1, 128])
+def test_int8_linear_cluster_splits_agree(period, m, splits):
+    """The decode kernel with K split over 1-8 blocks of a cluster (their
+    partials summed through distributed shared memory)."""
+    from kubeflow_tpu_torch.ops import int8_linear as il
+
+    x, q, scale = _int8_operands(m, 1040, 4096, period, seed=1)
+    with torch.no_grad():
+        got = il._kernel(x, q, scale, None, splits=splits)
+        assert torch.equal(got, il._kernel(x, q, scale, None, splits=splits))
+    _check_int8(got, _int8_plain(x, q, scale))
+
+
+@pytest.mark.parametrize("period", [1, 128])
+@pytest.mark.parametrize("m", [8, 513])
+def test_int8_linear_is_deterministic(m, period):
+    from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+
+    x, q, scale = _int8_operands(m, 4096, 14336 if m == 8 else 4096, period,
+                                 seed=2)
+    with torch.no_grad():
+        assert torch.equal(int8_linear(x, q, scale), int8_linear(x, q, scale))
+
+
+def test_int8_linear_graph_replay_equals_eager():
+    from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+
+    x, q, scale = _int8_operands(8, 1024, 4096, 128, seed=3)
+    with torch.no_grad():
+        want = int8_linear(x, q, scale)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            int8_linear(x, q, scale)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = int8_linear(x, q, scale)
+        x.copy_(torch.randn_like(x.float()).bfloat16())
+        graph.replay()
+        assert torch.equal(out, int8_linear(x, q, scale))
+        assert not torch.equal(out, want)
+
+
+def test_int8_linear_refusals():
+    from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+
+    x, q, scale = _int8_operands(8, 256, 1024, 1, seed=4)
+    before = int8_linear.launches
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="bf16 x"):
+            int8_linear(x.float(), q, scale)
+        with pytest.raises(ValueError, match="multiples of 16"):
+            int8_linear(x[:, :1000], q[:, :1000].contiguous(), scale)
+        with pytest.raises(ValueError, match="scale period"):
+            int8_linear(x, q, scale.expand(256, 24).contiguous())
+        with pytest.raises(ValueError, match="bf16 scale"):
+            int8_linear(x, q, scale[:128])
+    assert int8_linear.launches == before
+
+
+def test_engine_int8_weight_graph_tokens_equal_eager():
+    """Graphed int8-weight serving (staged int8 KV cache too) against the
+    eager card path; K4 launches once per projection and lm_head per step
+    and per grouped prefill or extend, replays counted."""
+    from kubeflow_tpu_torch.models.llama import Int8Dense
+    from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+
+    kw = dict(quantize="int8", quantize_min_size=1024)
+    for option in ("staged", "int8_staged"):
+        with torch.no_grad():
+            want = _serve(_small_engine(option, eager=True, **kw))
+            eng = _small_engine(option, **kw)
+            eng.warmup(16)
+            k4 = int8_linear.launches
+            eng.prefill_dispatches = eng.extend_dispatches = 0
+            eng.decode_dispatches = 0
+            got = _serve(eng)
+        assert got == want
+        layers = eng.model.cfg.num_layers
+        assert len(eng.quantized) == 7 * layers + 1
+        assert isinstance(eng.model.lm_head, Int8Dense)
+        per_pass = 7 * layers + 1
+        assert int8_linear.launches - k4 == per_pass * (
+            eng.cfg.decode_chunk * eng.decode_dispatches
+            + eng.prefill_dispatches + eng.extend_dispatches)
+
+
+def test_card_int8_serve_never_dequantizes_whole_weights(monkeypatch):
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops import int8_linear as il
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the card's serve path dequantized a weight")
+
+    monkeypatch.setattr(il, "int8_linear_reference", refuse)
+    monkeypatch.setattr(il, "dequantize_int8", refuse)
+    monkeypatch.setattr(llama, "dequantize_int8", refuse)
+    for eager in (True, False):
+        with torch.no_grad():
+            toks = _serve(_small_engine("staged", eager=eager,
+                                        quantize="int8",
+                                        quantize_min_size=1024))
+        assert [len(t) for t in toks] == [n for _, n in ENGINE_PROMPTS]

@@ -146,6 +146,34 @@ def test_cache_options_match_jax_engine(shared, option, name):
     assert ("stage_key" in layer) == ("decode_staging" in model_kw)
 
 
+# Weight-only int8 (quantize_min_size=64 reaches llama-tiny's projections),
+# alone and with the int8 staged KV cache: both engines dequantize each
+# weight to bf16 (_materialize's rounding point) and multiply in f32.
+INT8_WEIGHTS = dict(quantize="int8", quantize_min_size=64)
+
+
+@pytest.mark.parametrize("name", ["continuous_batching", "chunked_prefill"])
+@pytest.mark.parametrize("option", ["bf16_cache", "int8_staged"])
+def test_int8_weights_match_jax_engine(shared, option, name):
+    kw, requests = SCENARIOS[name]
+    model_kw = ({} if option == "bf16_cache"
+                else CACHE_OPTIONS[option](kw))
+    port = port_engine(shared, model_kw, **INT8_WEIGHTS, **kw)
+    got = serve(port, requests)
+    want = serve(jax_engine(shared, model_kw, **INT8_WEIGHTS, **kw),
+                 requests)
+    assert_same_results(got, want, kw)
+    assert len(port.quantized) == 7 * port.model.cfg.num_layers + 1
+    assert port.model.lm_head.weight.dtype == torch.int8
+
+
+def test_unknown_quantize_refused(shared):
+    with pytest.raises(ValueError, match="quantize"):
+        ServingConfig(quantize="fp4")
+    with pytest.raises(ValueError, match="quantize"):
+        port_engine(shared, max_batch=1, max_len=64, quantize="fp4")
+
+
 @pytest.mark.parametrize("kv_dtype", ["", "int8"])
 def test_staged_matches_unstaged(shared, kv_dtype):
     """Chunk 4 and 11 tokens: two flushes fall inside each generation."""
@@ -314,6 +342,19 @@ def test_http_roundtrip_from_env(monkeypatch):
                                  "KFTPU_SERVING_CHECKPOINT_DIR"])
 def test_unported_server_options_raise(monkeypatch, tmp_path, env):
     monkeypatch.setenv("KFTPU_PLATFORM", "cpu")
+    if env == "KFTPU_SERVING_QUANTIZE":
+        # Ported: int8 weights at llama-tiny's (default) sizes quantize
+        # nothing (every leaf is under 65536 elements), so the server
+        # builds and serves; the unknown scheme raises.
+        _tiny_server_env(monkeypatch)
+        monkeypatch.setenv(env, "int8")
+        server = build_server(env_config())
+        assert server.engine.cfg.quantize == "int8"
+        assert server.engine.quantized == []
+        monkeypatch.setenv(env, "fp4")
+        with pytest.raises(ValueError, match="quantize"):
+            build_server(env_config())
+        return
     if env == "KFTPU_SERVING_CHECKPOINT_DIR":
         # Ported with the training slice: a directory without a complete
         # checkpoint raises instead of serving random weights
@@ -326,12 +367,7 @@ def test_unported_server_options_raise(monkeypatch, tmp_path, env):
     if env == "KFTPU_SERVING_QUANTIZE_KV":
         # Ported: the env reaches the model, which the server builds
         # staged as the JAX server does.
-        for key, value in {"KFTPU_SERVING_MODEL": "llama-tiny",
-                           "KFTPU_SERVING_MAX_LEN": "64",
-                           "KFTPU_SERVING_DECODE_CHUNK": "4",
-                           "KFTPU_SERVING_HOST": "127.0.0.1",
-                           "KFTPU_SERVING_PORT": "0"}.items():
-            monkeypatch.setenv(key, value)
+        _tiny_server_env(monkeypatch)
         server = build_server(env_config())
         cfg = server.engine.model.cfg
         assert (cfg.kv_cache_dtype, cfg.decode_staging) == ("int8", 4)
@@ -339,6 +375,57 @@ def test_unported_server_options_raise(monkeypatch, tmp_path, env):
         return
     with pytest.raises(NotImplementedError, match="later|slice"):
         build_server(env_config())
+
+
+def _tiny_server_env(monkeypatch):
+    for key, value in {"KFTPU_SERVING_MODEL": "llama-tiny",
+                       "KFTPU_SERVING_MAX_LEN": "64",
+                       "KFTPU_SERVING_DECODE_CHUNK": "4",
+                       "KFTPU_SERVING_HOST": "127.0.0.1",
+                       "KFTPU_SERVING_PORT": "0"}.items():
+        monkeypatch.setenv(key, value)
+
+
+@pytest.mark.parametrize("quantize_kv", ["", "int8"])
+def test_int8_server_from_checkpoint(shared, monkeypatch, tmp_path,
+                                     quantize_kv):
+    """KFTPU_SERVING_QUANTIZE=int8 over a port checkpoint: the server loads
+    the trained weights, then quantizes them (the engine's minimum size
+    lowered to llama-tiny's), and serves over HTTP."""
+    import types
+
+    from kubeflow_tpu_torch.serving import engine as engine_mod
+    from kubeflow_tpu_torch.serving.engine import _quantize_leaf
+    from kubeflow_tpu_torch.train.checkpoint import CheckpointService
+
+    _, _, tcfg, sd = shared
+    ckpt = CheckpointService(str(tmp_path))
+    ckpt.save(3, types.SimpleNamespace(params=sd, opt_state={}, step=3))
+    ckpt.close()
+    _tiny_server_env(monkeypatch)
+    for key, value in {"KFTPU_PLATFORM": "cpu",
+                       "KFTPU_SERVING_CHECKPOINT_DIR": str(tmp_path),
+                       "KFTPU_SERVING_QUANTIZE": "int8",
+                       "KFTPU_SERVING_QUANTIZE_KV": quantize_kv}.items():
+        monkeypatch.setenv(key, value)
+    quantizable = engine_mod._quantizable
+    monkeypatch.setattr(engine_mod, "_quantizable",
+                        lambda name, p, min_size: quantizable(name, p, 64))
+    server = build_server(env_config()).start()
+    try:
+        model = server.engine.model
+        assert model.cfg.kv_cache_dtype == quantize_kv
+        o = model.layers[1].attn.o_proj
+        want_q, want_s = _quantize_leaf(
+            sd["layers.1.attn.o_proj.weight"].to(torch.bfloat16),
+            tcfg.head_dim)
+        assert torch.equal(o.weight, want_q) and torch.equal(o.scale, want_s)
+        assert torch.equal(model.embed, sd["embed"].to(torch.bfloat16))
+        out = json.load(_post(f"http://127.0.0.1:{server.port}",
+                              {"tokens": [5, 9, 2], "max_new_tokens": 5}))
+        assert len(out["tokens"]) == 5
+    finally:
+        server.stop()
 
 
 def test_direct_server_wraps_engine(shared):
