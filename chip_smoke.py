@@ -821,7 +821,7 @@ def int8_phase():
             f"{library_ms * 1e3:.2f} us cold, {library_warm_ms * 1e3:.2f} "
             f"warm; bound {bound * 1e3:.2f} us ({bound_by}; kernel at "
             f"{bound / ms:.2f} of it); K split over a cluster of "
-            f"{il._kernel_fns()[1](m, n, k)}" + "".join(
+            f"{il._kernel_fns()[1](m, n, k, period)}" + "".join(
                 f"; over {c}: {v * 1e3:.2f} us cold"
                 for c, v in splits.items()))
         del sets, plain_w, x

@@ -39,7 +39,12 @@ max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s). Shapes: llama3-8b's decode
 products at M = 8 (``q``, ``kv``, ``o``, ``gate``, ``down``, ``lm_head``,
 the default; then each build's time over a decode step's 225 products is
 printed) and the gate shape at prefill token counts (``m512``,
-``m4096``).
+``m4096``). The ``step`` shape serves: one llama3-8b engine with int8
+weights (random, seeded; staged bf16 cache, 8 slots) per build, each
+capturing its CUDA graphs with that build's K4, then full-batch decode
+chunks (8 steps) timed in turns on the host clock, each ending in the
+tokens' fetch: the decode step as the server runs it, launch gaps and
+all.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -387,6 +393,7 @@ def int8_caller(lib: str):
             raise RuntimeError(f"launch failed: CUDA error {rc}")
         return y
 
+    call.entry = fn
     return call
 
 
@@ -443,6 +450,54 @@ def run_int8(name: str, calls: dict, step: dict) -> bool:
     return ok
 
 
+def run_int8_step(calls: dict, chunks: int = 6) -> bool:
+    """Each build's K4 in a llama3-8b int8-weight engine: ms a decode step,
+    median and least of ``chunks`` chunks a build, taken in turns."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import int8_linear as il
+    from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
+    from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
+
+    engines = {}
+    real = il._kernel_fns
+    try:
+        for label, call in calls.items():
+            # The engine launches K4 through _kernel_fns()[0]; the graphs
+            # it captures keep this build's kernel.
+            il._kernel_fns = lambda call=call: (call.entry, None)
+            with torch.device("cuda"):
+                model, _ = get_model("llama3-8b", param_dtype="bfloat16",
+                                     decode_staging=8)
+            model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+            eng = ServingEngine(
+                model, ServingConfig(max_batch=8, max_len=1024,
+                                     decode_chunk=8, quantize="int8"),
+                device="cuda", registry=MetricsRegistry())
+            rs = __import__("numpy").random.RandomState(0)
+            for _ in range(8):
+                eng.submit(rs.randint(0, 128256, 100).tolist(),
+                           max_new_tokens=8 * (chunks + 3))
+            eng.step()              # admission, prefill, the first chunk
+            eng.step()              # the decode graph is captured
+            engines[label] = eng
+            torch.cuda.synchronize()
+    finally:
+        il._kernel_fns = real
+    times = {label: [] for label in engines}
+    order = list(engines)
+    for rnd in range(chunks):
+        for label in (order if rnd % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            engines[label].step()   # one chunk, ends in the host fetch
+            times[label].append((time.perf_counter() - start) * 1e3 / 8)
+    print("step: ms a decode step (8 slots, chunks of 8, in turns; median "
+          "/ least): " + "; ".join(
+              f"{label} {statistics.median(t):.3f} / {min(t):.3f}"
+              for label, t in times.items()), flush=True)
+    return True
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+")
@@ -483,7 +538,9 @@ def main() -> int:
                    for root, lib in zip(args.dirs, libs)}
     ok, step = True, {}
     for name in shapes.split(","):
-        if args.kernel == "int8":
+        if args.kernel == "int8" and name == "step":
+            ok &= run_int8_step(fns)
+        elif args.kernel == "int8":
             ok &= run_int8(name, fns, step)
         else:
             ok &= run_decode(name, fns) if decode else run_shape(name, fns)

@@ -48,9 +48,10 @@
 //   are few, the blocks of a thread-block cluster (2, 4 or 8) split K into
 //   contiguous runs and sum their partials through distributed shared
 //   memory, each block the rows of its slice, in rank order:
-//   deterministic, no atomics, no device workspace
-//   (kftpu_int8_linear_splits). x is never held whole in shared memory, so
-//   down_proj's 8 x 14336 bf16 (229 KB) needs no special case.
+//   deterministic, no atomics, no device workspace. The split is the
+//   largest that keeps every block resident at once (plan). x is never
+//   held whole in shared memory, so down_proj's 8 x 14336 bf16 (229 KB)
+//   needs no special case.
 // - Larger M (grouped prefill, k_pad x bucket up to 4096; the extend's 512
 //   rows): blocks of 64 tokens x 128 output rows, four warps of 32 tokens x
 //   64 rows, tokens the fastest grid axis so that the blocks of one weight
@@ -249,56 +250,57 @@ __global__ void __launch_bounds__(Shape<NT, MT, WN, WM, STAGES, SUB>::kThreads)
 
   for (int j = 0; j < mine; ++j) {
     cp_async_wait<STAGES - 2>();
-    __syncthreads();             // span j landed for all; span j - 1's slot is free
+    __syncthreads();             // stage j landed for all; stage j - 1's slot is free
     if (j + STAGES - 1 < mine) load(j + STAGES - 1);
     cp_async_commit();
 
 #pragma unroll
     for (int sub = 0; sub < SUB; ++sub) {
-    const uint32_t st = smem_u32(smem + (j % STAGES) * Sh::kStage + sub * Sh::kSub);
-    const uint32_t xs = st + Sh::kWBytes;
-    // B fragments of the span's four k-steps: words 2i, 2i + 1 of a token row.
-    uint32_t b[MT][8];
+      const uint32_t st = smem_u32(smem + (j % STAGES) * Sh::kStage + sub * Sh::kSub);
+      const uint32_t xs = st + Sh::kWBytes;
+      // B fragments of the span's four k-steps: words 2i, 2i + 1 of a token row.
+      uint32_t b[MT][8];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int r = (wm * MT + mt) * 8 + lr;
-      const uint4 lo = lds128(xs + r * 128 + (x_pos(2 * t, r) << 4));
-      const uint4 hi = lds128(xs + r * 128 + (x_pos(2 * t + 1, r) << 4));
-      b[mt][0] = lo.x; b[mt][1] = lo.y; b[mt][2] = lo.z; b[mt][3] = lo.w;
-      b[mt][4] = hi.x; b[mt][5] = hi.y; b[mt][6] = hi.z; b[mt][7] = hi.w;
-    }
-    const int kc = ((((first + j) * SUB + sub) * kSpan + 16 * t) % (ROW_SCALE ? 16 : p.S)) / 8;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = (wn * NT + nt) * 16 + lr + 8 * h;
-        const uint4 w = lds128(st + r * kSpan + t * 16);
-        const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-        uint32_t sc[8];
-        if (ROW_SCALE) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) sc[i] = row_scale[nt][h];
-        } else {
-          const uint32_t srow = smem_u32(scales) + r * p.S * 2;
-          const uint4 s0 = lds128(srow + ((kc ^ (r & swz)) << 4));
-          const uint4 s1 = lds128(srow + (((kc + 1) ^ (r & swz)) << 4));
-          sc[0] = s0.x; sc[1] = s0.y; sc[2] = s0.z; sc[3] = s0.w;
-          sc[4] = s1.x; sc[5] = s1.y; sc[6] = s1.z; sc[7] = s1.w;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t f = words[i] ^ 0x80808080u;
-          a[i][h] = bf16x2_mul(int8_pair<0, 1>(f), sc[2 * i]);
-          a[i][2 + h] = bf16x2_mul(int8_pair<2, 3>(f), sc[2 * i + 1]);
-        }
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r = (wm * MT + mt) * 8 + lr;
+        const uint4 lo = lds128(xs + r * 128 + (x_pos(2 * t, r) << 4));
+        const uint4 hi = lds128(xs + r * 128 + (x_pos(2 * t + 1, r) << 4));
+        b[mt][0] = lo.x; b[mt][1] = lo.y; b[mt][2] = lo.z; b[mt][3] = lo.w;
+        b[mt][4] = hi.x; b[mt][5] = hi.y; b[mt][6] = hi.z; b[mt][7] = hi.w;
       }
+      const int kc = ((((first + j) * SUB + sub) * kSpan + 16 * t) % (ROW_SCALE ? 16 : p.S)) / 8;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t a[4][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_16816(acc[nt][mt], a[i], b[mt][2 * i], b[mt][2 * i + 1]);
-    }
+        for (int h = 0; h < 2; ++h) {
+          const int r = (wn * NT + nt) * 16 + lr + 8 * h;
+          const uint4 w = lds128(st + r * kSpan + t * 16);
+          const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+          uint32_t sc[8];
+          if (ROW_SCALE) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) sc[i] = row_scale[nt][h];
+          } else {
+            const uint32_t srow = smem_u32(scales) + r * p.S * 2;
+            const uint4 s0 = lds128(srow + ((kc ^ (r & swz)) << 4));
+            const uint4 s1 = lds128(srow + (((kc + 1) ^ (r & swz)) << 4));
+            sc[0] = s0.x; sc[1] = s0.y; sc[2] = s0.z; sc[3] = s0.w;
+            sc[4] = s1.x; sc[5] = s1.y; sc[6] = s1.z; sc[7] = s1.w;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint32_t f = words[i] ^ 0x80808080u;
+            a[i][h] = bf16x2_mul(int8_pair<0, 1>(f), sc[2 * i]);
+            a[i][2 + h] = bf16x2_mul(int8_pair<2, 3>(f), sc[2 * i + 1]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_16816(acc[nt][mt], a[i], b[mt][2 * i], b[mt][2 * i + 1]);
+      }
     }
   }
 
@@ -349,13 +351,66 @@ __global__ void __launch_bounds__(Shape<NT, MT, WN, WM, STAGES, SUB>::kThreads)
   cluster.sync();
 }
 
+// One instantiation of the kernel: its function, block and shared memory.
 template <int NT, int MT, int WN, int WM, int STAGES, int SUB, bool ROW_SCALE>
-cudaError_t launch(const Params& p, int splits, cudaStream_t stream) {
+struct Kernel {
   using Sh = Shape<NT, MT, WN, WM, STAGES, SUB>;
-  auto kernel = int8_linear_kernel<NT, MT, WN, WM, STAGES, SUB, ROW_SCALE>;
-  static bool opted = false;
-  const int most = Sh::kMain + (ROW_SCALE ? 0 : Sh::BN * kMaxPeriod * 2);
-  cudaError_t err = flash::allow_smem(kernel, most, opted);
+  static constexpr auto fn = &int8_linear_kernel<NT, MT, WN, WM, STAGES, SUB, ROW_SCALE>;
+  static int smem(int S) { return Sh::kMain + (ROW_SCALE ? 0 : Sh::BN * S * 2); }
+  // Opts in to the most shared memory any scale period needs, once.
+  static cudaError_t prepare() {
+    static bool opted = false;
+    return flash::allow_smem(fn, smem(kMaxPeriod), opted);
+  }
+  // Blocks resident at once on the current card at this shared memory
+  // (the answer for the last one asked is kept: the card does not change).
+  static cudaError_t resident(int smem_bytes, int* blocks) {
+    static int device = -1, bytes = -1, answer = 0;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev != device || smem_bytes != bytes) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, Sh::kThreads, smem_bytes);
+      }
+      if (err != cudaSuccess) return err;
+      device = dev;
+      bytes = smem_bytes;
+      answer = per_sm * sms;
+    }
+    *blocks = answer;
+    return cudaSuccess;
+  }
+};
+
+// The blocks of a cluster that split K when the caller leaves the choice
+// to the kernel: a decode shape (M <= 16) doubles its blocks (2, 4, 8)
+// while they all stay resident at once (the card's occupancy answer for
+// the instantiation) and each keeps at least four stages. A block's first
+// loads wait a full memory latency, and a second wave of blocks waits for
+// a whole block (at the gate shape 2 blocks a cluster took 29.9 us, 4 took
+// 33.5: a second wave).
+template <class Kn>
+cudaError_t plan(const Params& p, int* splits) {
+  *splits = 1;
+  cudaError_t err = Kn::prepare();
+  if (err != cudaSuccess || p.M > 16) return err;
+  int resident = 0;
+  err = Kn::resident(Kn::smem(p.S), &resident);
+  if (err != cudaSuccess) return err;
+  const int blocks = (p.N + Kn::Sh::BN - 1) / Kn::Sh::BN;
+  const int stages = (p.K + kDecodeSub * kSpan - 1) / (kDecodeSub * kSpan);
+  while (*splits < 8 && 2 * blocks * *splits <= resident && stages / (2 * *splits) >= 4) {
+    *splits *= 2;
+  }
+  return cudaSuccess;
+}
+
+template <class Kn>
+cudaError_t launch(const Params& p, int splits, cudaStream_t stream) {
+  using Sh = typename Kn::Sh;
+  cudaError_t err = splits == 0 ? plan<Kn>(p, &splits) : Kn::prepare();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -365,59 +420,30 @@ cudaError_t launch(const Params& p, int splits, cudaStream_t stream) {
   attr[0].val.clusterDim.z = splits;
   cfg.gridDim = dim3((p.M + Sh::BM - 1) / Sh::BM, (p.N + Sh::BN - 1) / Sh::BN, splits);
   cfg.blockDim = dim3(Sh::kThreads);
-  cfg.dynamicSmemBytes = Sh::kMain + (ROW_SCALE ? 0 : Sh::BN * p.S * 2);
+  cfg.dynamicSmemBytes = Kn::smem(p.S);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, p);
+  return cudaLaunchKernelEx(&cfg, Kn::fn, p);
 }
 
-// Decode (M <= 16): 8 warps of one 16-row tile each, 128 rows a block;
-// prefill: 64 tokens x 128 rows, four warps of 32 x 64.
-template <bool ROW_SCALE>
-cudaError_t dispatch(const Params& p, int splits, cudaStream_t stream) {
-  if (p.M <= 8) return launch<1, 1, 8, 1, kDecodeStages, kDecodeSub, ROW_SCALE>(p, splits, stream);
-  if (p.M <= 16) return launch<1, 2, 8, 1, kDecodeStages, kDecodeSub, ROW_SCALE>(p, splits, stream);
-  return launch<4, 4, 2, 2, 4, 1, ROW_SCALE>(p, splits, stream);
+// Calls f with the instantiation for p. Decode (M <= 16): 8 warps of one
+// 16-row tile each, 128 rows a block; prefill: 64 tokens x 128 rows, four
+// warps of 32 x 64.
+template <class F>
+cudaError_t with_kernel(const Params& p, F f) {
+  if (p.S == 1) {
+    if (p.M <= 8) return f(Kernel<1, 1, 8, 1, kDecodeStages, kDecodeSub, true>{});
+    if (p.M <= 16) return f(Kernel<1, 2, 8, 1, kDecodeStages, kDecodeSub, true>{});
+    return f(Kernel<4, 4, 2, 2, 4, 1, true>{});
+  }
+  if (p.M <= 8) return f(Kernel<1, 1, 8, 1, kDecodeStages, kDecodeSub, false>{});
+  if (p.M <= 16) return f(Kernel<1, 2, 8, 1, kDecodeStages, kDecodeSub, false>{});
+  return f(Kernel<4, 4, 2, 2, 4, 1, false>{});
 }
 
-}  // namespace
-
-// The blocks of a cluster that split K for an [M, N] x [N, K] product when
-// the caller leaves the choice to the kernel (``splits`` 0): a decode shape
-// (M <= 16) doubles its blocks (2, 4, 8) while they all stay resident at
-// three an SM (the decode ring's occupancy) and each keeps at least four
-// stages; a block's first loads wait a full memory latency, and a second
-// wave of blocks waits for a whole block (at the gate shape 2 blocks a
-// cluster took 29.9 us, 4 took 33.5: a second wave).
-extern "C" int kftpu_int8_linear_splits(int M, int N, int K) {
-  if (M > 16) return 1;
-  int device = 0, sms = 132;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
-    sms = 132;
-  }
-  const int blocks = (N + 127) / 128, stages = (K + kDecodeSub * kSpan - 1) / (kDecodeSub * kSpan);
-  int splits = 1;
-  while (splits < 8 && 2 * blocks * splits <= 3 * sms && stages / (2 * splits) >= 4) splits *= 2;
-  return splits;
-}
-
-// y[M, N] = x[M, K] . dequant(q, scale)^T (see the header). ``ldx``: x's
-// row stride in elements (>= K, a multiple of 8); q, scale and y contiguous;
-// every pointer 16-byte aligned. ``splits``: the blocks of a cluster that
-// split K (1, 2, 4 or 8; M <= 16 only), 0 for kftpu_int8_linear_splits'
-// choice. Returns the CUDA error code of the launch (0 = launched).
-extern "C" int kftpu_int8_linear(const void* x, const void* q, const void* scale, void* y, int M,
-                                 int N, int K, int S, long long ldx, int splits, void* stream) {
-  if (M < 1 || N < 16 || K < 16 || N % 16 || K % 16 || ldx < K || ldx % 8) {
-    return cudaErrorInvalidValue;
-  }
-  if (S != 1 && (S % 16 || S > kMaxPeriod || K % S)) return cudaErrorInvalidValue;
-  if (splits == 0) splits = kftpu_int8_linear_splits(M, N, K);
-  if (splits != 1 && (M > 16 || (splits != 2 && splits != 4 && splits != 8))) {
-    return cudaErrorInvalidValue;
-  }
+Params make_params(const void* x, const void* q, const void* scale, void* y, int M, int N, int K,
+                   int S, long long ldx) {
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
   p.q = static_cast<const int8_t*>(q);
@@ -428,6 +454,41 @@ extern "C" int kftpu_int8_linear(const void* x, const void* q, const void* scale
   p.K = K;
   p.S = S;
   p.ldx = ldx;
+  return p;
+}
+
+bool valid(int M, int N, int K, int S) {
+  return M >= 1 && N >= 16 && K >= 16 && N % 16 == 0 && K % 16 == 0 &&
+         (S == 1 || (S % 16 == 0 && S <= kMaxPeriod && K % S == 0));
+}
+
+}  // namespace
+
+// The blocks of a cluster that split K for an [M, N] x [N, K] product with
+// scale period S when the caller leaves the choice to the kernel (see
+// plan), or minus a CUDA error code.
+extern "C" int kftpu_int8_linear_splits(int M, int N, int K, int S) {
+  if (!valid(M, N, K, S)) return -static_cast<int>(cudaErrorInvalidValue);
+  const Params p = make_params(nullptr, nullptr, nullptr, nullptr, M, N, K, S, K);
+  int splits = 1;
+  const cudaError_t err =
+      with_kernel(p, [&](auto kn) { return plan<decltype(kn)>(p, &splits); });
+  return err == cudaSuccess ? splits : -static_cast<int>(err);
+}
+
+// y[M, N] = x[M, K] . dequant(q, scale)^T (see the header). ``ldx``: x's
+// row stride in elements (>= K, a multiple of 8); q, scale and y contiguous;
+// every pointer 16-byte aligned. ``splits``: the blocks of a cluster that
+// split K (1, 2, 4 or 8; M <= 16 only), 0 for kftpu_int8_linear_splits'
+// choice. Returns the CUDA error code of the launch (0 = launched).
+extern "C" int kftpu_int8_linear(const void* x, const void* q, const void* scale, void* y, int M,
+                                 int N, int K, int S, long long ldx, int splits, void* stream) {
+  if (!valid(M, N, K, S) || ldx < K || ldx % 8 ||
+      (splits != 0 && splits != 1 && (M > 16 || (splits != 2 && splits != 4 && splits != 8)))) {
+    return cudaErrorInvalidValue;
+  }
+  const Params p = make_params(x, q, scale, y, M, N, K, S, ldx);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(S == 1 ? dispatch<true>(p, splits, st) : dispatch<false>(p, splits, st));
+  return static_cast<int>(
+      with_kernel(p, [&](auto kn) { return launch<decltype(kn)>(p, splits, st); }));
 }

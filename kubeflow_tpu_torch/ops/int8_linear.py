@@ -66,14 +66,14 @@ def int8_linear_reference(x: torch.Tensor, q: torch.Tensor,
 
 def bind(lib: ctypes.CDLL):
     """K4's C entry points in ``lib`` with their ctypes signatures: the
-    launch, and the blocks of a cluster that split K for (M, N, K)."""
+    launch, and the blocks of a cluster that split K for (M, N, K, S)."""
     fn = lib.kftpu_int8_linear
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     splits = lib.kftpu_int8_linear_splits
     splits.restype = ctypes.c_int
-    splits.argtypes = [ctypes.c_int] * 3
+    splits.argtypes = [ctypes.c_int] * 4
     return fn, splits
 
 
