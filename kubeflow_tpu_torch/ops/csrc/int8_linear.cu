@@ -424,7 +424,9 @@ cudaError_t launch(const Params& p, int splits, cudaStream_t stream) {
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, Kn::fn, p);
+  err = cudaLaunchKernelEx(&cfg, Kn::fn, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // Calls f with the instantiation for p. Decode (M <= 16): 8 warps of one
