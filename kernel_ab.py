@@ -41,10 +41,11 @@ the default; then each build's time over a decode step's 225 products is
 printed) and the gate shape at prefill token counts (``m512``,
 ``m4096``). The ``step`` shape serves: one llama3-8b engine with int8
 weights (random, seeded; staged bf16 cache, 8 slots) per build, each
-capturing its CUDA graphs with that build's K4, then full-batch decode
-chunks (8 steps) timed in turns on the host clock, each ending in the
-tokens' fetch: the decode step as the server runs it, launch gaps and
-all.
+capturing its CUDA graphs with that build's K4, and one with the same
+weights in bf16 (cuBLAS products) as the yardstick, then full-batch
+decode chunks (8 steps) timed in turns on the host clock, each ending in
+the tokens' fetch: the decode step as the server runs it, launch gaps
+and all.
 """
 
 from __future__ import annotations
@@ -450,9 +451,10 @@ def run_int8(name: str, calls: dict, step: dict) -> bool:
     return ok
 
 
-def run_int8_step(calls: dict, chunks: int = 6) -> bool:
-    """Each build's K4 in a llama3-8b int8-weight engine: ms a decode step,
-    median and least of ``chunks`` chunks a build, taken in turns."""
+def run_int8_step(calls: dict, chunks: int = 8) -> bool:
+    """Each build's K4 in a llama3-8b int8-weight engine, and the bf16
+    engine: ms a decode step, median and least of ``chunks`` chunks an
+    engine, taken in turns."""
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.ops import int8_linear as il
     from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
@@ -461,7 +463,7 @@ def run_int8_step(calls: dict, chunks: int = 6) -> bool:
     engines = {}
     real = il._kernel_fns
     try:
-        for label, call in calls.items():
+        for label, call in [*calls.items(), ("bf16 (cuBLAS)", None)]:
             # The engine launches K4 through _kernel_fns()[0]; the graphs
             # it captures keep this build's kernel.
             il._kernel_fns = lambda call=call: (call.entry, None)
@@ -471,7 +473,8 @@ def run_int8_step(calls: dict, chunks: int = 6) -> bool:
             model.init_weights(torch.Generator(device="cuda").manual_seed(0))
             eng = ServingEngine(
                 model, ServingConfig(max_batch=8, max_len=1024,
-                                     decode_chunk=8, quantize="int8"),
+                                     decode_chunk=8,
+                                     quantize="int8" if call else ""),
                 device="cuda", registry=MetricsRegistry())
             rs = __import__("numpy").random.RandomState(0)
             for _ in range(8):
