@@ -107,15 +107,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    same width with attn_impl="flash" against attn_impl="full": each
    parameter's relative error ||g_flash - g_full|| / ||g_full|| within
    GRAD_REL_BOUND;
-9. prints each phase's seconds and the total, the {"kernels": [...]} line (K1's entry at the serving prefill
-   shape, with its training-shape ms, SDPA ms and bound under train_
-   keys; K2's at the train shape with dkdv_ms, dq_ms and split_bound_ms;
-   K3's at the served path's case, bf16 staged, cold, with its warm_ms,
-   the other cases' times and SDPA's under unstaged_/int8_ keys and the
-   long context under l8192_ keys; K4's at the gate shape, M = 8, cold,
-   with its warm time, F.linear's as library_ms, the launches of the
-   int8-weight burst and of its profiled chunk, the other shapes under
-   <name>_ keys), then the result line.
+9. prints each phase's seconds and the total, the {"kernels": [...]}
+   line (K1's entry at the serving prefill shape, with its training-shape
+   ms, SDPA ms and bound under train_ keys; K2's at the train shape with
+   dkdv_ms, dq_ms and split_bound_ms; K3's at the served path's case,
+   bf16 staged, cold, with its warm_ms, the other cases' times and
+   SDPA's under unstaged_/int8_ keys and the long context under l8192_
+   keys; K4's at the gate shape, M = 8, cold, with its warm time,
+   F.linear's as library_ms, the launches of the int8-weight burst and of
+   its profiled chunk, the other shapes under <name>_ keys), then the
+   result line.
 """
 
 from __future__ import annotations
@@ -1469,8 +1470,8 @@ def main() -> int:
         k3.update({prefix + key: row[key]
                    for key in ("ms", "bound_ms", "max_abs_err")})
     # K4 at the gate shape, M = 8 (the decode step's), cold; its warm time
-    # and SDPA-style yardstick (F.linear on bf16 weights, cold and warm)
-    # beside it; the other products under their names, the gate shape at
+    # and its yardstick (F.linear on bf16 weights, cold and warm) beside
+    # it; the other products under their names, the gate shape at
     # other token counts under gate_m<M>_.
     k4_by = {r["case"]: r for r in k4_rows}
     k4 = entry("int8_linear", "int8_linear.cu",

@@ -1,7 +1,8 @@
 """A/B device timing of builds of one kernel on one NVIDIA GPU: the
 flash-attention backward (K2, the default), the decode attention (K3) or
 the int8-weight product (K4):
-``python3 kernel_ab.py DIR [DIR ...] [--kernel bwd|decode|int8] [--shapes ...]``.
+``python3 kernel_ab.py DIR [DIR ...] [--kernel bwd|decode|int8]
+[--shapes ...]``.
 
 Each DIR is the root of a checkout, or of a copy of its
 ``kubeflow_tpu_torch/ops/csrc`` (for instance ``git archive <rev>
