@@ -11,9 +11,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    report; then checks the SASS: every bf16 instantiation of K1's kernel
    and of K2's dk/dv and dq kernels holds wgmma (HGMMA) and TMA loads
    (UTMALDG), every one of K3's 16 (D 64/128, G 1/2/4/8, bf16/int8 cache)
-   TMA loads and mma.sync (HMMA), every one of K4's 6 (decode at 8 or 16
-   tokens, prefill; per-row or per-column scales) mma.sync and cp.async
-   (LDGSTS), and ptxas reports no spills in any of the four libraries;
+   TMA loads and mma.sync (HMMA), every one of K4's 4 decode ones (8 or 16
+   tokens; per-row or per-column scales) mma.sync and cp.async (LDGSTS),
+   every one of its 6 prefill ones (64, 128 or 256 tokens a tile; per-row
+   or per-column scales) wgmma and TMA loads, and ptxas reports no spills
+   in any of the four libraries;
 3. kernel (K1, forward) — holds the kernel against its plain PyTorch
    version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
    Sq=Skv 32, 128 and 512; one full-attention case; one D=64 case; one
@@ -58,16 +60,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    version (int8_linear_reference: the weight dequantized to bf16, then
    F.linear, which sums in f32 as K4 does) at llama3-8b's seven
    projections and lm_head at M = 8 (the decode step's; o_proj with its
-   per-head-dim scales) and at the gate shape for M = 1, 9, 64, 512 and
-   4096: max |kernel - plain| <= 1e-2 x max |plain|, two calls bitwise
-   equal. Times, on the device (CUDA-graph replays), the kernel cold
-   (consecutive calls rotating over weight sets larger than twice the L2,
-   as the served step reads each layer's weights once) and warm, the
-   plain version and, as the yardstick the port never calls, F.linear on
-   the weight dequantized beforehand (bf16: twice the bytes), cold and
-   warm; at M <= 16 also each split of K over a cluster (1, 2, 4, 8
-   blocks); the bound max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s), and
-   the sum over a decode step's 225 products;
+   per-head-dim scales), at the gate shape for M = 1, 9, 64, 512, 1024 and
+   4096, and at the grouped launches of q/k/v and gate/up at M = 8 (each
+   product against its plain version): max |kernel - plain| <= 1e-2 x
+   max |plain|, two calls bitwise equal. Times, on the device (CUDA-graph
+   replays), the kernel cold (consecutive calls rotating over weight sets
+   larger than twice the L2, as the served step reads each layer's
+   weights once) and warm, the plain version and, as the yardstick the
+   port never calls, F.linear on the weight dequantized beforehand (bf16:
+   twice the bytes; a group's weights concatenated), cold and warm; at
+   M <= 16 also each split of K over a cluster (1, 2, 4, 8 blocks); the
+   bound max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s), and the sum over
+   a decode step's products, launched apart (225) and grouped (129);
 7. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card; staged decode and
    CUDA graphs, as the server runs by default) and sends 9 concurrent
@@ -78,10 +82,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    again with KFTPU_SERVING_QUANTIZE=int8 (int8 weights, bf16 KV cache).
    Checks the token counts and
    ids, that K1 ran once per layer per grouped prefill or chunked-prefill
-   chunk, K3 once per layer per decode step and K4 once per int8
-   projection (7 a layer and the lm_head: 225) per decode step and per
-   grouped prefill or extend (launch counts zeroed just before the burst,
-   graph replays counted), and re-forwards two greedy
+   chunk, K3 once per layer per decode step and K4 once per group the
+   model forms (q/k/v, gate/up) and per other int8 projection (4 a layer
+   and the lm_head: 129) per decode step and per grouped prefill or
+   extend (launch counts zeroed just before the burst, graph replays
+   counted), and re-forwards two greedy
    requests through the model with the plain attention in f32 and in
    bf16 (for the int8 KV burst with the decode rows' k/v quantized and
    dequantized, as the cache holds them; for the int8-weight burst on the
@@ -91,7 +96,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    memory (and the build's peak), then profiles one full-batch decode
    chunk (wall time, device busy time, idle share, top device kernels,
    K3's kernel launches, which must be one per layer per step: 256, and
-   with int8 weights K4's: 225 a step, 1800) and times three more without
+   with int8 weights K4's: 129 a step, 1032) and times three more without
    the profiler;
 8. train — runs the training runner in-process (the KFTPU_* env) on the
    ~700M-parameter Llama of ``bench.py train`` at full width and depth
@@ -115,8 +120,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    SDPA's under unstaged_/int8_ keys and the long context under l8192_
    keys; K4's at the gate shape, M = 8, cold, with its warm time,
    F.linear's as library_ms, the launches of the int8-weight burst and of
-   its profiled chunk, the other shapes under <name>_ keys), then the
-   result line.
+   its profiled chunk, the other shapes and the groups under <name>_ keys,
+   a decode step's sums under step_apart_ and step_grouped_ keys), then
+   the result line.
 """
 
 from __future__ import annotations
@@ -727,62 +733,76 @@ def decode_phase():
 
 # llama3-8b's products with int8 weights at the decode step (M = 8 slots):
 # name -> (N, K, scale period S); then the gate shape at other token counts
-# (prefill groups k_pad x bucket up to 8 x 512, the extend's 512 rows).
+# (prefill groups k_pad x bucket up to 8 x 512, the extend's 512 rows, a
+# group of two 512-token prompts); then the grouped launches of products
+# that read the same x (q/k/v, gate/up) at M = 8.
 INT8_SHAPES = {
     "q_proj": (4096, 4096, 1), "k_proj": (1024, 4096, 1),
     "v_proj": (1024, 4096, 1), "o_proj": (4096, 4096, 128),
     "gate_proj": (14336, 4096, 1), "up_proj": (14336, 4096, 1),
     "down_proj": (4096, 14336, 1), "lm_head": (128256, 4096, 1),
 }
-INT8_GATE_M = (1, 9, 64, 512, 4096)
+INT8_GATE_M = (1, 9, 64, 512, 1024, 4096)
+INT8_GROUPS = {"qkv_group": ("q_proj", "k_proj", "v_proj"),
+               "gateup_group": ("gate_proj", "up_proj")}
 INT8_TOL = 1e-2         # max |K4 - plain| <= INT8_TOL x max |plain|
 
 
-def int8_bound_ms(m, n, k, period):
+def int8_bound_ms(m, ns, k, period):
     """Least time of K4 on this card: the larger of the bytes it must move
-    (the int8 weight, its bf16 scales, x read once, y written once) over
-    the memory rate and its products over the bf16 tensor-core rate."""
-    nbytes = n * k + 2 * n * period + 2 * m * k + 2 * m * n
-    t_ops, t_bytes = 2.0 * m * n * k / PEAK_BF16_FLOPS, \
+    (each int8 weight of ``ns`` rows, its bf16 scales, x read once, y
+    written once) over the memory rate and its products over the bf16
+    tensor-core rate."""
+    nbytes = sum(n * k + 2 * n * period + 2 * m * n for n in ns) + 2 * m * k
+    t_ops, t_bytes = 2.0 * m * sum(ns) * k / PEAK_BF16_FLOPS, \
         nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops > t_bytes else "bytes")
 
 
 def int8_phase():
-    """K4 against its plain version at llama3-8b's decode products (M = 8)
-    and at the gate shape for other token counts; returns (rows,
-    max_abs_err). Cold times rotate over weight sets whose bytes exceed
-    twice the L2 (the served step reads each layer's weights once); the
-    library yardstick is F.linear on the weight dequantized beforehand
-    (bf16, twice the bytes), which the port never calls."""
+    """K4 against its plain version at llama3-8b's decode products (M = 8),
+    at the gate shape for other token counts and at the grouped launches
+    (q/k/v, gate/up at M = 8); returns (rows, max_abs_err). Cold times
+    rotate over weight sets whose bytes exceed twice the L2 (the served
+    step reads each layer's weights once); the library yardstick is
+    F.linear on the weight dequantized beforehand (bf16, twice the bytes;
+    a group's weights concatenated, one call), which the port never
+    calls."""
     from kubeflow_tpu_torch.ops import int8_linear as il
     from kubeflow_tpu_torch.serving.engine import _quantize_leaf
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    cases = [(name, 8, *shape) for name, shape in INT8_SHAPES.items()]
-    cases += [(f"gate_m{m}", m, *INT8_SHAPES["gate_proj"])
-              for m in INT8_GATE_M]
+    cases = [(name, 8, (name,)) for name in INT8_SHAPES]
+    cases += [(f"gate_m{m}", m, ("gate_proj",)) for m in INT8_GATE_M]
+    cases += [(name, 8, members) for name, members in INT8_GROUPS.items()]
     rows, max_err = [], 0.0
-    for name, m, n, k, period in cases:
-        n_sets = max(2, int(np.ceil(2 * L2_BYTES / (n * k))))
+    for name, m, members in cases:
+        ns = [INT8_SHAPES[p][0] for p in members]
+        _, k, period = INT8_SHAPES[members[0]]
+        n_sets = max(2, int(np.ceil(2 * L2_BYTES / (sum(ns) * k))))
         sets, plain_w = [], []
         for _ in range(n_sets):
-            w = torch.randn(n, k, generator=gen, device="cuda") * 0.02
-            q, scale = _quantize_leaf(w, period)
-            del w
-            sets.append((q, scale))
+            pairs = []
+            for n in ns:
+                w = torch.randn(n, k, generator=gen, device="cuda") * 0.02
+                pairs.append(_quantize_leaf(w, period))
+                del w
+            sets.append(pairs)
         x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
-        lib_sets = max(2, int(np.ceil(2 * L2_BYTES / (2 * n * k))))
+        lib_sets = max(2, int(np.ceil(2 * L2_BYTES / (2 * sum(ns) * k))))
         for i in range(lib_sets):
-            plain_w.append(il.dequantize_int8(*sets[i % n_sets]))
+            plain_w.append(torch.cat([il.dequantize_int8(*pair)
+                                      for pair in sets[i % n_sets]]))
 
         def kernel(i=0, splits=0):
-            return il._kernel(x, *sets[i], None, splits=splits)
+            if len(ns) > 1:
+                return il._group_kernel(x, sets[i], None, splits=splits)
+            return (il._kernel(x, *sets[i][0], None, splits=splits),)
 
         def plain():
-            return il.int8_linear_reference(x, *sets[0])
+            return [il.int8_linear_reference(x, *pair) for pair in sets[0]]
 
         def library(i=0):
             return F.linear(x, plain_w[i])
@@ -790,12 +810,13 @@ def int8_phase():
         with torch.no_grad():
             got, again, want = kernel(), kernel(), plain()
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ref = want.float().abs().max().item()
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+            ref = max(b.float().abs().max().item() for b in want)
             if not err <= INT8_TOL * ref:
                 raise AssertionError(f"K4 {name}: max err {err:.3e} > "
                                      f"{INT8_TOL} x {ref:.3e}")
-            if not torch.equal(got, again):
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"K4 {name}: two calls differ")
             del got, again, want
             ms = cold_ms(kernel, n_sets, calls=10)
@@ -804,36 +825,46 @@ def int8_phase():
             library_ms = cold_ms(library, lib_sets, calls=10)
             library_warm_ms = device_ms(library)
             splits = {}
-            if m <= 16:     # the decode kernel's K split over a cluster
+            if m <= 16 and len(ns) == 1:   # the decode kernel's K split
                 for c in (1, 2, 4, 8):
                     splits[c] = cold_ms(lambda i, c=c: kernel(i, c), n_sets,
                                         calls=10)
-        bound, bound_by = int8_bound_ms(m, n, k, period)
+        bound, bound_by = int8_bound_ms(m, ns, k, period)
         max_err = max(max_err, err)
         rows.append(dict(case=name, m=m, max_abs_err=err, ms=ms,
                          warm_ms=warm_ms, plain_ms=plain_ms,
                          library_ms=library_ms,
                          library_warm_ms=library_warm_ms, bound_ms=bound,
                          bound_by=bound_by))
-        log(f"K4 {name} (M {m}, N {n}, K {k}, S {period}): err {err:.3e}, "
-            f"two calls equal; kernel {ms * 1e3:.2f} us cold ({n_sets} "
-            f"weight sets), {warm_ms * 1e3:.2f} warm; plain "
-            f"{plain_ms * 1e3:.2f} us; F.linear on bf16 weights "
-            f"{library_ms * 1e3:.2f} us cold, {library_warm_ms * 1e3:.2f} "
-            f"warm; bound {bound * 1e3:.2f} us ({bound_by}; kernel at "
-            f"{bound / ms:.2f} of it); K split over a cluster of "
-            f"{il._kernel_fns()[1](m, n, k, period)}" + "".join(
+        log(f"K4 {name} (M {m}, N {'+'.join(map(str, ns))}, K {k}, S "
+            f"{period}): err {err:.3e}, two calls equal; kernel "
+            f"{ms * 1e3:.2f} us cold ({n_sets} weight sets), "
+            f"{warm_ms * 1e3:.2f} warm; plain {plain_ms * 1e3:.2f} us; "
+            f"F.linear on bf16 weights {library_ms * 1e3:.2f} us cold, "
+            f"{library_warm_ms * 1e3:.2f} warm; bound {bound * 1e3:.2f} us "
+            f"({bound_by}; kernel at {bound / ms:.2f} of it)"
+            + ("" if len(ns) > 1 else
+               f"; K split over a cluster of "
+               f"{il._kernel_fns()[0](m, ns[0], k, period)}") + "".join(
                 f"; over {c}: {v * 1e3:.2f} us cold"
                 for c, v in splits.items()))
         del sets, plain_w, x
         torch.cuda.empty_cache()
-    decode = [r for r in rows if r["m"] == 8]
-    step = {key: sum(r[key] * (32 if r["case"] != "lm_head" else 1)
-                     for r in decode)
-            for key in ("ms", "warm_ms", "bound_ms", "library_ms")}
-    log("K4 over a decode step's 225 products (32 layers x 7 + lm_head): "
-        + ", ".join(f"{key} {v:.3f}" for key, v in step.items()))
-    return rows, max_err
+    by = {r["case"]: r for r in rows}
+    # A decode step's products: 32 layers x 7 + lm_head launched apart (225
+    # launches), or with q/k/v and gate/up grouped (32 x 4 + 1 = 129).
+    apart = dict(q_proj=32, k_proj=32, v_proj=32, o_proj=32, gate_proj=32,
+                 up_proj=32, down_proj=32, lm_head=1)
+    grouped = dict(qkv_group=32, o_proj=32, gateup_group=32, down_proj=32,
+                   lm_head=1)
+    step = {}
+    for kind, counts in (("apart", apart), ("grouped", grouped)):
+        step[kind] = {key: sum(by[c][key] * n for c, n in counts.items())
+                      for key in ("ms", "warm_ms", "bound_ms", "library_ms")}
+        log(f"K4 over a decode step's products, {kind} "
+            f"({sum(counts.values())} launches): " + ", ".join(
+                f"{key} {v:.3f}" for key, v in step[kind].items()))
+    return rows, max_err, step
 
 
 def post(base: str, body: dict):
@@ -854,6 +885,7 @@ def serve_phase(quantize_kv: str = "", quantize: str = ""):
     Returns the burst's figures."""
     import itertools
 
+    from kubeflow_tpu_torch.models.llama import int8_launches_per_pass
     from kubeflow_tpu_torch.ops.decode_attention import decode_attention
     from kubeflow_tpu_torch.ops.flash_attention import flash_attention
     from kubeflow_tpu_torch.ops.int8_linear import int8_linear
@@ -901,8 +933,9 @@ def serve_phase(quantize_kv: str = "", quantize: str = ""):
                **extra} for n, extra in specs]
     layers = model.cfg.num_layers
     chunk = engine.cfg.decode_chunk
-    # K4 per forward pass: every projection of every layer and the lm_head.
-    per_pass = len(engine.quantized)
+    # K4 per forward pass: one launch for each group the model forms (q/k/v,
+    # gate/up), one for each other int8 projection and the lm_head.
+    per_pass = int8_launches_per_pass(model)
 
     def burst(name):
         """All requests at once; checks the tokens and the launch counts
@@ -1009,6 +1042,8 @@ def decode_breakdown(engine, rs):
     busy) under torch.profiler: wall time, device busy time (the sum of
     the device kernels' own times) and the device's idle share; then the
     wall time of three more chunks without the profiler."""
+    from kubeflow_tpu_torch.models.llama import int8_launches_per_pass
+
     V = engine.model.cfg.vocab_size
     for _ in range(engine.cfg.max_batch):
         engine.submit(rs.randint(0, V, 100).tolist(), max_new_tokens=64)
@@ -1057,7 +1092,7 @@ def decode_breakdown(engine, rs):
     if k4 or engine.quantized:
         log(f"  int8_linear (K4): {k4_ms:.3f} ms over {k4_launches} "
             f"launches ({k4_ms / steps:.3f} ms a step)")
-        want = len(engine.quantized) * steps
+        want = int8_launches_per_pass(engine.model) * steps
         if busy_ms > 0 and k4_launches != want:
             raise AssertionError(f"K4 launched {k4_launches} kernels in the "
                                  f"profiled chunk, want {want}")
@@ -1386,11 +1421,13 @@ def main() -> int:
     # products are mma.sync, HMMA, not wgmma).
     check_build(libs["decode_attention.cu"], {"decode_attn": 16},
                 required=("UTMALDG", "HMMA"))
-    # K4: the decode kernel at 8 or 16 tokens and the prefill kernel, each
-    # with per-row or per-column scales; mma.sync (HMMA) fed by cp.async
-    # (LDGSTS).
-    check_build(libs["int8_linear.cu"], {"int8_linear_kernel": 6},
+    # K4: the decode kernel at 8 or 16 tokens, per-row or per-column
+    # scales: mma.sync (HMMA) fed by cp.async (LDGSTS); the prefill kernel
+    # at 64, 128 or 256 tokens a tile, per-row or per-column scales: wgmma
+    # (HGMMA) fed by TMA (UTMALDG).
+    check_build(libs["int8_linear.cu"], {"int8_linear_decode": 4},
                 required=("HMMA", "LDGSTS"))
+    check_build(libs["int8_linear.cu"], {"int8_linear_prefill": 6})
     seconds = {"build": time.time() - t0}
 
     def phase(name, fn, *args):
@@ -1405,7 +1442,7 @@ def main() -> int:
     rows, max_err = phase("K1", kernel_phase)
     bwd_rows, bwd_err = phase("K2", backward_phase)
     dec_rows, dec_long, dec_err = phase("K3", decode_phase)
-    k4_rows, k4_err = phase("K4", int8_phase)
+    k4_rows, k4_err, k4_step = phase("K4", int8_phase)
     serve = phase("serve bf16", serve_phase)
     serve_int8 = phase("serve int8 KV", serve_phase, "int8")
     serve_w8 = phase("serve int8 weights", serve_phase, "", "int8")
@@ -1481,6 +1518,8 @@ def main() -> int:
               library_warm_ms=k4_by["gate_proj"]["library_warm_ms"],
               chunk_launches=serve_w8["k4_chunk_launches"],
               chunk_ms=serve_w8["k4_chunk_ms"])
+    for kind, sums in k4_step.items():
+        k4.update({f"step_{kind}_{key}": v for key, v in sums.items()})
     for case, row in k4_by.items():
         if case != "gate_proj":
             k4.update({f"{case}_{key}": row[key]

@@ -38,15 +38,18 @@ bitwise equal) and timed in turns warm (one weight set) and cold (calls
 rotating over weight sets larger than twice the L2), beside the bound
 max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s). Shapes: llama3-8b's decode
 products at M = 8 (``q``, ``kv``, ``o``, ``gate``, ``down``, ``lm_head``,
-the default; then each build's time over a decode step's 225 products is
-printed) and the gate shape at prefill token counts (``m512``,
-``m4096``). The ``step`` shape serves: one llama3-8b engine with int8
-weights (random, seeded; staged bf16 cache, 8 slots) per build, each
-capturing its CUDA graphs with that build's K4, and one with the same
-weights in bf16 (cuBLAS products) as the yardstick, then full-batch
-decode chunks (8 steps) timed in turns on the host clock, each ending in
-the tokens' fetch: the decode step as the server runs it, launch gaps
-and all.
+and the grouped launches ``qkv`` and ``gateup``: the default; then each
+build's time over a decode step's products is printed, with q/k/v and
+gate/up apart and grouped) and the gate shape at prefill token counts
+(``m64``, ``m512``, ``m1024``, ``m4096``). A build without the grouped
+entry (``kftpu_int8_linear_group``) runs a group as one launch a product,
+as it served them. The ``step`` shape serves: one llama3-8b
+engine with int8 weights (random, seeded; staged bf16 cache, 8 slots) per
+build, each capturing its CUDA graphs with that build's K4, and one with
+the same weights in bf16 (cuBLAS products) as the yardstick, then
+full-batch decode chunks (8 steps) timed in turns on the host clock, each
+ending in the tokens' fetch: the decode step as the server runs it,
+launch gaps and all.
 """
 
 from __future__ import annotations
@@ -367,85 +370,151 @@ def run_decode(name: str, calls: dict) -> bool:
     return ok
 
 
-# name -> (M, N, K, scale period, launches in a decode step); M = 8 is the
-# decode step's (one row a slot).
+# name -> (M, the products' N, K, scale period, launches in a decode step
+# with q/k/v and gate/up apart, launches with them grouped); M = 8 is the
+# decode step's (one row a slot). A shape of several N is one grouped
+# launch (kftpu_int8_linear_group) of products that read the same x.
 INT8_SHAPES = {
-    "q": (8, 4096, 4096, 1, 32), "kv": (8, 1024, 4096, 1, 64),
-    "o": (8, 4096, 4096, 128, 32), "gate": (8, 14336, 4096, 1, 64),
-    "down": (8, 4096, 14336, 1, 32), "lm_head": (8, 128256, 4096, 1, 1),
-    "m512": (512, 14336, 4096, 1, 0), "m4096": (4096, 14336, 4096, 1, 0),
+    "q": (8, (4096,), 4096, 1, 32, 0), "kv": (8, (1024,), 4096, 1, 64, 0),
+    "o": (8, (4096,), 4096, 128, 32, 32),
+    "gate": (8, (14336,), 4096, 1, 64, 0),
+    "down": (8, (4096,), 14336, 1, 32, 32),
+    "lm_head": (8, (128256,), 4096, 1, 1, 1),
+    "qkv": (8, (4096, 1024, 1024), 4096, 1, 0, 32),
+    "gateup": (8, (14336, 14336), 4096, 1, 0, 32),
+    "m64": (64, (14336,), 4096, 1, 0, 0),
+    "m512": (512, (14336,), 4096, 1, 0, 0),
+    "m1024": (1024, (14336,), 4096, 1, 0, 0),
+    "m4096": (4096, (14336,), 4096, 1, 0, 0),
 }
 
 
+def group_adapter(entry):
+    """A stand-in for ``kftpu_int8_linear_group`` in a build that lacks it:
+    the same arguments, one ``kftpu_int8_linear`` launch per product (what
+    such a build ran for q/k/v and gate/up)."""
+    def arr(addr, t):
+        return ctypes.cast(addr, ctypes.POINTER(t))
+
+    def group(x, m, k, ldx, n, qs, scales, ys, ns, ss, splits, stream):
+        q, sc, y = (arr(a, ctypes.c_void_p) for a in (qs, scales, ys))
+        nn, per = arr(ns, ctypes.c_int), arr(ss, ctypes.c_int)
+        for i in range(n):
+            rc = entry(x, q[i], sc[i], y[i], m, nn[i], k, per[i], ldx, splits,
+                       stream)
+            if rc != 0:
+                return rc
+        return 0
+    return group
+
+
 def int8_caller(lib: str):
-    """The build's C entry as ``call(x, q, scale) -> y``; its last int
-    argument 0 leaves every build's own plan in force."""
-    fn = ctypes.CDLL(lib).kftpu_int8_linear
+    """The build's C entries as ``call(x, [(q, scale), ...]) -> [y, ...]``
+    (one product through ``kftpu_int8_linear``, several through the grouped
+    entry, or one launch each where the build has none); its last int
+    argument 0 leaves every build's own plan in force. ``call.group`` is
+    the grouped entry (or its stand-in), as ``int8_linear._kernel_fns``
+    gives it."""
+    so = ctypes.CDLL(lib)
+    fn = so.kftpu_int8_linear
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    try:
+        group = so.kftpu_int8_linear_group
+        group.restype = ctypes.c_int
+        group.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_longlong, ctypes.c_int]
+                          + [ctypes.c_void_p] * 5
+                          + [ctypes.c_int, ctypes.c_void_p])
+    except AttributeError:
+        group = group_adapter(fn)
 
-    def call(x, q, scale):
+    def call(x, pairs):
         m, k = x.shape
-        y = torch.empty(m, q.shape[0], dtype=torch.bfloat16, device=x.device)
-        rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                m, q.shape[0], k, scale.shape[1], x.stride(0), 0,
-                torch.cuda.current_stream().cuda_stream)
+        ys = [torch.empty(m, q.shape[0], dtype=torch.bfloat16, device=x.device)
+              for q, _ in pairs]
+        stream = torch.cuda.current_stream().cuda_stream
+        if len(pairs) == 1:
+            (q, scale), = pairs
+            rc = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                    ys[0].data_ptr(), m, q.shape[0], k, scale.shape[1],
+                    x.stride(0), 0, stream)
+        else:
+            n = len(pairs)
+            arrays = [(ctypes.c_void_p * n)(*v) for v in (
+                [q.data_ptr() for q, _ in pairs],
+                [sc.data_ptr() for _, sc in pairs],
+                [y.data_ptr() for y in ys])]
+            arrays += [(ctypes.c_int * n)(*v) for v in (
+                [q.shape[0] for q, _ in pairs],
+                [sc.shape[1] for _, sc in pairs])]
+            rc = group(x.data_ptr(), m, k, x.stride(0), n,
+                       *(ctypes.addressof(a) for a in arrays), 0, stream)
         if rc != 0:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
-        return y
+        return ys
 
-    call.entry = fn
+    call.group = group
     return call
 
 
 def run_int8(name: str, calls: dict, step: dict) -> bool:
-    """Every build at one product shape; adds each build's cold and warm
-    ms times the shape's launches in a decode step to ``step``."""
+    """Every build at one product shape (a group: one launch); adds each
+    build's cold and warm ms times the shape's launches in a decode step
+    to ``step``, with q/k/v and gate/up apart and grouped."""
     from kubeflow_tpu_torch.ops import int8_linear as il
     from kubeflow_tpu_torch.serving.engine import _quantize_leaf
 
-    m, n, k, period, per_step = INT8_SHAPES[name]
+    m, ns, k, period, apart, grouped = INT8_SHAPES[name]
     gen = torch.Generator(device="cuda").manual_seed(4)
-    n_sets = max(2, -(-int(2 * L2_BYTES) // (n * k)))
+    n_sets = max(2, -(-int(2 * L2_BYTES) // (sum(ns) * k)))
     sets = []
     for _ in range(n_sets):
-        w = torch.randn(n, k, generator=gen, device="cuda") * 0.02
-        sets.append(_quantize_leaf(w, period))
-        del w
+        pairs = []
+        for n in ns:
+            w = torch.randn(n, k, generator=gen, device="cuda") * 0.02
+            pairs.append(_quantize_leaf(w, period))
+            del w
+        sets.append(pairs)
     x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
-    want = il.int8_linear_reference(x, *sets[0]).float()
+    want = [il.int8_linear_reference(x, q, sc).float() for q, sc in sets[0]]
     ok = True
     for label, call in calls.items():
-        got = call(x, *sets[0])
-        err = ((got.float() - want).abs().max() / want.abs().max()).item()
-        same = torch.equal(got, call(x, *sets[0]))
+        got = call(x, sets[0])
+        err = max(((g.float() - w).abs().max() / w.abs().max()).item()
+                  for g, w in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, call(x, sets[0])))
         good = err <= 1e-2 and same
         ok &= good
         print(f"{name} {label}: max err / max|plain| {err:.3e}; two calls "
               f"bitwise equal: {same}{'' if good else '  FAIL'}", flush=True)
-    nbytes = n * k + 2 * n * period + 2 * m * k + 2 * m * n
-    bound = 1e3 * max(nbytes / PEAK_BYTES_PER_S, 2.0 * m * n * k / 989e12)
+    nbytes = sum(n * k + 2 * n * period + 2 * m * n for n in ns) + 2 * m * k
+    bound = 1e3 * max(nbytes / PEAK_BYTES_PER_S,
+                      2.0 * m * sum(ns) * k / 989e12)
     calls_per = 10 if m <= 16 else 2
     for mode, order in (("warm", [0] * calls_per),
                         ("cold", list(range(n_sets)) * max(
                             1, -(-calls_per // n_sets)))):
         def rotating(call, order=order):
             sets_in_turn = itertools.cycle(order)
-            return lambda: call(x, *sets[next(sets_in_turn)])
+            return lambda: call(x, sets[next(sets_in_turn)])
 
         graphs = {label: capture(rotating(c), len(order))
                   for label, c in calls.items()}
         times = turns(graphs, len(order))
-        print(f"{name} (M {m}, N {n}, K {k}, S {period}) {mode} "
-              f"({n_sets if mode == 'cold' else 1} weight sets) device ms "
-              f"per call (median / least of 6 turns): " + "; ".join(
+        print(f"{name} (M {m}, N {'+'.join(map(str, ns))}, K {k}, S {period}) "
+              f"{mode} ({n_sets if mode == 'cold' else 1} weight sets) device "
+              f"ms per call (median / least of 6 turns): " + "; ".join(
                   f"{label} {statistics.median(t):.5f} / {min(t):.5f}"
                   for label, t in times.items())
               + f"; bound {bound:.5f}", flush=True)
         for label, t in times.items():
-            step[(label, mode)] = step.get((label, mode), 0.0) + \
-                per_step * statistics.median(t)
+            for kind, count in (("apart", apart), ("grouped", grouped)):
+                if count:
+                    key = (label, mode, kind)
+                    step[key] = (step.get(key, 0.0)
+                                 + count * statistics.median(t))
         del graphs
     del sets, x, want
     torch.cuda.empty_cache()
@@ -465,9 +534,10 @@ def run_int8_step(calls: dict, chunks: int = 8) -> bool:
     real = il._kernel_fns
     try:
         for label, call in [*calls.items(), ("bf16 (cuBLAS)", None)]:
-            # The engine launches K4 through _kernel_fns()[0]; the graphs
-            # it captures keep this build's kernel.
-            il._kernel_fns = lambda call=call: (call.entry, None)
+            # The engine launches K4 through _kernel_fns()'s grouped entry
+            # (a single product is a group of one); the graphs it captures
+            # keep this build's kernel.
+            il._kernel_fns = lambda call=call: (None, call.group)
             with torch.device("cuda"):
                 model, _ = get_model("llama3-8b", param_dtype="bfloat16",
                                      decode_staging=8)
@@ -509,13 +579,13 @@ def main() -> int:
     ap.add_argument("--shapes", default=None,
                     help="bwd: train,s512,d64 (default train,s512); "
                     "decode: served,long,even,one (default served,long); "
-                    "int8: q,kv,o,gate,down,lm_head,m512,m4096 (default "
-                    "the first six)")
+                    "int8: q,kv,o,gate,down,lm_head,qkv,gateup,m64,m512,"
+                    "m1024,m4096,step (default the first eight)")
     args = ap.parse_args()
     decode = args.kernel == "decode"
     shapes = args.shapes or {
         "decode": "served,long", "bwd": "train,s512",
-        "int8": "q,kv,o,gate,down,lm_head"}[args.kernel]
+        "int8": "q,kv,o,gate,down,lm_head,qkv,gateup"}[args.kernel]
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
@@ -551,9 +621,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if step:
         print("int8 products of a decode step at these shapes (ms, median "
-              "x launches a step): " + "; ".join(
-                  f"{label} {mode} {v:.4f}"
-                  for (label, mode), v in sorted(step.items())), flush=True)
+              "x launches a step; q/k/v and gate/up apart, or grouped): "
+              + "; ".join(f"{label} {mode} {kind} {v:.4f}" for
+                          (label, mode, kind), v in sorted(step.items())),
+              flush=True)
     return 0 if ok else 1
 
 

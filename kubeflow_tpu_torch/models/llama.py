@@ -53,7 +53,11 @@ from kubeflow_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_lse,
 )
-from kubeflow_tpu_torch.ops.int8_linear import dequantize_int8, int8_linear
+from kubeflow_tpu_torch.ops.int8_linear import (
+    dequantize_int8,
+    int8_linear,
+    int8_linear_group,
+)
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -232,6 +236,45 @@ class Int8Dense(nn.Module):
         return dequantize_int8(self.weight, self.scale, self.dtype)
 
 
+def int8_group(*projections: nn.Module) -> bool:
+    """Whether ``projections`` of the same input run as one grouped int8
+    product: all :class:`Int8Dense`, of one activation dtype, their scales
+    all per row (S = 1) or all per column. Which projections were
+    quantized decides it (``ServingConfig.quantize_min_size`` can leave some
+    :class:`Dense`); otherwise each runs on its own."""
+    return (all(isinstance(p, Int8Dense) for p in projections)
+            and len({p.dtype for p in projections}) == 1
+            and len({p.scale.shape[1] == 1 for p in projections}) == 1)
+
+
+def grouped_int8_products(x: torch.Tensor, *projections: Int8Dense):
+    """The outputs of ``projections`` (see :func:`int8_group`) on ``x``,
+    from one :func:`int8_linear_group` call (one K4 launch on the card)."""
+    dtype = projections[0].dtype
+    return int8_linear_group(x.to(dtype),
+                             [(p.weight, p.scale) for p in projections],
+                             out_dtype=dtype)
+
+
+def int8_launches_per_pass(model: nn.Module) -> int:
+    """K4 launches in one forward pass of ``model``: a grouped product
+    counts once (q/k/v, gate/up), any other :class:`Int8Dense` once (o,
+    down, lm_head). With every projection int8, 4 a layer and the lm_head."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, Attention):
+            qkv = (m.q_proj, m.k_proj, m.v_proj)
+            n += 1 if int8_group(*qkv) else sum(
+                isinstance(p, Int8Dense) for p in qkv)
+            n += isinstance(m.o_proj, Int8Dense)
+        elif isinstance(m, Mlp):
+            gu = (m.gate_proj, m.up_proj)
+            n += 1 if int8_group(*gu) else sum(
+                isinstance(p, Int8Dense) for p in gu)
+            n += isinstance(m.down_proj, Int8Dense)
+    return n + isinstance(getattr(model, "lm_head", None), Int8Dense)
+
+
 def dequantized_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     """``model``'s state dict with each :class:`Int8Dense` as the
     :class:`Dense` it stands for (its dequantized weight, no scale): it
@@ -271,9 +314,14 @@ class Attention(nn.Module):
         RoPE applied to q and k."""
         cfg = self.cfg
         B, S, _ = x.shape
-        q = self.q_proj(x).view(B, S, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(x).view(B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v_proj(x).view(B, S, cfg.num_kv_heads, cfg.head_dim)
+        if int8_group(self.q_proj, self.k_proj, self.v_proj):
+            q, k, v = grouped_int8_products(x, self.q_proj, self.k_proj,
+                                            self.v_proj)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        q = q.view(B, S, cfg.num_heads, cfg.head_dim)
+        k = k.view(B, S, cfg.num_kv_heads, cfg.head_dim)
+        v = v.view(B, S, cfg.num_kv_heads, cfg.head_dim)
         return (apply_rope(q, cos, sin, positions=positions),
                 apply_rope(k, cos, sin, positions=positions), v)
 
@@ -399,7 +447,11 @@ class Mlp(nn.Module):
         self.down_proj = Dense(cfg.mlp_dim, cfg.embed_dim, cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if int8_group(self.gate_proj, self.up_proj):
+            gate, up = grouped_int8_products(x, self.gate_proj, self.up_proj)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class DecoderLayer(nn.Module):

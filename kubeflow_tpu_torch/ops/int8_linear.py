@@ -14,25 +14,30 @@ activations XLA keeps the product in f32 (it drops the bf16 round trip:
 excess precision is allowed by default), so the f32 CPU tests match the
 JAX engine only with the unrounded weight.
 
-It dispatches on where x lives:
+:func:`int8_linear_group` computes up to three such products of the same
+x (q/k/v, gate/up) in one kernel launch, each into its own output.
+
+Both dispatch on where x lives:
 
 - CUDA tensors launch ``ops/csrc/int8_linear.cu``, built at first use by
   ``ops/_build.py``, or raise: the kernel takes bf16 x and output,
   N and K multiples of 16, any M >= 1, and S of 1 or a multiple of
-  16 up to 256 dividing K. It reads the int8 bytes directly (the weight is
-  never dequantized whole), is capture-safe and deterministic.
+  16 up to 256 dividing K (in a group, all S = 1 or all S > 1). It reads
+  the int8 bytes directly (the weight is never dequantized whole), is
+  capture-safe and deterministic.
 - CPU tensors take :func:`int8_linear_reference`, which dequantizes as
-  ``_materialize`` does and calls ``F.linear``. It is also what
-  ``chip_smoke.py`` holds the kernel against on the card.
+  ``_materialize`` does and calls ``F.linear`` (a group: once a product).
+  It is also what ``chip_smoke.py`` holds the kernel against on the card.
 
-Each kernel call adds one to ``int8_linear.launches``.
+Each kernel launch, single or grouped, adds one to
+``int8_linear.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +45,8 @@ import torch.nn.functional as F
 _SOURCE = "int8_linear.cu"
 #: The largest per-column scale period the kernel stages.
 MAX_PERIOD = 256
+#: The most products one grouped launch takes.
+MAX_GROUP = 3
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
@@ -66,15 +73,18 @@ def int8_linear_reference(x: torch.Tensor, q: torch.Tensor,
 
 def bind(lib: ctypes.CDLL):
     """K4's C entry points in ``lib`` with their ctypes signatures: the
-    launch, and the blocks of a cluster that split K for (M, N, K, S)."""
-    fn = lib.kftpu_int8_linear
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    blocks of a cluster that split K for (M, N, K, S), and the launch of
+    one to three products of the same x. (``kftpu_int8_linear``, one
+    product, keeps the first build's signature for ``kernel_ab.py``.)"""
     splits = lib.kftpu_int8_linear_splits
     splits.restype = ctypes.c_int
     splits.argtypes = [ctypes.c_int] * 4
-    return fn, splits
+    group = lib.kftpu_int8_linear_group
+    group.restype = ctypes.c_int
+    group.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 5
+                      + [ctypes.c_int, ctypes.c_void_p])
+    return splits, group
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,12 +95,8 @@ def _kernel_fns():
     return bind(load_library(_SOURCE))
 
 
-def _kernel(x, q, scale, out_dtype, splits: int = 0):
-    """K4 on CUDA tensors; ``splits`` (1, 2, 4 or 8; M <= 16) overrides
-    the blocks of a cluster that split K (0: the kernel's choice)."""
-    if x.dtype != torch.bfloat16 or (out_dtype or x.dtype) != torch.bfloat16:
-        raise ValueError(f"int8_linear kernel takes bf16 x and output, got "
-                         f"x {x.dtype}, out {out_dtype}")
+def _check_weight(q, scale, x):
+    """(N, K, S) of a weight the kernel takes, or ValueError."""
     if q.dtype != torch.int8 or q.dim() != 2 or not q.is_contiguous():
         raise ValueError("int8_linear kernel takes a contiguous int8 [N, K] "
                          "weight")
@@ -112,27 +118,63 @@ def _kernel(x, q, scale, out_dtype, splits: int = 0):
     for name, t in (("q", q), ("scale", scale)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if q.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("int8_linear kernel needs 16-byte aligned operands")
+    return N, K, S
+
+
+def _rows(x, out_dtype, K):
+    """x as [M, K] rows with unit column stride, checked for the kernel."""
+    if x.dtype != torch.bfloat16 or (out_dtype or x.dtype) != torch.bfloat16:
+        raise ValueError(f"int8_linear kernel takes bf16 x and output, got "
+                         f"x {x.dtype}, out {out_dtype}")
     x2 = x.reshape(-1, K)
     if x2.stride(1) != 1:
         x2 = x2.contiguous()
-    M = x2.shape[0]
-    if M < 1:
+    if x2.shape[0] < 1:
         raise ValueError("int8_linear kernel takes M >= 1 rows")
-    if x2.stride(0) % 8 or x2.data_ptr() % 16 or q.data_ptr() % 16 \
-            or scale.data_ptr() % 16:
+    if x2.stride(0) % 8 or x2.data_ptr() % 16:
         raise ValueError("int8_linear kernel needs 16-byte aligned operands "
                          "and an x row stride a multiple of 8")
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    fn = _kernel_fns()[0]
+    return x2
+
+
+def _kernel(x, q, scale, out_dtype, splits: int = 0):
+    """K4 on CUDA tensors; ``splits`` (1, 2, 4 or 8; M <= 16) overrides
+    the blocks of a cluster that split K (0: the kernel's choice)."""
+    return _group_kernel(x, [(q, scale)], out_dtype, splits)[0]
+
+
+def _group_kernel(x, pairs, out_dtype, splits: int = 0):
+    """K4 on CUDA tensors: one launch for the products of ``pairs``
+    (``splits`` as :func:`_kernel`'s)."""
+    shapes = [_check_weight(q, scale, x) for q, scale in pairs]
+    if len({S == 1 for _, _, S in shapes}) > 1:
+        raise ValueError("int8_linear_group takes scale periods all 1 or all "
+                         f"> 1, got {[S for _, _, S in shapes]}")
+    K = shapes[0][1]
+    x2 = _rows(x, out_dtype, K)
+    M = x2.shape[0]
+    ys = [torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+          for N, _, _ in shapes]
+    n = len(pairs)
+    ptrs = ctypes.c_void_p * n
+    ints = ctypes.c_int * n
+    args = (ptrs(*[q.data_ptr() for q, _ in pairs]),
+            ptrs(*[s.data_ptr() for _, s in pairs]),
+            ptrs(*[y.data_ptr() for y in ys]),
+            ints(*[N for N, _, _ in shapes]), ints(*[S for _, _, S in shapes]))
+    fn = _kernel_fns()[1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                M, N, K, S, x2.stride(0), splits, stream)
+        rc = fn(x2.data_ptr(), M, K, x2.stride(0), n,
+                *(ctypes.addressof(a) for a in args), splits, stream)
     if rc != 0:
+        weights = [tuple(q.shape) for q, _ in pairs]
         raise RuntimeError(f"int8_linear launch failed: CUDA error {rc} "
-                           f"(x [{M}, {K}], q [{N}, {K}], scale period {S})")
+                           f"(x [{M}, {K}], weights {weights})")
     int8_linear.launches += 1
-    return y.view(*x.shape[:-1], N)
+    return tuple(y.view(*x.shape[:-1], y.shape[1]) for y in ys)
 
 
 def int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
@@ -148,3 +190,23 @@ def int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
 
 
 int8_linear.launches = 0
+
+
+def int8_linear_group(x: torch.Tensor,
+                      pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]], *,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """``x @ W_i.T`` for each ``(q_i, scale_i)`` of ``pairs`` (1 to
+    :data:`MAX_GROUP` weights of the same K), as :func:`int8_linear` would
+    give them one by one: on the card in one kernel launch, on the CPU
+    through :func:`int8_linear_reference` a product at a time."""
+    if not 1 <= len(pairs) <= MAX_GROUP:
+        raise ValueError(f"int8_linear_group takes 1 to {MAX_GROUP} weights, "
+                         f"got {len(pairs)}")
+    if x.device.type == "cuda":
+        return _group_kernel(x, list(pairs), out_dtype)
+    if x.device.type != "cpu":
+        raise ValueError(f"int8_linear_group runs on cuda (kernel) or cpu "
+                         f"(plain version), not {x.device}")
+    return tuple(int8_linear_reference(x, q, scale, out_dtype=out_dtype)
+                 for q, scale in pairs)

@@ -758,12 +758,14 @@ def _check_int8(got, want):
 
 
 # Ragged token counts around the decode kernel's 8- and 16-token blocks and
-# the prefill kernel's 64-token tiles; N with a ragged last 128-row tile;
-# K with a ragged last 64-wide span.
+# the prefill kernel's 64-, 128- and 256-token tiles; N with a ragged last
+# 128-row tile; K with a ragged last 64-wide span. N = 1040 at M = 4096
+# takes 256-token tiles, the others 64 or 128.
 @pytest.mark.parametrize("n,k,period", [
     (1040, 1024, 1), (1040, 1024, 128), (512, 1280, 128), (256, 1040, 1),
     (256, 1040, 16)])
-@pytest.mark.parametrize("m", [1, 7, 8, 9, 63, 65, 513])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 17, 63, 64, 65, 127, 128, 129,
+                               257, 513, 4096])
 def test_int8_linear_matches_plain(m, n, k, period):
     from kubeflow_tpu_torch.ops.int8_linear import int8_linear
 
@@ -774,6 +776,94 @@ def test_int8_linear_matches_plain(m, n, k, period):
     assert int8_linear.launches == before + 1
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     _check_int8(got, _int8_plain(x, q, scale))
+
+
+# 256-token tiles at ragged N, K and M: tiles leaving more than half the
+# SMs busy take 256 tokens (33 row tiles x 4 token tiles here). K = 1040
+# ends in a ragged 64-wide stage; S = 128 must divide K.
+@pytest.mark.parametrize("period,k", [(1, 1040), (16, 1040), (128, 1152)])
+def test_int8_linear_long_prefill_tiles_ragged(period, k):
+    from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+
+    x, q, scale = _int8_operands(1000, 4112, k, period, seed=5)
+    with torch.no_grad():
+        got = int8_linear(x, q, scale)
+        assert torch.equal(got, int8_linear(x, q, scale))
+    _check_int8(got, _int8_plain(x, q, scale))
+
+
+def _int8_group_operands(m, period, ns=(1040, 256, 256), seed=6):
+    x, q, scale = _int8_operands(m, ns[0], 1024, period, seed=seed)
+    pairs = [(q, scale)]
+    for i, n in enumerate(ns[1:]):
+        _, q, scale = _int8_operands(1, n, 1024, period, seed=seed + 1 + i)
+        pairs.append((q, scale))
+    return x, pairs
+
+
+# The grouped launch: ragged products (N 1040 / 256 / 256) at decode and
+# prefill token counts, per-row and per-column scales.
+@pytest.mark.parametrize("period", [1, 128])
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 64, 129, 513, 4096])
+def test_int8_linear_group_matches_plain(m, period):
+    from kubeflow_tpu_torch.ops.int8_linear import (
+        int8_linear,
+        int8_linear_group,
+    )
+
+    x, pairs = _int8_group_operands(m, period)
+    before = int8_linear.launches
+    with torch.no_grad():
+        got = int8_linear_group(x, pairs)
+        assert int8_linear.launches == before + 1           # one launch
+        again = int8_linear_group(x, pairs)
+        apart = [int8_linear(x, q, scale) for q, scale in pairs]
+    for y, y2, y1, (q, scale) in zip(got, again, apart, pairs):
+        assert y.shape == (m, q.shape[0]) and y.dtype == torch.bfloat16
+        assert torch.equal(y, y2)
+        _check_int8(y, _int8_plain(x, q, scale))
+        _check_int8(y, y1)
+
+
+def test_int8_linear_group_graph_replay_equals_eager():
+    from kubeflow_tpu_torch.ops.int8_linear import int8_linear_group
+
+    for m in (8, 513):
+        x, pairs = _int8_group_operands(m, 1, seed=9)
+        with torch.no_grad():
+            want = int8_linear_group(x, pairs)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                int8_linear_group(x, pairs)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = int8_linear_group(x, pairs)
+            x.copy_(torch.randn_like(x.float()).bfloat16())
+            graph.replay()
+            again = int8_linear_group(x, pairs)
+            assert all(torch.equal(a, b) for a, b in zip(out, again))
+            assert not torch.equal(out[0], want[0])
+
+
+def test_int8_linear_group_refusals():
+    from kubeflow_tpu_torch.ops.int8_linear import (
+        int8_linear,
+        int8_linear_group,
+    )
+
+    x, pairs = _int8_group_operands(8, 1)
+    _, mixed = _int8_group_operands(8, 128)
+    before = int8_linear.launches
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="all 1 or all"):
+            int8_linear_group(x, [pairs[0], mixed[1]])
+        with pytest.raises(ValueError, match="1 to 3"):
+            int8_linear_group(x, pairs + pairs[:1])
+        with pytest.raises(ValueError, match="bf16 x"):
+            int8_linear_group(x.float(), pairs)
+    assert int8_linear.launches == before
 
 
 @pytest.mark.parametrize("splits", [1, 2, 4, 8])
@@ -841,9 +931,13 @@ def test_int8_linear_refusals():
 
 def test_engine_int8_weight_graph_tokens_equal_eager():
     """Graphed int8-weight serving (staged int8 KV cache too) against the
-    eager card path; K4 launches once per projection and lm_head per step
-    and per grouped prefill or extend, replays counted."""
-    from kubeflow_tpu_torch.models.llama import Int8Dense
+    eager card path; K4 launches once per group of projections (q/k/v,
+    gate/up), other projection and the lm_head per step and per grouped
+    prefill or extend, replays counted."""
+    from kubeflow_tpu_torch.models.llama import (
+        Int8Dense,
+        int8_launches_per_pass,
+    )
     from kubeflow_tpu_torch.ops.int8_linear import int8_linear
 
     kw = dict(quantize="int8", quantize_min_size=1024)
@@ -860,7 +954,10 @@ def test_engine_int8_weight_graph_tokens_equal_eager():
         layers = eng.model.cfg.num_layers
         assert len(eng.quantized) == 7 * layers + 1
         assert isinstance(eng.model.lm_head, Int8Dense)
-        per_pass = 7 * layers + 1
+        # One launch per group the model forms (q/k/v, gate/up), one per
+        # other int8 projection (o, down) and the lm_head.
+        per_pass = int8_launches_per_pass(eng.model)
+        assert per_pass == 4 * layers + 1
         assert int8_linear.launches - k4 == per_pass * (
             eng.cfg.decode_chunk * eng.decode_dispatches
             + eng.prefill_dispatches + eng.extend_dispatches)

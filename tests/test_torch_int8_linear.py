@@ -10,6 +10,10 @@
   dequantized bf16 weights bitwise; the f32 products, jitted as the
   engine's steps are (XLA keeps the dequantized kernel in f32 there),
   within atol 1e-5 (summed in another order).
+- ``int8_linear_group`` (one launch for products of the same x on the
+  card) on the CPU: each output bitwise the separate product's; the
+  model's grouped q/k/v and gate/up bitwise its projections one by one;
+  the launches a forward pass makes, from the groups the model forms.
 
 The kernel (K4) runs only on the card: tests/test_torch_cuda.py holds it
 against the plain version there.
@@ -34,10 +38,12 @@ from kubeflow_tpu_torch.models.convert import (
     quantized_params_from_jax,
 )
 from kubeflow_tpu_torch.models.layout import to_scanned_layout
-from kubeflow_tpu_torch.models.llama import Int8Dense
+from kubeflow_tpu_torch.models import llama as port_llama
+from kubeflow_tpu_torch.models.llama import Int8Dense, int8_launches_per_pass
 from kubeflow_tpu_torch.ops.int8_linear import (
     dequantize_int8,
     int8_linear,
+    int8_linear_group,
     int8_linear_reference,
 )
 from kubeflow_tpu_torch.serving.engine import _quantize_int8
@@ -212,3 +218,73 @@ def test_cpu_call_takes_the_plain_version():
     assert torch.equal(bf, x.bfloat16() @ w.T)
     with pytest.raises(ValueError, match="cuda .* or cpu"):
         int8_linear(x.to("meta"), q, scale)
+
+
+@pytest.mark.parametrize("period,dtype", [(1, torch.bfloat16),
+                                          (16, torch.bfloat16),
+                                          (1, torch.float32)])
+def test_group_equals_separate_products_bitwise(period, dtype):
+    g = torch.Generator().manual_seed(1)
+    pairs = [(torch.randint(-127, 128, (n, 64), generator=g,
+                            dtype=torch.int8),
+              torch.rand(n, period, generator=g).to(torch.bfloat16))
+             for n in (80, 16, 32)]
+    x = torch.randn(2, 3, 64, generator=g).to(dtype)
+    before = int8_linear.launches
+    got = int8_linear_group(x, pairs, out_dtype=dtype)
+    assert int8_linear.launches == before              # no kernel here
+    assert len(got) == 3
+    for y, (q, scale) in zip(got, pairs):
+        assert y.shape == (2, 3, q.shape[0]) and y.dtype == dtype
+        assert torch.equal(y, int8_linear_reference(x, q, scale,
+                                                    out_dtype=dtype))
+    with pytest.raises(ValueError, match="1 to 3"):
+        int8_linear_group(x, pairs + pairs[:1])
+    with pytest.raises(ValueError, match="cuda .* or cpu"):
+        int8_linear_group(x.to("meta"), pairs)
+
+
+def test_grouped_projections_equal_ungrouped(tiny, monkeypatch):
+    """Attention.project's q/k/v and Mlp.forward's gate/up through one
+    grouped product give the bits of the projections called one by one;
+    so do the model's logits."""
+    model, _ = _port_quantized(tiny)
+    cfg = model.cfg
+    layer = model.layers[0]
+    assert port_llama.int8_group(layer.attn.q_proj, layer.attn.k_proj,
+                                 layer.attn.v_proj)
+    assert port_llama.int8_group(layer.mlp.gate_proj, layer.mlp.up_proj)
+    x = torch.from_numpy(np.random.RandomState(2).standard_normal(
+        (2, 5, cfg.embed_dim)).astype(np.float32))
+    with torch.no_grad():
+        gate, up = (layer.mlp.gate_proj(x), layer.mlp.up_proj(x))
+        want = layer.mlp.down_proj(torch.nn.functional.silu(gate) * up)
+        assert torch.equal(layer.mlp(x), want)
+        positions = torch.arange(5).expand(2, 5)
+        cos, sin = model.rope_tables(x.device)
+        grouped = layer.attn.project(x, positions, cos, sin)
+        tokens = torch.from_numpy(np.random.RandomState(3).randint(
+            0, cfg.vocab_size, (2, 7)))
+        logits = model(tokens, attn_impl="full")
+        monkeypatch.setattr(port_llama, "int8_group", lambda *p: False)
+        apart = layer.attn.project(x, positions, cos, sin)
+        assert all(torch.equal(a, b) for a, b in zip(grouped, apart))
+        assert torch.equal(model(tokens, attn_impl="full"), logits)
+        assert torch.equal(layer.mlp(x), want)
+
+
+@pytest.mark.parametrize("min_size,per_layer", [
+    (MIN_SIZE, 4),       # every projection: q/k/v, o, gate/up, down
+    (4096, 4),           # k/v stay Dense: q, o, gate/up, down
+    (8192, 2),           # gate/up and down only
+])
+def test_int8_launches_per_pass_follow_the_groups(tiny, min_size, per_layer):
+    model, names = _port_quantized(tiny, min_size)
+    layers = model.cfg.num_layers
+    assert int8_launches_per_pass(model) == per_layer * layers + 1
+    attn = model.layers[0].attn
+    assert port_llama.int8_group(attn.q_proj, attn.k_proj, attn.v_proj) == (
+        min_size == MIN_SIZE)
+    # The plain model runs no K4 at all.
+    plain = Llama(model.cfg)
+    assert int8_launches_per_pass(plain) == 0
