@@ -10,9 +10,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    started together, and prints the seconds and each register/spill
    report; then checks the SASS: every bf16 instantiation of K1's kernel
    and of K2's dk/dv and dq kernels holds wgmma (HGMMA) and TMA loads
-   (UTMALDG), every one of K3's 16 (D 64/128, G 1/2/4/8, bf16/int8 cache)
-   TMA loads and mma.sync (HMMA), every one of K4's 4 decode ones (8 or 16
-   tokens; per-row or per-column scales) mma.sync and cp.async (LDGSTS),
+   (UTMALDG), every one of K3's 32 (D 64/128, G 1/2/4/8, bf16/int8 cache,
+   dense/paged) TMA loads and mma.sync (HMMA), every one of K4's 4 decode
+   ones (8 or 16 tokens; per-row or per-column scales) mma.sync and
+   cp.async (LDGSTS),
    every one of its 6 prefill ones (64, 128 or 256 tokens a tile; per-row
    or per-column scales) wgmma and TMA loads, and ptxas reports no spills
    in any of the four libraries;
@@ -56,6 +57,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    scaled_dot_product_attention(enable_gqa=True) with a bool mask over
    the cache, cold and warm, as a yardstick the port never calls;
    computes the bound (bytes of the live rows, q and o over 3.35 TB/s);
+   then K3 by block table at the paged serve phase's decode shape (B=48,
+   max_len 512 in 16-row pages, live rows 128-255, 32 staging rows, bf16
+   and int8 pools, the table a random permutation of the pool's pages):
+   against paged_decode_attention (gather, then the plain version) within
+   2e-2 x max |plain|, bitwise against K3's dense call over the gathered
+   rows, and timed cold beside that dense call, in turns;
 6. kernel (K4, int8-weight product) — holds the kernel against its plain
    version (int8_linear_reference: the weight dequantized to bf16, then
    F.linear, which sums in f32 as K4 does) at llama3-8b's seven
@@ -98,7 +105,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    K3's kernel launches, which must be one per layer per step: 256, and
    with int8 weights K4's: 129 a step, 1032) and times three more without
    the profiler;
-8. train — runs the training runner in-process (the KFTPU_* env) on the
+8. serve paged — builds llama3-8b as ``bench.py serving8b --paged`` does
+   (int8 weights, int8 KV cache, staged decode in chunks of 32, 48 slots,
+   max_len 512, a pool of 816 16-row blocks) and the same engine over the
+   dense cache, each from seed 0, and runs through each ``run()`` burst
+   (a), 96 random 128-token prompts (seed 0) with 128 new tokens, greedy,
+   and burst (b), the same with one 64-token head (shared pages) and four
+   pairs of identical 120-token prompts (a shared partial page, forked at
+   the first decode write). Checks every request's tokens against the
+   dense engine's (burst (b) may differ only for requests that reuse
+   another prefill group's rows, and only where this run shows a prompt's
+   rows from prefill groups of 1 and 48 not bitwise equal), the launch
+   counts of K1, K3 and K4 (zeroed just before each burst), shared
+   references and forks in (b), conservation after each drain and a pool
+   smaller than the dense cache; prints tok/s, p50 TTFT, peak memory,
+   both caches' bytes and a profiled full-batch decode chunk (ms a step,
+   idle share);
+9. train — runs the training runner in-process (the KFTPU_* env) on the
    ~700M-parameter Llama of ``bench.py train`` at full width and depth
    (vocab 32000, embed 2048, 12 layers, 16/8 heads, head_dim 128, MLP
    5632; batch 12 x seq 2048; bf16 params, bf16 Adam mu, bf16 logits;
@@ -112,7 +135,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    same width with attn_impl="flash" against attn_impl="full": each
    parameter's relative error ||g_flash - g_full|| / ||g_full|| within
    GRAD_REL_BOUND;
-9. prints each phase's seconds and the total, the {"kernels": [...]}
+10. prints each phase's seconds and the total, the {"kernels": [...]}
    line (K1's entry at the serving prefill shape, with its training-shape
    ms, SDPA ms and bound under train_ keys; K2's at the train shape with
    dkdv_ms, dq_ms and split_bound_ms; K3's at the served path's case,
@@ -121,8 +144,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    keys; K4's at the gate shape, M = 8, cold, with its warm time,
    F.linear's as library_ms, the launches of the int8-weight burst and of
    its profiled chunk, the other shapes and the groups under <name>_ keys,
-   a decode step's sums under step_apart_ and step_grouped_ keys), then
-   the result line.
+   a decode step's sums under step_apart_ and step_grouped_ keys; K3 by
+   table under paged_bf16_ and paged_int8_ keys beside the dense call's
+   dense_ms, and its launches in the paged burst), then the result line.
 """
 
 from __future__ import annotations
@@ -728,7 +752,104 @@ def decode_phase():
             f"cold; bound {bound * 1e3:.2f} us ({bound_by})")
     del long_sets
     torch.cuda.empty_cache()
-    return rows, long_rows, max_err
+    paged_rows, paged_err = decode_paged_cases(gen, check)
+    return rows, long_rows, paged_rows, max(max_err, paged_err)
+
+
+# K3 by block table at the paged serve phase's decode shape: 48 slots,
+# max_len 512 in 16-row pages, live rows 128-255, 32 staging rows.
+PAGED_B, PAGED_L, PAGED_BS, PAGED_C = 48, 512, 16, 32
+PAGED_LENGTHS = [128 + (37 * i) % 128 for i in range(PAGED_B)]
+
+
+def decode_paged_cases(gen, check):
+    """K3 reading a pool through a table that is a random permutation of
+    its pages, bf16 and int8, staged: against the plain version
+    (paged_decode_attention: gather, then decode_attention_reference) within
+    2e-2 x max |plain|, bitwise against K3's dense call over the gathered
+    rows; both timed cold (pool sets whose live rows exceed twice the L2)
+    beside each other. Returns (rows, max_abs_err)."""
+    from kubeflow_tpu_torch.models.llama import quantize_kv_rows
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+    from kubeflow_tpu_torch.ops.paged_attention import (
+        gather_cache,
+        paged_decode_attention,
+    )
+
+    b, d, nb = PAGED_B, 128, PAGED_L // PAGED_BS
+    q = torch.randn(b, 1, H, d, generator=gen, device="cuda").bfloat16()
+    stage = {name: torch.randn(b, PAGED_C, HKV, d, generator=gen,
+                               device="cuda").bfloat16()
+             for name in ("stage_key", "stage_value")}
+    step = PAGED_C - 1
+    idx = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
+    q_pos = (idx.long() + step)[:, None]
+    live = sum(PAGED_LENGTHS) * HKV * (2 * 128 + 8)
+    n_sets = max(2, int(np.ceil(2 * L2_BYTES / live)))
+    rows, max_err = [], 0.0
+    for cache in ("bf16", "int8"):
+        sets = []
+        for _ in range(n_sets):
+            k, v = (torch.randn(b * nb + 1, PAGED_BS, HKV, d, generator=gen,
+                                device="cuda").bfloat16() for _ in range(2))
+            scales = {}
+            if cache == "int8":
+                (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+                scales = {"k_scale": ks, "v_scale": vs}
+            tables = torch.randperm(b * nb, generator=gen, device="cuda")\
+                .view(b, nb).int()
+            dk, dv, dks, dvs = gather_cache(tables, PAGED_BS, k, v,
+                                            scales.get("k_scale"),
+                                            scales.get("v_scale"))
+            dense = {} if dks is None else {"k_scale": dks, "v_scale": dvs}
+            sets.append(((k, v, scales, tables), (dk, dv, dense)))
+
+        def kernel(i=0):
+            k, v, scales, tables = sets[i][0]
+            return decode_attention(q, k, v, idx, **scales, **stage,
+                                    stage_step=step, block_tables=tables,
+                                    block_size=PAGED_BS)
+
+        def dense_call(i=0):
+            dk, dv, dense = sets[i][1]
+            return decode_attention(q, dk, dv, idx, **dense, **stage,
+                                    stage_step=step)
+
+        def plain():
+            k, v, scales, tables = sets[0][0]
+            return paged_decode_attention(
+                q, k, v, tables, q_pos, PAGED_BS,
+                key_scale_pool=scales.get("k_scale"),
+                value_scale_pool=scales.get("v_scale"), **stage,
+                stage_step=step)
+
+        name = f"paged_{cache}_staged"
+        err = check(name, kernel, plain)
+        with torch.no_grad():
+            if not torch.equal(kernel(), dense_call()):
+                raise AssertionError(f"K3 {name}: not bitwise equal to the "
+                                     "dense call over the same rows")
+            ms = cold_ms(kernel, n_sets)
+            dense_ms = cold_ms(dense_call, n_sets)
+            ms_again = cold_ms(kernel, n_sets)
+            dense_again = cold_ms(dense_call, n_sets)
+            plain_ms = device_ms(plain)
+        bound, bound_by = decode_bound_ms(
+            PAGED_LENGTHS, H, HKV, d, 1 if cache == "int8" else 2, PAGED_C,
+            max_len=PAGED_L)
+        max_err = max(max_err, err)
+        rows.append(dict(case=name, max_abs_err=err, ms=ms,
+                         ms_again=ms_again, dense_ms=dense_ms,
+                         dense_again=dense_again, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=bound_by))
+        log(f"K3 {name} (B {b}, L {PAGED_L}, {PAGED_BS}-row pages, shuffled "
+            f"table): err {err:.3e}, two calls equal, bitwise the dense "
+            f"call; cold in turns paged {ms:.5f} / dense {dense_ms:.5f} / "
+            f"paged {ms_again:.5f} / dense {dense_again:.5f} ms; plain "
+            f"{plain_ms:.4f} ms; bound {bound * 1e3:.2f} us ({bound_by})")
+        del sets
+        torch.cuda.empty_cache()
+    return rows, max_err
 
 
 # llama3-8b's products with int8 weights at the decode step (M = 8 slots):
@@ -1037,6 +1158,244 @@ def serve_phase(quantize_kv: str = "", quantize: str = ""):
                 build_peak=build_peak, **chunk_stats)
 
 
+# The paged serve phase: llama3-8b as `bench.py serving8b --paged` builds
+# it (int8 weights, int8 KV cache, staged decode in chunks of 32, 48 slots,
+# max_len 512, 16-row blocks, a pool sized to demand), 96 requests of
+# 128-token prompts and 128 new tokens, greedy.
+SP_BATCH, SP_MAX_LEN, SP_BS, SP_CHUNK = 48, 512, 16, 32
+SP_PROMPT, SP_GEN, SP_REQUESTS, SP_SHARED = 128, 128, 96, 64
+SP_BLOCKS = SP_BATCH * (-(-(SP_PROMPT + SP_GEN) // SP_BS) + 1)      # 816
+# Burst (b)'s retried requests: request i + 1 repeats request i's prompt,
+# cut to 120 tokens (a partial last page, which the pair shares and the
+# first decode write forks).
+SP_PAIRS, SP_PAIR_LEN = (10, 30, 60, 80), 120
+
+
+def paged_prompts(vocab: int):
+    """Burst (a): 96 random 128-token prompts; burst (b): the same count
+    opening with one 64-token head (`--shared-prefix-len 64`), with the
+    pairs of SP_PAIRS. From seed 0."""
+    rng = np.random.default_rng(0)
+    plain = [rng.integers(1, vocab, SP_PROMPT).tolist()
+             for _ in range(SP_REQUESTS)]
+    head = rng.integers(1, vocab, SP_SHARED).tolist()
+    shared = [head + rng.integers(1, vocab, SP_PROMPT - SP_SHARED).tolist()
+              for _ in range(SP_REQUESTS)]
+    for i in SP_PAIRS:
+        shared[i] = shared[i][:SP_PAIR_LEN]
+        shared[i + 1] = list(shared[i])
+    return plain, shared
+
+
+def paged_engine(paged: bool):
+    """The llama3-8b engine of the paged serve phase (``paged`` False: the
+    same configuration over the dense cache), random weights made on the
+    card from seed 0."""
+    from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
+    from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
+    from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
+
+    pool = ({"paged_kv_blocks": SP_BLOCKS, "paged_kv_block_size": SP_BS}
+            if paged else {})
+    cfg = LlamaConfig.llama3_8b(
+        max_seq_len=SP_MAX_LEN, param_dtype="bfloat16", scan_layers=False,
+        remat=False, kv_cache_dtype="int8", decode_staging=SP_CHUNK, **pool)
+    with torch.device("cuda"):
+        model = Llama(cfg)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    return ServingEngine(model, ServingConfig(
+        max_batch=SP_BATCH, max_len=SP_MAX_LEN, decode_chunk=SP_CHUNK,
+        quantize="int8", param_dtype="bfloat16", prefill_buckets=(128,),
+        kv_blocks=SP_BLOCKS, kv_block_size=SP_BS),
+        device="cuda", registry=MetricsRegistry())
+
+
+def paged_burst(engine, name, prompts, sharers=None):
+    """All ``prompts`` submitted at once, then ``run()`` to the drain (as
+    the bench drives it); launch counts zeroed just before and read just
+    after, and checked; conservation checked after the drain."""
+    from kubeflow_tpu_torch.models.llama import int8_launches_per_pass
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+    from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+    from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+
+    blocks = engine.blocks
+    refs0, forks0 = blocks.shared_refs_total, blocks.cow_copies_total
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.fwd_launches = decode_attention.launches = 0
+    int8_linear.launches = 0
+    engine.prefill_dispatches = engine.extend_dispatches = 0
+    engine.decode_dispatches = 0
+    t0 = time.perf_counter()
+    rids = [engine.submit(p, max_new_tokens=SP_GEN) for p in prompts]
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k3 = flash_attention.fwd_launches, decode_attention.launches
+    k4 = int8_linear.launches
+    peak = torch.cuda.max_memory_allocated()
+    res = [engine.result(r) for r in rids]
+    V = engine.model.cfg.vocab_size
+    if any(r is None or len(r.tokens) != SP_GEN
+           or not all(0 <= t < V for t in r.tokens) for r in res):
+        raise AssertionError(f"{name}: a request lacks its {SP_GEN} tokens")
+    layers = engine.model.cfg.num_layers
+    prefills, decodes = engine.prefill_dispatches, engine.decode_dispatches
+    if engine.extend_dispatches or k1 != layers * prefills:
+        raise AssertionError(f"{name}: K1 launches {k1} != {layers} x "
+                             f"{prefills} prefills")
+    if decodes < 1 or k3 != layers * SP_CHUNK * decodes:
+        raise AssertionError(f"{name}: K3 launches {k3} != {layers} x "
+                             f"{SP_CHUNK} x {decodes} decode dispatches")
+    per_pass = int8_launches_per_pass(engine.model)
+    if k4 != per_pass * (SP_CHUNK * decodes + prefills):
+        raise AssertionError(f"{name}: K4 launches {k4} != {per_pass} x "
+                             f"({SP_CHUNK} x {decodes} + {prefills})")
+    blocks.check_conservation()
+    if blocks.blocks_live:
+        raise AssertionError(f"{name}: {blocks.blocks_live} blocks live "
+                             "after the drain")
+    out = dict(tokens=[r.tokens for r in res], k1=k1, k3=k3, k4=k4,
+               tok_s=SP_GEN * len(res) / wall,
+               ttft_p50=float(np.median([r.ttft_s for r in res])),
+               peak=peak, prefills=prefills, decodes=decodes,
+               shared_refs=blocks.shared_refs_total - refs0,
+               cow_copies=blocks.cow_copies_total - forks0,
+               high_water=blocks.high_water_blocks)
+    if sharers is not None:
+        out["sharers"] = {i for i, r in enumerate(rids) if r in sharers}
+    log(f"{name}: {len(res)} requests, {SP_GEN * len(res)} tokens in "
+        f"{wall:.2f} s = {out['tok_s']:.1f} tok/s, p50 TTFT "
+        f"{out['ttft_p50'] * 1e3:.1f} ms, {prefills} prefill + {decodes} "
+        f"decode dispatches, K1 {k1}, K3 {k3}, K4 {k4} launches, peak device "
+        f"memory {peak / 1e9:.2f} GB, shared block references "
+        f"{out['shared_refs']}, COW copies {out['cow_copies']}, blocks high "
+        f"water {out['high_water']}; conservation clean")
+    return out
+
+
+def note_sharers(engine) -> set:
+    """The request ids the paged ``engine`` admits onto shared pages, from
+    now on: its admission wrapped (an instance attribute; delete it to
+    unwrap)."""
+    sharers = set()
+    admit = engine._admit_paged
+
+    def admit_noting(slot, req, demand):
+        before = engine.blocks.shared_refs_total
+        ok = admit(slot, req, demand)
+        if ok and engine.blocks.shared_refs_total > before:
+            sharers.add(req.request_id)
+        return ok
+
+    engine._admit_paged = admit_noting
+    return sharers
+
+
+def prefix_rows_agree(model, prompt):
+    """Whether a prompt's cache rows (every layer's int8 k/v and scales)
+    come out bitwise the same from a prefill group of 1 and one of the
+    burst's 48 rows: what a sharer's reuse of another group's rows
+    assumes."""
+    rows = {}
+    for k in (1, SP_BATCH):
+        cache = model.init_cache(k, SP_PROMPT)
+        tok = torch.tensor([prompt] * k, device=model.embed.device)
+        with torch.no_grad():
+            model(tok, cache=cache, decode="prefill", return_hidden=True)
+        rows[k] = [{n: t[-1:].clone() for n, t in layer.items()
+                    if n != "cache_index"} for layer in cache]
+        del cache
+    return all(torch.equal(a[n], b[n]) for a, b in zip(rows[1], rows[SP_BATCH])
+               for n in a)
+
+
+def serve_paged_phase():
+    """The paged pool served end to end against the dense cache: each
+    engine warmed, then bursts (a) (no sharing) and (b) (the 64-token
+    shared head and the retried pairs); every request's tokens compared
+    between the two engines; tok/s, TTFT, decode ms a step (the profiled
+    full-batch chunk), the caches' bytes and peak memory printed."""
+    from kubeflow_tpu_torch.ops.paged_attention import paged_gather_bytes
+
+    res = {}
+    for paged in (True, False):
+        tag = "serve paged" if paged else "serve dense (paged's config)"
+        t0 = time.time()
+        engine = paged_engine(paged)
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for layer in engine._cache for t in layer.values())
+        pool_bytes = sum(layer[n].numel() * layer[n].element_size()
+                         for layer in engine._cache
+                         for n in ("cached_key", "cached_value", "key_scale",
+                                   "value_scale"))
+        engine.warmup(SP_PROMPT)
+        plain, shared = paged_prompts(engine.model.cfg.vocab_size)
+        engine.submit(plain[0], max_new_tokens=SP_CHUNK + 1)    # as the bench
+        engine.run()
+        log(f"{tag}: built and warmed in {time.time() - t0:.1f} s; K/V "
+            f"{'pool' if paged else 'cache'} {pool_bytes / 1e9:.4f} GB "
+            f"({cache_bytes / 1e9:.4f} GB with staging rows and indices)")
+        sharers = note_sharers(engine) if paged else set()
+        a = paged_burst(engine, f"{tag} burst (a), no shared prefix", plain)
+        b = paged_burst(engine, f"{tag} burst (b), {SP_SHARED}-token shared "
+                        "head", shared, sharers)
+        if paged:
+            del engine._admit_paged     # the wrapper (it holds the engine)
+        rs = np.random.RandomState(1)
+        stats = decode_breakdown(engine, rs)
+        agree = None if paged else prefix_rows_agree(engine.model, shared[0])
+        res[paged] = dict(a=a, b=b, cache_bytes=cache_bytes,
+                          pool_bytes=pool_bytes, agree=agree, **stats)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    pg, dn = res[True], res[False]
+    if pg["b"]["shared_refs"] < 1 or pg["b"]["cow_copies"] < 1:
+        raise AssertionError(f"burst (b) shared {pg['b']['shared_refs']} "
+                             f"block references and forked "
+                             f"{pg['b']['cow_copies']} blocks: want both > 0")
+    if not pg["pool_bytes"] < dn["pool_bytes"]:
+        raise AssertionError("the pool is not smaller than the dense cache")
+    same_a = [x == y for x, y in zip(pg["a"]["tokens"], dn["a"]["tokens"])]
+    if not all(same_a):
+        raise AssertionError(f"burst (a): {same_a.count(False)} requests' "
+                             "tokens differ between the paged and the dense "
+                             "engine")
+    same_b = [x == y for x, y in zip(pg["b"]["tokens"], dn["b"]["tokens"])]
+    differ = {i for i, same in enumerate(same_b) if not same}
+    log(f"serve paged: burst (a) tokens equal the dense engine's for all "
+        f"{len(same_a)} requests; burst (b) for {same_b.count(True)} of "
+        f"{len(same_b)} ({len(pg['b']['sharers'])} sharers; the sharers' "
+        f"differing: {sorted(differ & pg['b']['sharers'])}, the holders': "
+        f"{sorted(differ - pg['b']['sharers'])}); a prompt's cache rows "
+        f"from prefill groups of 1 and {SP_BATCH} bitwise equal: "
+        f"{dn['agree']}")
+    if differ and (differ - pg["b"]["sharers"] or dn["agree"]):
+        raise AssertionError("burst (b): tokens differ from the dense "
+                             "engine's beyond what the prefill groups' bits "
+                             "explain")
+    gather = paged_gather_bytes(num_layers=32, batch=SP_BATCH,
+                                blocks_per_seq=SP_MAX_LEN // SP_BS,
+                                block_size=SP_BS, num_kv_heads=HKV,
+                                head_dim=128, dtype_bytes=1)
+    log(f"serve paged summary: pool {pg['pool_bytes'] / 1e9:.4f} GB against "
+        f"the dense cache's {dn['pool_bytes'] / 1e9:.4f} GB; burst (a) "
+        f"{pg['a']['tok_s']:.1f} tok/s (dense {dn['a']['tok_s']:.1f}), p50 "
+        f"TTFT {pg['a']['ttft_p50'] * 1e3:.1f} ms "
+        f"({dn['a']['ttft_p50'] * 1e3:.1f}), peak "
+        f"{pg['a']['peak'] / 1e9:.2f} GB ({dn['a']['peak'] / 1e9:.2f}); "
+        f"burst (b) {pg['b']['tok_s']:.1f} tok/s ({dn['b']['tok_s']:.1f}), "
+        f"p50 TTFT {pg['b']['ttft_p50'] * 1e3:.1f} ms "
+        f"({dn['b']['ttft_p50'] * 1e3:.1f}); decode {pg['step_ms']:.3f} "
+        f"ms/step ({dn['step_ms']:.3f}), idle share "
+        + ("not measured" if pg["idle"] is None else f"{pg['idle']:.3f}")
+        + f"; a gather of the pool before K3 would move "
+        f"{gather / 1e9:.3f} GB a step, which K3 by table does not")
+    return res
+
+
 def decode_breakdown(engine, rs):
     """One decode chunk (decode_chunk steps for every slot, all slots
     busy) under torch.profiler: wall time, device busy time (the sum of
@@ -1045,8 +1404,9 @@ def decode_breakdown(engine, rs):
     from kubeflow_tpu_torch.models.llama import int8_launches_per_pass
 
     V = engine.model.cfg.vocab_size
+    new = max(64, 5 * engine.cfg.decode_chunk)      # outlasts the 5 chunks
     for _ in range(engine.cfg.max_batch):
-        engine.submit(rs.randint(0, V, 100).tolist(), max_new_tokens=64)
+        engine.submit(rs.randint(0, V, 100).tolist(), max_new_tokens=new)
     engine.step()                       # admit + prefill + first chunk
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1417,9 +1777,9 @@ def main() -> int:
     check_build(libs["flash_attention_fwd.cu"], {"flash_fwd_bf16": 4})
     check_build(libs["flash_attention_bwd.cu"],
                 {"flash_bwd_dkdv_bf16": 2, "flash_bwd_dq_bf16": 2})
-    # K3: D 64/128 x G 1/2/4/8 x bf16/int8 cache, each fed by TMA (its
-    # products are mma.sync, HMMA, not wgmma).
-    check_build(libs["decode_attention.cu"], {"decode_attn": 16},
+    # K3: D 64/128 x G 1/2/4/8 x bf16/int8 cache x dense/paged, each fed
+    # by TMA (its products are mma.sync, HMMA, not wgmma).
+    check_build(libs["decode_attention.cu"], {"decode_attn": 32},
                 required=("UTMALDG", "HMMA"))
     # K4: the decode kernel at 8 or 16 tokens, per-row or per-column
     # scales: mma.sync (HMMA) fed by cp.async (LDGSTS); the prefill kernel
@@ -1441,11 +1801,12 @@ def main() -> int:
 
     rows, max_err = phase("K1", kernel_phase)
     bwd_rows, bwd_err = phase("K2", backward_phase)
-    dec_rows, dec_long, dec_err = phase("K3", decode_phase)
+    dec_rows, dec_long, dec_paged, dec_err = phase("K3", decode_phase)
     k4_rows, k4_err, k4_step = phase("K4", int8_phase)
     serve = phase("serve bf16", serve_phase)
     serve_int8 = phase("serve int8 KV", serve_phase, "int8")
     serve_w8 = phase("serve int8 weights", serve_phase, "", "int8")
+    serve_paged = phase("serve paged", serve_paged_phase)
     for name, s in (("bf16 KV cache", serve), ("int8 KV cache", serve_int8),
                     ("int8 weights, bf16 KV cache", serve_w8)):
         w = s["warm"]
@@ -1506,6 +1867,14 @@ def main() -> int:
         prefix = row["case"].replace("_staged", "") + "_"
         k3.update({prefix + key: row[key]
                    for key in ("ms", "bound_ms", "max_abs_err")})
+    # K3 by block table (paged_bf16_, paged_int8_), cold, beside the dense
+    # call over the same rows; its launches in the paged bursts.
+    for row in dec_paged:
+        prefix = row["case"].replace("_staged", "") + "_"
+        k3.update({prefix + key: row[key]
+                   for key in ("ms", "dense_ms", "plain_ms", "bound_ms",
+                               "max_abs_err")})
+    k3["paged_launches"] = serve_paged[True]["a"]["k3"]
     # K4 at the gate shape, M = 8 (the decode step's), cold; its warm time
     # and its yardstick (F.linear on bf16 weights, cold and warm) beside
     # it; the other products under their names, the gate shape at

@@ -31,6 +31,12 @@ merge kernels is called through their C interface (its f32 partials
 allocated here). Shapes (B, H/Hkv, D, L, live rows): ``served`` 8, 32/8, 128, 1024,
 the serve burst's 36-516; ``long`` 8, 32/8, 128, 8192, 1024-8192; ``even``
 and ``one`` the served rows spread evenly, or one slot's 516 alone.
+``paged`` (B 48, L 512, live rows 128-255, 32 staging rows, the paged
+serve phase's decode shape) runs each build that has the block-table
+entry three ways, cold, in turns: over a pool of 16-row pages through a
+shuffled table, dense over the same rows gathered (bitwise equal), and
+through a table in page order (the dense cache's addresses: what the
+lookup itself costs).
 
 ``--kernel int8`` does the same for ``int8_linear.cu``: each build is held
 against ``int8_linear_reference`` (within 1e-2 x max|plain|, two calls
@@ -56,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import itertools
 import os
 import statistics
@@ -244,6 +251,10 @@ def decode_caller(root: str, lib: str):
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
     else:
         fn, plan = da.bind(ctypes.CDLL(lib))
+    try:
+        paged_fn = da.bind_paged(ctypes.CDLL(lib))
+    except AttributeError:          # a build before the block-table entry
+        paged_fn = None
 
     def call(q, k, v, idx, ks, vs, sk, sv, stage_rows):
         b, _, h, d = q.shape
@@ -274,6 +285,29 @@ def decode_caller(root: str, lib: str):
             raise RuntimeError(f"launch failed: CUDA error {rc}")
         return o
 
+    def paged(q, k, v, idx, ks, vs, sk, sv, stage_rows, tables, bs):
+        """The block-table entry over a pool [P + 1, bs, Hkv, D]."""
+        b, _, h, d = q.shape
+        hkv = k.shape[2]
+        L = tables.shape[1] * bs
+        o = torch.empty_like(q)
+        scale_strides = ks.stride()[:3] if ks is not None else (0, 0, 0)
+        strides = (ctypes.c_longlong * 11)(
+            q.stride(0), q.stride(2), *k.stride()[:3], *scale_strides,
+            *sk.stride()[:3])
+        rc = paged_fn(d, h // hkv, int(ks is not None), q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(),
+                      ks.data_ptr() if ks is not None else None,
+                      vs.data_ptr() if vs is not None else None,
+                      idx.data_ptr(), tables.data_ptr(), tables.shape[1], bs,
+                      k.shape[0], sk.data_ptr(), sv.data_ptr(), stage_rows,
+                      sk.shape[1], o.data_ptr(), b, hkv, da.split_plan(L),
+                      ctypes.addressof(strides), d ** -0.5,
+                      torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"paged launch failed: CUDA error {rc}")
+        return o
+
     def cluster(d, g, int8, b, hkv, L):
         """The blocks a (slot, kv head) is split over."""
         if split_merge:
@@ -281,6 +315,7 @@ def decode_caller(root: str, lib: str):
         return plan(d, g, int8, b, hkv, da.split_plan(L))
 
     call.cluster = cluster
+    call.paged = paged if paged_fn is not None else None
     return call
 
 
@@ -572,13 +607,102 @@ def run_int8_step(calls: dict, chunks: int = 8) -> bool:
     return True
 
 
+# The paged serve phase's decode shape: 48 slots, max_len 512 in 16-row
+# pages, live rows 128-255 (128-token prompts 0-127 tokens into decoding),
+# 32 staging rows.
+PAGED_B, PAGED_L, PAGED_BS, PAGED_C = 48, 512, 16, 32
+PAGED_LENGTHS = [128 + (37 * i) % 128 for i in range(PAGED_B)]
+
+
+def run_decode_paged(calls: dict) -> bool:
+    """Each build with the block-table entry, paged and dense over the same
+    rows, cold (pool sets whose live rows exceed twice the L2), in turns."""
+    from kubeflow_tpu_torch.models.llama import quantize_kv_rows
+    from kubeflow_tpu_torch.ops.paged_attention import gather_cache
+
+    calls = {label: c for label, c in calls.items() if c.paged is not None}
+    if not calls:
+        print("paged: no build has the block-table entry", flush=True)
+        return True
+    b, h, hkv, d = PAGED_B, DECODE_H, DECODE_HKV, DECODE_D
+    nb = PAGED_L // PAGED_BS
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q = rand(b, 1, h, d)
+    sk, sv = rand(b, PAGED_C, hkv, d), rand(b, PAGED_C, hkv, d)
+    idx = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
+    rows = sum(PAGED_LENGTHS)
+    in_order = torch.arange(b * nb, device="cuda").view(b, nb).int()
+    ok = True
+    for cache in ("bf16", "int8"):
+        row_bytes = hkv * d * 2 * (2 if cache == "bf16" else 1) \
+            + (hkv * 8 if cache == "int8" else 0)
+        n_sets = max(2, -(-int(2 * L2_BYTES) // (rows * row_bytes)))
+        sets = []
+        for _ in range(n_sets):
+            k, v = rand(b * nb + 1, PAGED_BS, hkv, d), \
+                rand(b * nb + 1, PAGED_BS, hkv, d)
+            ks = vs = None
+            if cache == "int8":
+                (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+            tables = torch.randperm(b * nb, generator=gen, device="cuda")\
+                .view(b, nb).int()
+            sets.append(((k, v, ks, vs, tables),
+                         gather_cache(tables, PAGED_BS, k, v, ks, vs)))
+        runs = {}
+        for label, call in calls.items():
+            def dense(i, call=call):
+                k, v, ks, vs = sets[i][1]
+                return call(q, k, v, idx, ks, vs, sk, sv, PAGED_C)
+
+            def paged(i, call=call, tables=None):
+                k, v, ks, vs, shuffled = sets[i][0]
+                return call.paged(q, k, v, idx, ks, vs, sk, sv, PAGED_C,
+                                  shuffled if tables is None else tables,
+                                  PAGED_BS)
+
+            same = torch.equal(dense(0), paged(0))
+            ok &= same
+            print(f"paged {cache} {label}: paged bitwise equal to dense over "
+                  f"the same rows: {same}{'' if same else '  FAIL'}",
+                  flush=True)
+            runs[f"{label} dense"], runs[f"{label} paged"] = dense, paged
+            # The table in page order: the dense cache's addresses, read
+            # through the table (what the lookup itself costs).
+            runs[f"{label} paged in order"] = functools.partial(
+                paged, tables=in_order)
+        order = list(range(n_sets)) * max(1, -(-10 // n_sets))
+
+        def rotating(fn):
+            turn = itertools.cycle(order)
+            return lambda: fn(next(turn))
+
+        graphs = {label: capture(rotating(fn), len(order))
+                  for label, fn in runs.items()}
+        times = turns(graphs, len(order))
+        nbytes = rows * row_bytes + b * hkv * PAGED_C * d * 4 + 4 * b * h * d
+        print(f"paged {cache} staged cold ({n_sets} sets) device ms per call "
+              f"(median / least of 6 turns): " + "; ".join(
+                  f"{label} {statistics.median(t):.5f} / {min(t):.5f}"
+                  for label, t in times.items())
+              + f"; bound {1e3 * nbytes / PEAK_BYTES_PER_S:.5f} (bytes)",
+              flush=True)
+        del graphs, sets
+        torch.cuda.empty_cache()
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+")
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="bwd")
     ap.add_argument("--shapes", default=None,
                     help="bwd: train,s512,d64 (default train,s512); "
-                    "decode: served,long,even,one (default served,long); "
+                    "decode: served,long,even,one,paged (default served,"
+                    "long); "
                     "int8: q,kv,o,gate,down,lm_head,qkv,gateup,m64,m512,"
                     "m1024,m4096,step (default the first eight)")
     args = ap.parse_args()
@@ -617,7 +741,8 @@ def main() -> int:
         elif args.kernel == "int8":
             ok &= run_int8(name, fns, step)
         else:
-            ok &= run_decode(name, fns) if decode else run_shape(name, fns)
+            ok &= (run_decode_paged(fns) if name == "paged" else
+                   run_decode(name, fns)) if decode else run_shape(name, fns)
         torch.cuda.empty_cache()
     if step:
         print("int8 products of a decode step at these shapes (ms, median "

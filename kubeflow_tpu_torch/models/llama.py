@@ -26,10 +26,16 @@ Three forward modes (``Llama.forward``):
   k/v into the chunk's staging rows instead of the cache, and the
   serving engine flushes them once per chunk.
 
+With ``paged_kv_blocks`` = P > 0 the cache is the physically paged pool
+of ``ops/paged_attention.py`` (``Attention._paged_decode_attention``):
+one [P + 1, paged_kv_block_size, Hkv, D] pool per layer shared by every
+slot, addressed through the ``block_tables`` the caller passes.
+
 The KV cache is explicit state: a list with one dict per layer holding
 ``cached_key`` / ``cached_value`` [B, max_len, Hkv, D] (int8 with f32
 ``key_scale`` / ``value_scale`` [B, max_len, Hkv, 1] when
-``kv_cache_dtype == "int8"``), ``stage_key`` / ``stage_value``
+``kv_cache_dtype == "int8"``; pools [P + 1, bs, Hkv, .] when paged),
+``stage_key`` / ``stage_value``
 [B, decode_staging, Hkv, D] when staging, and ``cache_index`` [B] int32
 (see :meth:`Llama.init_cache`). Every cache tensor, ``cache_index``
 included, is written IN PLACE (a functional update would copy the whole
@@ -59,6 +65,12 @@ from kubeflow_tpu_torch.ops.int8_linear import (
     int8_linear_group,
 )
 from kubeflow_tpu_torch.ops.norms import rms_norm
+from kubeflow_tpu_torch.ops.paged_attention import (
+    gather_cache,
+    physical_rows,
+    pool_shape,
+    scatter_kv_rows,
+)
 from kubeflow_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 LayerCache = Dict[str, torch.Tensor]
@@ -113,11 +125,16 @@ class LlamaConfig:
     # engine flushes into the cache once per chunk.
     kv_cache_dtype: str = ""
     decode_staging: int = 0
+    # > 0: the decode cache is one physically paged pool per layer,
+    # [paged_kv_blocks + 1, paged_kv_block_size, Hkv, D], block id
+    # paged_kv_blocks being the scratch page (ops/paged_attention.py); the
+    # caller passes block_tables (the serving engine does).
+    paged_kv_blocks: int = 0
+    paged_kv_block_size: int = 16
     # Options of the JAX model that later slices port; setting one raises
     # NotImplementedError when the model is built.
     fused_qkv: bool = False
     fused_gate_up: bool = False
-    paged_kv_blocks: int = 0
     pipeline_stages: int = 1
 
     def __post_init__(self):
@@ -156,6 +173,18 @@ class LlamaConfig:
         return cls(**kw)
 
 
+@dataclasses.dataclass
+class Paging:
+    """What a forward over a paged cache needs besides the cache: the
+    block tables, and which positions it writes."""
+    tables: torch.Tensor                       # [B, max_blocks] int32
+    # [B]: positions at or past write_lens[b] are not written (prefill pad
+    # columns); positions below write_from[b] are not written (a shared
+    # prefix whose pages already hold them).
+    write_lens: Optional[torch.Tensor] = None
+    write_from: Optional[torch.Tensor] = None
+
+
 #: remat_policy names of the JAX package (models/llama.py::_remat_policy).
 REMAT_POLICIES = ("full", "minimal", "qkv_attn", "qkv_attn_lse",
                   "attn_only", "mlp_only", "dots")
@@ -165,7 +194,6 @@ PORTED_REMAT_POLICIES = ("full", "qkv_attn")
 _LATER_SLICES = {
     "fused_qkv": "fused projections",
     "fused_gate_up": "fused projections",
-    "paged_kv_blocks": "paged serving",
 }
 KV_CACHE_DTYPES = ("", "int8")
 
@@ -181,6 +209,10 @@ def _check_supported(cfg: LlamaConfig) -> None:
                          f"{KV_CACHE_DTYPES})")
     if cfg.decode_staging < 0:
         raise ValueError(f"decode_staging {cfg.decode_staging} must be >= 0")
+    if cfg.paged_kv_blocks < 0 or cfg.paged_kv_block_size < 1:
+        raise ValueError(f"paged_kv_blocks {cfg.paged_kv_blocks} must be >= 0 "
+                         f"and paged_kv_block_size "
+                         f"{cfg.paged_kv_block_size} >= 1")
     if cfg.pipeline_stages > 1:
         raise NotImplementedError(
             "LlamaConfig.pipeline_stages > 1 is not ported yet (the "
@@ -342,19 +374,22 @@ class Attention(nn.Module):
                 cache: Optional[LayerCache] = None,
                 decode: Union[bool, str] = False,
                 attn_impl: str = "flash",
-                stage_step: Optional[int] = None) -> torch.Tensor:
+                stage_step: Optional[int] = None,
+                paging: Optional[Paging] = None) -> torch.Tensor:
         q, k, v = self.project(x, positions, cos, sin)
         if decode:
             out = self._decode_attention(q, k, v, cache, mode=decode,
-                                         stage_step=stage_step)
+                                         stage_step=stage_step, paging=paging)
         else:
             out = self.attend(q, k, v, attn_impl)
         return self.out_proj(out)
 
     def _decode_attention(self, q, k, v, cache: LayerCache, mode,
-                          stage_step: Optional[int] = None):
+                          stage_step: Optional[int] = None,
+                          paging: Optional[Paging] = None):
         """Write k/v and attend, as the JAX model's
-        ``Attention._decode_attention`` does.
+        ``Attention._decode_attention`` does (a paged cache, which needs
+        ``paging``, as ``_paged_decode_attention`` says).
 
         Staged step (``mode is True`` with ``stage_step``, which needs
         ``decode_staging``): k/v go to staging column ``stage_step`` of
@@ -379,6 +414,13 @@ class Attention(nn.Module):
                        cache["cache_index"])
         ks, vs = cache.get("key_scale"), cache.get("value_scale")
         B, S_new = q.shape[:2]
+        paged = self.cfg.paged_kv_blocks > 0
+        if paged and paging is None:
+            raise ValueError("a paged cache (LlamaConfig.paged_kv_blocks > "
+                             "0) needs paging=Paging(block tables)")
+        by_table = ({"block_tables": paging.tables,
+                     "block_size": self.cfg.paged_kv_block_size}
+                    if paged else {})
         if mode is True and stage_step is not None:
             if "stage_key" not in cache:
                 raise ValueError("stage_step needs a staging cache "
@@ -388,7 +430,9 @@ class Attention(nn.Module):
             sv[:, stage_step:stage_step + 1] = v.to(sv.dtype)
             return decode_attention(q, ck, cv, idx, k_scale=ks, v_scale=vs,
                                     stage_key=sk, stage_value=sv,
-                                    stage_step=stage_step)
+                                    stage_step=stage_step, **by_table)
+        if paged:
+            return self._paged_decode_attention(q, k, v, cache, mode, paging)
         L = ck.shape[1]
         steps = torch.arange(S_new, device=q.device)
         start = idx.long().clamp(0, max(L - S_new, 0))
@@ -428,6 +472,65 @@ class Attention(nn.Module):
                                      q_offset=q_start, kv_offset=0)
         return out
 
+    def _paged_decode_attention(self, q, k, v, cache: LayerCache, mode,
+                                paging: Paging):
+        """Write k/v and attend against the physically paged pool, as the
+        JAX model's ``Attention._paged_decode_attention`` does (layout and
+        exactness contract in ``ops/paged_attention.py``).
+
+        ``cached_key``/``cached_value`` (and the scales) are pools shared by
+        every slot; ``cache_index`` stays per row. Writes land at the rows
+        ``paging.tables`` maps each position to: positions at or past
+        ``paging.write_lens`` (prefill pad columns), below
+        ``paging.write_from`` (a prefix another sequence's pages already
+        hold) or past the table redirect to the scratch page, so no junk
+        write touches a live, possibly shared, page.
+
+        - a staged step (in ``_decode_attention``): the staging write is
+          the dense one (staging rows are per slot, not paged), and K3
+          reads the pool by table;
+        - ``mode == "prefill"``: attention over the live k/v (flash);
+        - one query row: K3 by table (the plain version on the CPU);
+        - several query rows of one slot on the card (a chunked-prefill
+          extend): the slot's pages gathered into dense order (dequantized
+          for an int8 pool), then the flash kernel from the device
+          position of query row 0, as ``_extend_attention`` runs it."""
+        cfg = self.cfg
+        bs = cfg.paged_kv_block_size
+        tables = paging.tables
+        ck, cv, idx = (cache["cached_key"], cache["cached_value"],
+                       cache["cache_index"])
+        ks, vs = cache.get("key_scale"), cache.get("value_scale")
+        S_new = q.shape[1]
+        start = idx.long()
+        positions = start[:, None] + torch.arange(S_new, device=q.device)
+        valid = None
+        if paging.write_lens is not None:
+            valid = positions < paging.write_lens.long()[:, None]
+        if paging.write_from is not None:
+            keep = positions >= paging.write_from.long()[:, None]
+            valid = keep if valid is None else valid & keep
+        rows = physical_rows(tables, positions, bs,
+                             num_blocks=cfg.paged_kv_blocks, valid=valid)
+        if ks is not None:
+            k8, k_s = quantize_kv_rows(k)
+            v8, v_s = quantize_kv_rows(v)
+            scatter_kv_rows(ck, rows, k8)
+            scatter_kv_rows(ks, rows, k_s)
+            scatter_kv_rows(cv, rows, v8)
+            scatter_kv_rows(vs, rows, v_s)
+        else:
+            scatter_kv_rows(ck, rows, k)
+            scatter_kv_rows(cv, rows, v)
+        idx.add_(S_new)
+        if mode == "prefill":
+            return flash_attention(q, k, v, causal=True)
+        if S_new == 1 or not q.is_cuda:
+            return decode_attention(q, ck, cv, idx, k_scale=ks, v_scale=vs,
+                                    block_tables=tables, block_size=bs)
+        ck, cv, ks, vs = gather_cache(tables, bs, ck, cv, ks, vs)
+        return self._extend_attention(q, ck, cv, ks, vs, start)
+
 
 def quantize_kv_rows(x: torch.Tensor):
     """Absmax int8 per (.., position, kv-head) row: (int8 rows, f32 scales
@@ -463,10 +566,11 @@ class DecoderLayer(nn.Module):
         self.mlp = Mlp(cfg)
 
     def forward(self, x, positions, cos, sin, *, cache=None, decode=False,
-                attn_impl="flash", stage_step=None) -> torch.Tensor:
+                attn_impl="flash", stage_step=None,
+                paging=None) -> torch.Tensor:
         h = self.attn(self.input_norm(x), positions, cos, sin, cache=cache,
                       decode=decode, attn_impl=attn_impl,
-                      stage_step=stage_step)
+                      stage_step=stage_step, paging=paging)
         return self._after_attention(x, h)
 
     def _qkv(self, x, positions, cos, sin):
@@ -540,10 +644,16 @@ class Llama(nn.Module):
         ``value_scale`` [batch, max_len, Hkv, 1] (``kv_cache_dtype ==
         "int8"``); ``stage_key`` / ``stage_value`` [batch,
         decode_staging, Hkv, D] in the activation dtype when staging (an
-        int8 cache quantizes at the flush); cache_index [batch] int32."""
+        int8 cache quantizes at the flush); cache_index [batch] int32.
+        Paged (``paged_kv_blocks`` = P > 0): k/v and the scales are pools
+        ``pool_shape(P, paged_kv_block_size, Hkv, D)`` whatever ``batch``
+        and ``max_len``; staging rows and cache_index stay per row."""
         cfg = self.cfg
         device = self.embed.device if device is None else device
         shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.paged_kv_blocks > 0:
+            shape = pool_shape(cfg.paged_kv_blocks, cfg.paged_kv_block_size,
+                               cfg.num_kv_heads, cfg.head_dim)
         quant = cfg.kv_cache_dtype == "int8"
 
         def zeros(shp, dtype):
@@ -561,7 +671,8 @@ class Llama(nn.Module):
                 layer["key_scale"] = zeros(shape[:3] + (1,), torch.float32)
                 layer["value_scale"] = zeros(shape[:3] + (1,), torch.float32)
             if cfg.decode_staging > 0:
-                stage = (batch, cfg.decode_staging) + shape[2:]
+                stage = (batch, cfg.decode_staging, cfg.num_kv_heads,
+                         cfg.head_dim)
                 layer["stage_key"] = zeros(stage, cfg.dtype)
                 layer["stage_value"] = zeros(stage, cfg.dtype)
             caches.append(layer)
@@ -577,12 +688,14 @@ class Llama(nn.Module):
         return_hidden: bool = False,
         attn_impl: str = "flash",
         stage_step: Optional[int] = None,
+        paging: Optional[Paging] = None,
     ):
         """tokens [B, S] -> logits [B, S, V] (or the final hidden state
         [B, S, E] with ``return_hidden``). With ``decode`` (True or
         "prefill") the cache is required and ``(out, cache)`` returns;
         ``stage_step`` makes a decode step a staged one (see
-        ``Attention._decode_attention``)."""
+        ``Attention._decode_attention``); a paged cache needs ``paging``
+        (see ``Attention._paged_decode_attention``)."""
         cfg = self.cfg
         B, S = tokens.shape
         if decode and cache is None:
@@ -601,7 +714,8 @@ class Llama(nn.Module):
             else:
                 x = layer(x, positions, cos, sin,
                           cache=cache[i] if decode else None, decode=decode,
-                          attn_impl=attn_impl, stage_step=stage_step)
+                          attn_impl=attn_impl, stage_step=stage_step,
+                          paging=paging)
         x = self.final_norm(x)
         out = x if return_hidden else self.head_logits(x)
         return (out, cache) if decode else out

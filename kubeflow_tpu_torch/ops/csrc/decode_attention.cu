@@ -66,8 +66,24 @@
 //   in rank order and writes o. Nothing goes through device memory but q,
 //   the rows, the lengths and o, and the fixed merge order keeps two calls
 //   bitwise equal.
-// Capture-safe: lengths are read on the device, nothing is allocated, and
-// the kernel goes on the caller's stream.
+// - Paged mode (kftpu_decode_attention_paged): k and v (and the int8
+//   scales) are one pool [P + 1, bs, Hkv, D] shared by every slot, and slot
+//   b's logical row r lives at pool row (table[b, r / bs], r % bs). The
+//   tensor maps cover the pool as pages (D, bs, Hkv, P + 1), so a chunk's
+//   TMA coordinate (row0, b) becomes (row0 % bs, table[b, row0 / bs]); with
+//   bs a multiple of 16 a 16-row box never straddles two pages. The
+//   producer warp holds 32 table entries in its lanes (one coalesced load
+//   of pages 0..31 at the kernel's start, refilled every 32 pages) and
+//   takes each chunk's page by a shuffle, the row in the page advancing
+//   16 rows a chunk. Paged is a template parameter, so the dense
+//   instantiations run exactly their own code (32 kernels in all), and
+//   both take the cluster size the dense one's occupancy gives. The logical length
+//   max_blocks x bs sets the split, so a paged call and a dense call over
+//   the same rows run the same chunks in the same order and are bitwise
+//   equal. Rows past the live length (another sequence's, the scratch
+//   page's) stay behind the same mask.
+// Capture-safe: lengths and tables are read on the device, nothing is
+// allocated, and the kernel goes on the caller's stream.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -104,9 +120,11 @@ struct Params {
   const float* k_scale;             // [B, L, Hkv, 1] f32 (int8 cache)
   const float* v_scale;
   const int* lengths;               // [B] int32: live cache rows
+  const int* tables;                // paged: [B, max_blocks] int32 page ids; dense: null
   __nv_bfloat16* o;                 // [B, H, D] contiguous
   int stage_rows;                   // staging rows live (stage_step + 1), 0 = unstaged
-  int H, L;
+  int H, L;                         // L: logical rows (paged: max_blocks x bs)
+  int bs, max_blocks, pages;        // paged: rows a page, table width, pool pages (P + 1)
   long long q_sb, q_sh, s_sb, s_ss, s_sh;
   float scale_log2;                 // D^-0.5 * log2(e): the softmax runs in base 2
 };
@@ -397,7 +415,7 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.shared.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
-template <int D, int G, bool INT8>
+template <int D, int G, bool INT8, bool PAGED>
 __global__ void __launch_bounds__(kThreads) decode_attn(const __grid_constant__ Params p) {
   using C = Cfg<D, G, INT8>;
   using KV = typename C::KV;
@@ -420,6 +438,18 @@ __global__ void __launch_bounds__(kThreads) decode_attn(const __grid_constant__ 
   const int blocks = static_cast<int>(cluster.num_blocks());
   const int hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // Paged: lane j of the producer holds the page of logical block
+  // win0 + j. The first window (blocks 0..31) is read first of all, so no
+  // chunk's TMA coordinate waits for it after the split.
+  const int* table = p.tables + static_cast<long long>(b) * p.max_blocks;
+  int win0 = 0, win = 0;
+  auto load_window = [&](int first) {
+    win0 = first;
+    const int j = min(first + lane, p.max_blocks - 1);
+    win = min(max(__ldg(table + j), 0), p.pages - 1);   // a bad id still reads inside the pool
+  };
+  if (PAGED && warp == kConsumerWarps) load_window(0);
 
   if (tid == 0) {
 #pragma unroll 1
@@ -493,18 +523,38 @@ __global__ void __launch_bounds__(kThreads) decode_attn(const __grid_constant__ 
       }
     };
     if (stage_chunks > 0) issue_staging(0);
+    // Paged: the chunk's logical block and its first row in the page,
+    // advanced 16 rows a chunk.
+    int lb = 0, in_page = 0;
+    if (PAGED) {
+      lb = c0 * kRows / p.bs;
+      in_page = c0 * kRows - lb * p.bs;
+    }
 #pragma unroll 1
     for (int i = 0; i < count; ++i) {
       const int s = i % C::kStages;
       mbar_wait(&empty[s], ((i / C::kStages) & 1) ^ 1);        // a fresh stage passes at once
       uint8_t* stage = smem + s * C::kStage;
       const int row0 = (c0 + i) * kRows;
+      // The chunk's (row, batch) coordinate: (row0, b) in the dense cache,
+      // (row0 % bs, its page) in the pool.
+      int r0 = row0, blk = b;
+      if (PAGED) {
+        if (lb - win0 >= 32) load_window(lb);                  // uniform over the warp
+        blk = __shfl_sync(0xffffffffu, win, lb - win0);
+        r0 = in_page;
+        in_page += kRows;
+        if (in_page == p.bs) {
+          in_page = 0;
+          ++lb;
+        }
+      }
       if (INT8) {
         // Lanes 0..15 copy k's scale of row row0 + lane, lanes 16..31 v's.
-        const int row = row0 + lane % kRows;
-        if (row < n) {
-          const float* src = (lane < kRows ? p.k_scale : p.v_scale) + b * p.s_sb +
-                             row * p.s_ss + hk * p.s_sh;
+        if (row0 + lane % kRows < n) {
+          const float* src = (lane < kRows ? p.k_scale : p.v_scale) +
+                             static_cast<long long>(blk) * p.s_sb +
+                             (r0 + lane % kRows) * p.s_ss + hk * p.s_sh;
           cp_async_4(scales + s * 2 * kRows + lane, src);
         }
         cp_async_arrive(&full[s]);
@@ -514,9 +564,9 @@ __global__ void __launch_bounds__(kThreads) decode_attn(const __grid_constant__ 
         mbar_arrive_expect_tx(&full[s], C::kStage);
 #pragma unroll
         for (int box = 0; box < (INT8 ? 1 : D / 64); ++box) {
-          tma_load_4d(stage + box * KV::kBox, &p.tm_k, &full[s], 64 * box, row0, hk, b);
-          tma_load_4d(stage + KV::kBytes + box * KV::kBox, &p.tm_v, &full[s], 64 * box, row0,
-                      hk, b);
+          tma_load_4d(stage + box * KV::kBox, &p.tm_k, &full[s], 64 * box, r0, hk, blk);
+          tma_load_4d(stage + KV::kBytes + box * KV::kBox, &p.tm_v, &full[s], 64 * box, r0, hk,
+                      blk);
         }
       }
     }
@@ -674,6 +724,7 @@ struct Launch {
   const void* sk;
   const void* sv;
   int B, Hkv, cluster, stage_len;
+  int map_b, map_rows;              // the cache maps' outer dims: (B, L), or (P + 1, bs) paged
   long long c_sb, c_ss, c_sh, st_sb, st_ss, st_sh;
 };
 
@@ -724,14 +775,19 @@ cudaError_t fit_cluster(Kernel kernel, int smem, int want, int pairs, int* clust
   return cudaSuccess;
 }
 
-// Opts the kernel in to its shared memory and picks its cluster size.
+// Opts both kernels of (D, G, INT8) in to their shared memory and picks the
+// cluster size from the dense one's occupancy: a paged call and a dense call
+// over the same rows split them alike, so they are bitwise equal.
 template <int D, int G, bool INT8>
 cudaError_t plan(int want, int pairs, int* cluster) {
   using C = Cfg<D, G, INT8>;
-  static bool smem_set = false;
-  cudaError_t err = flash::allow_smem(decode_attn<D, G, INT8>, C::kSmem, smem_set);
+  static bool smem_set = false, paged_smem_set = false;
+  cudaError_t err = flash::allow_smem(decode_attn<D, G, INT8, false>, C::kSmem, smem_set);
+  if (err == cudaSuccess) {
+    err = flash::allow_smem(decode_attn<D, G, INT8, true>, C::kSmem, paged_smem_set);
+  }
   if (err != cudaSuccess) return err;
-  return fit_cluster(decode_attn<D, G, INT8>, C::kSmem, want, pairs, cluster);
+  return fit_cluster(decode_attn<D, G, INT8, false>, C::kSmem, want, pairs, cluster);
 }
 
 template <int D, int G, bool INT8>
@@ -740,11 +796,14 @@ cudaError_t launch(Params& p, const Launch& a, cudaStream_t st) {
   cudaError_t err = plan<D, G, INT8>(a.cluster, a.B * a.Hkv, &cluster);
   if (err != cudaSuccess) return err;
   const bool maps =
-      (INT8 ? encode_int8_cache(&p.tm_k, a.k, a.B, p.L, a.Hkv, D, a.c_ss, a.c_sh, a.c_sb) &&
-                  encode_int8_cache(&p.tm_v, a.v, a.B, p.L, a.Hkv, D, a.c_ss, a.c_sh, a.c_sb)
-            : encode_bshd_bf16(&p.tm_k, a.k, a.B, p.L, a.Hkv, D, a.c_ss, a.c_sh, a.c_sb, kRows) &&
-                  encode_bshd_bf16(&p.tm_v, a.v, a.B, p.L, a.Hkv, D, a.c_ss, a.c_sh, a.c_sb,
-                                   kRows)) &&
+      (INT8 ? encode_int8_cache(&p.tm_k, a.k, a.map_b, a.map_rows, a.Hkv, D, a.c_ss, a.c_sh,
+                                a.c_sb) &&
+                  encode_int8_cache(&p.tm_v, a.v, a.map_b, a.map_rows, a.Hkv, D, a.c_ss, a.c_sh,
+                                    a.c_sb)
+            : encode_bshd_bf16(&p.tm_k, a.k, a.map_b, a.map_rows, a.Hkv, D, a.c_ss, a.c_sh,
+                               a.c_sb, kRows) &&
+                  encode_bshd_bf16(&p.tm_v, a.v, a.map_b, a.map_rows, a.Hkv, D, a.c_ss, a.c_sh,
+                                   a.c_sb, kRows)) &&
       (p.stage_rows == 0 ||
        (encode_bshd_bf16(&p.tm_sk, a.sk, a.B, a.stage_len, a.Hkv, D, a.st_ss, a.st_sh, a.st_sb,
                          kRows) &&
@@ -752,7 +811,8 @@ cudaError_t launch(Params& p, const Launch& a, cudaStream_t st) {
                          kRows)));
   if (!maps) return cudaErrorInvalidValue;
   ClusterLaunch l(cluster, dim3(1, a.Hkv, a.B), Cfg<D, G, INT8>::kSmem, st);
-  err = cudaLaunchKernelEx(&l.cfg, decode_attn<D, G, INT8>, p);
+  err = p.tables != nullptr ? cudaLaunchKernelEx(&l.cfg, decode_attn<D, G, INT8, true>, p)
+                            : cudaLaunchKernelEx(&l.cfg, decode_attn<D, G, INT8, false>, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -782,6 +842,48 @@ cudaError_t dispatch(int head_dim, int group, int int8, Fn&& fn) {
   return cudaErrorInvalidValue;
 }
 
+// The launch behind both C entries; ``tables`` null for the dense cache.
+int decode_attention_impl(int head_dim, int group, int kv_int8, const void* q, const void* k,
+                          const void* v, const void* k_scale, const void* v_scale,
+                          const void* lengths, const void* tables, int max_blocks, int block_size,
+                          int pages, const void* stage_k, const void* stage_v, int stage_rows,
+                          int stage_len, void* o, int B, int Hkv, int L, int cluster,
+                          const long long* strides, float scale, void* stream) {
+  if (B <= 0 || Hkv <= 0 || L <= 0 || cluster < 1 || cluster > kMaxCluster || stage_rows < 0 ||
+      stage_rows > stage_len) {
+    return cudaErrorInvalidValue;
+  }
+  Params p;
+  memset(&p, 0, sizeof(p));
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
+  p.lengths = static_cast<const int*>(lengths);
+  p.tables = static_cast<const int*>(tables);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.stage_rows = stage_rows;
+  p.H = Hkv * group;
+  p.L = L;
+  p.bs = block_size;
+  p.max_blocks = max_blocks;
+  p.pages = pages;
+  p.q_sb = strides[0];
+  p.q_sh = strides[1];
+  p.s_sb = strides[5];
+  p.s_ss = strides[6];
+  p.s_sh = strides[7];
+  p.scale_log2 = scale * kLog2e;
+  const bool paged = tables != nullptr;
+  const Launch a{k,          v,          stage_k,    stage_v,    B,
+                 Hkv,        cluster,    stage_len,  paged ? pages : B,
+                 paged ? block_size : L, strides[2], strides[3], strides[4], strides[8],
+                 strides[9], strides[10]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dispatch(head_dim, group, kv_int8, [&](auto d, auto g, auto i) {
+    return launch<decltype(d)::value, decltype(g)::value, decltype(i)::value>(p, a, st);
+  }));
+}
+
 }  // namespace
 
 // strides: q_sb, q_sh, cache (k and v) sb/ss/sh, scales sb/ss/sh, staging
@@ -795,33 +897,30 @@ extern "C" int kftpu_decode_attention(
     const void* k_scale, const void* v_scale, const void* lengths, const void* stage_k,
     const void* stage_v, int stage_rows, int stage_len, void* o, int B, int Hkv, int L,
     int cluster, const long long* strides, float scale, void* stream) {
-  if (B <= 0 || Hkv <= 0 || L <= 0 || cluster < 1 || cluster > kMaxCluster || stage_rows < 0 ||
-      stage_rows > stage_len) {
+  return decode_attention_impl(head_dim, group, kv_int8, q, k, v, k_scale, v_scale, lengths,
+                               nullptr, 0, 0, 0, stage_k, stage_v, stage_rows, stage_len, o, B,
+                               Hkv, L, cluster, strides, scale, stream);
+}
+
+// The same over a paged pool: k, v (and the scales) are [pages, block_size,
+// Hkv, .] with the cache strides giving the page (sb), row (ss) and head
+// (sh) steps; ``tables`` [B, max_blocks] int32 maps slot b's logical block
+// j to its page; L = max_blocks x block_size. block_size must be a
+// multiple of 16 (a chunk stays on one page).
+extern "C" int kftpu_decode_attention_paged(
+    int head_dim, int group, int kv_int8, const void* q, const void* k, const void* v,
+    const void* k_scale, const void* v_scale, const void* lengths, const void* tables,
+    int max_blocks, int block_size, int pages, const void* stage_k, const void* stage_v,
+    int stage_rows, int stage_len, void* o, int B, int Hkv, int cluster,
+    const long long* strides, float scale, void* stream) {
+  if (tables == nullptr || max_blocks <= 0 || block_size <= 0 || block_size % kRows != 0 ||
+      pages <= 0) {
     return cudaErrorInvalidValue;
   }
-  Params p;
-  memset(&p, 0, sizeof(p));
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k_scale = static_cast<const float*>(k_scale);
-  p.v_scale = static_cast<const float*>(v_scale);
-  p.lengths = static_cast<const int*>(lengths);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.stage_rows = stage_rows;
-  p.H = Hkv * group;
-  p.L = L;
-  p.q_sb = strides[0];
-  p.q_sh = strides[1];
-  p.s_sb = strides[5];
-  p.s_ss = strides[6];
-  p.s_sh = strides[7];
-  p.scale_log2 = scale * kLog2e;
-  const Launch a{k,          v,          stage_k,    stage_v,    B,          Hkv,
-                 cluster,    stage_len,  strides[2], strides[3], strides[4], strides[8],
-                 strides[9], strides[10]};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch(head_dim, group, kv_int8, [&](auto d, auto g, auto i) {
-    return launch<decltype(d)::value, decltype(g)::value, decltype(i)::value>(p, a, st);
-  }));
+  return decode_attention_impl(head_dim, group, kv_int8, q, k, v, k_scale, v_scale, lengths,
+                               tables, max_blocks, block_size, pages, stage_k, stage_v,
+                               stage_rows, stage_len, o, B, Hkv, max_blocks * block_size,
+                               cluster, strides, scale, stream);
 }
 
 // The cluster size kftpu_decode_attention launches for these shapes

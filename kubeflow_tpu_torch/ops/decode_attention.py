@@ -23,6 +23,17 @@ against the dense KV cache (k, v [B, L, Hkv, D], bf16, or int8 with f32
   PyTorch (and also takes several query rows, unstaged). It is also what
   ``chip_smoke.py`` holds the kernel against on the card.
 
+With ``block_tables`` [B, max_blocks] int32 (the paged pool of
+``ops/paged_attention.py``), k and v (and the int8 scales) are pools
+[P + 1, block_size, Hkv, .] and slot b's logical row r lives on page
+``block_tables[b, r // block_size]``; the logical length is ``max_blocks
+* block_size``. The kernel reads the pool in place through the table
+(a device tensor, so one captured graph serves every table) and takes
+block sizes that are a multiple of 16; it splits the rows as a dense
+call over the same logical length does, so the two are bitwise equal.
+The CPU path gathers the pages into dense order and runs the plain
+version (:func:`~kubeflow_tpu_torch.ops.paged_attention.gather_cache`).
+
 Each kernel call adds one to ``decode_attention.launches``.
 """
 
@@ -35,6 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from kubeflow_tpu_torch.ops.attention import decode_attention_reference
+from kubeflow_tpu_torch.ops.paged_attention import gather_cache
 
 _SOURCE = "decode_attention.cu"
 _HEAD_DIMS = (64, 128)
@@ -70,12 +82,25 @@ def bind(lib: ctypes.CDLL):
     return fn, cluster
 
 
+def bind_paged(lib: ctypes.CDLL):
+    """K3's paged C entry in ``lib`` with its ctypes signature."""
+    fn = lib.kftpu_decode_attention_paged
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
     """K3's C entry points, built and loaded at first use."""
     from kubeflow_tpu_torch.ops._build import load_library
 
-    return bind(load_library(_SOURCE))
+    lib = load_library(_SOURCE)
+    return bind(lib) + (bind_paged(lib),)
 
 
 def launch_cluster(head_dim: int, group: int, kv_int8: bool, batch: int,
@@ -105,10 +130,32 @@ def _check_rows(name: str, t: torch.Tensor, device: torch.device,
                          f"a multiple of {per} elements")
 
 
+def _check_tables(tables: torch.Tensor, block_size: int, k: torch.Tensor,
+                  B: int) -> int:
+    """The paged call's table and pool geometry; returns the logical
+    length max_blocks x block_size."""
+    if block_size % CHUNK_ROWS or block_size < CHUNK_ROWS:
+        raise ValueError(f"decode_attention kernel takes a pool block size "
+                         f"that is a multiple of {CHUNK_ROWS} (a chunk stays "
+                         f"on one page), got {block_size}")
+    if k.shape[1] != block_size:
+        raise ValueError(f"pool pages hold {k.shape[1]} rows, block_size is "
+                         f"{block_size}")
+    if tables.dtype != torch.int32 or tables.dim() != 2 \
+            or tables.shape[0] != B or tables.device != k.device \
+            or not tables.is_contiguous():
+        raise ValueError(f"block_tables must be contiguous int32 [B, "
+                         f"max_blocks] on {k.device}, got "
+                         f"{tuple(tables.shape)} {tables.dtype}")
+    return tables.shape[1] * block_size
+
+
 def _kernel(q, k, v, cache_index, k_scale, v_scale, stage_key, stage_value,
-            stage_step) -> torch.Tensor:
+            stage_step, tables=None, block_size=0) -> torch.Tensor:
     B, Sq, H, D = q.shape
-    _, L, Hkv, _ = k.shape
+    Hkv = k.shape[2]
+    paged = tables is not None
+    L = _check_tables(tables, block_size, k, B) if paged else k.shape[1]
     if Sq != 1:
         raise ValueError(f"decode_attention kernel takes one query row per "
                          f"slot, got {Sq}")
@@ -125,8 +172,8 @@ def _kernel(q, k, v, cache_index, k_scale, v_scale, stage_key, stage_value,
     if k.dtype not in (torch.bfloat16, torch.int8) or v.dtype != k.dtype:
         raise ValueError(f"decode_attention kernel takes a bf16 or int8 "
                          f"cache, got {k.dtype}/{v.dtype}")
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
-            or k.stride() != v.stride():
+    if k.shape != v.shape or (k.shape[0] != B and not paged) \
+            or k.shape[3] != D or k.stride() != v.stride():
         raise ValueError(f"bad cache shapes/strides {tuple(k.shape)}/"
                          f"{tuple(v.shape)} for q {tuple(q.shape)}")
     if quant != (k_scale is not None) or (v_scale is None) != (k_scale
@@ -139,10 +186,10 @@ def _kernel(q, k, v, cache_index, k_scale, v_scale, stage_key, stage_value,
     scale_strides = (0, 0, 0)
     if quant:
         for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
-            if s.dtype != torch.float32 or s.shape != (B, L, Hkv, 1) \
+            if s.dtype != torch.float32 or s.shape != k.shape[:3] + (1,) \
                     or s.device != q.device:
-                raise ValueError(f"{name} must be f32 [B, L, Hkv, 1] on "
-                                 f"{q.device}")
+                raise ValueError(f"{name} must be f32 {tuple(k.shape[:3])}"
+                                 f" + (1,) on {q.device}")
         if k_scale.stride() != v_scale.stride():
             raise ValueError("k_scale and v_scale strides differ")
         scale_strides = k_scale.stride()[:3]
@@ -174,22 +221,25 @@ def _kernel(q, k, v, cache_index, k_scale, v_scale, stage_key, stage_value,
     strides = (ctypes.c_longlong * 11)(
         q.stride(0), q.stride(2), *k.stride()[:3], *scale_strides,
         *stage_strides)
-    fn = _kernel_fns()[0]
+    fns = _kernel_fns()
+    head = (D, H // Hkv, int(quant), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None, lengths.data_ptr())
+    stage = (stage_key.data_ptr() if staged else None,
+             stage_value.data_ptr() if staged else None, stage_rows,
+             stage_key.shape[1] if staged else 0, o.data_ptr(), B, Hkv)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(D, H // Hkv, int(quant), q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), k_scale.data_ptr() if quant else None,
-                v_scale.data_ptr() if quant else None, lengths.data_ptr(),
-                stage_key.data_ptr() if staged else None,
-                stage_value.data_ptr() if staged else None, stage_rows,
-                stage_key.shape[1] if staged else 0, o.data_ptr(), B, Hkv, L,
-                split_plan(L),
-                ctypes.addressof(strides),
-                float(D ** -0.5), stream)
+        tail = (split_plan(L), ctypes.addressof(strides), float(D ** -0.5),
+                torch.cuda.current_stream(q.device).cuda_stream)
+        if paged:
+            rc = fns[2](*head, tables.data_ptr(), tables.shape[1],
+                        block_size, k.shape[0], *stage, *tail)
+        else:
+            rc = fns[0](*head, *stage, L, *tail)
     if rc != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {rc} "
                            f"(q {tuple(q.shape)}, cache {tuple(k.shape)} "
-                           f"{k.dtype}, staged {staged})")
+                           f"{k.dtype}, staged {staged}, paged {paged})")
     decode_attention.launches += 1
     return o
 
@@ -205,16 +255,22 @@ def decode_attention(
     stage_key: Optional[torch.Tensor] = None,
     stage_value: Optional[torch.Tensor] = None,
     stage_step: Optional[int] = None,
+    block_tables: Optional[torch.Tensor] = None,
+    block_size: int = 0,
 ) -> torch.Tensor:
     """[B, Sq, H, D] in q's dtype; arguments as
     :func:`~kubeflow_tpu_torch.ops.attention.decode_attention_reference`
-    (the kernel takes Sq == 1)."""
+    (the kernel takes Sq == 1), and with ``block_tables`` over a paged
+    pool of ``block_size``-row pages (see the module's docstring)."""
     if q.device.type == "cuda":
         return _kernel(q, k, v, cache_index, k_scale, v_scale, stage_key,
-                       stage_value, stage_step)
+                       stage_value, stage_step, block_tables, block_size)
     if q.device.type != "cpu":
         raise ValueError(f"decode_attention runs on cuda (kernel) or cpu "
                          f"(plain version), not {q.device}")
+    if block_tables is not None:
+        k, v, k_scale, v_scale = gather_cache(block_tables, block_size, k, v,
+                                              k_scale, v_scale)
     return decode_attention_reference(
         q, k, v, cache_index, k_scale=k_scale, v_scale=v_scale,
         stage_key=stage_key, stage_value=stage_value, stage_step=stage_step)

@@ -2,7 +2,9 @@
 
 A copy of kubeflow_tpu.serving.blocks (the port imports nothing of the
 JAX package). The dense engine uses it for admission gating and load()
-reports; the physically paged pool is a later slice.
+reports; a paged engine's tables from it address the physical pool
+(``ops/paged_attention.py``), so its ledger and the pool are the same
+blocks.
 
 The engine's KV memory is carved into fixed-size blocks
 (``block_size`` token positions each). Every admitted sequence holds a

@@ -29,6 +29,14 @@ of kubeflow_tpu.serving.engine.
 - ``quantize="int8"`` serves weight-only int8 projections
   (``_quantize_int8``): every product of every step, and the lm_head,
   reads the int8 bytes through ``ops/int8_linear.py`` (K4 on the card).
+- A model built with ``paged_kv_blocks`` serves from the physically paged
+  pool (``ops/paged_attention.py``): one pool per layer addressed through
+  per-slot block tables from ``serving/blocks.py``. Prompts with a common
+  block-aligned head map it to the same pages (an identical prompt also
+  its partial tail page), and the first decode write into a shared page
+  forks it (copy-on-write, ``_cow_prepare``). On the card, K3 reads the
+  pool in place through one persistent device table that the captured
+  graphs read.
 
 Positions follow the JAX engine exactly, including its decode RoPE
 positions, which run one past the cache slot they are written to
@@ -36,15 +44,15 @@ positions, which run one past the cache slot they are written to
 greedy tokens match the JAX engine's, and a full re-forward reproduces
 them only with the same positions.
 
-Out of scope in this slice (each raises NotImplementedError): the
-physically paged cache with copy-on-write, mesh serving and the step
-profiler.
+Out of scope in this slice (each raises NotImplementedError): mesh
+serving and the step profiler.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import itertools
 import threading
 import time
@@ -57,11 +65,18 @@ from kubeflow_tpu_torch.models.llama import (
     Dense,
     Int8Dense,
     Llama,
+    Paging,
     quantize_kv_rows,
 )
 from kubeflow_tpu_torch.ops.decode_attention import decode_attention
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+from kubeflow_tpu_torch.ops.paged_attention import (
+    copy_block,
+    physical_rows,
+    scatter_kv_rows,
+    scratch_block_id,
+)
 from kubeflow_tpu_torch.serving.blocks import (
     BlocksExhausted,
     KVBlockAllocator,
@@ -85,7 +100,8 @@ SERVING_LATENCY_BUCKETS = (
 #: Only queue waits observed inside this window feed the load() p50/p95.
 LOAD_WINDOW_S = 60.0
 
-#: Per-slot cache leaves [B, max_len, ...] (the scales with an int8 cache).
+#: Per-slot cache leaves [B, max_len, ...] (the scales with an int8 cache);
+#: in paged mode the pool leaves [P + 1, block_size, ...].
 _ROW_LEAVES = ("cached_key", "cached_value", "key_scale", "value_scale")
 
 
@@ -354,6 +370,30 @@ class ServingEngine:
             raise ValueError(
                 f"model decode_staging {staging} < engine decode_chunk "
                 f"{cfg.decode_chunk}")
+        self._paged = model.cfg.paged_kv_blocks > 0
+        if self._paged:
+            # The allocator's ledger and the physical pool must be the same
+            # blocks, or the rows the tables address do not exist.
+            if model.cfg.scan_layers:
+                raise ValueError(
+                    "paged_kv_blocks requires scan_layers=False (the "
+                    "serving layout)")
+            if model.cfg.paged_kv_block_size != cfg.kv_block_size:
+                raise ValueError(
+                    f"model paged_kv_block_size "
+                    f"{model.cfg.paged_kv_block_size} != engine "
+                    f"kv_block_size {cfg.kv_block_size}")
+            if cfg.kv_blocks != model.cfg.paged_kv_blocks:
+                raise ValueError(
+                    f"engine kv_blocks {cfg.kv_blocks} != model pool "
+                    f"paged_kv_blocks {model.cfg.paged_kv_blocks}: the "
+                    "accounting ledger and the physical pool must be the "
+                    "same blocks")
+            if cfg.max_len % cfg.kv_block_size != 0:
+                raise ValueError(
+                    f"paged serving needs max_len {cfg.max_len} divisible "
+                    f"by kv_block_size {cfg.kv_block_size} (the dense-vs-"
+                    "paged exactness contract; see ops/paged_attention.py)")
         self.device = resolve_device(device)
         self._staging = staging > 0
         self._graphed = self.device.type == "cuda" and not _eager
@@ -404,6 +444,32 @@ class ServingEngine:
             "KV-cache blocks in the pool",
         )
         self.metrics_kv_blocks_total.set(float(self.blocks.total_blocks))
+        self.metrics_kv_blocks_shared = registry.gauge(
+            "kftpu_serving_kv_blocks_shared",
+            "Physical KV blocks referenced by more than one sequence "
+            "(copy-on-write prefix sharing)",
+        )
+        self.metrics_kv_cow_copies = registry.counter(
+            "kftpu_serving_kv_cow_copies_total",
+            "Copy-on-write forks: a shared KV block copied to a private "
+            "page before a sequence's first write into it",
+        )
+        self.cow_copies = 0
+        # Paged state: one scratch-filled table row per slot (the device-
+        # visible mirror of the allocator's tables), the prefix-share
+        # registry (block-aligned prompt identities -> the live request
+        # holding those pages), the shared blocks each admission took, and
+        # which pages hold their prompt rows (a prefill writes a shared
+        # prefix only while no other prefill has).
+        self._max_table_blocks = blocks_per_slot
+        self._scratch_block = scratch_block_id(cfg.kv_blocks)
+        self._block_tables = np.full((cfg.max_batch, blocks_per_slot),
+                                     self._scratch_block, np.int32)
+        self._tables_dirty = False
+        self._share_registry: Dict[str, int] = {}
+        self._rid_share_keys: Dict[int, List[str]] = {}
+        self._shared_blocks: Dict[int, int] = {}
+        self._page_written = np.zeros(cfg.kv_blocks + 1, bool)
         self.metrics_hbm_occupancy = registry.gauge(
             "kftpu_serving_hbm_pool_occupancy_ratio",
             "Paged KV pool occupancy: blocks live over blocks total",
@@ -434,6 +500,12 @@ class ServingEngine:
                           if cfg.quantize else [])
         self._cache = model.init_cache(cfg.max_batch, cfg.max_len,
                                        device=self.device)
+        # The one device copy of the tables, read by every decode step (and
+        # so by the captured graphs): refreshed in place when the host copy
+        # changed (_tables_device).
+        self._tables_dev = (torch.tensor(self._block_tables,
+                                         device=self.device)
+                            if self._paged else None)
         self.tokens_generated = 0
         self.decode_dispatches = 0
         # Grouped prefills and chunked-prefill chunks: one flash launch per
@@ -565,13 +637,198 @@ class ServingEngine:
         if not self._queue or not any(s is None for s in self._slots):
             return False
         head = self._queue[0]
-        return self.blocks.can_alloc(
-            self._demand_tokens(head.prompt, head.max_new_tokens))
+        demand = self._demand_tokens(head.prompt, head.max_new_tokens)
+        if not self._paged:
+            return self.blocks.can_alloc(demand)
+        return self._paged_gate(head.prompt, demand)[0]
 
     def _demand_tokens(self, prompt: List[int], max_new_tokens: int) -> int:
         """KV positions this request can ever hold: prompt plus requested
         decode length, capped by the cache."""
         return min(len(prompt) + max(1, max_new_tokens), self.cfg.max_len)
+
+    # ------------- physical paging / copy-on-write -------------
+
+    def _share_keys(self, prompt: List[int]) -> List[str]:
+        """Block-aligned prefix identities of ``prompt``: one key per whole
+        kv_block_size-token prefix (an incremental hash: each key covers
+        the full prefix up to its boundary) and an exact full-prompt key,
+        as the JAX engine keys them."""
+        bs = self.cfg.kv_block_size
+        h = hashlib.blake2b(digest_size=16)
+        keys: List[str] = []
+        done = 0
+        for end in range(bs, len(prompt) + 1, bs):
+            h.update(np.asarray(prompt[done:end], np.int64).tobytes())
+            done = end
+            keys.append(f"pb:{end}:{h.hexdigest()}")
+        h.update(np.asarray(prompt[done:], np.int64).tobytes())
+        keys.append(f"px:{len(prompt)}:{h.hexdigest()}")
+        return keys
+
+    def _find_shared_prefix(self, prompt: List[int], n_blocks: int):
+        """Longest live prefix match: (shared physical block ids, holder
+        rid, tail_shared). An exact full-prompt match shares every block
+        the prompt spans, its partial tail block included (tail_shared:
+        the first decode write of either party lands there and forks it);
+        a block-aligned head match shares only whole blocks below both
+        prompts' ends, which decode never writes. Holders are live: the
+        registry is scrubbed at retirement."""
+        bs = self.cfg.kv_block_size
+        keys = self._share_keys(prompt)
+        holder = self._share_registry.get(keys[-1])
+        if holder is not None:
+            t = self.blocks.table(holder)
+            if t is not None:
+                matched = min(self.blocks.blocks_for_tokens(len(prompt)),
+                              len(t), n_blocks)
+                return t[:matched], holder, matched * bs > len(prompt)
+        for key in reversed(keys[:-1]):
+            holder = self._share_registry.get(key)
+            t = None if holder is None else self.blocks.table(holder)
+            if t is None:
+                continue
+            matched = min(int(key.split(":", 2)[1]) // bs, len(t), n_blocks)
+            if matched > 0:
+                return t[:matched], holder, False
+        return [], None, False
+
+    @staticmethod
+    def _write_position(slot: _Slot) -> int:
+        """The cache position the slot's next decode write lands at (its
+        cache_index): the prompt and every generated token but the last,
+        which is fed back and written by the next step."""
+        return len(slot.req.prompt) + max(0, len(slot.generated) - 1)
+
+    def _outstanding_forks(self) -> int:
+        """Free blocks to hold back for copy-on-write forks: for every live
+        sequence, the shared (refcount > 1) blocks at or past the block of
+        its next write. Admission keeps free >= this, so a fork never runs
+        out of blocks mid-decode."""
+        bs = self.cfg.kv_block_size
+        total = 0
+        for slot in self._slots:
+            t = None if slot is None else self.blocks.table(
+                slot.req.request_id)
+            if t:
+                first = self._write_position(slot) // bs
+                total += sum(1 for b in t[first:]
+                             if self.blocks.refcount(b) > 1)
+        return total
+
+    def _paged_gate(self, prompt: List[int], demand: int):
+        """(admissible, shared blocks, tail_shared): the fresh blocks plus
+        the fork reservation (two more for a new shared tail: the sharer's
+        first write forks it, and the holder's may) fit the free list."""
+        n = self.blocks.blocks_for_tokens(demand)
+        shared, _, tail_shared = self._find_shared_prefix(prompt, n)
+        reserve = self._outstanding_forks() + (2 if tail_shared else 0)
+        ok = n - len(shared) + reserve <= self.blocks.blocks_free
+        return ok, shared, tail_shared
+
+    def _admit_paged(self, slot_idx: int, req: GenerationRequest,
+                     demand: int) -> bool:
+        """Claim ``req``'s blocks from the physical pool, its longest live
+        prefix match mapped onto the holder's pages (refcounted, no free
+        block spent) and the rest fresh. False = the head waits (FIFO)."""
+        rid = req.request_id
+        ok, shared, _ = self._paged_gate(req.prompt, demand)
+        if not ok:
+            return False
+        try:
+            t = self.blocks.alloc(rid, demand, shared=shared)
+        except BlocksExhausted:
+            return False
+        keys = self._share_keys(req.prompt)
+        for key in keys:
+            self._share_registry[key] = rid
+        self._rid_share_keys[rid] = keys
+        self._shared_blocks[rid] = len(shared)
+        self._page_written[t[len(shared):]] = False
+        self._block_tables[slot_idx, :] = self._scratch_block
+        self._block_tables[slot_idx, :len(t)] = t
+        self._tables_dirty = True
+        if shared:
+            self.metrics_kv_blocks_shared.set(
+                float(self.blocks.blocks_shared))
+        return True
+
+    def _prefill_write_from(self, req: GenerationRequest) -> int:
+        """The first prompt position ``req``'s prefill writes, and marks
+        the pages it writes. The JAX engine lets a sharer's prefill rewrite
+        the holder's shared pages with identical values; on the card a k/v
+        row computed in a prefill of another shape need not be bitwise the
+        same, so while another prefill has already written the shared
+        pages, this one skips them (0 otherwise)."""
+        t = self.blocks.table(req.request_id)
+        shared = t[:self._shared_blocks.pop(req.request_id, 0)]
+        start = 0
+        if shared and self._page_written[shared].all():
+            start = min(len(shared) * self.cfg.kv_block_size,
+                        len(req.prompt))
+        n = self.blocks.blocks_for_tokens(len(req.prompt))
+        self._page_written[t[:n]] = True
+        return start
+
+    def _cow_prepare(self, positions: np.ndarray) -> None:
+        """Fork every shared block the next decode chunk writes.
+
+        ``positions`` is the dispatch's [B, 1] position array (a chained
+        dispatch runs decode_chunk ahead of the host's slot state). A
+        slot's writes land at cache positions ``p - 1 .. p + K - 2``
+        (positions run one past the cache slot, see the module
+        docstring); the JAX engine forks the blocks of ``p .. p + K - 1``
+        and so misses a shared block whose last row is ``p - 1`` (an
+        identical prompt of block_size x m - 1 tokens). After this pass
+        every block the chunk writes has refcount 1, owned by the writer;
+        the reservation made at admission guarantees the free blocks."""
+        K = max(1, self.cfg.decode_chunk)
+        bs = self.cfg.kv_block_size
+        forked = False
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                continue
+            rid = slot.req.request_id
+            t = self.blocks.table(rid)
+            if not t:
+                continue
+            w = max(0, int(positions[i, 0]) - 1)
+            for bp in range(w // bs, min((w + K - 1) // bs, len(t) - 1) + 1):
+                if self.blocks.refcount(t[bp]) <= 1:
+                    continue
+                pair = self.blocks.write_fork(rid, bp)
+                if pair is None:
+                    continue
+                old, new = pair
+                self._copy_cache_block(old, new)
+                self._page_written[new] = self._page_written[old]
+                self._block_tables[i, bp] = new
+                self._tables_dirty = True
+                self.cow_copies += 1
+                self.metrics_kv_cow_copies.inc()
+                forked = True
+        if forked:
+            self.metrics_kv_blocks_shared.set(
+                float(self.blocks.blocks_shared))
+
+    def _copy_cache_block(self, src: int, dst: int) -> None:
+        """One copy-on-write device copy: page ``src`` to ``dst`` in every
+        layer's pools (K/V and the int8 scale pools), on the stream after
+        every step already queued."""
+        for layer in self._cache:
+            for name in _ROW_LEAVES:
+                if name in layer:
+                    copy_block(layer[name], src, dst)
+
+    def _tables_device(self) -> torch.Tensor:
+        """The device tables, refreshed in place (a copy queued after the
+        steps already in flight, which read the old ones) only when the
+        host copy changed: admission, retirement, a fork."""
+        if self._tables_dirty:
+            self._tables_dev.copy_(self._upload(self._block_tables),
+                                   non_blocking=True)
+            self._tables_dirty = False
+        return self._tables_dev
 
     def slot_free_rate(self) -> float:
         """Recent slot retirements per second (0.0 with fewer than two)."""
@@ -615,7 +872,7 @@ class ServingEngine:
             "kv_blocks_live": blocks["kv_blocks_live"],
             "kv_blocks_total": blocks["kv_blocks_total"],
             "kv_block_size": blocks["kv_block_size"],
-            "kv_paged": False,
+            "kv_paged": self._paged,
             "kv_blocks_shared": blocks["kv_blocks_shared"],
             "kv_table_refs": blocks["kv_table_refs"],
             "kv_cow_copies_total": blocks["kv_cow_copies_total"],
@@ -634,7 +891,9 @@ class ServingEngine:
         load, library handles, allocator pools), then reset the cache.
         On the card this captures those prefills' greedy graphs and the
         decode chunk's graph of every sampling variant: the JAX engine
-        compiles one decode program for all of them. Only legal while the
+        compiles one decode program for all of them. A paged engine runs
+        them on scratch-filled tables (every junk write lands in the
+        scratch page), as its steps read the tables. Only legal while the
         engine is idle."""
         if self._queue or any(s is not None for s in self._slots):
             raise RuntimeError(
@@ -655,7 +914,10 @@ class ServingEngine:
             self._run_prefill(np.ones((k, bucket), np.int64),
                               np.full((k,), bucket, np.int64),
                               np.zeros((k,), np.int64),
-                              np.zeros((k, 3), np.float32))
+                              np.zeros((k, 3), np.float32),
+                              np.full((k, self._max_table_blocks),
+                                      self._scratch_block, np.int32),
+                              np.zeros((k,), np.int64))
         B = self.cfg.max_batch
         # (temperature, top_k, top_p): greedy, plain, restricted.
         variants = ((0.0, 0.0, 1.0), (1.0, 0.0, 1.0), (1.0, 1.0, 1.0))
@@ -692,11 +954,15 @@ class ServingEngine:
             if slot is not None or not self._queue:
                 continue
             req = self._queue[0]
-            try:
-                self.blocks.alloc(req.request_id, self._demand_tokens(
-                    req.prompt, req.max_new_tokens))
-            except BlocksExhausted:
-                break
+            demand = self._demand_tokens(req.prompt, req.max_new_tokens)
+            if self._paged:
+                if not self._admit_paged(i, req, demand):
+                    break
+            else:
+                try:
+                    self.blocks.alloc(req.request_id, demand)
+                except BlocksExhausted:
+                    break
             self._queue.popleft()
             self._slots[i] = _Slot(req)
             wait = max(0.0, now - req.submitted_at)
@@ -790,20 +1056,31 @@ class ServingEngine:
         return _Graph(graph, static, outputs, captured)
 
     def _run_prefill(self, tokens: np.ndarray, lengths: np.ndarray,
-                     slot_idxs: np.ndarray, samp: np.ndarray):
+                     slot_idxs: np.ndarray, samp: np.ndarray,
+                     tables: Optional[np.ndarray] = None,
+                     write_from: Optional[np.ndarray] = None):
         """One grouped prefill dispatch (graph ``(bucket, k, variant)`` on
-        the card); returns device ([k] tokens, [k] logprobs)."""
+        the card); returns device ([k] tokens, [k] logprobs). A paged
+        engine also passes the rows' tables and first written positions
+        (inputs of the same graph)."""
         k, S = tokens.shape
         variant = sampling_variant(samp)
         self.prefill_dispatches += 1
+        inputs = dict(tokens=self._upload(tokens),
+                      lengths=self._upload(lengths),
+                      slots=self._upload(slot_idxs), samp=self._upload(samp))
+        if self._paged:
+            inputs.update(tables=self._upload(tables),
+                          write_from=self._upload(write_from))
 
-        def fn(tokens, lengths, slots, samp):
+        def fn(tokens, lengths, slots, samp, **paging):
+            if self._paged:
+                return self._prefill_step_paged(tokens, lengths, slots, samp,
+                                                variant, **paging)
             return self._prefill_step(tokens, lengths, slots, samp, variant)
 
-        return self._run_step(
-            ("prefill", S, k, variant), fn, variant,
-            tokens=self._upload(tokens), lengths=self._upload(lengths),
-            slots=self._upload(slot_idxs), samp=self._upload(samp))
+        return self._run_step(("prefill", S, k, variant), fn, variant,
+                              **inputs)
 
     def _prefill_step(self, tok: torch.Tensor, lens: torch.Tensor,
                       slots: torch.Tensor, samp: torch.Tensor, variant: str):
@@ -836,23 +1113,57 @@ class ServingEngine:
         logits = self.model.head_logits(last_h)[:, 0]
         return self._sample_logits(logits.float(), samp, variant)
 
+    def _prefill_step_paged(self, tok: torch.Tensor, lens: torch.Tensor,
+                            slots: torch.Tensor, samp: torch.Tensor,
+                            variant: str, tables: torch.Tensor,
+                            write_from: torch.Tensor):
+        """Prefill a [k, bucket] padded group against the pool: the model
+        writes each row's k/v through its table ``tables`` [k, max_blocks]
+        (pad columns past the row's length, and positions below
+        ``write_from``, to the scratch page), so nothing is installed;
+        cache_index is set at ``slots``, and each row's first token sampled.
+        Device inputs only (it is captured)."""
+        dev = self.device
+        k, S = tok.shape
+        rows = [{**{name: layer[name] for name in _ROW_LEAVES
+                    if name in layer},
+                 "cache_index": torch.zeros(k, dtype=torch.int32, device=dev)}
+                for layer in self._cache]
+        positions = torch.arange(S, device=dev).expand(k, S)
+        hidden, _ = self.model(tok, positions=positions, cache=rows,
+                               decode="prefill", return_hidden=True,
+                               paging=Paging(tables, write_lens=lens,
+                                             write_from=write_from))
+        for layer in self._cache:
+            layer["cache_index"][slots] = lens.to(torch.int32)
+        last_h = hidden[torch.arange(k, device=dev), lens - 1][:, None]
+        logits = self.model.head_logits(last_h)[:, 0]
+        return self._sample_logits(logits.float(), samp, variant)
+
     def _prefill_group(self, bucket: int, group: List[tuple]) -> None:
         k = self._k_pad(len(group))
         tokens = np.zeros((k, bucket), np.int64)
         lengths = np.zeros((k,), np.int64)
         slot_idxs = np.zeros((k,), np.int64)
         samp = np.zeros((k, 3), np.float32)
+        # Paged: pad rows write nothing (from position bucket on).
+        write_from = np.full((k,), bucket, np.int64)
         for row, (i, req) in enumerate(group):
             tokens[row, : len(req.prompt)] = req.prompt
             lengths[row] = len(req.prompt)
             slot_idxs[row] = i
             samp[row] = self._samp_row(req)
+            if self._paged:
+                write_from[row] = self._prefill_write_from(req)
         for row in range(len(group), k):          # pad: repeat row 0
             tokens[row] = tokens[0]
             lengths[row] = lengths[0]
             slot_idxs[row] = slot_idxs[0]
             samp[row] = samp[0]
-        toks, lps = self._run_prefill(tokens, lengths, slot_idxs, samp)
+        paged = ((self._block_tables[slot_idxs], write_from) if self._paged
+                 else ())
+        toks, lps = self._run_prefill(tokens, lengths, slot_idxs, samp,
+                                      *paged)
         toks = toks.cpu().numpy()
         lps = lps.cpu().numpy() if self.cfg.logprobs else None
         for row, (i, req) in enumerate(group):
@@ -861,27 +1172,39 @@ class ServingEngine:
                 float(lps[row]) if lps is not None else 0.0)
 
     def _extend_step(self, tokens: np.ndarray, start: int, true_len: int,
-                     slot_idx: int, samp: np.ndarray):
+                     slot_idx: int, samp: np.ndarray, write_from: int = 0):
         """One chunk of chunked prefill for ONE slot: ``tokens`` [1, C]
         (always a full chunk) run in decode mode against the slot's live
         cache row at absolute position ``start`` — the model writes
         through views into the batch cache (its attention runs through
         the flash kernel on the card) — then cache_index := start +
-        true_len, and position true_len - 1 is sampled. Eager on the
-        card too."""
+        true_len, and position true_len - 1 is sampled. A paged engine
+        writes through the slot's table instead (positions below
+        ``write_from`` to the scratch page). Eager on the card too."""
         dev = self.device
         C = tokens.shape[1]
         self.extend_dispatches += 1
+        paging = None
+        if self._paged:
+            paging = Paging(
+                self._tables_device()[slot_idx:slot_idx + 1],
+                write_from=torch.full((1,), write_from, device=dev))
+
+        def leaf(layer, name):
+            return layer[name] if self._paged \
+                else layer[name][slot_idx:slot_idx + 1]
+
         rows = [{
-            **{name: layer[name][slot_idx:slot_idx + 1]
-               for name in _ROW_LEAVES if name in layer},
+            **{name: leaf(layer, name) for name in _ROW_LEAVES
+               if name in layer},
             "cache_index": torch.full((1,), start, dtype=torch.int32,
                                       device=dev),
         } for layer in self._cache]
         positions = start + torch.arange(C, device=dev)[None, :]
         hidden, _ = self.model(
             torch.as_tensor(tokens, dtype=torch.long, device=dev),
-            positions=positions, cache=rows, decode=True, return_hidden=True)
+            positions=positions, cache=rows, decode=True, return_hidden=True,
+            paging=paging)
         for layer in self._cache:
             layer["cache_index"][slot_idx] = start + true_len
         logits = self.model.head_logits(
@@ -899,10 +1222,12 @@ class ServingEngine:
         starts = list(range(0, len(prompt), big))
         if starts[-1] + big > len(prompt):
             starts[-1] = len(prompt) - big
+        write_from = self._prefill_write_from(req) if self._paged else 0
         toks = lps = None
         for off in starts:
             chunk = np.asarray([prompt[off:off + big]], np.int64)
-            toks, lps = self._extend_step(chunk, off, big, slot_idx, samp)
+            toks, lps = self._extend_step(chunk, off, big, slot_idx, samp,
+                                          write_from)
         self._record_token(
             slot_idx, int(toks.cpu()[0]),
             float(lps.cpu()[0]) if self.cfg.logprobs else 0.0)
@@ -994,10 +1319,11 @@ class ServingEngine:
         column i, and the chunk ends with one flush. Device inputs only
         (it is captured). Returns ([B, K] tokens, [B, K] logprobs)."""
         outs, lps = [], []
+        paging = Paging(self._tables_dev) if self._paged else None
         for i in range(self.cfg.decode_chunk):
             logits, _ = self.model(
                 tokens, positions=pos, cache=self._cache, decode=True,
-                stage_step=i if self._staging else None)
+                stage_step=i if self._staging else None, paging=paging)
             nxt, lp = self._sample_logits(logits[:, 0], samp, variant)
             outs.append(nxt)
             lps.append(lp)
@@ -1012,13 +1338,18 @@ class ServingEngine:
         then advance ``cache_index``: the JAX engine's
         ``_flush_staging``. The write start clamps at ``max_len - steps``
         as dynamic_update_slice clamps it (idle slots' indices grow
-        without bound); the index itself does not clamp."""
+        without bound); the index itself does not clamp. A paged engine
+        writes at the pool rows the tables map the positions to (past a
+        table, and idle slots' scratch-filled rows, to the scratch page)."""
         dev = self.device
         B = self.cfg.max_batch
         batch = torch.arange(B, device=dev)[:, None]
         cols = torch.arange(steps, device=dev)[None, :]
         for layer in self._cache:
             idx = layer["cache_index"]
+            if self._paged:
+                self._flush_paged(layer, idx.long()[:, None] + cols, steps)
+                continue
             L = layer["cached_key"].shape[1]
             rows = idx.long().clamp(0, max(L - steps, 0))[:, None] + cols
             sk = layer["stage_key"][:, :steps]
@@ -1034,6 +1365,25 @@ class ServingEngine:
                 layer["cached_key"][batch, rows] = sk
                 layer["cached_value"][batch, rows] = sv
             idx.add_(steps)
+
+    def _flush_paged(self, layer, positions: torch.Tensor,
+                     steps: int) -> None:
+        rows = physical_rows(self._tables_dev, positions,
+                             self.cfg.kv_block_size,
+                             num_blocks=self.cfg.kv_blocks)
+        sk = layer["stage_key"][:, :steps]
+        sv = layer["stage_value"][:, :steps]
+        if "key_scale" in layer:
+            k8, ks = quantize_kv_rows(sk)
+            v8, vs = quantize_kv_rows(sv)
+            scatter_kv_rows(layer["cached_key"], rows, k8)
+            scatter_kv_rows(layer["key_scale"], rows, ks)
+            scatter_kv_rows(layer["cached_value"], rows, v8)
+            scatter_kv_rows(layer["value_scale"], rows, vs)
+        else:
+            scatter_kv_rows(layer["cached_key"], rows, sk)
+            scatter_kv_rows(layer["cached_value"], rows, sv)
+        layer["cache_index"].add_(steps)
 
     def _dispatch_decode(self, chain: Optional[_InFlight] = None
                          ) -> _InFlight:
@@ -1059,6 +1409,11 @@ class ServingEngine:
                 host[i, 0] = (slot.generated or slot.req.prompt)[-1]
                 positions[i, 0] = slot.pos
             tokens = self._upload(host)
+        if self._paged:
+            # Forks first (they change tables and pages), then the device
+            # tables the step reads.
+            self._cow_prepare(positions)
+            self._tables_device()
         toks, lps = self._run_decode(tokens, positions, samp)
         self.decode_dispatches += 1
         return _InFlight(out=toks, lps=lps, positions=positions,
@@ -1116,6 +1471,18 @@ class ServingEngine:
         # next _admit refills from the queue.
         self._slots[slot_idx] = None
         self.blocks.free(req.request_id)
+        if self._paged:
+            # Steps still in flight carry the old device tables: their
+            # writes land in freed pages, which no one takes before the
+            # next admission (a pipeline flush point).
+            self._block_tables[slot_idx, :] = self._scratch_block
+            self._tables_dirty = True
+            self._shared_blocks.pop(req.request_id, None)
+            for key in self._rid_share_keys.pop(req.request_id, []):
+                if self._share_registry.get(key) == req.request_id:
+                    self._share_registry.pop(key)
+            self.metrics_kv_blocks_shared.set(
+                float(self.blocks.blocks_shared))
         with self._load_lock:
             self._recent_retires.append(time.monotonic())
         self.metrics_kv_blocks_live.set(float(self.blocks.blocks_live))

@@ -15,11 +15,14 @@ grads of fully masked rows exactly 0.
 Decode attention (K3) against its plain version on the same inputs:
 max |got - plain| <= 2e-2 * max |plain| (bf16 output; the kernel rounds
 the online softmax's unnormalised weights to bf16, the plain version the
-normalised ones). The int8-weight product (K4) against its plain
-version (the weight dequantized to bf16, then ``F.linear``, which sums in
-f32 as the kernel does): max |got - plain| <= 1e-2 * max |plain|. The
+normalised ones); by block table over a paged pool, also bitwise equal
+to the dense call over the same rows. The int8-weight product (K4)
+against its plain version (the weight dequantized to bf16, then
+``F.linear``, which sums in f32 as the kernel does): max |got - plain|
+<= 1e-2 * max |plain|. The
 serving engine's CUDA graphs against its eager path (``_eager=True``) on a
-small bf16 model: greedy tokens equal.
+small bf16 model: greedy tokens equal; the paged engine's graphs give
+the dense engine's tokens.
 """
 
 import pytest
@@ -615,6 +618,138 @@ def test_decode_kernel_long_cache_graph_replays_at_every_length():
         _check_decode(out, want)
 
 
+# ------------------------------------------------- K3 by block table
+
+PAGE_ROWS, PAGED_BLOCKS = 16, 16          # a logical length of 256 rows
+# Slots: one row, ragged, a full table, an idle slot past it.
+PAGED_LENGTHS = [1, 17, 200, PAGE_ROWS * PAGED_BLOCKS, 40, 3 * 256, 129, 0]
+
+
+def _pool_inputs(b, g, d, cache, seed=0, hkv=2, bs=PAGE_ROWS,
+                 max_blocks=PAGED_BLOCKS):
+    """q, a pool [P + 1, bs, hkv, d] (int8 with scale pools), tables that
+    are a random permutation of the pool's pages with slot 1's first page
+    also slot 0's (a shared page), and staging rows."""
+    from kubeflow_tpu_torch.models.llama import quantize_kv_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    pages = b * max_blocks + 3
+    q = rnd(b, 1, hkv * g, d)
+    k, v = rnd(pages + 1, bs, hkv, d), rnd(pages + 1, bs, hkv, d)
+    scales = {}
+    if cache == "int8":
+        (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+        scales = {"k_scale": ks, "v_scale": vs}
+    tables = torch.randperm(pages, generator=gen, device="cuda")[
+        :b * max_blocks].view(b, max_blocks).int()
+    if b > 1:
+        tables[1, 0] = tables[0, 0]
+    stage = {"stage_key": rnd(b, DEC_C, hkv, d),
+             "stage_value": rnd(b, DEC_C, hkv, d)}
+    return q, k, v, scales, tables.contiguous(), stage
+
+
+def _paged_triple(q, k, v, idx, scales, tables, bs, extra):
+    """K3 by table, K3 dense over the gathered rows, the plain version."""
+    from kubeflow_tpu_torch.ops.attention import decode_attention_reference
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+    from kubeflow_tpu_torch.ops.paged_attention import gather_cache
+
+    dk, dv, dks, dvs = gather_cache(tables, bs, k, v, scales.get("k_scale"),
+                                    scales.get("v_scale"))
+    dense_scales = {} if dks is None else {"k_scale": dks, "v_scale": dvs}
+    with torch.no_grad():
+        got = decode_attention(q, k, v, idx, **scales, **extra,
+                               block_tables=tables, block_size=bs)
+        dense = decode_attention(q, dk, dv, idx, **dense_scales, **extra)
+        want = decode_attention_reference(q, dk, dv, idx, **dense_scales,
+                                          **extra)
+    return got, dense, want
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_decode_kernel_by_table_matches_plain_and_dense(g, d, cache, staged):
+    """A shuffled table with a shared page: within the bound of the plain
+    version, and bitwise the dense call over the same rows (the same
+    split, chunks and merge)."""
+    q, k, v, scales, tables, stage = _pool_inputs(8, g, d, cache, seed=5)
+    idx = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
+    extra = dict(stage, stage_step=DEC_C - 1) if staged else {}
+    got, dense, want = _paged_triple(q, k, v, idx, scales, tables,
+                                     PAGE_ROWS, extra)
+    assert torch.equal(got, dense)
+    _check_decode(got, want)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("bs", [32, 48])
+def test_decode_kernel_by_table_at_larger_pages(bs, cache):
+    """Pages of several 16-row chunks (48 rows: not a power of two)."""
+    q, k, v, scales, tables, stage = _pool_inputs(4, 4, 128, cache, seed=6,
+                                                  bs=bs, max_blocks=6)
+    idx = torch.tensor([1, 47, 49, 6 * bs], dtype=torch.int32,
+                       device="cuda")
+    got, dense, want = _paged_triple(q, k, v, idx, scales, tables, bs,
+                                     dict(stage, stage_step=3))
+    assert torch.equal(got, dense)
+    _check_decode(got, want)
+
+
+def test_decode_kernel_by_table_refuses_pages_under_16_rows():
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+
+    q, k, v, _, tables, _ = _pool_inputs(2, 4, 128, "bf16", bs=8)
+    idx = torch.tensor([3, 9], dtype=torch.int32, device="cuda")
+    before = decode_attention.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="multiple of 16"):
+        decode_attention(q, k, v, idx, block_tables=tables, block_size=8)
+    q, k, v, _, tables, _ = _pool_inputs(2, 4, 128, "bf16")
+    with torch.no_grad(), pytest.raises(ValueError, match="int32"):
+        decode_attention(q, k, v, idx, block_tables=tables.long(),
+                         block_size=PAGE_ROWS)
+    assert decode_attention.launches == before
+
+
+def test_decode_kernel_by_table_graph_serves_every_table():
+    """One capture serves any table and length: both are device data."""
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+    from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    q, k, v, scales, tables, stage = _pool_inputs(8, 4, 128, "int8", seed=7,
+                                                  hkv=8)
+    idx = torch.ones(8, dtype=torch.int32, device="cuda")
+    kw = dict(scales, **stage, stage_step=2, block_tables=tables,
+              block_size=PAGE_ROWS)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        decode_attention(q, k, v, idx, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph), torch.no_grad():
+        out = decode_attention(q, k, v, idx, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for lens in ([1] * 8, PAGED_LENGTHS):
+        tables.copy_(torch.randperm(k.shape[0] - 1, generator=gen,
+                                    device="cuda")[:tables.numel()]
+                     .view_as(tables))
+        idx.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        with torch.no_grad():
+            want = paged_decode_attention(
+                q, k, v, tables, (idx.long() + 2)[:, None], PAGE_ROWS,
+                key_scale_pool=scales["k_scale"],
+                value_scale_pool=scales["v_scale"], **stage, stage_step=2)
+        _check_decode(out, want)
+
+
 # ------------------------------------------------- the engine's graphs
 
 def _small_engine(option="staged", eager=False, **kw):
@@ -625,10 +760,14 @@ def _small_engine(option="staged", eager=False, **kw):
     from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
 
     chunk = kw.pop("decode_chunk", 4)
+    paged = kw.pop("paged", 0)             # pool blocks of 16 rows
     model_kw = {"staged": {"decode_staging": chunk},
                 "int8_staged": {"decode_staging": chunk,
                                 "kv_cache_dtype": "int8"},
                 "unstaged": {}, "int8": {"kv_cache_dtype": "int8"}}[option]
+    if paged:
+        model_kw = dict(model_kw, paged_kv_blocks=paged)
+        kw.update(kv_blocks=paged, kv_block_size=16)
     cfg = LlamaConfig.tiny(vocab_size=512, embed_dim=256, num_heads=4,
                            num_kv_heads=2, head_dim=64, mlp_dim=512,
                            max_seq_len=256, **model_kw)
@@ -730,6 +869,39 @@ def test_card_serve_never_runs_the_plain_attention(monkeypatch):
             with torch.no_grad():
                 toks = _serve(_small_engine(option, eager=eager))
             assert [len(t) for t in toks] == [n for _, n in ENGINE_PROMPTS]
+
+
+# The engine prompts with the first two repeated right after them: the
+# repeats share their holders' pages, and each pair's first decode write
+# forks the shared partial tail page.
+PAGED_PROMPTS = (ENGINE_PROMPTS[:1] + [(list(range(3, 12)), 15)]
+                 + ENGINE_PROMPTS[1:2] + [(list(range(40, 70)), 6)]
+                 + ENGINE_PROMPTS[2:])
+
+
+@pytest.mark.parametrize("option", ["unstaged", "staged", "int8_staged"])
+def test_engine_paged_graph_tokens_equal_dense(option):
+    """The paged engine's graphs (K3 by table, the pool's writes and COW
+    copies between replays) give the dense engine's tokens, and its eager
+    path's."""
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+
+    with torch.no_grad():
+        dense = _serve(_small_engine(option), PAGED_PROMPTS)
+        eager = _serve(_small_engine(option, eager=True, paged=64),
+                       PAGED_PROMPTS)
+        eng = _small_engine(option, paged=64)
+        eng.warmup(16)
+        k3 = decode_attention.launches
+        eng.decode_dispatches = 0
+        got = _serve(eng, PAGED_PROMPTS)
+    assert got == dense == eager
+    assert eng.blocks.shared_refs_total > 0 and eng.cow_copies > 0
+    eng.blocks.check_conservation()
+    assert eng.blocks.blocks_live == 0
+    assert decode_attention.launches - k3 == (
+        eng.model.cfg.num_layers * eng.cfg.decode_chunk
+        * eng.decode_dispatches)
 
 
 # ------------------------------------------------- int8 weights (K4)

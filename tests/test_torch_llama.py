@@ -99,13 +99,16 @@ def test_head_logits_tied_softcap_matches_jax():
     ("remat_policy", "minimal"),
 ])
 def test_unported_options_raise(flag, value):
-    if flag in ("kv_cache_dtype", "decode_staging"):
-        # Ported with the serving slice: the model builds, and its cache
-        # holds the int8 rows and scales, or the staging rows.
+    if flag in ("kv_cache_dtype", "decode_staging", "paged_kv_blocks"):
+        # Ported with the serving slices: the model builds, and its cache
+        # holds the int8 rows and scales, the staging rows, or the paged
+        # pool (the blocks plus the scratch page, of 16 rows each).
         cache = Llama(LlamaConfig.tiny(**{flag: value})).init_cache(2, 16)[0]
         if flag == "kv_cache_dtype":
             assert cache["cached_key"].dtype == torch.int8
             assert cache["key_scale"].shape == (2, 16, 2, 1)
+        elif flag == "paged_kv_blocks":
+            assert cache["cached_key"].shape == (value + 1, 16, 2, 16)
         else:
             assert cache["stage_key"].shape == (2, value, 2, 16)
         return
