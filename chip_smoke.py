@@ -20,15 +20,21 @@ Phases (any failure exits non-zero, and no result line is printed):
 3. kernel (K1, forward) — holds the kernel against its plain PyTorch
    version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
    Sq=Skv 32, 128 and 512; one full-attention case; one D=64 case; one
-   flash_attention_lse case whose offset masks rows fully) and at the
-   training forward's (B=12, S=2048, H=16, Hkv=8, causal). o within
+   flash_attention_lse case whose offset masks rows fully), at the
+   chunked-prefill extend's (one slot: Sq=512 over Skv=1024 from q
+   offsets 0 and 188, Sq=128 over Skv=512 from 172; the offset a device
+   tensor) and at the training forward's (B=12, S=2048, H=16, Hkv=8,
+   causal). o within
    atol = rtol = 2e-2, lse within 1e-2, masked rows exactly 0 and -1e30.
    Times, on the device (CUDA-graph replays), the kernel, the plain version
    and, as a yardstick the port never calls,
    torch.nn.functional.scaled_dot_product_attention; also the kernel's
    eager call time, host overhead included (best of three runs of 20
    calls), and the host time of its C entry alone (tensor maps and
-   launch); and computes the card's least time for the same work;
+   launch); and computes the card's least time for the same work; times
+   what the extend runs in front of K1 with an int8 cache, one layer's K
+   and V: the paged gather of a slot's 32 pages and the dequantization
+   to bf16, and the dense cache's dequantization of a 1024-row slot;
 4. kernel (K2, backward) — holds the kernel against its plain version
    (flash_attention_backward_reference) on the same inputs at the training
    shape (bf16, B=12, S=2048, H=16, Hkv=8, D=128, causal), bf16 S=512 at
@@ -87,7 +93,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    the cold burst captures the graphs its new shapes need, the warm one
    finds them; then all again with KFTPU_SERVING_QUANTIZE_KV=int8, and
    again with KFTPU_SERVING_QUANTIZE=int8 (int8 weights, bf16 KV cache).
-   Checks the token counts and
+   Each server warms with a 700-token prompt length, so warmup also
+   captures the chunked-prefill extend's greedy graph. The bf16 server
+   also loads a WordLevel tokenizer built here (KFTPU_SERVING_TOKENIZER;
+   where the tokenizers package imports, else it says so) and serves a
+   text request, plain and streamed. Checks the token counts and
    ids, that K1 ran once per layer per grouped prefill or chunked-prefill
    chunk, K3 once per layer per decode step and K4 once per group the
    model forms (q/k/v, gate/up) and per other int8 projection (4 a layer
@@ -99,8 +109,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    dequantized, as the cache holds them; for the int8-weight burst on the
    dequantized bf16 weights), asserting each served token's
    logit is within twice the bf16 re-forward's measured rounding noise of
-   the f32 max. Prints tok/s, p50 TTFT, weight bytes and peak device
-   memory (and the build's peak), then profiles one full-batch decode
+   the f32 max. Prints tok/s, p50 TTFT (and the 700-token request's),
+   weight bytes and peak device memory (and the build's peak); times the
+   extend's 512-token chunk eager against graphed (each chunk between
+   device synchronisations, median of 7, warm and after an L2 flush);
+   then profiles one full-batch decode
    chunk (wall time, device busy time, idle share, top device kernels,
    K3's kernel launches, which must be one per layer per step: 256, and
    with int8 weights K4's: 129 a step, 1032) and times three more without
@@ -112,15 +125,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    (a), 96 random 128-token prompts (seed 0) with 128 new tokens, greedy,
    and burst (b), the same with one 64-token head (shared pages) and four
    pairs of identical 120-token prompts (a shared partial page, forked at
-   the first decode write). Checks every request's tokens against the
+   the first decode write), and burst (c), 8 prompts of 300 tokens (three
+   128-token extend chunks each, the last slid back; request 5 shares
+   request 4's 160-token head, so its chunks write from 160 on) with 32
+   new tokens. Each engine warms with a 300-token length (the extend's
+   greedy graph). Checks every request's tokens against the
    dense engine's (burst (b) may differ only for requests that reuse
    another prefill group's rows, and only where this run shows a prompt's
-   rows from prefill groups of 1 and 48 not bitwise equal), the launch
-   counts of K1, K3 and K4 (zeroed just before each burst), shared
+   rows from prefill groups of 1 and 48 not bitwise equal; burst (c)
+   none), the launch counts of K1, K3 and K4 (zeroed just before each
+   burst; K1 and K4 once per prefill and per extend chunk), shared
    references and forks in (b), conservation after each drain and a pool
    smaller than the dense cache; prints tok/s, p50 TTFT, peak memory,
-   both caches' bytes and a profiled full-batch decode chunk (ms a step,
-   idle share);
+   both caches' bytes, the extend's 128-token chunk eager against
+   graphed and a profiled full-batch decode chunk (ms a step, idle
+   share);
 9. train — runs the training runner in-process (the KFTPU_* env) on the
    ~700M-parameter Llama of ``bench.py train`` at full width and depth
    (vocab 32000, embed 2048, 12 layers, 16/8 heads, head_dim 128, MLP
@@ -137,8 +156,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    GRAD_REL_BOUND;
 10. prints each phase's seconds and the total, the {"kernels": [...]}
    line (K1's entry at the serving prefill shape, with its training-shape
-   ms, SDPA ms and bound under train_ keys; K2's at the train shape with
-   dkdv_ms, dq_ms and split_bound_ms; K3's at the served path's case,
+   ms, SDPA ms and bound under train_ keys and the extend's shapes and
+   the gather in front of it under their case names; K2's at the train
+   shape with dkdv_ms, dq_ms and split_bound_ms; K3's at the served path's case,
    bf16 staged, cold, with its warm_ms, the other cases' times and
    SDPA's under unstaged_/int8_ keys and the long context under l8192_
    keys; K4's at the gate shape, M = 8, cold, with its warm time,
@@ -335,16 +355,27 @@ def kernel_phase():
         ("lse_masked_b4_s256", 4, 256, 256, 128, True, 0, 128, H, HKV),
         ("causal_b12_s2048_h16", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 128,
          True, 0, 0, TRAIN_H, TRAIN_HKV),
+        # The chunked-prefill extend's: one slot's 512-token chunks over its
+        # 1024-row cache (the 700-token request's chunks start at 0 and
+        # 188), and the paged phase's 128-token chunks over 512 gathered
+        # rows (a 300-token prompt's last chunk starts at 172); q_offset a
+        # device tensor, as the engine passes it.
+        ("extend_s512_kv1024_at0", 1, 512, 1024, 128, True, 0, 0, H, HKV),
+        ("extend_s512_kv1024_at188", 1, 512, 1024, 128, True, 188, 0, H,
+         HKV),
+        ("extend_s128_kv512_at172", 1, 128, 512, 128, True, 172, 0, H, HKV),
     ]
     rows, max_err = [], 0.0
     for name, b, sq, skv, d, causal, q_off, kv_off, h, hkv in cases:
         q, k, v = rand(b, sq, h, d), rand(b, skv, hkv, d), rand(b, skv, hkv, d)
         off = q_off - kv_off
         scale = d ** -0.5
+        q_at = (torch.tensor([q_off], device="cuda")
+                if name.startswith("extend") else q_off)
 
         def kernel():
             return flash_attention_lse(q, k, v, causal=causal,
-                                       q_offset=q_off, kv_offset=kv_off)
+                                       q_offset=q_at, kv_offset=kv_off)
 
         def plain():
             return flash_attention_reference(q, k, v, causal=causal,
@@ -399,7 +430,61 @@ def kernel_phase():
             f"{bound * 1e3:.2f} us ({bound_by})")
         del q, k, v
         torch.cuda.empty_cache()
-    return rows, max_err
+    return rows + extend_gather_rows(), max_err
+
+
+def extend_gather_rows():
+    """What the extend runs in front of K1 with an int8 KV cache, one
+    layer's K and V on the card (CUDA-graph replays): the paged phase's
+    gather of one slot's 32 pages (a random choice of the 817) with their
+    scales, then the dequantization to bf16 (``gather_cache``, then
+    ``Attention._extend_attention``'s), and the dense int8 cache's
+    dequantization of one 1024-row slot. Bound: the int8 rows and f32
+    scales read once, the bf16 rows written once."""
+    from kubeflow_tpu_torch.ops.paged_attention import (
+        gather_cache,
+        pool_shape,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def int8_rows(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def scales(shape):
+        return torch.rand(shape, generator=gen, device="cuda") * 0.02
+
+    def dequant(x, s):
+        return (x.float() * s).to(torch.bfloat16)
+
+    shape = pool_shape(SP_BLOCKS, SP_BS, HKV, 128)
+    ck, cv = int8_rows(shape), int8_rows(shape)
+    ks, vs = scales(shape[:3] + (1,)), scales(shape[:3] + (1,))
+    table = torch.randperm(SP_BLOCKS, generator=gen, device="cuda")[
+        :SP_MAX_LEN // SP_BS][None].int()
+
+    def paged():
+        k, v, k_s, v_s = gather_cache(table, SP_BS, ck, cv, ks, vs)
+        return dequant(k, k_s), dequant(v, v_s)
+
+    dk, dv = int8_rows((1, 1024, HKV, 128)), int8_rows((1, 1024, HKV, 128))
+    dks, dvs = scales((1, 1024, HKV, 1)), scales((1, 1024, HKV, 1))
+
+    def dense():
+        return dequant(dk, dks), dequant(dv, dvs)
+
+    rows = []
+    for name, fn, n in (("gather_dequant_paged_l512", paged, SP_MAX_LEN),
+                        ("dequant_dense_l1024", dense, 1024)):
+        with torch.no_grad():
+            ms = device_ms(fn)
+        nbytes = 2 * n * HKV * (128 + 4 + 2 * 128)
+        bound = 1e3 * nbytes / PEAK_BYTES_PER_S
+        rows.append(dict(case=name, ms=ms, bound_ms=bound, bound_by="bytes"))
+        log(f"kernel {name}: one layer's K and V {ms:.4f} ms (x32 layers "
+            f"{32 * ms:.3f} ms a chunk), bound {bound * 1e3:.2f} us (bytes)")
+    return rows
 
 
 def backward_bound_ms(b, sq, skv, h, hkv, d, causal, offset, products=5):
@@ -1000,11 +1085,126 @@ def post(base: str, body: dict):
         return json.load(r)
 
 
-def serve_phase(quantize_kv: str = "", quantize: str = ""):
+def extend_timings(engine, tag, starts, reps=7):
+    """Chunked-prefill chunk ms on an idle ``engine``, eager (the engine's
+    graphs off: the same step op by op) against graphed (the captured
+    graph's replay), each chunk timed between device synchronisations,
+    the median of ``reps`` after one untimed: warm (slot 1 at the last of
+    ``starts``, again and again) and cold (the L2 flushed before each
+    chunk, over slots 0-3 and ``starts`` in turn). A paged engine's slots
+    0-3 hold distinct pages for the run and scratch-filled tables again
+    after it."""
+    C = engine.cfg.prefill_buckets[-1]
+    V = engine.model.cfg.vocab_size
+    rs = np.random.RandomState(3)
+    samp = np.zeros((1, 3), np.float32)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    if engine._paged:
+        nb = engine._max_table_blocks
+        pages = np.random.RandomState(4).permutation(engine.cfg.kv_blocks)
+        engine._block_tables[:4] = pages[:4 * nb].reshape(4, nb)
+        engine._tables_dirty = True
+    out, was = {}, engine._graphed
+    try:
+        for graphed in (False, True):
+            engine._graphed = graphed
+            for kind in ("warm", "cold"):
+                times = []
+                for r in range(reps + 1):
+                    slot, start = ((r % 4, starts[r % len(starts)])
+                                   if kind == "cold" else (1, starts[-1]))
+                    tokens = rs.randint(0, V, (1, C))
+                    if kind == "cold":
+                        flush.zero_()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    engine._run_extend(tokens, start, C, slot, samp)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                key = f"{'graphed' if graphed else 'eager'}_{kind}_ms"
+                out[key] = float(np.median(times[1:]))
+        # Beside it: the grouped prefill of C tokens on one slot (its
+        # graph), the same model work in prefill mode; and one graphed
+        # chunk under the profiler: where its time goes.
+        tokens = rs.randint(0, V, (1, C))
+        args = (tokens, np.full((1,), C), np.ones((1,), np.int64), samp)
+        if engine._paged:
+            args += (engine._block_tables[1:2], np.zeros((1,), np.int64))
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine._run_prefill(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["prefill_graphed_ms"] = float(np.median(times[1:]))
+        wall, busy, kernels = profiled(
+            lambda: engine._run_extend(tokens, starts[-1], C, 1, samp))
+    finally:
+        engine._graphed = was
+        if engine._paged:
+            engine._block_tables[:4] = engine._scratch_block
+            engine._tables_dirty = True
+    del flush
+    out.update(profiled_wall_ms=wall, profiled_busy_ms=busy)
+    log(f"{tag}: extend chunk (C={C}, max_len {engine.cfg.max_len}, starts "
+        f"{list(starts)}), median of {reps}, device-synchronised: eager "
+        f"warm {out['eager_warm_ms']:.3f} ms, cold {out['eager_cold_ms']:.3f}"
+        f" ms; graphed warm {out['graphed_warm_ms']:.3f} ms, cold "
+        f"{out['graphed_cold_ms']:.3f} ms (x"
+        f"{out['eager_warm_ms'] / out['graphed_warm_ms']:.2f} warm); the "
+        f"grouped prefill of {C} tokens (graph) "
+        f"{out['prefill_graphed_ms']:.3f} ms; one graphed chunk profiled: "
+        f"wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms")
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:8]:
+        log(f"  {e.key[:70]}: {e.device_time_total / 1e3:.3f} ms over "
+            f"{e.count} calls")
+    return out
+
+
+def word_tokenizer(vocab: int, directory: str):
+    """A WordLevel tokenizer over ``vocab`` ids (id i is "w<i>", 0 the
+    unknown word), split on whitespace, saved as ``directory``/
+    tokenizer.json; None where the ``tokenizers`` package does not
+    import."""
+    try:
+        from tokenizers import Tokenizer, pre_tokenizers
+        from tokenizers import models as tok_models
+    except ImportError:
+        return None
+    words = {"<unk>": 0, **{f"w{i}": i for i in range(1, vocab)}}
+    tok = Tokenizer(tok_models.WordLevel(words, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.save(os.path.join(directory, "tokenizer.json"))
+    return tok
+
+
+def text_check(base: str, tok, tag: str) -> None:
+    """A ``{"text": ...}`` request, plain and streamed, through the
+    server that loaded ``tok``: the prompt is the text's words, and the
+    reply's text (the stream's last event's) decodes its tokens."""
+    words = " ".join(f"w{i}" for i in range(7, 7 * 41, 7))      # 40 words
+    for stream in (False, True):
+        out = post(base, {"text": words, "max_new_tokens": 8,
+                          "stream": stream})
+        if (out["prompt_len"] != 40 or len(out["tokens"]) != 8
+                or out.get("text") != tok.decode(out["tokens"])):
+            raise AssertionError(f"text request (stream {stream}): {out}")
+    log(f"{tag}: text surface (KFTPU_SERVING_TOKENIZER): a 40-word text "
+        f"served plain and streamed, text = decode(tokens): "
+        f"{out['text'][:40]!r}...")
+
+
+def serve_phase(quantize_kv: str = "", quantize: str = "",
+                text: bool = False):
     """One HTTP burst against the llama3-8b server; ``quantize_kv`` "int8"
-    serves from the int8 KV cache, ``quantize`` "int8" with int8 weights.
-    Returns the burst's figures."""
+    serves from the int8 KV cache, ``quantize`` "int8" with int8 weights;
+    ``text`` loads a tokenizer (where the ``tokenizers`` package imports)
+    and serves a text request after the bursts. Returns the burst's
+    figures."""
     import itertools
+    import tempfile
 
     from kubeflow_tpu_torch.models.llama import int8_launches_per_pass
     from kubeflow_tpu_torch.ops.decode_attention import decode_attention
@@ -1022,9 +1222,19 @@ def serve_phase(quantize_kv: str = "", quantize: str = ""):
     os.environ.pop("KFTPU_PLATFORM", None)          # cuda
     tag = (f"serve [{quantize_kv or 'bf16'} KV cache"
            + (f", {quantize} weights]" if quantize else "]"))
+    tok, tok_dir = None, tempfile.mkdtemp(prefix="kftpu-smoke-tok-")
+    if text:
+        tok = word_tokenizer(128256, tok_dir)
+        if tok is None:
+            log(f"{tag}: text surface not served: the tokenizers package "
+                "does not import on this machine (the CPU tests hold it)")
+    os.environ["KFTPU_SERVING_TOKENIZER"] = tok_dir if tok else ""
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
-    server = build_server(env_config())
+    try:
+        server = build_server(env_config())
+    finally:
+        shutil.rmtree(tok_dir, ignore_errors=True)
     build_peak = torch.cuda.max_memory_allocated()
     engine = server.engine
     model = engine.model
@@ -1038,9 +1248,10 @@ def serve_phase(quantize_kv: str = "", quantize: str = ""):
         f"{model.cfg.decode_staging} rows); peak device memory while "
         f"building {build_peak / 1e9:.2f} GB")
     t0 = time.time()
-    engine.warmup(512)
-    log(f"{tag}: warmup (bucket 512's greedy prefill graphs, the decode "
-        f"chunk's graph of each sampling variant) {time.time() - t0:.1f} s")
+    engine.warmup(700)
+    log(f"{tag}: warmup (bucket 512's greedy prefill graphs, the "
+        f"chunked-prefill extend's greedy graph, the decode chunk's graph "
+        f"of each sampling variant) {time.time() - t0:.1f} s")
     server.start()
     base = f"http://127.0.0.1:{server.port}"
     V = model.cfg.vocab_size
@@ -1109,26 +1320,36 @@ def serve_phase(quantize_kv: str = "", quantize: str = ""):
                 f"K4 launches {k4} != {per_pass} x ({chunk} steps x "
                 f"{decodes} decode + {prefills} prefill + {extends} extend "
                 "dispatches)")
+        if extends and ("extend", 512, "greedy") not in engine._graphs:
+            raise AssertionError("the chunked prefill ran without its graph")
         generated = sum(len(o["tokens"]) for o in outs)
         ttft_p50 = float(np.median([o["ttft_s"] for o in outs]))
+        ttft_long = outs[-1]["ttft_s"]                  # the 700-token one
         log(f"{tag} {name} burst: {len(outs)} requests, {generated} tokens "
             f"in {wall:.2f} s = {generated / wall:.1f} tok/s, p50 TTFT "
-            f"{ttft_p50 * 1e3:.1f} ms, {prefills} prefill + {extends} "
+            f"{ttft_p50 * 1e3:.1f} ms (the 700-token request's "
+            f"{ttft_long * 1e3:.1f} ms), {prefills} prefill + {extends} "
             f"extend + {decodes} decode dispatches, K1 launches {k1}, K3 "
             f"launches {k3}, K4 launches {k4}, peak device memory "
-            f"{peak / 1e9:.2f} GB; {len(engine._graphs)} graphs so far")
+            f"{peak / 1e9:.2f} GB; {len(engine._graphs)} graphs so far; "
+            "TTFT ms by prompt length: " + ", ".join(
+                f"{len(b['tokens'])}: {o['ttft_s'] * 1e3:.1f}"
+                for b, o in zip(bodies, outs)))
         return dict(outs=outs, k1=k1, k3=k3, k4=k4, tok_s=generated / wall,
-                    ttft_p50=ttft_p50, peak=peak)
+                    ttft_p50=ttft_p50, ttft_long=ttft_long, peak=peak)
 
     try:
         # The first burst after warmup captures the graphs its new shapes
         # need; the second finds them.
         cold = burst("cold")
         warm = burst("warm")
+        if tok is not None:
+            text_check(base, tok, tag)
     finally:
         server.stop()
     outs = cold.pop("outs")
     warm.pop("outs")
+    extend = extend_timings(engine, tag, (0, 188))
     check_model = model
     if engine.quantized:
         # The re-forwards run on the dequantized bf16 weights (Dense
@@ -1155,7 +1376,7 @@ def serve_phase(quantize_kv: str = "", quantize: str = ""):
         f"{min(bounds):.4f}-{max(bounds):.4f}")
     chunk_stats = decode_breakdown(engine, rs)
     return dict(cold, warm=warm, weight_bytes=weight_bytes,
-                build_peak=build_peak, **chunk_stats)
+                build_peak=build_peak, extend=extend, **chunk_stats)
 
 
 # The paged serve phase: llama3-8b as `bench.py serving8b --paged` builds
@@ -1169,12 +1390,17 @@ SP_BLOCKS = SP_BATCH * (-(-(SP_PROMPT + SP_GEN) // SP_BS) + 1)      # 816
 # cut to 120 tokens (a partial last page, which the pair shares and the
 # first decode write forks).
 SP_PAIRS, SP_PAIR_LEN = (10, 30, 60, 80), 120
+# Burst (c): prompts past the bucket (chunked prefill: chunks at 0, 128
+# and 172, the last slid back); request 5 repeats request 4's head (ten
+# whole pages, so its chunks write from position 160 on).
+SP_LONG, SP_LONG_REQUESTS, SP_LONG_HEAD, SP_LONG_GEN = 300, 8, 160, 32
 
 
 def paged_prompts(vocab: int):
     """Burst (a): 96 random 128-token prompts; burst (b): the same count
     opening with one 64-token head (`--shared-prefix-len 64`), with the
-    pairs of SP_PAIRS. From seed 0."""
+    pairs of SP_PAIRS; burst (c): 8 prompts of 300 tokens, request 5
+    opening with request 4's first 160. From seed 0."""
     rng = np.random.default_rng(0)
     plain = [rng.integers(1, vocab, SP_PROMPT).tolist()
              for _ in range(SP_REQUESTS)]
@@ -1184,7 +1410,10 @@ def paged_prompts(vocab: int):
     for i in SP_PAIRS:
         shared[i] = shared[i][:SP_PAIR_LEN]
         shared[i + 1] = list(shared[i])
-    return plain, shared
+    long = [rng.integers(1, vocab, SP_LONG).tolist()
+            for _ in range(SP_LONG_REQUESTS)]
+    long[5][:SP_LONG_HEAD] = long[4][:SP_LONG_HEAD]
+    return plain, shared, long
 
 
 def paged_engine(paged: bool):
@@ -1210,10 +1439,12 @@ def paged_engine(paged: bool):
         device="cuda", registry=MetricsRegistry())
 
 
-def paged_burst(engine, name, prompts, sharers=None):
-    """All ``prompts`` submitted at once, then ``run()`` to the drain (as
-    the bench drives it); launch counts zeroed just before and read just
-    after, and checked; conservation checked after the drain."""
+def paged_burst(engine, name, prompts, sharers=None, new=SP_GEN):
+    """All ``prompts`` submitted at once, ``new`` tokens each, then
+    ``run()`` to the drain (as the bench drives it); launch counts zeroed
+    just before and read just after, and checked (K1 and K4 once per
+    prefill and per chunked-prefill chunk); conservation checked after
+    the drain."""
     from kubeflow_tpu_torch.models.llama import int8_launches_per_pass
     from kubeflow_tpu_torch.ops.decode_attention import decode_attention
     from kubeflow_tpu_torch.ops.flash_attention import flash_attention
@@ -1228,7 +1459,7 @@ def paged_burst(engine, name, prompts, sharers=None):
     engine.prefill_dispatches = engine.extend_dispatches = 0
     engine.decode_dispatches = 0
     t0 = time.perf_counter()
-    rids = [engine.submit(p, max_new_tokens=SP_GEN) for p in prompts]
+    rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
     engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1237,37 +1468,44 @@ def paged_burst(engine, name, prompts, sharers=None):
     peak = torch.cuda.max_memory_allocated()
     res = [engine.result(r) for r in rids]
     V = engine.model.cfg.vocab_size
-    if any(r is None or len(r.tokens) != SP_GEN
+    if any(r is None or len(r.tokens) != new
            or not all(0 <= t < V for t in r.tokens) for r in res):
-        raise AssertionError(f"{name}: a request lacks its {SP_GEN} tokens")
+        raise AssertionError(f"{name}: a request lacks its {new} tokens")
     layers = engine.model.cfg.num_layers
     prefills, decodes = engine.prefill_dispatches, engine.decode_dispatches
-    if engine.extend_dispatches or k1 != layers * prefills:
+    extends = engine.extend_dispatches
+    if k1 != layers * (prefills + extends):
         raise AssertionError(f"{name}: K1 launches {k1} != {layers} x "
-                             f"{prefills} prefills")
+                             f"({prefills} prefills + {extends} extends)")
     if decodes < 1 or k3 != layers * SP_CHUNK * decodes:
         raise AssertionError(f"{name}: K3 launches {k3} != {layers} x "
                              f"{SP_CHUNK} x {decodes} decode dispatches")
     per_pass = int8_launches_per_pass(engine.model)
-    if k4 != per_pass * (SP_CHUNK * decodes + prefills):
+    if k4 != per_pass * (SP_CHUNK * decodes + prefills + extends):
         raise AssertionError(f"{name}: K4 launches {k4} != {per_pass} x "
-                             f"({SP_CHUNK} x {decodes} + {prefills})")
+                             f"({SP_CHUNK} x {decodes} + {prefills} + "
+                             f"{extends})")
+    if extends and ("extend", SP_PROMPT, "greedy") not in engine._graphs:
+        raise AssertionError(f"{name}: the chunked prefill ran without its "
+                             "graph")
     blocks.check_conservation()
     if blocks.blocks_live:
         raise AssertionError(f"{name}: {blocks.blocks_live} blocks live "
                              "after the drain")
     out = dict(tokens=[r.tokens for r in res], k1=k1, k3=k3, k4=k4,
-               tok_s=SP_GEN * len(res) / wall,
+               tok_s=new * len(res) / wall,
                ttft_p50=float(np.median([r.ttft_s for r in res])),
                peak=peak, prefills=prefills, decodes=decodes,
+               extends=extends,
                shared_refs=blocks.shared_refs_total - refs0,
                cow_copies=blocks.cow_copies_total - forks0,
                high_water=blocks.high_water_blocks)
     if sharers is not None:
         out["sharers"] = {i for i, r in enumerate(rids) if r in sharers}
-    log(f"{name}: {len(res)} requests, {SP_GEN * len(res)} tokens in "
+    log(f"{name}: {len(res)} requests, {new * len(res)} tokens in "
         f"{wall:.2f} s = {out['tok_s']:.1f} tok/s, p50 TTFT "
-        f"{out['ttft_p50'] * 1e3:.1f} ms, {prefills} prefill + {decodes} "
+        f"{out['ttft_p50'] * 1e3:.1f} ms, {prefills} prefill + {extends} "
+        f"extend + {decodes} "
         f"decode dispatches, K1 {k1}, K3 {k3}, K4 {k4} launches, peak device "
         f"memory {peak / 1e9:.2f} GB, shared block references "
         f"{out['shared_refs']}, COW copies {out['cow_copies']}, blocks high "
@@ -1313,10 +1551,13 @@ def prefix_rows_agree(model, prompt):
 
 def serve_paged_phase():
     """The paged pool served end to end against the dense cache: each
-    engine warmed, then bursts (a) (no sharing) and (b) (the 64-token
-    shared head and the retried pairs); every request's tokens compared
-    between the two engines; tok/s, TTFT, decode ms a step (the profiled
-    full-batch chunk), the caches' bytes and peak memory printed."""
+    engine warmed (the extend's greedy graph too), then bursts (a) (no
+    sharing), (b) (the 64-token shared head and the retried pairs) and (c)
+    (300-token prompts: chunked prefill, a sharer writing from position
+    160); every request's tokens compared between the two engines; the
+    extend's eager and graphed ms; tok/s, TTFT, decode ms a step (the
+    profiled full-batch chunk), the caches' bytes and peak memory
+    printed."""
     from kubeflow_tpu_torch.ops.paged_attention import paged_gather_bytes
 
     res = {}
@@ -1330,8 +1571,8 @@ def serve_paged_phase():
                          for layer in engine._cache
                          for n in ("cached_key", "cached_value", "key_scale",
                                    "value_scale"))
-        engine.warmup(SP_PROMPT)
-        plain, shared = paged_prompts(engine.model.cfg.vocab_size)
+        engine.warmup(SP_LONG)
+        plain, shared, long = paged_prompts(engine.model.cfg.vocab_size)
         engine.submit(plain[0], max_new_tokens=SP_CHUNK + 1)    # as the bench
         engine.run()
         log(f"{tag}: built and warmed in {time.time() - t0:.1f} s; K/V "
@@ -1341,13 +1582,17 @@ def serve_paged_phase():
         a = paged_burst(engine, f"{tag} burst (a), no shared prefix", plain)
         b = paged_burst(engine, f"{tag} burst (b), {SP_SHARED}-token shared "
                         "head", shared, sharers)
+        c = paged_burst(engine, f"{tag} burst (c), {SP_LONG}-token prompts "
+                        "(chunked prefill)", long, sharers, new=SP_LONG_GEN)
         if paged:
             del engine._admit_paged     # the wrapper (it holds the engine)
+        extend = extend_timings(engine, tag, (0, 128, 172))
         rs = np.random.RandomState(1)
         stats = decode_breakdown(engine, rs)
         agree = None if paged else prefix_rows_agree(engine.model, shared[0])
-        res[paged] = dict(a=a, b=b, cache_bytes=cache_bytes,
-                          pool_bytes=pool_bytes, agree=agree, **stats)
+        res[paged] = dict(a=a, b=b, c=c, cache_bytes=cache_bytes,
+                          pool_bytes=pool_bytes, agree=agree, extend=extend,
+                          **stats)
         del engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -1376,6 +1621,22 @@ def serve_paged_phase():
         raise AssertionError("burst (b): tokens differ from the dense "
                              "engine's beyond what the prefill groups' bits "
                              "explain")
+    same_c = [x == y for x, y in zip(pg["c"]["tokens"], dn["c"]["tokens"])]
+    want_extends = SP_LONG_REQUESTS * 3
+    if pg["c"]["extends"] != want_extends or dn["c"]["extends"] != \
+            want_extends or pg["c"]["shared_refs"] < SP_LONG_HEAD // SP_BS:
+        raise AssertionError(
+            f"burst (c): {pg['c']['extends']} / {dn['c']['extends']} extend "
+            f"dispatches (want {want_extends}), {pg['c']['shared_refs']} "
+            f"shared block references (want >= {SP_LONG_HEAD // SP_BS})")
+    if not all(same_c):
+        raise AssertionError(f"burst (c): {same_c.count(False)} requests' "
+                             "tokens differ between the paged and the dense "
+                             "engine")
+    log(f"serve paged: burst (c) tokens equal the dense engine's for all "
+        f"{len(same_c)} requests ({pg['c']['extends']} extend dispatches "
+        f"each engine, {pg['c']['shared_refs']} shared block references, "
+        f"sharers {sorted(pg['c']['sharers'])})")
     gather = paged_gather_bytes(num_layers=32, batch=SP_BATCH,
                                 blocks_per_seq=SP_MAX_LEN // SP_BS,
                                 block_size=SP_BS, num_kv_heads=HKV,
@@ -1396,6 +1657,25 @@ def serve_paged_phase():
     return res
 
 
+def profiled(fn):
+    """``fn()`` under torch.profiler, between device synchronisations:
+    (wall ms, device busy ms, the device kernels' events). Busy time is
+    the sum of the device-side kernel events only (the CPU ops that
+    launched them carry the same time again); one stream, so their sum
+    is the busy time."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall_ms, sum(e.device_time_total for e in kernels) / 1e3, kernels
+
+
 def decode_breakdown(engine, rs):
     """One decode chunk (decode_chunk steps for every slot, all slots
     busy) under torch.profiler: wall time, device busy time (the sum of
@@ -1408,19 +1688,7 @@ def decode_breakdown(engine, rs):
     for _ in range(engine.cfg.max_batch):
         engine.submit(rs.randint(0, V, 100).tolist(), max_new_tokens=new)
     engine.step()                       # admit + prefill + first chunk
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        engine.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side kernel events only (the CPU ops that launched them carry
-    # the same time again); one stream, so their sum is the busy time.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    wall_ms, busy_ms, kernels = profiled(engine.step)
     steps = engine.cfg.decode_chunk
     plain = []
     for _ in range(3):                  # each step ends in a host fetch
@@ -1803,21 +2071,34 @@ def main() -> int:
     bwd_rows, bwd_err = phase("K2", backward_phase)
     dec_rows, dec_long, dec_paged, dec_err = phase("K3", decode_phase)
     k4_rows, k4_err, k4_step = phase("K4", int8_phase)
-    serve = phase("serve bf16", serve_phase)
+    serve = phase("serve bf16", serve_phase, "", "", True)
     serve_int8 = phase("serve int8 KV", serve_phase, "int8")
     serve_w8 = phase("serve int8 weights", serve_phase, "", "int8")
     serve_paged = phase("serve paged", serve_paged_phase)
     for name, s in (("bf16 KV cache", serve), ("int8 KV cache", serve_int8),
                     ("int8 weights, bf16 KV cache", serve_w8)):
         w = s["warm"]
+        e = s["extend"]
         log(f"serve summary [{name}]: cold burst {s['tok_s']:.1f} "
-            f"tok/s, p50 TTFT {s['ttft_p50'] * 1e3:.1f} ms, peak device "
+            f"tok/s, p50 TTFT {s['ttft_p50'] * 1e3:.1f} ms (700-token "
+            f"request {s['ttft_long'] * 1e3:.1f} ms), peak device "
             f"memory {s['peak'] / 1e9:.2f} GB; warm burst {w['tok_s']:.1f} "
-            f"tok/s, p50 TTFT {w['ttft_p50'] * 1e3:.1f} ms, peak "
+            f"tok/s, p50 TTFT {w['ttft_p50'] * 1e3:.1f} ms (700-token "
+            f"{w['ttft_long'] * 1e3:.1f} ms), peak "
             f"{w['peak'] / 1e9:.2f} GB; weights {s['weight_bytes'] / 1e9:.2f}"
             f" GB; decode {s['step_ms']:.3f} ms/step "
             f"unprofiled, profiled chunk idle share "
-            + ("not measured" if s["idle"] is None else f"{s['idle']:.3f}"))
+            + ("not measured" if s["idle"] is None else f"{s['idle']:.3f}")
+            + f"; extend chunk (C=512) eager {e['eager_warm_ms']:.3f} / "
+            f"{e['eager_cold_ms']:.3f} ms, graphed {e['graphed_warm_ms']:.3f}"
+            f" / {e['graphed_cold_ms']:.3f} ms (warm / cold)")
+    for paged in (True, False):
+        e = serve_paged[paged]["extend"]
+        log(f"serve summary [{'paged pool' if paged else 'dense cache'}, "
+            f"paged phase's config]: extend chunk (C=128) eager "
+            f"{e['eager_warm_ms']:.3f} / {e['eager_cold_ms']:.3f} ms, "
+            f"graphed {e['graphed_warm_ms']:.3f} / "
+            f"{e['graphed_cold_ms']:.3f} ms (warm / cold)")
     train = phase("train", train_phase)
     phase("grad check", grad_check)
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
@@ -1841,6 +2122,13 @@ def main() -> int:
                 max_err, main_row)
     fwd.update({f"train_{key}": train_row[key]
                 for key in ("ms", "library_ms", "bound_ms")})
+    # K1 at the chunked-prefill extend's shapes (and, in front of it with
+    # an int8 cache, the gather and dequantization of one layer's K and V).
+    for row in rows:
+        if row["case"].startswith(("extend", "gather", "dequant")):
+            fwd.update({f"{row['case']}_{key}": row[key]
+                        for key in ("ms", "bound_ms", "library_ms")
+                        if key in row})
     bwd = entry("flash_attention_bwd", "flash_attention_bwd.cu",
                 "kubeflow_tpu/ops/flash_attention.py:265", train["bwd"],
                 bwd_err, bwd_row)

@@ -21,11 +21,11 @@ of kubeflow_tpu.serving.engine.
   chunk ends with one flush into the cache (``_flush_staging``); an int8
   KV cache (``kv_cache_dtype="int8"``) quantizes rows at the write or the
   flush.
-- On the card each decode chunk (every step plus the flush) and each
-  grouped prefill ``(bucket, k_pad)`` run as captured CUDA graphs, one per
-  sampling variant, as the JAX engine compiles each into one XLA program
-  (see ``_Graph``); the CPU path, and a chunked-prefill extend, run
-  eagerly.
+- On the card each decode chunk (every step plus the flush), each
+  grouped prefill ``(bucket, k_pad)`` and each chunked-prefill chunk
+  width run as captured CUDA graphs, one per sampling variant, as the JAX
+  engine compiles each into one XLA program (see ``_Graph``); the CPU
+  path runs the same steps eagerly.
 - ``quantize="int8"`` serves weight-only int8 projections
   (``_quantize_int8``): every product of every step, and the lm_head,
   reads the int8 bytes through ``ops/int8_linear.py`` (K4 on the card).
@@ -334,9 +334,10 @@ class ServingEngine:
     with ``cfg.quantize="int8"``, swaps its projections for int8 ones
     (``_quantize_int8``; the model is changed in place).
 
-    On the card the decode chunk and the grouped prefill run as CUDA
-    graphs; ``_eager=True`` runs them eagerly instead (the card tests hold
-    the graphs' tokens against it)."""
+    On the card the decode chunk, the grouped prefill and the
+    chunked-prefill chunk run as CUDA graphs; ``_eager=True`` runs them
+    eagerly instead (the card tests hold the graphs' tokens against
+    it)."""
 
     def __init__(
         self,
@@ -888,13 +889,14 @@ class ServingEngine:
     def warmup(self, prompt_len: int) -> None:
         """Run the decode step and every k-bucket prefill for
         ``prompt_len``'s bucket once with dummy inputs (kernel build and
-        load, library handles, allocator pools), then reset the cache.
-        On the card this captures those prefills' greedy graphs and the
-        decode chunk's graph of every sampling variant: the JAX engine
-        compiles one decode program for all of them. A paged engine runs
-        them on scratch-filled tables (every junk write lands in the
-        scratch page), as its steps read the tables. Only legal while the
-        engine is idle."""
+        load, library handles, allocator pools), and the chunked-prefill
+        chunk when ``prompt_len`` exceeds the largest bucket, then reset
+        the cache. On the card this captures those prefills' greedy
+        graphs, the chunk's greedy graph and the decode chunk's graph of
+        every sampling variant: the JAX engine compiles one decode program
+        for all of them. A paged engine runs them on scratch-filled tables
+        (every junk write lands in the scratch page), as its steps read the
+        tables. Only legal while the engine is idle."""
         if self._queue or any(s is not None for s in self._slots):
             raise RuntimeError(
                 "warmup() resets the KV cache; call it before submitting "
@@ -903,8 +905,8 @@ class ServingEngine:
         big = self.cfg.prefill_buckets[-1]
         bucket = self._bucket(min(prompt_len, big))
         if prompt_len > big:
-            self._extend_step(np.ones((1, big), np.int64), 0, big, 0,
-                              np.zeros((1, 3), np.float32))
+            self._run_extend(np.ones((1, big), np.int64), 0, big, 0,
+                             np.zeros((1, 3), np.float32))
         ks, k = [], 1
         while k < self.cfg.max_batch:
             ks.append(k)
@@ -1171,45 +1173,79 @@ class ServingEngine:
                 i, int(toks[row]),
                 float(lps[row]) if lps is not None else 0.0)
 
-    def _extend_step(self, tokens: np.ndarray, start: int, true_len: int,
-                     slot_idx: int, samp: np.ndarray, write_from: int = 0):
-        """One chunk of chunked prefill for ONE slot: ``tokens`` [1, C]
-        (always a full chunk) run in decode mode against the slot's live
-        cache row at absolute position ``start`` — the model writes
-        through views into the batch cache (its attention runs through
-        the flash kernel on the card) — then cache_index := start +
-        true_len, and position true_len - 1 is sampled. A paged engine
-        writes through the slot's table instead (positions below
-        ``write_from`` to the scratch page). Eager on the card too."""
-        dev = self.device
+    def _run_extend(self, tokens: np.ndarray, start: int, true_len: int,
+                    slot_idx: int, samp: np.ndarray, write_from: int = 0):
+        """One chunk of chunked prefill (graph ``("extend", C, variant)``
+        on the card, which serves every slot and start): the host values
+        go up as device inputs, as the JAX engine traces them; returns
+        device ([1] token, [1] logprob). A paged engine refreshes the
+        device tables first, so the step reads the current ones."""
         C = tokens.shape[1]
+        variant = sampling_variant(samp)
         self.extend_dispatches += 1
+
+        def scalar(x: int) -> torch.Tensor:
+            return self._upload(np.asarray([x], np.int64))
+
+        inputs = dict(tokens=self._upload(tokens), start=scalar(start),
+                      true_len=scalar(true_len), slot=scalar(slot_idx),
+                      samp=self._upload(samp))
+        if self._paged:
+            inputs["write_from"] = scalar(write_from)
+            self._tables_device()
+
+        def fn(tokens, start, true_len, slot, samp, write_from=None):
+            return self._extend_step(tokens, start, true_len, slot, samp,
+                                     variant, write_from)
+
+        return self._run_step(("extend", C, variant), fn, variant, **inputs)
+
+    def _extend_step(self, tok: torch.Tensor, start: torch.Tensor,
+                     true_len: torch.Tensor, slot: torch.Tensor,
+                     samp: torch.Tensor, variant: str,
+                     write_from: Optional[torch.Tensor] = None):
+        """One chunk of chunked prefill for ONE slot, the JAX engine's
+        ``_extend_step``: ``tok`` [1, C] (always a full chunk) runs in
+        decode mode at absolute position ``start`` against the slot's
+        cache row, taken by the device index ``slot`` (a copy, installed
+        back after the forward: the reference's dynamic_slice and
+        dynamic_update_slice), its attention through the flash kernel on
+        the card; then cache_index[slot] := start + true_len, and position
+        true_len - 1 is sampled. A paged engine writes through the slot's
+        row of the device tables (positions below ``write_from`` to the
+        scratch page), as ``_extend_step_paged`` does. Every input is a
+        [1] device tensor (it is captured)."""
+        dev = self.device
+        C = tok.shape[1]
+        index = start.to(torch.int32)      # a copy: the model advances it
         paging = None
         if self._paged:
-            paging = Paging(
-                self._tables_device()[slot_idx:slot_idx + 1],
-                write_from=torch.full((1,), write_from, device=dev))
+            paging = Paging(self._tables_dev.index_select(0, slot),
+                            write_from=write_from)
 
         def leaf(layer, name):
             return layer[name] if self._paged \
-                else layer[name][slot_idx:slot_idx + 1]
+                else layer[name].index_select(0, slot)
 
         rows = [{
             **{name: leaf(layer, name) for name in _ROW_LEAVES
                if name in layer},
-            "cache_index": torch.full((1,), start, dtype=torch.int32,
-                                      device=dev),
+            "cache_index": index.clone(),
         } for layer in self._cache]
-        positions = start + torch.arange(C, device=dev)[None, :]
-        hidden, _ = self.model(
-            torch.as_tensor(tokens, dtype=torch.long, device=dev),
-            positions=positions, cache=rows, decode=True, return_hidden=True,
-            paging=paging)
-        for layer in self._cache:
-            layer["cache_index"][slot_idx] = start + true_len
-        logits = self.model.head_logits(
-            hidden[:, true_len - 1:true_len])[:, 0]
-        return self._sample_logits(logits.float(), samp)
+        positions = start[:, None] + torch.arange(C, device=dev)[None, :]
+        hidden, _ = self.model(tok, positions=positions, cache=rows,
+                               decode=True, return_hidden=True,
+                               paging=paging)
+        total = (start + true_len).to(torch.int32)
+        for layer, row in zip(self._cache, rows):
+            if not self._paged:
+                for name in _ROW_LEAVES:
+                    if name in layer:
+                        layer[name].index_copy_(0, slot, row[name])
+            layer["cache_index"].index_copy_(0, slot, total)
+        last_h = hidden.index_select(1, true_len - 1)          # [1, 1, E]
+        logits = self.model.head_logits(last_h)[:, 0]
+        return self._sample_logits(logits.float(), samp, variant)
 
     def _prefill_long(self, slot_idx: int, req: GenerationRequest) -> None:
         """Chunked prefill for a prompt longer than the largest bucket.
@@ -1226,8 +1262,8 @@ class ServingEngine:
         toks = lps = None
         for off in starts:
             chunk = np.asarray([prompt[off:off + big]], np.int64)
-            toks, lps = self._extend_step(chunk, off, big, slot_idx, samp,
-                                          write_from)
+            toks, lps = self._run_extend(chunk, off, big, slot_idx, samp,
+                                         write_from)
         self._record_token(
             slot_idx, int(toks.cpu()[0]),
             float(lps.cpu()[0]) if self.cfg.logprobs else 0.0)

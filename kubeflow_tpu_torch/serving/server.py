@@ -2,9 +2,11 @@
 
   POST /v1/generate   {"tokens": [...], "max_new_tokens": N,
                        "temperature": t, "top_k": k, "top_p": p,
-                       "eos_token": id}
+                       "eos_token": id}  (or {"text": "..."} in place of
+                       tokens, with a server-side tokenizer)
                       -> {"tokens": [...], "ttft_s": ..., "latency_s": ...,
-                          "logprobs": [...] when the engine enables them}
+                          "logprobs": [...] when the engine enables them,
+                          "text": ... with a tokenizer}
                       with "stream": true -> NDJSON chunks: {"tokens":
                       [delta...]}* then {"done": true, ...metadata}
   GET  /v1/models     -> model + engine config
@@ -59,10 +61,14 @@ class ServingServer:
         host: str = "127.0.0.1",
         port: int = 0,
         request_timeout_s: float = 120.0,
+        tokenizer=None,
     ):
         self.engine = engine
         self.model_name = model_name
         self.request_timeout_s = request_timeout_s
+        # Optional ``tokenizers.Tokenizer``: /v1/generate then accepts
+        # {"text": ...} and returns the decoded text beside the token ids.
+        self.tokenizer = tokenizer
         self.error = ""                  # set when the engine loop degrades
         self._submissions: "queue.Queue[tuple]" = queue.Queue()
         self._events: Dict[int, threading.Event] = {}
@@ -145,9 +151,15 @@ class ServingServer:
     def _generate(self, req: Request) -> Any:
         tokens = req.body.get("tokens")
         if tokens is None and "text" in req.body:
-            raise RestError(400, "body.text needs a server-side tokenizer, "
-                                 "which this server does not load yet; "
-                                 "send body.tokens")
+            if self.tokenizer is None:
+                raise RestError(
+                    400, "body.text requires a server-side tokenizer "
+                         "(KFTPU_SERVING_TOKENIZER)")
+            if not isinstance(req.body["text"], str):
+                raise RestError(400, "body.text must be a string")
+            tokens = list(self.tokenizer.encode(req.body["text"]).ids)
+            if not tokens:
+                raise RestError(400, "body.text tokenised to nothing")
         if not isinstance(tokens, list) or not all(
             isinstance(t, int) for t in tokens
         ):
@@ -202,6 +214,8 @@ class ServingServer:
         }
         if self.engine.cfg.logprobs:
             out["logprobs"] = res.logprobs
+        if self.tokenizer is not None:
+            out["text"] = self.tokenizer.decode(res.tokens)
         return out
 
     @staticmethod
@@ -256,6 +270,10 @@ class ServingServer:
             "ttft_s": res.ttft_s,
             "latency_s": res.latency_s,
         }
+        if self.tokenizer is not None:
+            # The whole text in the terminal chunk only: decoding each
+            # delta on its own would split multi-token characters.
+            done["text"] = self.tokenizer.decode(res.tokens)
         yield done
 
     def _models(self, req: Request) -> Any:
@@ -327,7 +345,6 @@ def env_config() -> dict:
 #: Env options of the JAX server that later slices of the port take up.
 _LATER_SLICES = (
     ("mesh", "KFTPU_SERVING_MESH", "multi-GPU"),
-    ("tokenizer", "KFTPU_SERVING_TOKENIZER", "tooling"),
 )
 
 
@@ -347,7 +364,9 @@ def build_server(cfg: dict) -> ServingServer:
     decode_chunk``), ``quantize_kv`` ("int8") selects the int8 KV cache
     and ``quantize`` ("int8") int8 weights, which the engine makes from
     the loaded or random ones (``ServingEngine``; any other value raises
-    ValueError)."""
+    ValueError). ``tokenizer`` names a ``tokenizer.json`` (or a directory
+    holding one) that the ``tokenizers`` package loads, imported only
+    here, for the ``{"text": ...}`` surface."""
     for key, env, slice_ in _LATER_SLICES:
         if cfg.get(key):
             raise NotImplementedError(
@@ -394,8 +413,17 @@ def build_server(cfg: dict) -> ServingServer:
     if cfg.get("logprobs"):
         scfg_kw["logprobs"] = True
     engine = ServingEngine(model, ServingConfig(**scfg_kw), device=device)
+    tokenizer = None
+    if cfg.get("tokenizer"):
+        from tokenizers import Tokenizer
+
+        tok_path = cfg["tokenizer"]
+        if os.path.isdir(tok_path):
+            tok_path = os.path.join(tok_path, "tokenizer.json")
+        tokenizer = Tokenizer.from_file(tok_path)
+        log.info("tokenizer loaded", kv={"path": tok_path})
     return ServingServer(engine, model_name=cfg["model"], host=cfg["host"],
-                         port=cfg["port"])
+                         port=cfg["port"], tokenizer=tokenizer)
 
 
 def main() -> int:

@@ -22,7 +22,9 @@ against its plain version (the weight dequantized to bf16, then
 <= 1e-2 * max |plain|. The
 serving engine's CUDA graphs against its eager path (``_eager=True``) on a
 small bf16 model: greedy tokens equal; the paged engine's graphs give
-the dense engine's tokens.
+the dense engine's tokens; the chunked prefill's graph also leaves the
+eager path's cache rows, bitwise, and one graph a sampling variant serves
+every slot and start.
 """
 
 import pytest
@@ -808,7 +810,8 @@ def test_engine_graph_tokens_equal_eager(option):
         eng.decode_dispatches = 0
         got = _serve(eng)
     assert got == want
-    assert {key[0] for key in eng._graphs} == {"decode", "prefill"}
+    # The 50-token prompt's chunked prefill replays the extend's graph.
+    assert {key[0] for key in eng._graphs} == {"decode", "prefill", "extend"}
     # Replays count their captured launches: K1 once per layer per
     # prefill or extend dispatch, K3 once per layer per decode step.
     layers = eng.model.cfg.num_layers
@@ -902,6 +905,112 @@ def test_engine_paged_graph_tokens_equal_dense(option):
     assert decode_attention.launches - k3 == (
         eng.model.cfg.num_layers * eng.cfg.decode_chunk
         * eng.decode_dispatches)
+
+
+# A holder past the largest bucket (32): chunks at 0 and 5 (slid back);
+# then a 50-token prompt opening with the holder's two whole 16-row pages
+# (paged: shared, write_from 32): chunks at 0 and 18.
+EXTEND_HOLDER = list(range(3, 40))
+EXTEND_SHARER = EXTEND_HOLDER[:32] + list(range(100, 118))
+EXTEND_OPTIONS = {
+    "bf16": ("unstaged", {}),
+    "int8_kv": ("int8_staged", {}),
+    "int8_weights": ("staged", {"quantize": "int8",
+                                "quantize_min_size": 1024}),
+    "paged": ("int8_staged", {"paged": 64}),
+}
+
+
+def _slot_rows(eng, slot, n):
+    """Every layer's first ``n`` cache rows of ``slot`` (k/v and the int8
+    scales; a paged engine's gathered through the slot's device table)
+    and its cache_index."""
+    from kubeflow_tpu_torch.ops.paged_attention import gather_kv_pages
+    from kubeflow_tpu_torch.serving.engine import _ROW_LEAVES
+
+    rows = []
+    for layer in eng._cache:
+        got = {"cache_index": layer["cache_index"][slot].clone()}
+        for name in _ROW_LEAVES:
+            if name not in layer:
+                continue
+            if eng._paged:
+                table = eng._tables_device()[slot:slot + 1]
+                got[name] = gather_kv_pages(layer[name], table,
+                                            eng.cfg.kv_block_size)[0, :n]
+            else:
+                got[name] = layer[name][slot, :n].clone()
+        rows.append(got)
+    return rows
+
+
+def _extend_trace(eng):
+    """A short prompt decoding on slot 0, the holder's chunked prefill on
+    slot 1 beside it, then the sharer's on slot 2: the tokens, and both
+    long prompts' cache rows right after their extends."""
+    rids, rows = [eng.submit([5, 6, 7], max_new_tokens=24)], []
+    eng.step()
+    for prompt, slot in ((EXTEND_HOLDER, 1), (EXTEND_SHARER, 2)):
+        rids.append(eng.submit(prompt, max_new_tokens=9))
+        eng._admit()
+        rows.append(_slot_rows(eng, slot, len(prompt)))
+        eng.step()
+    eng.run()
+    return [eng.result(r).tokens for r in rids], rows
+
+
+@pytest.mark.parametrize("option", sorted(EXTEND_OPTIONS))
+def test_engine_extend_graph_equals_eager(option):
+    """The chunked prefill's captured graph against the eager card path:
+    tokens and the long prompts' cache rows bitwise equal, for the bf16
+    and int8 KV caches, int8 weights and the paged pool (the second long
+    prompt shares the first's pages, write_from past its first chunk)."""
+    model_option, kw = EXTEND_OPTIONS[option]
+    with torch.no_grad():
+        want, want_rows = _extend_trace(
+            _small_engine(model_option, eager=True, **kw))
+        eng = _small_engine(model_option, **kw)
+        got, got_rows = _extend_trace(eng)
+    assert got == want
+    for got_slot, want_slot in zip(got_rows, want_rows):
+        for g, w in zip(got_slot, want_slot):
+            assert g.keys() == w.keys()
+            assert all(torch.equal(g[n], w[n]) for n in g)
+    assert [k for k in eng._graphs if k[0] == "extend"] == [
+        ("extend", 32, "greedy")]
+    if option == "paged":
+        assert eng.blocks.shared_refs_total >= 2
+
+
+def test_engine_extend_one_graph_serves_every_slot_and_start():
+    """Warmup captures the extend; long prompts on other slots and starts,
+    greedy, then a restricted sampled one, replay one graph a variant, and
+    the greedy tokens equal eager's: no host value is baked into the
+    capture."""
+    from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+
+    prompts = [([5, 6, 7], 24), (EXTEND_HOLDER, 9), (EXTEND_SHARER, 9),
+               (list(range(60, 130)), 5)]
+    with torch.no_grad():
+        want = _serve(_small_engine("staged", eager=True), prompts)
+        eng = _small_engine("staged")
+        eng.warmup(48)
+        extends = [k for k in eng._graphs if k[0] == "extend"]
+        assert extends == [("extend", 32, "greedy")]
+        k1 = flash_attention.fwd_launches
+        eng.prefill_dispatches = eng.extend_dispatches = 0
+        got = _serve(eng, prompts)
+        assert [k for k in eng._graphs if k[0] == "extend"] == extends
+        assert eng.extend_dispatches == 2 + 2 + 3
+        assert flash_attention.fwd_launches - k1 == (
+            eng.model.cfg.num_layers
+            * (eng.prefill_dispatches + eng.extend_dispatches))
+        sampled = _serve(eng, [(EXTEND_SHARER, 6)], temperature=0.8,
+                         top_k=20, top_p=0.9)
+    assert got == want
+    assert len(sampled[0]) == 6
+    assert sorted(k for k in eng._graphs if k[0] == "extend") == [
+        ("extend", 32, "greedy"), ("extend", 32, "restricted")]
 
 
 # ------------------------------------------------- int8 weights (K4)
