@@ -5,7 +5,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. device — CUDA must be available; prints the card's name and power
    limit as nvidia-smi reports them;
 2. build — compiles the flash-attention kernels (K1, K2), the decode
-   attention (K3) and the int8-weight product (K4) from
+   attention (K3), the int8-weight product (K4), the optimizer (K5),
+   RMSNorm (K6), RoPE (K7) and the cross-entropy (K8) from
    kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one nvcc per source,
    started together, and prints the seconds and each register/spill
    report; then checks the SASS: every bf16 instantiation of K1's kernel
@@ -16,7 +17,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    cp.async (LDGSTS),
    every one of its 6 prefill ones (64, 128 or 256 tokens a tile; per-row
    or per-column scales) wgmma and TMA loads, and ptxas reports no spills
-   in any of the four libraries;
+   in any of the eight libraries;
 3. kernel (K1, forward) — holds the kernel against its plain PyTorch
    version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
    Sq=Skv 32, 128 and 512; one full-attention case; one D=64 case; one
@@ -85,7 +86,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    M <= 16 also each split of K over a cluster (1, 2, 4, 8 blocks); the
    bound max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s), and the sum over
    a decode step's products, launched apart (225) and grouped (129);
-7. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
+7. kernel (K5-K8, the training step's fused element-wise work) — holds
+   each against its plain version on the same inputs: K6 (RMSNorm) at
+   the train step's [24564, 2048] bf16, forward and backward, and at
+   llama3-8b's serving rows [8, 4096] and [4096, 4096], forward; K7 (RoPE
+   of q and k in one launch) at the train step's q [12, 2047, 16, 128], k
+   [12, 2047, 8, 128], forward and backward, and at serving's [8, 1, 32/8,
+   128] and [1, 512, 32/8, 128]: within one bf16 ulp (an element below
+   2^-8 of the largest compared at that scale) and two calls bitwise
+   equal; K8 (the cross-entropy) at [24564, 32000] bf16 logits with the
+   trainer's z-loss: the loss within relative 1e-5, dlogits within 2e-2 x
+   max |plain|, the hits equal, two calls bitwise equal; K5 (the
+   optimizer) over the 700M model's 111 tensors (bf16 params, grads and
+   mu, f32 nu): the norm within relative 1e-6 of an f64 sum and two calls
+   bitwise equal, the update bitwise the plain update given the same norm,
+   clipped and not. Times each (CUDA-graph replays; cold over sets larger
+   than twice the L2 where a call is smaller), its plain version and the
+   library call the port never makes (F.rms_norm, F.cross_entropy without
+   z-loss, torch.optim.AdamW(fused=True) timed eagerly; none for RoPE),
+   beside the byte bound;
+8. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card; staged decode and
    CUDA graphs, as the server runs by default) and sends 9 concurrent
    /v1/generate requests over HTTP across the prefill buckets, one past
@@ -103,7 +123,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    model forms (q/k/v, gate/up) and per other int8 projection (4 a layer
    and the lm_head: 129) per decode step and per grouped prefill or
    extend (launch counts zeroed just before the burst, graph replays
-   counted), and re-forwards two greedy
+   counted; K6 twice a layer and once more, K7 once a layer, per decode
+   step, prefill and extend chunk), and re-forwards two greedy
    requests through the model with the plain attention in f32 and in
    bf16 (for the int8 KV burst with the decode rows' k/v quantized and
    dequantized, as the cache holds them; for the int8-weight burst on the
@@ -118,7 +139,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    K3's kernel launches, which must be one per layer per step: 256, and
    with int8 weights K4's: 129 a step, 1032) and times three more without
    the profiler;
-8. serve paged — builds llama3-8b as ``bench.py serving8b --paged`` does
+9. serve paged — builds llama3-8b as ``bench.py serving8b --paged`` does
    (int8 weights, int8 KV cache, staged decode in chunks of 32, 48 slots,
    max_len 512, a pool of 816 16-row blocks) and the same engine over the
    dense cache, each from seed 0, and runs through each ``run()`` burst
@@ -134,13 +155,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    another prefill group's rows, and only where this run shows a prompt's
    rows from prefill groups of 1 and 48 not bitwise equal; burst (c)
    none), the launch counts of K1, K3 and K4 (zeroed just before each
-   burst; K1 and K4 once per prefill and per extend chunk), shared
+   burst; K1 and K4 once per prefill and per extend chunk; K6 and K7 once
+   per norm and per layer of every forward pass), shared
    references and forks in (b), conservation after each drain and a pool
    smaller than the dense cache; prints tok/s, p50 TTFT, peak memory,
    both caches' bytes, the extend's 128-token chunk eager against
    graphed and a profiled full-batch decode chunk (ms a step, idle
    share);
-9. train — runs the training runner in-process (the KFTPU_* env) on the
+10. train — runs the training runner in-process (the KFTPU_* env) on the
    ~700M-parameter Llama of ``bench.py train`` at full width and depth
    (vocab 32000, embed 2048, 12 layers, 16/8 heads, head_dim 128, MLP
    5632; batch 12 x seq 2048; bf16 params, bf16 Adam mu, bf16 logits;
@@ -148,13 +170,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    5, then again to 12 steps, which resumes from step 10. Checks the loss
    is finite and falls, that K2 ran once per layer per step and K1 twice
    (the forward, and its replay for lse in the backward under
-   "qkv_attn"), counts zeroed just before each run and read just after;
+   "qkv_attn"), and K5-K8 as train_launches_per_step says (K6 49 forward
+   and 25 backward a step, K7 24 and 12, K8 and K5's norm and update one
+   each), counts zeroed just before each run and read just after;
    prints tokens/s, MFU, median synchronised step ms, peak device memory
-   and one profiled step. Then one step's grads of a 2-layer model of the
+   and one profiled step, its device ms by profiler range (forward, loss,
+   backward, grad_norm, optimizer), by autograd node and by op, and each
+   port kernel's share. Then one step's grads of a 2-layer model of the
    same width with attn_impl="flash" against attn_impl="full": each
    parameter's relative error ||g_flash - g_full|| / ||g_full|| within
    GRAD_REL_BOUND;
-10. prints each phase's seconds and the total, the {"kernels": [...]}
+11. prints each phase's seconds and the total, the {"kernels": [...]}
    line (K1's entry at the serving prefill shape, with its training-shape
    ms, SDPA ms and bound under train_ keys and the extend's shapes and
    the gather in front of it under their case names; K2's at the train
@@ -166,11 +192,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    its profiled chunk, the other shapes and the groups under <name>_ keys,
    a decode step's sums under step_apart_ and step_grouped_ keys; K3 by
    table under paged_bf16_ and paged_int8_ keys beside the dense call's
-   dense_ms, and its launches in the paged burst), then the result line.
+   dense_ms, and its launches in the paged burst; K5-K8 at the train
+   step's shapes with their launches over the 10-step run, their device ms
+   in the profiled step under step_ms, backward times under bwd_, K6 and
+   K7 at the serving shapes under decode_ and prefill_), then the result
+   line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -1073,6 +1104,324 @@ def int8_phase():
     return rows, max_err, step
 
 
+# The train step's shapes for the fused kernels (K5-K8).
+TRAIN_ROWS = TRAIN_BATCH * (TRAIN_SEQ - 1)       # 24564 tokens a step
+SERVE_E = 4096                                    # llama3-8b's width
+
+
+def bytes_ms(nbytes: float) -> float:
+    """The least time for moving ``nbytes`` through device memory."""
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def sets_for(call_bytes: float) -> int:
+    """Cache sets whose bytes exceed twice the L2 (1: a call is larger)."""
+    return max(1, int(np.ceil(2 * L2_BYTES / call_bytes)))
+
+
+def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max |got - want| in bf16 ulps of max(|want|, 2^-8 max |want|): the
+    card tests' K6/K7 bound (tests/test_torch_cuda.py::_ulp_ok)."""
+    w = want.float()
+    scale = w.abs().clamp_min(2 ** -8 * float(w.abs().max()))
+    _, e = torch.frexp(scale)
+    ulp = torch.ldexp(torch.ones_like(scale), e - 8)
+    return float(((got.float() - w).abs() / ulp).max())
+
+
+def timed(fn, call_bytes: float, big: bool = False) -> float:
+    """Device ms of ``fn(i)``: cold over sets_for(call_bytes) sets when
+    several are needed, else CUDA-graph replays of one set."""
+    n = sets_for(call_bytes)
+    if n > 1:
+        return cold_ms(fn, n)
+    return device_ms(lambda: fn(0), calls=2 if big else 10,
+                     replays=3 if big else 5)
+
+
+def library_bwd_ms(forward, leaves, cot) -> float:
+    """Device ms of the backward of ``forward(*leaves)`` (a library call
+    the port never makes), grads of a retained graph whose forward ran on
+    the capture stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward(*leaves)
+    return device_ms(lambda: torch.autograd.grad(out, leaves, cot,
+                                                 retain_graph=True),
+                     calls=2, replays=3, side=side)
+
+
+def fused_phase():
+    """K5-K8, the training step's fused element-wise work, against their
+    plain versions on the same inputs: K6 (RMSNorm) and K7 (RoPE) at the
+    train shapes (forward and backward) and at llama3-8b's serving shapes
+    (forward), within one bf16 ulp and two calls bitwise equal; K8 (the
+    cross-entropy) at [24564, 32000] bf16, loss within relative 1e-5,
+    dlogits within 2e-2 x max |plain|, hits equal; K5 (the optimizer) over
+    the 700M model's 111 tensors, bitwise equal to the plain update given
+    the same norm, the norm within relative 1e-6 of an f64 sum. Times each
+    kernel (cold over sets larger than twice the L2 where a call is
+    smaller), its plain version and the library call the port never makes
+    (F.rms_norm, F.cross_entropy, torch.optim.AdamW(fused=True); none for
+    RoPE), beside the byte bound. Returns {kernel: {case: row}}."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
+    from kubeflow_tpu_torch.ops import cross_entropy as ce
+    from kubeflow_tpu_torch.ops import norms, rope
+    from kubeflow_tpu_torch.ops import optimizer as fused
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {"K5": {}, "K6": {}, "K7": {}, "K8": {}}
+
+    # ---- K6: RMSNorm.
+    for case, rows_, E, train in (("train", TRAIN_ROWS, 2048, True),
+                                  ("decode", 8, SERVE_E, False),
+                                  ("prefill", 4096, SERVE_E, False)):
+        call = 2 * rows_ * E * 2
+        xs = [torch.randn(rows_, E, generator=gen, device="cuda").bfloat16()
+              for _ in range(sets_for(call))]
+        w = (1 + 0.1 * torch.randn(E, generator=gen, device="cuda")
+             ).bfloat16()
+        x = xs[0]
+        y, rstd = norms._fwd_kernel(x, w, 1e-6)
+        want, want_r = norms.rms_norm_reference(x, w, eps=1e-6)
+        err = ulps(y, want)
+        if err > 1 or not torch.equal(norms._fwd_kernel(x, w, 1e-6)[0], y):
+            raise AssertionError(f"K6 {case} forward: {err:.2f} ulp or two "
+                                 "calls differ")
+        row = dict(max_abs_err=float((y.float() - want.float()).abs().max()),
+                   ulps=err, rows=rows_, width=E)
+        row["ms"] = timed(lambda i: norms._fwd_kernel(xs[i], w, 1e-6), call,
+                          train)
+        row["plain_ms"] = device_ms(
+            lambda: norms.rms_norm_reference(x, w, eps=1e-6),
+            calls=2 if train else 10, replays=3 if train else 5)
+        row["library_ms"] = timed(
+            lambda i: F.rms_norm(xs[i], (E,), w, 1e-6), call, train)
+        row["bound_ms"] = bytes_ms(call + 2 * E + 4 * rows_)
+        if train:
+            dy = torch.randn(rows_, E, generator=gen, device="cuda").bfloat16()
+            dx, dw = norms._bwd_kernel(x, w, dy, rstd)
+            pdx, pdw = norms.rms_norm_backward_reference(x, w, dy, rstd)
+            berr = max(ulps(dx, pdx), ulps(dw, pdw))
+            again = norms._bwd_kernel(x, w, dy, rstd)
+            if berr > 1 or not (torch.equal(again[0], dx)
+                                and torch.equal(again[1], dw)):
+                raise AssertionError(f"K6 {case} backward: {berr:.2f} ulp "
+                                     "or two calls differ")
+            row["bwd_ulps"] = berr
+            row["bwd_ms"] = device_ms(
+                lambda: norms._bwd_kernel(x, w, dy, rstd), calls=2,
+                replays=3)
+            row["bwd_plain_ms"] = device_ms(
+                lambda: norms.rms_norm_backward_reference(x, w, dy, rstd),
+                calls=2, replays=3)
+            xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+            row["bwd_library_ms"] = library_bwd_ms(
+                lambda a, b: F.rms_norm(a, (E,), b, 1e-6), (xl, wl), dy)
+            row["bwd_bound_ms"] = bytes_ms(3 * rows_ * E * 2 + 4 * E
+                                           + 4 * rows_)
+            del dy, dx, dw, pdx, pdw, again, xl, wl
+        out["K6"][case] = row
+        log(f"K6 {case} [{rows_}, {E}] bf16: {err:.2f} ulp, kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, F.rms_norm "
+            f"{row['library_ms']:.4f}, bound {row['bound_ms']:.5f} (bytes)"
+            + (f"; backward {row['bwd_ulps']:.2f} ulp, kernel "
+               f"{row['bwd_ms']:.4f} ms, plain {row['bwd_plain_ms']:.4f}, "
+               f"F.rms_norm's {row['bwd_library_ms']:.4f}, bound "
+               f"{row['bwd_bound_ms']:.4f}" if train else ""))
+        del xs, x, y, want
+
+    # ---- K7: RoPE of q and k in one launch.
+    cos, sin = rope.rope_frequencies(128, 2048, theta=500000.0,
+                                     device="cuda")
+    for case, (b, s, hq, hk), train in (
+            ("train", (TRAIN_BATCH, TRAIN_SEQ - 1, TRAIN_H, TRAIN_HKV), True),
+            ("decode", (8, 1, H, HKV), False),
+            ("prefill", (1, 512, H, HKV), False)):
+        call = 2 * b * s * (hq + hk) * 128 * 2
+        n = sets_for(call)
+        qs = [torch.randn(b, s, hq, 128, generator=gen,
+                          device="cuda").bfloat16() for _ in range(n)]
+        ks = [torch.randn(b, s, hk, 128, generator=gen,
+                          device="cuda").bfloat16() for _ in range(n)]
+        pos = (torch.arange(s, device="cuda").expand(b, s) if train else
+               torch.randint(0, 1024, (b, s), generator=gen, device="cuda"))
+        q, k = qs[0], ks[0]
+        qo, ko = rope._kernel(q, k, cos, sin, pos, False)
+        pq = rope.rope_reference(q, cos, sin, positions=pos)
+        pk = rope.rope_reference(k, cos, sin, positions=pos)
+        err = max(ulps(qo, pq), ulps(ko, pk))
+        abs_err = max(float((qo.float() - pq.float()).abs().max()),
+                      float((ko.float() - pk.float()).abs().max()))
+        del pq, pk
+        again = rope._kernel(q, k, cos, sin, pos, False)
+        if err > 1 or not (torch.equal(again[0], qo)
+                           and torch.equal(again[1], ko)):
+            raise AssertionError(f"K7 {case}: {err:.2f} ulp or two calls "
+                                 "differ")
+        table = int(pos.clamp(0, 2047).unique().numel()) * 64 * 4 * 2
+        row = dict(max_abs_err=abs_err, ulps=err, library_ms=None,
+                   bound_ms=bytes_ms(call + table + pos.numel() * 8))
+        row["ms"] = timed(lambda i: rope._kernel(qs[i], ks[i], cos, sin, pos,
+                                                 False), call, train)
+
+        def plain():
+            return (rope.rope_reference(q, cos, sin, positions=pos),
+                    rope.rope_reference(k, cos, sin, positions=pos))
+
+        row["plain_ms"] = device_ms(plain, calls=2 if train else 10,
+                                    replays=3 if train else 5)
+        if train:
+            row["bwd_ms"] = device_ms(
+                lambda: rope._kernel(q, k, cos, sin, pos, True), calls=2,
+                replays=3)
+            row["bwd_bound_ms"] = row["bound_ms"]
+        out["K7"][case] = row
+        log(f"K7 {case} q {list(q.shape)} k {list(k.shape)} bf16: "
+            f"{err:.2f} ulp, kernel {row['ms']:.4f} ms"
+            + (f" (backward {row['bwd_ms']:.4f})" if train else "")
+            + f", plain {row['plain_ms']:.4f}, library n/a, bound "
+            f"{row['bound_ms']:.5f} (bytes)")
+        del qs, ks, q, k, qo, ko, again
+
+    # ---- K8: the cross-entropy over the train step's bf16 logits.
+    V = TRAIN_MODEL_KW["vocab_size"]
+    logits = (torch.randn(TRAIN_ROWS, V, generator=gen, device="cuda") * 4
+              ).bfloat16()
+    labels = torch.randint(0, V, (TRAIN_ROWS,), generator=gen,
+                           device="cuda")
+    labels[::7] = logits[::7].float().argmax(-1)
+    zw = 1e-4                                    # the trainer's z-loss
+    sums, logz = ce._fwd_kernel(logits, labels, None, zw, 0.0)
+    want, want_logz = ce.cross_entropy_reference(logits, labels, None, zw,
+                                                 0.0)
+    g = (1.0 / want[1]).reshape(1)
+    d = ce._bwd_kernel(logits, labels, None, logz, g, zw, 0.0)
+    want_d = ce.cross_entropy_backward_reference(logits, labels, None,
+                                                 want_logz, g, zw, 0.0)
+    rel = abs(float(sums[0]) - float(want[0])) / abs(float(want[0]))
+    derr = float((d.float() - want_d.float()).abs().max())
+    dref = float(want_d.float().abs().max())
+    same = (torch.equal(ce._fwd_kernel(logits, labels, None, zw, 0.0)[0],
+                        sums)
+            and torch.equal(ce._bwd_kernel(logits, labels, None, logz, g, zw,
+                                           0.0), d))
+    if rel > 1e-5 or derr > 2e-2 * dref or float(sums[2]) != float(want[2]) \
+            or float(sums[1]) != float(want[1]) or not same:
+        raise AssertionError(f"K8: loss rel {rel:.2e}, dlogits {derr:.3e} "
+                             f"(bound 2e-2 x {dref:.3e}), hits "
+                             f"{float(sums[2])} vs {float(want[2])}, two "
+                             f"calls equal {same}")
+    del want_d
+    nbytes = logits.numel() * 2
+    row = dict(max_abs_err=derr, loss_rel_err=rel,
+               bound_ms=bytes_ms(nbytes + TRAIN_ROWS * 12),
+               bwd_bound_ms=bytes_ms(2 * nbytes + TRAIN_ROWS * 12))
+    row["ms"] = device_ms(lambda: ce._fwd_kernel(logits, labels, None, zw,
+                                                 0.0), calls=2, replays=3)
+    row["bwd_ms"] = device_ms(lambda: ce._bwd_kernel(
+        logits, labels, None, logz, g, zw, 0.0), calls=2, replays=3)
+    row["plain_ms"] = device_ms(lambda: ce.cross_entropy_reference(
+        logits, labels, None, zw, 0.0), calls=1, replays=2)
+    row["bwd_plain_ms"] = device_ms(
+        lambda: ce.cross_entropy_backward_reference(
+            logits, labels, None, logz, g, zw, 0.0), calls=1, replays=2)
+    row["library_ms"] = device_ms(lambda: F.cross_entropy(logits, labels),
+                                  calls=2, replays=3)
+    xl = logits.clone().requires_grad_()
+    row["bwd_library_ms"] = library_bwd_ms(
+        lambda a: F.cross_entropy(a, labels), (xl,), None)
+    out["K8"]["train"] = row
+    log(f"K8 [{TRAIN_ROWS}, {V}] bf16, z-loss {zw}: loss rel err "
+        f"{rel:.2e}, dlogits err {derr:.3e} of {dref:.3e}, hits "
+        f"{int(sums[2])}; kernel forward {row['ms']:.4f} ms, backward "
+        f"{row['bwd_ms']:.4f}; plain {row['plain_ms']:.4f} / "
+        f"{row['bwd_plain_ms']:.4f}; F.cross_entropy (no z-loss) "
+        f"{row['library_ms']:.4f} / {row['bwd_library_ms']:.4f}; bound "
+        f"{row['bound_ms']:.4f} / {row['bwd_bound_ms']:.4f} (bytes)")
+    del logits, labels, logz, d, xl, want
+    torch.cuda.empty_cache()
+
+    # ---- K5: the optimizer over the 700M model's tensors.
+    with torch.device("meta"):
+        shapes = [p.shape for p in Llama(LlamaConfig(
+            **TRAIN_MODEL_KW)).parameters()]
+    params = [(torch.randn(s, generator=gen, device="cuda") * 0.02
+               ).bfloat16() for s in shapes]
+    grads = [(torch.randn(s, generator=gen, device="cuda") * 1e-4
+              ).bfloat16() for s in shapes]
+    mu = [(torch.randn(s, generator=gen, device="cuda") * 1e-5).bfloat16()
+          for s in shapes]
+    nu = [torch.rand(s, generator=gen, device="cuda") * 1e-8 for s in shapes]
+    n = sum(p.numel() for p in params)
+    norm = fused.global_norm(grads)
+    exact = sum(float((t.double() ** 2).sum()) for t in grads) ** 0.5
+    nrel = abs(float(norm) - exact) / exact
+    if nrel > 1e-6 or not torch.equal(fused.global_norm(grads), norm):
+        raise AssertionError(f"K5 norm: rel err {nrel:.2e} against f64, or "
+                             "two calls differ")
+    hyper = fused.Hyper(max_norm=1.0, b1=0.9, b2=0.95, bc1=0.19,
+                        bc2=0.0975, weight_decay=0.1, lr=3e-4)
+    for clip in (1.0, 1e-4):            # not clipped, clipped
+        h = dataclasses.replace(hyper, max_norm=clip)
+        copies = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+        fused.update("adamw", params, grads, mu, nu, norm, h)
+        fused.update_reference("adamw", copies[0], grads, copies[1],
+                               copies[2], norm, h)
+        if not all(torch.equal(a, b) for a, b in zip(
+                params + mu + nu, sum(copies, []))):
+            raise AssertionError(f"K5 update (max_norm {clip}) is not "
+                                 "bitwise the plain update")
+        del copies
+    torch.cuda.empty_cache()
+    row = dict(max_abs_err=0.0, norm_rel_err=nrel, tensors=len(params),
+               params=n, chunks=sum(fused.chunks_of(p.numel())
+                                    for p in params))
+    row["norm_ms"] = device_ms(lambda: fused.global_norm(grads), calls=2,
+                               replays=3)
+    row["update_ms"] = device_ms(lambda: fused.update(
+        "adamw", params, grads, mu, nu, norm, hyper), calls=2, replays=3)
+    row["ms"] = row["norm_ms"] + row["update_ms"]
+    row["plain_ms"] = device_ms(lambda: (
+        fused.global_norm_reference(grads),
+        fused.update_reference("adamw", params, grads, mu, nu, norm,
+                               hyper)), calls=1, replays=2)
+    row["norm_bound_ms"] = bytes_ms(2 * n)
+    row["update_bound_ms"] = bytes_ms(18 * n)
+    row["bound_ms"] = row["norm_bound_ms"] + row["update_bound_ms"]
+    leaves = [p.detach().clone().requires_grad_() for p in params]
+    for leaf, gr in zip(leaves, grads):
+        leaf.grad = gr
+    opt = torch.optim.AdamW(leaves, lr=3e-4, betas=(0.9, 0.95),
+                            weight_decay=0.1, fused=True)
+    row["library_ms"] = eager_ms(opt.step, iters=5, repeats=3)
+    out["K5"]["train"] = row
+    log(f"K5 {len(params)} tensors, {n / 1e6:.1f}M params (bf16 p, g, mu; "
+        f"f32 nu), {row['chunks']} chunks: norm rel err {nrel:.2e}, update "
+        f"bitwise the plain one (clipped and not); kernel norm "
+        f"{row['norm_ms']:.4f} + update {row['update_ms']:.4f} = "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+        f"torch.optim.AdamW(fused=True) step {row['library_ms']:.4f} "
+        f"(eager; no clip, its own eps and bf16 moments), bound "
+        f"{row['norm_bound_ms']:.4f} + {row['update_bound_ms']:.4f} (bytes)")
+    del params, grads, mu, nu, leaves, opt
+    return out
+
+
+def check_norm_rope(k6: int, k7: int, layers: int, passes: int) -> None:
+    """K6 and K7 in the served path: every forward pass of the model (a
+    decode step, a prefill, an extend chunk; graph replays counted) runs
+    the two norms of each layer and the final one (K6) and RoPE once a
+    layer (K7)."""
+    if k6 != (2 * layers + 1) * passes or k7 != layers * passes:
+        raise AssertionError(f"K6 launches {k6}, K7 {k7}: want "
+                             f"{2 * layers + 1} and {layers} x {passes} "
+                             "forward passes")
+
+
 def post(base: str, body: dict):
     req = urllib.request.Request(
         f"{base}/v1/generate", data=json.dumps(body).encode(),
@@ -1210,6 +1559,8 @@ def serve_phase(quantize_kv: str = "", quantize: str = "",
     from kubeflow_tpu_torch.ops.decode_attention import decode_attention
     from kubeflow_tpu_torch.ops.flash_attention import flash_attention
     from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+    from kubeflow_tpu_torch.ops.norms import rms_norm
+    from kubeflow_tpu_torch.ops.rope import apply_rope
     from kubeflow_tpu_torch.serving.server import build_server, env_config
 
     os.environ.update({
@@ -1283,7 +1634,8 @@ def serve_phase(quantize_kv: str = "", quantize: str = "",
 
         torch.cuda.reset_peak_memory_stats()
         flash_attention.fwd_launches = decode_attention.launches = 0
-        int8_linear.launches = 0
+        int8_linear.launches = rms_norm.fwd_launches = 0
+        apply_rope.fwd_launches = 0
         engine.prefill_dispatches = engine.extend_dispatches = 0
         engine.decode_dispatches = 0
         t0 = time.time()
@@ -1295,7 +1647,8 @@ def serve_phase(quantize_kv: str = "", quantize: str = "",
             t.join(timeout=900)
         wall = time.time() - t0
         k1, k3 = flash_attention.fwd_launches, decode_attention.launches
-        k4 = int8_linear.launches
+        k4, k6, k7 = (int8_linear.launches, rms_norm.fwd_launches,
+                      apply_rope.fwd_launches)
         prefills, extends, decodes = (engine.prefill_dispatches,
                                       engine.extend_dispatches,
                                       engine.decode_dispatches)
@@ -1320,6 +1673,8 @@ def serve_phase(quantize_kv: str = "", quantize: str = "",
                 f"K4 launches {k4} != {per_pass} x ({chunk} steps x "
                 f"{decodes} decode + {prefills} prefill + {extends} extend "
                 "dispatches)")
+        check_norm_rope(k6, k7, layers,
+                        chunk * decodes + prefills + extends)
         if extends and ("extend", 512, "greedy") not in engine._graphs:
             raise AssertionError("the chunked prefill ran without its graph")
         generated = sum(len(o["tokens"]) for o in outs)
@@ -1330,12 +1685,14 @@ def serve_phase(quantize_kv: str = "", quantize: str = "",
             f"{ttft_p50 * 1e3:.1f} ms (the 700-token request's "
             f"{ttft_long * 1e3:.1f} ms), {prefills} prefill + {extends} "
             f"extend + {decodes} decode dispatches, K1 launches {k1}, K3 "
-            f"launches {k3}, K4 launches {k4}, peak device memory "
+            f"launches {k3}, K4 launches {k4}, K6 launches {k6}, K7 "
+            f"launches {k7}, peak device memory "
             f"{peak / 1e9:.2f} GB; {len(engine._graphs)} graphs so far; "
             "TTFT ms by prompt length: " + ", ".join(
                 f"{len(b['tokens'])}: {o['ttft_s'] * 1e3:.1f}"
                 for b, o in zip(bodies, outs)))
-        return dict(outs=outs, k1=k1, k3=k3, k4=k4, tok_s=generated / wall,
+        return dict(outs=outs, k1=k1, k3=k3, k4=k4, k6=k6, k7=k7,
+                    tok_s=generated / wall,
                     ttft_p50=ttft_p50, ttft_long=ttft_long, peak=peak)
 
     try:
@@ -1449,13 +1806,16 @@ def paged_burst(engine, name, prompts, sharers=None, new=SP_GEN):
     from kubeflow_tpu_torch.ops.decode_attention import decode_attention
     from kubeflow_tpu_torch.ops.flash_attention import flash_attention
     from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+    from kubeflow_tpu_torch.ops.norms import rms_norm
+    from kubeflow_tpu_torch.ops.rope import apply_rope
 
     blocks = engine.blocks
     refs0, forks0 = blocks.shared_refs_total, blocks.cow_copies_total
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.fwd_launches = decode_attention.launches = 0
-    int8_linear.launches = 0
+    int8_linear.launches = rms_norm.fwd_launches = 0
+    apply_rope.fwd_launches = 0
     engine.prefill_dispatches = engine.extend_dispatches = 0
     engine.decode_dispatches = 0
     t0 = time.perf_counter()
@@ -1464,7 +1824,8 @@ def paged_burst(engine, name, prompts, sharers=None, new=SP_GEN):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k3 = flash_attention.fwd_launches, decode_attention.launches
-    k4 = int8_linear.launches
+    k4, k6, k7 = (int8_linear.launches, rms_norm.fwd_launches,
+                  apply_rope.fwd_launches)
     peak = torch.cuda.max_memory_allocated()
     res = [engine.result(r) for r in rids]
     V = engine.model.cfg.vocab_size
@@ -1485,6 +1846,7 @@ def paged_burst(engine, name, prompts, sharers=None, new=SP_GEN):
         raise AssertionError(f"{name}: K4 launches {k4} != {per_pass} x "
                              f"({SP_CHUNK} x {decodes} + {prefills} + "
                              f"{extends})")
+    check_norm_rope(k6, k7, layers, SP_CHUNK * decodes + prefills + extends)
     if extends and ("extend", SP_PROMPT, "greedy") not in engine._graphs:
         raise AssertionError(f"{name}: the chunked prefill ran without its "
                              "graph")
@@ -1492,7 +1854,8 @@ def paged_burst(engine, name, prompts, sharers=None, new=SP_GEN):
     if blocks.blocks_live:
         raise AssertionError(f"{name}: {blocks.blocks_live} blocks live "
                              "after the drain")
-    out = dict(tokens=[r.tokens for r in res], k1=k1, k3=k3, k4=k4,
+    out = dict(tokens=[r.tokens for r in res], k1=k1, k3=k3, k4=k4, k6=k6,
+               k7=k7,
                tok_s=new * len(res) / wall,
                ttft_p50=float(np.median([r.ttft_s for r in res])),
                peak=peak, prefills=prefills, decodes=decodes,
@@ -1724,6 +2087,16 @@ def decode_breakdown(engine, rs):
         if busy_ms > 0 and k4_launches != want:
             raise AssertionError(f"K4 launched {k4_launches} kernels in the "
                                  f"profiled chunk, want {want}")
+    # K6 and K7 by name (their launch counters, graph replays counted,
+    # are asserted per burst; the profiler has dropped one event of 2080).
+    layers = engine.model.cfg.num_layers
+    for tag, name, per_step in (("K6", "::rmsnorm_fwd", 2 * layers + 1),
+                                ("K7", "::rope_kernel", layers)):
+        own = [e for e in kernels if name in e.key]
+        log(f"  {tag} ({name[2:]}): "
+            f"{sum(e.device_time_total for e in own) / 1e3:.3f} ms over "
+            f"{sum(e.count for e in own)} kernels (launched "
+            f"{per_step * steps})")
     while engine.active_slots:
         engine.step()
     return dict(chunk_wall_ms=wall_ms, chunk_busy_ms=busy_ms, idle=idle,
@@ -1829,6 +2202,34 @@ def _greedy_check(model, bodies, outs, prompt_len):
     return gaps, bounds
 
 
+def fused_counters():
+    """K5-K8's launch counters: (name, object, attribute)."""
+    from kubeflow_tpu_torch.ops import optimizer as fused
+    from kubeflow_tpu_torch.ops.cross_entropy import cross_entropy_sums
+    from kubeflow_tpu_torch.ops.norms import rms_norm
+    from kubeflow_tpu_torch.ops.rope import apply_rope
+
+    return (("K5 norm", fused.global_norm, "launches"),
+            ("K5 update", fused.update, "launches"),
+            ("K6 forward", rms_norm, "fwd_launches"),
+            ("K6 backward", rms_norm, "bwd_launches"),
+            ("K7 forward", apply_rope, "fwd_launches"),
+            ("K7 backward", apply_rope, "bwd_launches"),
+            ("K8 forward", cross_entropy_sums, "fwd_launches"),
+            ("K8 backward", cross_entropy_sums, "bwd_launches"))
+
+
+def train_launches_per_step(layers: int) -> dict:
+    """Each fused kernel's launches a step of the 700M model under remat
+    "qkv_attn": each layer's two norms and the final one in the forward,
+    the layers' norms again in the backward's replays of their segments,
+    RoPE (q and k in one launch) once a layer in each; one backward each;
+    one norm and one update of the optimizer."""
+    return {"K5 norm": 1, "K5 update": 1, "K6 forward": 4 * layers + 1,
+            "K6 backward": 2 * layers + 1, "K7 forward": 2 * layers,
+            "K7 backward": layers, "K8 forward": 1, "K8 backward": 1}
+
+
 def train_phase():
     """The runner on the 700M config: 10 steps with checkpoints, then a
     resume to 12. Returns the first run's stats. Its checkpoints (5.6 GB
@@ -1844,6 +2245,7 @@ def train_phase():
 
 def _train_runs(work: str):
     from kubeflow_tpu_torch.models.llama import LlamaConfig
+    from kubeflow_tpu_torch.ops import optimizer as fused
     from kubeflow_tpu_torch.ops.flash_attention import flash_attention
     from kubeflow_tpu_torch.train import runner
     from kubeflow_tpu_torch.train.checkpoint import CheckpointService
@@ -1887,11 +2289,17 @@ def _train_runs(work: str):
             record["losses"], record["step_ms"] = [], []
             torch.cuda.reset_peak_memory_stats()
             flash_attention.fwd_launches = flash_attention.bwd_launches = 0
+            for _, obj, attr in fused_counters():
+                setattr(obj, attr, 0)
+            builds0 = fused.update.table_builds
             t0 = time.time()
             runner.run(runner.env_config())
             wall = time.time() - t0
             fwd, bwd = (flash_attention.fwd_launches,
                         flash_attention.bwd_launches)
+            fused_n = {name: getattr(obj, attr)
+                       for name, obj, attr in fused_counters()}
+            builds = fused.update.table_builds - builds0
             peak = torch.cuda.max_memory_allocated()
             ran = steps - resumed_from
             losses = record["losses"]
@@ -1910,12 +2318,28 @@ def _train_runs(work: str):
                 raise AssertionError(
                     f"launches over {ran} steps: K1 {fwd} (want "
                     f"{2 * layers * ran}), K2 {bwd} (want {layers * ran})")
+            # K5-K8: every launch the table of launches a step predicts.
+            want = {k: v * ran
+                    for k, v in train_launches_per_step(layers).items()}
+            if fused_n != want:
+                raise AssertionError(f"fused launches over {ran} steps: "
+                                     f"{fused_n}, want {want}")
+            # K5's tables, built at most once for the run's parameter set:
+            # the update's, and the norm's (which holds sizes and dtypes
+            # alone, so an earlier set of the same shapes may have built it).
+            if builds > 2:
+                raise AssertionError(f"K5's tables built {builds} times "
+                                     f"over {ran} steps, want at most 2")
             runs.append(dict(steps=steps, losses=list(losses),
                              step_ms=list(record["step_ms"]), wall=wall,
-                             fwd=fwd, bwd=bwd, peak=peak, report=report))
+                             fwd=fwd, bwd=bwd, fused=fused_n, peak=peak,
+                             report=report))
             log(f"train to step {steps} (from {resumed_from}): losses "
                 + " ".join(f"{x:.4f}" for x in losses)
-                + f"; K1 {fwd} K2 {bwd} launches; runner tokens/s "
+                + f"; K1 {fwd} K2 {bwd} launches; "
+                + ", ".join(f"{k} {v}" for k, v in fused_n.items())
+                + f" (K5's pointer tables built {builds} times)"
+                + "; runner tokens/s "
                 f"{report['tokens_per_sec']:.0f}; wall {wall:.1f} s; peak "
                 f"device memory {peak / 1e9:.2f} GB")
         first = runs[0]
@@ -1939,13 +2363,100 @@ def _train_runs(work: str):
         f"tokens/s, MFU {mfu:.4f} ({train_flops_per_token(cfg, TRAIN_SEQ)}"
         f" FLOP/token), peak device memory {first['peak'] / 1e9:.2f} GB; "
         f"resumed from step 10 to 12; checkpoints {saved}")
-    train_breakdown(trainer, state, batch)
-    return dict(first, step_ms_median=step_ms, tok_s=tok_s, mfu=mfu)
+    breakdown = train_breakdown(trainer, state, batch)
+    return dict(first, step_ms_median=step_ms, tok_s=tok_s, mfu=mfu,
+                breakdown=breakdown)
+
+
+#: The port's kernels in a train step, by the names of their device kernels.
+TRAIN_KERNELS = {
+    "K1": ("flash_fwd",), "K2": ("flash_bwd",),
+    "K5": ("::norm_partial", "::norm_final", "::update<"),
+    "K6": ("::rmsnorm_fwd", "::rmsnorm_bwd", "::rmsnorm_dw"),
+    "K7": ("::rope_kernel",), "K8": ("::ce_fwd", "::ce_sum", "::ce_bwd")}
+#: The profiler ranges ``Trainer.step`` opens (record_function).
+TRAIN_RANGES = ("forward", "loss", "backward", "grad_norm", "optimizer")
+NODE_PREFIX = "autograd::engine::evaluate_function: "
+
+
+def _is_kernel(e) -> bool:
+    """A device kernel event, not a record_function range's device span."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+
+def attribute(events, ranges=TRAIN_RANGES):
+    """Device ms of a profiled step by range, by autograd node and by op.
+
+    Each device kernel is linked by the profiler to the innermost CPU
+    event that launched it (``FunctionEvent.kernels``). That event is
+    assigned to the range whose CPU interval holds its start, on any
+    thread (the backward's nodes run on autograd's device thread while
+    the "backward" range is open on the main one), and to the innermost
+    ``evaluate_function`` node on its own thread that holds its start.
+    The CUDA runtime's "Command Buffer Full" stalls are linked to the
+    kernels they delayed, which their launching ops also own, so they are
+    skipped. Returns (by range, by node, by op within each range), in ms."""
+    cpu = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and not e.name.startswith("Command Buffer Full")]
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in cpu
+             if e.name in ranges]
+    nodes = {}
+    for e in cpu:
+        if e.name.startswith(NODE_PREFIX):
+            nodes.setdefault(e.thread, []).append(
+                (e.time_range.start, e.time_range.end,
+                 e.name[len(NODE_PREFIX):]))
+    by_range, by_node, by_op = {}, {}, {}
+    for e in cpu:
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        if ms <= 0:
+            continue
+        t = e.time_range.start
+        rng = next((n for a, b, n in spans if a <= t <= b), "other")
+        by_range[rng] = by_range.get(rng, 0.0) + ms
+        inner = [(a, n) for a, b, n in nodes.get(e.thread, ())
+                 if a <= t <= b]
+        if e.name.startswith(NODE_PREFIX):
+            node = e.name[len(NODE_PREFIX):]
+        elif inner:
+            node = max(inner)[1]
+        else:
+            node = None
+        if node is not None:
+            by_node[node] = by_node.get(node, 0.0) + ms
+        ops = by_op.setdefault(rng, {})
+        ops[e.name] = ops.get(e.name, 0.0) + ms
+    return by_range, by_node, by_op
+
+
+def range_spans(events, ranges=TRAIN_RANGES) -> dict:
+    """Device ms of the kernels inside each range's device-side span (the
+    profiler's device annotation of a record_function range), by kernel
+    start: it also counts kernels no CPU op claims, as K5's, which ctypes
+    launches under the grad_norm and optimizer ranges. Empty when the
+    profiler records no device spans."""
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in dev
+             if getattr(e, "is_user_annotation", False) and e.name in ranges]
+    out = {}
+    for e in dev:
+        if getattr(e, "is_user_annotation", False):
+            continue
+        t = e.time_range.start
+        rng = next((n for a, b, n in spans if a <= t <= b), None)
+        if rng is not None:
+            out[rng] = out.get(rng, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
 
 
 def train_breakdown(trainer, state, batch):
     """One train step under torch.profiler: wall time, device busy time
-    (the sum of the device kernels' own times), idle share, top kernels."""
+    (the sum of the device kernels' own times), idle share, top kernels,
+    and the device ms attributed by range, autograd node and op
+    (``attribute``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1954,8 +2465,7 @@ def train_breakdown(trainer, state, batch):
         trainer.step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if _is_kernel(e)]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     log(f"train step profiled: wall {wall_ms:.2f} ms, device busy "
         + (f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}"
@@ -1963,11 +2473,32 @@ def train_breakdown(trainer, state, batch):
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:10]:
         log(f"  {e.key[:70]}: {e.device_time_total / 1e3:.2f} ms over "
             f"{e.count} calls")
-    for name in ("flash_fwd", "flash_bwd"):       # K1, K2: the ports' share
-        own = [e for e in kernels if name in e.key]
-        log(f"  {name}* (all instantiations): "
-            f"{sum(e.device_time_total for e in own) / 1e3:.2f} ms over "
-            f"{sum(e.count for e in own)} calls")
+    by_kernel = {}
+    for tag, names in TRAIN_KERNELS.items():      # the port's kernels' share
+        own = [e for e in kernels if any(n in e.key for n in names)]
+        by_kernel[tag] = (sum(e.device_time_total for e in own) / 1e3,
+                          sum(e.count for e in own))
+        log(f"  {tag} ({'/'.join(names)}*): {by_kernel[tag][0]:.2f} ms over "
+            f"{by_kernel[tag][1]} kernels")
+    by_range, by_node, by_op = attribute(prof.events())
+    by_span = range_spans(prof.events())
+    log("  device ms by range: " + ", ".join(
+        f"{k} {by_range.get(k, 0.0):.2f}" for k in TRAIN_RANGES + ("other",))
+        + f" (sum {sum(by_range.values()):.2f} of busy {busy_ms:.2f}; "
+        f"the rest launched by no CPU op)")
+    log("  device ms by range's device span: " + (", ".join(
+        f"{k} {by_span.get(k, 0.0):.2f}" for k in TRAIN_RANGES)
+        if by_span else "not measured (no device spans)"))
+    log("  device ms by backward node: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(by_node.items(),
+                                          key=lambda kv: -kv[1])[:16]))
+    for rng in TRAIN_RANGES:
+        ops = by_op.get(rng, {})
+        log(f"  {rng} by op: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(ops.items(),
+                                              key=lambda kv: -kv[1])[:12]))
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, by_range=by_range,
+                by_span=by_span, by_node=by_node, by_kernel=by_kernel)
 
 
 def grad_check():
@@ -2028,7 +2559,8 @@ def main() -> int:
 
     t_start = t0 = time.time()
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-               "decode_attention.cu", "int8_linear.cu")
+               "decode_attention.cu", "int8_linear.cu", "optimizer.cu",
+               "rms_norm.cu", "rope.cu", "cross_entropy.cu")
     with ThreadPoolExecutor(len(sources)) as pool:     # one nvcc each
         libs = dict(zip(sources, pool.map(_build.build, sources)))
     log(f"build: {', '.join(sources)} in {time.time() - t0:.1f} s")
@@ -2056,6 +2588,9 @@ def main() -> int:
     check_build(libs["int8_linear.cu"], {"int8_linear_decode": 4},
                 required=("HMMA", "LDGSTS"))
     check_build(libs["int8_linear.cu"], {"int8_linear_prefill": 6})
+    # K5-K8: element-wise and row kernels (no tensor cores); no spills.
+    for src in sources[4:]:
+        check_build(libs[src], {})
     seconds = {"build": time.time() - t0}
 
     def phase(name, fn, *args):
@@ -2071,6 +2606,7 @@ def main() -> int:
     bwd_rows, bwd_err = phase("K2", backward_phase)
     dec_rows, dec_long, dec_paged, dec_err = phase("K3", decode_phase)
     k4_rows, k4_err, k4_step = phase("K4", int8_phase)
+    fused_rows = phase("K5-K8", fused_phase)
     serve = phase("serve bf16", serve_phase, "", "", True)
     serve_int8 = phase("serve int8 KV", serve_phase, "int8")
     serve_w8 = phase("serve int8 weights", serve_phase, "", "int8")
@@ -2182,7 +2718,44 @@ def main() -> int:
             k4.update({f"{case}_{key}": row[key]
                        for key in ("ms", "warm_ms", "plain_ms", "bound_ms",
                                    "library_ms")})
-    print(json.dumps({"kernels": [fwd, bwd, k3, k4]}), flush=True)
+    # K5-K8 at the train step's shapes; launches over the 10-step run;
+    # their device ms in the profiled step under step_ms; K6 and K7 at the
+    # serving shapes under decode_ and prefill_, with the bf16 burst's
+    # launches (graph replays counted).
+    tf, step_k = train["fused"], train["breakdown"]["by_kernel"]
+
+    def fused_entry(tag, name, source, replaces, launches, row):
+        e = {"name": name, "route": "cuda",
+             "source": f"kubeflow_tpu_torch/ops/csrc/{source}",
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": "bytes", "library_ms": row["library_ms"],
+             "step_ms": step_k[tag][0], "step_kernels": step_k[tag][1]}
+        e.update({key: v for key, v in row.items() if key not in e})
+        return e
+
+    k5 = fused_entry("K5", "optimizer_update", "optimizer.cu",
+                     "kubeflow_tpu/train/trainer.py:132",
+                     tf["K5 norm"] + tf["K5 update"], fused_rows["K5"]["train"])
+    k6 = fused_entry("K6", "rms_norm", "rms_norm.cu",
+                     "kubeflow_tpu/ops/norms.py:9",
+                     tf["K6 forward"] + tf["K6 backward"],
+                     fused_rows["K6"]["train"])
+    k7 = fused_entry("K7", "rope", "rope.cu", "kubeflow_tpu/ops/rope.py:21",
+                     tf["K7 forward"] + tf["K7 backward"],
+                     fused_rows["K7"]["train"])
+    for k, tag in ((k6, "K6"), (k7, "K7")):
+        for case in ("decode", "prefill"):
+            k.update({f"{case}_{key}": v for key, v in
+                      fused_rows[tag][case].items()})
+    k6["serve_launches"], k7["serve_launches"] = serve["k6"], serve["k7"]
+    k8 = fused_entry("K8", "cross_entropy", "cross_entropy.cu",
+                     "kubeflow_tpu/train/losses.py:11",
+                     tf["K8 forward"] + tf["K8 backward"],
+                     fused_rows["K8"]["train"])
+    print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k7, k8]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

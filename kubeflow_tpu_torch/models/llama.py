@@ -71,7 +71,7 @@ from kubeflow_tpu_torch.ops.paged_attention import (
     pool_shape,
     scatter_kv_rows,
 )
-from kubeflow_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from kubeflow_tpu_torch.ops.rope import apply_rope_qk, rope_frequencies
 
 LayerCache = Dict[str, torch.Tensor]
 DtypeLike = Union[str, torch.dtype]
@@ -354,8 +354,8 @@ class Attention(nn.Module):
         q = q.view(B, S, cfg.num_heads, cfg.head_dim)
         k = k.view(B, S, cfg.num_kv_heads, cfg.head_dim)
         v = v.view(B, S, cfg.num_kv_heads, cfg.head_dim)
-        return (apply_rope(q, cos, sin, positions=positions),
-                apply_rope(k, cos, sin, positions=positions), v)
+        q, k = apply_rope_qk(q, k, cos, sin, positions=positions)
+        return q, k, v
 
     @staticmethod
     def attend(q, k, v, attn_impl: str = "flash") -> torch.Tensor:

@@ -1,14 +1,191 @@
-"""Normalisation ops (f32 statistics regardless of activation dtype)."""
+"""RMSNorm: the CUDA kernel (K6) and its plain PyTorch version (f32
+statistics regardless of activation dtype).
+
+:func:`rms_norm` is a ``torch.autograd.Function`` whose forward saves the
+row statistic ``rstd`` [rows] f32 and whose backward is written out from
+the formulas (:func:`rms_norm_backward_reference`), not replayed op by op.
+It dispatches on where x lives:
+
+- CUDA tensors launch ``ops/csrc/rms_norm.cu``, built at first use by
+  ``ops/_build.py``, or raise: x and the weight bf16 or f32, contiguous,
+  16-byte aligned, the width a multiple of 8 up to
+  :data:`MAX_WIDTH`. One launch a forward (a block a row), two a backward
+  (dx and per-block dw partials, then their fixed-order sum), on the
+  current stream, capture-safe and deterministic.
+- CPU tensors take the plain pair (:func:`rms_norm_reference`,
+  :func:`rms_norm_backward_reference`), which is also what the card holds
+  the kernel against.
+
+Each forward launch adds one to ``rms_norm.fwd_launches``, each backward
+launch to ``rms_norm.bwd_launches``.
+"""
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import Tuple
+
 import torch
+
+_SOURCE = "rms_norm.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The widest row the kernel takes (8 elements x 256 threads x 4 chunks).
+MAX_WIDTH = 8192
+
+
+def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor, *,
+                       eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, rstd): RMSNorm over the last dim in plain PyTorch; rstd = 1 /
+    sqrt(mean(x^2) + eps) [...] f32, y = (x rstd) weight in f32, cast once
+    to x.dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    rstd = 1.0 / torch.sqrt(var + eps)
+    y = (xf * rstd * weight.float()).to(x.dtype)
+    return y, rstd[..., 0]
+
+
+def rms_norm_backward_reference(
+    x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+    rstd: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dweight) of :func:`rms_norm_reference`, from the formulas: with
+    n = x rstd and g = dy weight (f32), dx = rstd (g - n mean(g n)) in x's
+    dtype, dweight = sum over rows of dy n in weight's dtype."""
+    r = rstd[..., None]
+    n = x.float() * r
+    dyf = dy.float()
+    g = dyf * weight.float()
+    dot = torch.mean(g * n, dim=-1, keepdim=True)
+    dx = (r * (g - n * dot)).to(x.dtype)
+    dw = (dyf * n).reshape(-1, x.shape[-1]).sum(0).to(weight.dtype)
+    return dx, dw
+
+
+def bind(lib: ctypes.CDLL):
+    """K6's C entry points (forward, backward) with their signatures."""
+    fwd = lib.kftpu_rms_norm_fwd
+    fwd.restype = ctypes.c_int
+    fwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_void_p])
+    bwd = lib.kftpu_rms_norm_bwd
+    bwd.restype = ctypes.c_int
+    bwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
+    return fwd, bwd
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    from kubeflow_tpu_torch.ops._build import load_library
+
+    return bind(load_library(_SOURCE))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type in ("cuda", "cpu"):
+        return x.device.type == "cuda"
+    raise ValueError(f"rms_norm runs on cuda (kernel) or cpu (plain "
+                     f"version), not {x.device}")
+
+
+def _check(x: torch.Tensor, weight: torch.Tensor) -> None:
+    E = x.shape[-1]
+    if x.dtype not in _DTYPES or weight.dtype not in _DTYPES:
+        raise ValueError(f"rms_norm kernel takes bf16 or f32 x and weight, "
+                         f"got {x.dtype} and {weight.dtype}")
+    if weight.device != x.device or weight.shape != (E,):
+        raise ValueError(f"weight {tuple(weight.shape)} on {weight.device} "
+                         f"does not match x [..., {E}] on {x.device}")
+    if E % 8 or E > MAX_WIDTH or x.numel() == 0:
+        raise ValueError(f"rms_norm kernel takes a width that is a multiple "
+                         f"of 8 up to {MAX_WIDTH} and a non-empty x, got "
+                         f"{tuple(x.shape)}")
+    for name, t in (("x", x), ("weight", weight)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"rms_norm kernel takes a contiguous, 16-byte "
+                             f"aligned {name}")
+
+
+def _fwd_kernel(x: torch.Tensor, weight: torch.Tensor,
+                eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check(x, weight)
+    E = x.shape[-1]
+    rows = x.numel() // E
+    y = torch.empty_like(x)
+    rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _kernel_fns()[0](_DTYPES[x.dtype], _DTYPES[weight.dtype],
+                              x.data_ptr(), weight.data_ptr(), y.data_ptr(),
+                              rstd.data_ptr(), rows, E, float(eps), stream)
+    if rc != 0:
+        raise RuntimeError(f"rms_norm forward launch failed: CUDA error {rc} "
+                           f"(x {tuple(x.shape)} {x.dtype})")
+    rms_norm.fwd_launches += 1
+    return y, rstd
+
+
+def _bwd_kernel(x, weight, dy, rstd) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check(x, weight)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    dy = dy.contiguous()
+    E = x.shape[-1]
+    rows = x.numel() // E
+    blocks = min(rows, 4 * _sm_count(x.device.index or 0))
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(weight)
+    partial = torch.empty((blocks, E), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _kernel_fns()[1](_DTYPES[x.dtype], _DTYPES[weight.dtype],
+                              x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
+                              rstd.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                              partial.data_ptr(), rows, E, blocks, stream)
+    if rc != 0:
+        raise RuntimeError(f"rms_norm backward launch failed: CUDA error "
+                           f"{rc} (x {tuple(x.shape)} {x.dtype})")
+    rms_norm.bwd_launches += 1
+    return dx, dw
+
+
+class _RMSNorm(torch.autograd.Function):
+    """y of (x, weight); saves x, weight and rstd."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        if _on_card(x):
+            y, rstd = _fwd_kernel(x, weight, eps)
+        else:
+            y, rstd = rms_norm_reference(x, weight, eps=eps)
+        ctx.save_for_backward(x, weight, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, rstd = ctx.saved_tensors
+        if _on_card(x):
+            dx, dw = _bwd_kernel(x, weight, dy, rstd)
+        else:
+            dx, dw = rms_norm_backward_reference(x, weight, dy, rstd)
+        return dx, dw, None
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim; stats in f32, output in x.dtype."""
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    normed = xf * torch.rsqrt(var + eps)
-    return (normed * weight.float()).to(x.dtype)
+    return _RMSNorm.apply(x, weight, eps)
+
+
+rms_norm.fwd_launches = 0
+rms_norm.bwd_launches = 0

@@ -1,10 +1,36 @@
-"""Rotary position embeddings (split-half convention, Llama-style)."""
+"""Rotary position embeddings (split-half convention, Llama-style): the CUDA
+kernel (K7) and its plain PyTorch version.
+
+:func:`apply_rope_qk` rotates q and k in one call and :func:`apply_rope`
+one tensor, both through a ``torch.autograd.Function`` whose backward is
+the inverse rotation (the transpose of a rotation), written out rather
+than replayed op by op. They dispatch on where the tensors live:
+
+- CUDA tensors launch ``ops/csrc/rope.cu``, built at first use by
+  ``ops/_build.py``, or raise: q and k bf16 or f32 of one dtype, head dim
+  a multiple of 16 and contiguous, every row 16-byte aligned (views of a
+  fused projection are read in place); positions int32 or int64; cos and
+  sin f32 [L, D/2]. One launch a call for q and k together, forward or
+  backward, on the current stream and capture-safe (the positions are
+  read and clamped on the device).
+- CPU tensors take :func:`rope_reference`, which is also what the card
+  holds the kernel against; kernel and plain version round alike, so
+  they agree bitwise.
+
+Each forward launch adds one to ``apply_rope.fwd_launches``, each backward
+launch to ``apply_rope.bwd_launches``.
+"""
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
+
+_SOURCE = "rope.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def rope_frequencies(
@@ -21,23 +47,175 @@ def rope_frequencies(
     return torch.cos(freqs), torch.sin(freqs)
 
 
+def _positions(x: torch.Tensor, positions: Optional[torch.Tensor]):
+    B, S = x.shape[:2]
+    if positions is None:
+        return torch.arange(S, device=x.device).expand(B, S)
+    return positions
+
+
+def rope_reference(
+    x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
+    positions: Optional[torch.Tensor] = None, inverse: bool = False,
+) -> torch.Tensor:
+    """x: [B, S, H, D] rotated by its positions [B, S] (arange when None),
+    in plain PyTorch; ``inverse`` rotates by minus the angle (the
+    backward). Positions past the table are CLAMPED to its last row, as a
+    JAX gather clamps them: the serving engine's chained decode dispatches
+    feed speculative positions past max_len, and an unclamped index on a
+    CUDA tensor is a device-side assert that kills the process."""
+    positions = _positions(x, positions).long().clamp(0, cos.shape[0] - 1)
+    c = cos[positions][:, :, None, :]          # [B, S, 1, D/2]
+    s = sin[positions][:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    if inverse:
+        out = torch.cat([x1 * c + x2 * s, x2 * c - x1 * s], dim=-1)
+    else:
+        out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def bind(lib: ctypes.CDLL):
+    """K7's C entry point with its ctypes signature."""
+    fn = lib.kftpu_rope
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+                   + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    from kubeflow_tpu_torch.ops._build import load_library
+
+    return bind(load_library(_SOURCE))
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type in ("cuda", "cpu"):
+        return x.device.type == "cuda"
+    raise ValueError(f"apply_rope runs on cuda (kernel) or cpu (plain "
+                     f"version), not {x.device}")
+
+
+def _check(q, k, cos, sin, positions) -> None:
+    if q.dim() != 4 or q.dtype not in _DTYPES:
+        raise ValueError(f"apply_rope kernel takes bf16 or f32 [B, S, H, D], "
+                         f"got {tuple(q.shape)} {q.dtype}")
+    B, S, _, D = q.shape
+    if D % 16 or cos.shape != (cos.shape[0], D // 2) \
+            or sin.shape != cos.shape:
+        raise ValueError(f"apply_rope kernel takes a head dim that is a "
+                         f"multiple of 16 and cos, sin [L, D/2]; got D {D}, "
+                         f"cos {tuple(cos.shape)}, sin {tuple(sin.shape)}")
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t.dtype != torch.float32 or t.device != q.device \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous f32 on {q.device}")
+    if positions.shape != (B, S) or positions.device != q.device \
+            or positions.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"positions must be int32 or int64 [{B}, {S}] on "
+                         f"{q.device}, got {tuple(positions.shape)} "
+                         f"{positions.dtype}")
+    per = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k)):
+        if t is None:
+            continue
+        if t.dim() != 4 or t.shape[:2] != (B, S) or t.shape[3] != D \
+                or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} does not "
+                             f"match q {tuple(q.shape)} {q.dtype}")
+        if t.stride(3) != 1 or t.data_ptr() % 16 \
+                or any(st % per for st in t.stride()[:3]):
+            raise ValueError(f"{name}'s head dim must be contiguous and its "
+                             f"rows 16-byte aligned")
+
+
+def _kernel(q, k, cos, sin, positions, inverse: bool):
+    _check(q, k, cos, sin, positions)
+    B, S, Hq, D = q.shape
+    Hk = 0 if k is None else k.shape[2]
+    qo = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ko = None if k is None else torch.empty(k.shape, dtype=k.dtype,
+                                            device=k.device)
+    ks = (0, 0, 0) if k is None else k.stride()[:3]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _kernel_fn()(
+            _DTYPES[q.dtype], int(positions.dtype == torch.int64),
+            int(inverse), q.data_ptr(), 0 if k is None else k.data_ptr(),
+            qo.data_ptr(), 0 if ko is None else ko.data_ptr(),
+            B, S, Hq, Hk, D, *q.stride()[:3], *ks, positions.data_ptr(),
+            *positions.stride(), cos.data_ptr(), sin.data_ptr(),
+            cos.shape[0], stream)
+    if rc != 0:
+        raise RuntimeError(f"apply_rope launch failed: CUDA error {rc} "
+                           f"(q {tuple(q.shape)} {q.dtype})")
+    if inverse:
+        apply_rope.bwd_launches += 1
+    else:
+        apply_rope.fwd_launches += 1
+    return qo, ko
+
+
+def _kernel_layout(g: torch.Tensor) -> torch.Tensor:
+    """An incoming gradient as the kernel reads it: itself when its head
+    dim is contiguous and its rows 16-byte aligned (the flash backward's
+    grads are), else a contiguous copy (the plain attention's dk comes
+    transposed out of its product)."""
+    per = 16 // g.element_size()
+    if g.device.type == "cuda" and (
+            g.stride(3) != 1 or g.data_ptr() % 16
+            or any(st % per for st in g.stride()[:3])):
+        return g.contiguous()
+    return g
+
+
+def _rotate(q, k, cos, sin, positions, inverse: bool):
+    if _on_card(q):
+        return _kernel(q, k, cos, sin, positions, inverse)
+    rot = functools.partial(rope_reference, cos=cos, sin=sin,
+                            positions=positions, inverse=inverse)
+    return rot(q), None if k is None else rot(k)
+
+
+class _RoPE(torch.autograd.Function):
+    """q' of q, or (q', k') of (q, k) when k is given. Saves the tables and
+    the positions."""
+
+    @staticmethod
+    def forward(ctx, q, k, cos, sin, positions):
+        ctx.save_for_backward(cos, sin, positions)
+        qo, ko = _rotate(q, k, cos, sin, positions, inverse=False)
+        return qo if k is None else (qo, ko)
+
+    @staticmethod
+    def backward(ctx, dq, dk=None):
+        cos, sin, positions = ctx.saved_tensors
+        dq, dk = (None if g is None else _kernel_layout(g) for g in (dq, dk))
+        gq, gk = _rotate(dq, dk, cos, sin, positions, inverse=True)
+        return gq, gk, None, None, None
+
+
+def apply_rope_qk(
+    q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+    *, positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [B, S, H, D] and k [B, S, Hkv, D] rotated by the same positions
+    [B, S] (arange when None), in one kernel launch on the card."""
+    return _RoPE.apply(q, k, cos, sin, _positions(q, positions))
+
+
 def apply_rope(
     x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
     positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """x: [B, S, H, D]. positions: [B, S] absolute positions (defaults to
-    arange).
+    arange), clamped to the table (see :func:`rope_reference`)."""
+    return _RoPE.apply(x, None, cos, sin, _positions(x, positions))
 
-    Positions past the table are CLAMPED to its last row, as a JAX gather
-    clamps them: the serving engine's chained decode dispatches feed
-    speculative positions past max_len, and an unclamped index on a CUDA
-    tensor is a device-side assert that kills the process."""
-    B, S, H, D = x.shape
-    if positions is None:
-        positions = torch.arange(S, device=x.device).expand(B, S)
-    positions = positions.long().clamp(0, cos.shape[0] - 1)
-    c = cos[positions][:, :, None, :]          # [B, S, 1, D/2]
-    s = sin[positions][:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
-    return out.to(x.dtype)
+
+apply_rope.fwd_launches = 0
+apply_rope.bwd_launches = 0

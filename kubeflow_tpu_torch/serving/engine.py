@@ -71,12 +71,14 @@ from kubeflow_tpu_torch.models.llama import (
 from kubeflow_tpu_torch.ops.decode_attention import decode_attention
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.paged_attention import (
     copy_block,
     physical_rows,
     scatter_kv_rows,
     scratch_block_id,
 )
+from kubeflow_tpu_torch.ops.rope import apply_rope
 from kubeflow_tpu_torch.serving.blocks import (
     BlocksExhausted,
     KVBlockAllocator,
@@ -201,11 +203,14 @@ class _Slot:
 
 
 #: The Python launch counters of the kernels a captured step holds
-#: (K1's forward, K3, K4): a replay launches without running Python, so each
-#: graph counts its captured launches once and adds them per replay.
+#: (K1's forward, K3, K4, K6's and K7's forwards): a replay launches
+#: without running Python, so each graph counts its captured launches once
+#: and adds them per replay.
 _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
                     (decode_attention, "launches"),
-                    (int8_linear, "launches"))
+                    (int8_linear, "launches"),
+                    (rms_norm, "fwd_launches"),
+                    (apply_rope, "fwd_launches"))
 
 
 def _launch_counts() -> List[int]:

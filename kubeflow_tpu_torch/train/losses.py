@@ -9,6 +9,30 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from kubeflow_tpu_torch.ops.cross_entropy import cross_entropy_sums
+
+
+def cross_entropy_stats(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    *,
+    mask: Optional[torch.Tensor] = None,
+    z_loss_weight: float = 0.0,
+    label_smoothing: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean loss over unmasked positions, unmasked count, unmasked argmax
+    hits) of logits [..., V] (any float dtype; statistics in f32) and
+    labels [...] int, in one pass over the logits (K8 on the card, see
+    ``ops/cross_entropy.py``): ``hits / count`` is
+    :func:`softmax_accuracy`."""
+    V = logits.shape[-1]
+    s_nll, s_w, s_hit = cross_entropy_sums(
+        logits.reshape(-1, V), labels,
+        None if mask is None else mask.float(),
+        z_loss_weight=z_loss_weight, label_smoothing=label_smoothing)
+    count = s_w.clamp_min(1.0)
+    return s_nll / count, count, s_hit
+
 
 def cross_entropy_loss(
     logits: torch.Tensor,
@@ -23,34 +47,18 @@ def cross_entropy_loss(
     Returns (mean loss over unmasked positions, total unmasked count).
     z-loss (PaLM §B.4) adds ``z_loss_weight * logz**2`` per position, which
     keeps bf16 logits from drifting."""
-    logits = logits.float()
-    V = logits.shape[-1]
-    logz = torch.logsumexp(logits, dim=-1)
-    label_logits = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - label_logits
-    if label_smoothing > 0.0:
-        smooth = -(F.log_softmax(logits, dim=-1).sum(-1) / V)
-        nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
-    if z_loss_weight > 0.0:
-        nll = nll + z_loss_weight * logz.square()
-    if mask is not None:
-        mask = mask.float()
-        count = mask.sum().clamp_min(1.0)
-        return (nll * mask).sum() / count, count
-    count = torch.tensor(float(nll.numel()), device=nll.device)
-    return nll.mean(), count
+    loss, count, _ = cross_entropy_stats(
+        logits, labels, mask=mask, z_loss_weight=z_loss_weight,
+        label_smoothing=label_smoothing)
+    return loss, count
 
 
 def _block_stats(h, kernel, y, w, z_loss_weight: float):
     """(sum nll, sum weight, sum hits) of one block of tokens: its
-    [block, V] logits in f32 are made, reduced and dropped."""
-    logits = F.linear(h, kernel.to(h.dtype)).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    nll = logz - torch.gather(logits, -1, y[:, None])[:, 0]
-    if z_loss_weight > 0.0:
-        nll = nll + z_loss_weight * logz.square()
-    hits = (logits.argmax(-1) == y).float()
-    return (nll * w).sum(), w.sum(), (hits * w).sum()
+    [block, V] logits are made, reduced (K8 on the card, statistics in f32)
+    and dropped."""
+    logits = F.linear(h, kernel.to(h.dtype))
+    return cross_entropy_sums(logits, y, w, z_loss_weight=z_loss_weight)
 
 
 def chunked_cross_entropy(

@@ -18,9 +18,10 @@ indexes steps and clips differently):
   its f32 value before the cast, and ``p + u`` is formed in f32 and cast
   back to p's dtype.
 
-The port updates the model's parameters IN PLACE, one tensor at a time (no
-second copy of the parameters or of the updates is held), and its
-optimizer state is a dict of tensors. Unlike the JAX trainer there is no
+The port updates the model's parameters IN PLACE (no second copy of the
+parameters or of the updates is held): on the card every tensor in one
+launch of K5 after one launch for the norm (``ops/optimizer.py``), on the
+CPU tensor by tensor. Its optimizer state is a dict of tensors. Unlike the JAX trainer there is no
 mesh: one process, one device.
 """
 
@@ -31,11 +32,12 @@ import math
 from typing import Any, Callable, Dict, Iterable, Tuple
 
 import torch
+from torch.profiler import record_function
 
+from kubeflow_tpu_torch.ops import optimizer as fused
 from kubeflow_tpu_torch.train.losses import (
     chunked_cross_entropy,
-    cross_entropy_loss,
-    softmax_accuracy,
+    cross_entropy_stats,
 )
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.utils.logging import get_logger
@@ -144,12 +146,6 @@ class TrainConfig:
         return Optimizer(self)
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32 (optax's)."""
-    return torch.stack([t.float().square().sum() for t in tensors]).sum() \
-        .sqrt()
-
-
 class Optimizer:
     """clip_by_global_norm then adamw, lion or sgd (nesterov trace with
     decoupled decay), with optax's arithmetic, applied in place.
@@ -180,36 +176,31 @@ class Optimizer:
              state: OptState) -> Tuple[OptState, torch.Tensor]:
         """One update of every parameter in place; returns the new state
         (its moment tensors are updated in place too) and the unclipped
-        gradients' global norm."""
+        gradients' global norm. On the card both are one K5 launch each
+        (``ops/optimizer.py``), whatever the number of tensors."""
         cfg = self.cfg
         count = state["count"]
         lr = self.schedule(count)            # optax: before the increment
-        norm = global_norm(grads.values())
-        clip = norm >= cfg.grad_clip_norm
-        b1, b2 = cfg.b1, cfg.b2
-        t = torch.tensor(count + 1, dtype=torch.float32)
-        bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** t)
-        bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** t)
-        for name, p in params.items():
-            g = grads[name].float()
-            g = torch.where(clip, g / norm * cfg.grad_clip_norm, g)
-            p32 = p.float()
-            if cfg.optimizer == "adamw":
-                mu = (1 - b1) * g + b1 * state["mu"][name]
-                nu = state["nu"][name]
-                nu.mul_(b2).add_((1 - b2) * g.square())
-                u = (mu / bc1) / ((nu / bc2).sqrt() + 1e-8)
-                state["mu"][name].copy_(mu)
-            elif cfg.optimizer == "lion":
-                mu_prev = state["mu"][name]
-                u = torch.sign((1 - b1) * g + b1 * mu_prev)
-                mu_prev.copy_((1 - b2) * g + b2 * mu_prev)
-            else:
-                tr = state["trace"][name]
-                tr.copy_(g + b1 * tr)
-                u = g + b1 * tr
-            u = (u + cfg.weight_decay * p32) * (-lr)
-            p.copy_(p32 + u)
+        names = list(params)
+        g = [grads[n] for n in names]
+        with record_function("grad_norm"):
+            norm = fused.global_norm(g)
+        if cfg.optimizer == "adamw":
+            t = torch.tensor(count + 1, dtype=torch.float32)
+            bc1 = float(1 - torch.tensor(cfg.b1, dtype=torch.float32) ** t)
+            bc2 = float(1 - torch.tensor(cfg.b2, dtype=torch.float32) ** t)
+        else:
+            bc1 = bc2 = 1.0
+        hyper = fused.Hyper(max_norm=cfg.grad_clip_norm, b1=cfg.b1,
+                            b2=cfg.b2, bc1=bc1, bc2=bc2,
+                            weight_decay=cfg.weight_decay, lr=lr)
+        moments = state["trace" if cfg.optimizer == "sgd" else "mu"]
+        with record_function("optimizer"):
+            fused.update(cfg.optimizer, [params[n] for n in names], g,
+                         [moments[n] for n in names],
+                         [state["nu"][n] for n in names]
+                         if cfg.optimizer == "adamw" else None,
+                         norm, hyper)
         return {**state, "count": count + 1}, norm
 
 
@@ -270,26 +261,29 @@ class Trainer:
         if mask is not None:
             mask = mask.to(self.device)[:, 1:]
         if self.cfg.loss_chunk > 0:
-            hidden = self.model(inputs, return_hidden=True,
-                                attn_impl=self.attn_impl)
+            with record_function("forward"):
+                hidden = self.model(inputs, return_hidden=True,
+                                    attn_impl=self.attn_impl)
             B, S, E = hidden.shape
-            loss, count, hits = chunked_cross_entropy(
-                hidden.reshape(B * S, E), self._lm_head_kernel(),
-                labels.reshape(B * S),
-                mask=None if mask is None else mask.reshape(B * S),
-                z_loss_weight=z_loss_weight, block=self.cfg.loss_chunk)
+            with record_function("loss"):
+                loss, count, hits = chunked_cross_entropy(
+                    hidden.reshape(B * S, E), self._lm_head_kernel(),
+                    labels.reshape(B * S),
+                    mask=None if mask is None else mask.reshape(B * S),
+                    z_loss_weight=z_loss_weight, block=self.cfg.loss_chunk)
             return loss, hits / count
-        logits = self.model(inputs, attn_impl=self.attn_impl)
-        loss, _ = cross_entropy_loss(logits, labels, mask=mask,
-                                     z_loss_weight=z_loss_weight)
-        with torch.no_grad():
-            accuracy = softmax_accuracy(logits, labels, mask=mask)
-        return loss, accuracy
+        with record_function("forward"):
+            logits = self.model(inputs, attn_impl=self.attn_impl)
+        with record_function("loss"):
+            loss, count, hits = cross_entropy_stats(
+                logits, labels, mask=mask, z_loss_weight=z_loss_weight)
+        return loss, hits / count
 
     def _grads(self, params: Dict[str, torch.Tensor], batch):
         loss, accuracy = self._lm_ce(batch,
                                      z_loss_weight=self.cfg.z_loss_weight)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with record_function("backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), accuracy, dict(zip(params, grads))
 
     def _token_weight(self, mb: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -24,7 +24,11 @@ serving engine's CUDA graphs against its eager path (``_eager=True``) on a
 small bf16 model: greedy tokens equal; the paged engine's graphs give
 the dense engine's tokens; the chunked prefill's graph also leaves the
 eager path's cache rows, bitwise, and one graph a sampling variant serves
-every slot and start.
+every slot and start. The training step's fused kernels: K5 (the
+optimizer) bitwise equal to its plain update given the same norm, the
+norm within relative 1e-6 of an f64 sum; K6 (RMSNorm) and K7 (RoPE) within
+one ulp of their plain versions (K7 also bitwise); K8 (cross-entropy) the
+loss within relative 1e-5, dlogits within 2e-2 x max |plain|.
 """
 
 import pytest
@@ -1260,3 +1264,333 @@ def test_card_int8_serve_never_dequantizes_whole_weights(monkeypatch):
                                         quantize="int8",
                                         quantize_min_size=1024))
         assert [len(t) for t in toks] == [n for _, n in ENGINE_PROMPTS]
+
+
+# ------------------------------------------- the training step's fused work
+# K6 (RMSNorm) and K7 (RoPE) within one ulp of the plain version in the
+# output's dtype (an element below 2^-8 of the tensor's largest compared at
+# that scale: dx and dweight are row and column sums taken in another
+# order, and an element near a cancellation keeps its terms' absolute
+# error); K7 rounds as its plain version does and is also bitwise equal.
+# K8: the loss within relative 1e-5, dlogits within 2e-2 x max |plain|,
+# hits equal. K5: bitwise equal to the plain update given the same norm
+# tensor; the norm within relative 1e-6 of an f64 sum.
+
+
+def _ulp_ok(got: torch.Tensor, want: torch.Tensor, floor: float = 2 ** -8):
+    """|got - want| within one bf16 ulp (7 mantissa bits) of
+    max(|want|, floor x max |want|), whatever the dtype."""
+    bits = 7
+    w = want.float()
+    scale = w.abs().clamp_min(floor * float(w.abs().max()))
+    _, e = torch.frexp(scale)
+    ulp = torch.ldexp(torch.ones_like(scale), e - 1 - bits)
+    err = float(((got.detach().float() - w).abs() / ulp).max())
+    assert err <= 1.0, f"{err:.2f} ulp"
+
+
+@pytest.mark.parametrize("shape,xdt,wdt", [
+    ((4096, 2048), torch.bfloat16, torch.bfloat16),     # train rows
+    ((8, 1, 4096), torch.bfloat16, torch.bfloat16),     # a decode step
+    ((3, 700, 4096), torch.bfloat16, torch.bfloat16),   # a prefill
+    ((33, 8192), torch.bfloat16, torch.float32),
+    ((100, 2048), torch.float32, torch.bfloat16)])
+def test_rms_norm_kernel_matches_plain(shape, xdt, wdt):
+    from kubeflow_tpu_torch.ops.norms import (
+        rms_norm,
+        rms_norm_backward_reference,
+        rms_norm_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(30)
+    x = (torch.randn(shape, generator=g, device="cuda") * 3).to(xdt)
+    w = (1 + 0.1 * torch.randn(shape[-1], generator=g, device="cuda")
+         ).to(wdt)
+    dy = torch.randn(shape, generator=g, device="cuda").to(xdt)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = rms_norm.fwd_launches, rms_norm.bwd_launches
+    y = rms_norm(xr, wr, eps=1e-5)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (rms_norm.fwd_launches, rms_norm.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    want, rstd = rms_norm_reference(x, w, eps=1e-5)
+    want_dx, want_dw = rms_norm_backward_reference(x, w, dy, rstd)
+    _ulp_ok(y, want)
+    _ulp_ok(xr.grad, want_dx)
+    _ulp_ok(wr.grad, want_dw)
+    assert xr.grad.dtype == xdt and wr.grad.dtype == wdt
+
+
+def test_rms_norm_kernel_is_deterministic_and_graph_safe():
+    from kubeflow_tpu_torch.ops import norms
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(3000, 2048, generator=g, device="cuda").bfloat16()
+    w = torch.randn(2048, generator=g, device="cuda").bfloat16()
+    dy = torch.randn(3000, 2048, generator=g, device="cuda").bfloat16()
+    y1, r1 = norms._fwd_kernel(x, w, 1e-6)
+    y2, r2 = norms._fwd_kernel(x, w, 1e-6)
+    d1 = norms._bwd_kernel(x, w, dy, r1)
+    d2 = norms._bwd_kernel(x, w, dy, r1)
+    assert torch.equal(y1, y2) and torch.equal(r1, r2)
+    assert all(torch.equal(a, b) for a, b in zip(d1, d2))
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            norms.rms_norm(x, w)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = norms.rms_norm(x, w)
+        x.copy_(torch.randn_like(x.float()).bfloat16())
+        graph.replay()
+        assert torch.equal(out, norms.rms_norm(x, w))
+
+
+def test_rms_norm_refusals_and_cpu():
+    from kubeflow_tpu_torch.ops.norms import rms_norm
+
+    x = torch.randn(4, 2048, device="cuda").bfloat16()
+    w = torch.ones(2048, device="cuda").bfloat16()
+    before = rms_norm.fwd_launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rms_norm(x[:, :2044].contiguous(), w[:2044])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rms_norm(torch.zeros(2, 16384, device="cuda").bfloat16(),
+                 torch.ones(16384, device="cuda").bfloat16())
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        rms_norm(x.half(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        rms_norm(torch.ones(4, 2048, device="cuda").bfloat16()[:, :1024],
+                 w[:1024])
+    rms_norm(x.cpu(), w.cpu())              # the plain version
+    assert rms_norm.fwd_launches == before
+
+
+def _rope_case(b, s, hq, hk, dtype, seed, L=2048):
+    from kubeflow_tpu_torch.ops.rope import rope_frequencies
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, s, hq, 128, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, s, hk, 128, generator=g, device="cuda").to(dtype)
+    pos = torch.randint(0, L + 40, (b, s), generator=g, device="cuda")
+    cos, sin = rope_frequencies(128, L, theta=500000.0, device="cuda")
+    return q, k, pos, cos, sin
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,hq,hk,pdt", [
+    (2, 300, 16, 8, torch.int64), (8, 1, 32, 8, torch.int64),
+    (1, 512, 32, 8, torch.int32)])
+def test_rope_kernel_matches_plain_bitwise(b, s, hq, hk, pdt, dtype):
+    from kubeflow_tpu_torch.ops.rope import apply_rope, apply_rope_qk, \
+        rope_reference
+
+    q, k, pos, cos, sin = _rope_case(b, s, hq, hk, dtype, 32)
+    pos = pos.to(pdt)          # some past the table: clamped
+    qr, kr = q.clone().requires_grad_(), k.clone().requires_grad_()
+    before = apply_rope.fwd_launches, apply_rope.bwd_launches
+    qo, ko = apply_rope_qk(qr, kr, cos, sin, positions=pos)
+    dq, dk = torch.randn_like(qo), torch.randn_like(ko)
+    torch.autograd.backward([qo, ko], [dq, dk])
+    torch.cuda.synchronize()
+    assert (apply_rope.fwd_launches, apply_rope.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    for got, x, inv in ((qo, q, False), (ko, k, False), (qr.grad, dq, True),
+                        (kr.grad, dk, True)):
+        want = rope_reference(x, cos, sin, positions=pos, inverse=inv)
+        _ulp_ok(got, want)
+        assert torch.equal(got, want)
+
+
+def test_rope_kernel_strided_views_deterministic_and_graph_safe():
+    from kubeflow_tpu_torch.ops.rope import apply_rope_qk, rope_reference
+
+    _, _, pos, cos, sin = _rope_case(2, 64, 1, 1, torch.bfloat16, 33)
+    g = torch.Generator(device="cuda").manual_seed(34)
+    qkv = torch.randn(2, 64, 48, 128, generator=g, device="cuda").bfloat16()
+    q, k = qkv[:, :, :32], qkv[:, :, 32:40]         # views of one buffer
+    a = apply_rope_qk(q, k, cos, sin, positions=pos)
+    b = apply_rope_qk(q, k, cos, sin, positions=pos)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(a[1], rope_reference(k, cos, sin, positions=pos))
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            apply_rope_qk(q, k, cos, sin, positions=pos)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = apply_rope_qk(q, k, cos, sin, positions=pos)
+        pos.copy_(torch.randint_like(pos, 0, 2048))
+        graph.replay()
+        want = apply_rope_qk(q, k, cos, sin, positions=pos)
+        assert all(torch.equal(x, y) for x, y in zip(out, want))
+
+
+def test_rope_refusals_and_cpu():
+    from kubeflow_tpu_torch.ops.rope import apply_rope, apply_rope_qk
+
+    q, k, pos, cos, sin = _rope_case(1, 8, 4, 2, torch.bfloat16, 35)
+    before = apply_rope.fwd_launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        apply_rope_qk(q[..., :120], k[..., :120], cos[:, :60].contiguous(),
+                      sin[:, :60].contiguous(), positions=pos)
+    with pytest.raises(ValueError, match="positions"):
+        apply_rope_qk(q, k, cos, sin, positions=pos.float())
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        apply_rope_qk(q.half(), k.half(), cos, sin, positions=pos)
+    with pytest.raises(ValueError, match="does not match"):
+        apply_rope_qk(q, k.float(), cos, sin, positions=pos)
+    apply_rope_qk(q.cpu(), k.cpu(), cos.cpu(), sin.cpu(),
+                  positions=pos.cpu())          # the plain version
+    assert apply_rope.fwd_launches == before
+
+
+@pytest.mark.parametrize("dtype,V,kw,masked", [
+    (torch.bfloat16, 32000, {"z_loss_weight": 1e-4}, False),
+    (torch.bfloat16, 32000, {"z_loss_weight": 1e-4}, True),
+    (torch.bfloat16, 128256, {"label_smoothing": 0.1}, True),
+    (torch.float32, 32000, {"z_loss_weight": 1e-3,
+                            "label_smoothing": 0.2}, False)])
+def test_cross_entropy_kernel_matches_plain(dtype, V, kw, masked):
+    from kubeflow_tpu_torch.ops.cross_entropy import (
+        cross_entropy_backward_reference,
+        cross_entropy_reference,
+        cross_entropy_sums,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(36)
+    n = 1024
+    logits = (torch.randn(n, V, generator=g, device="cuda") * 4).to(dtype)
+    labels = torch.randint(0, V, (n,), generator=g, device="cuda")
+    labels[::5] = logits[::5].float().argmax(-1)     # some hits
+    mask = (torch.rand(n, generator=g, device="cuda") > 0.2).float() \
+        if masked else None
+    x = logits.clone().requires_grad_()
+    before = cross_entropy_sums.fwd_launches, cross_entropy_sums.bwd_launches
+    s_nll, s_w, s_hit = cross_entropy_sums(x, labels, mask, **kw)
+    (s_nll / s_w).backward()
+    torch.cuda.synchronize()
+    assert (cross_entropy_sums.fwd_launches,
+            cross_entropy_sums.bwd_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    zw, ls = kw.get("z_loss_weight", 0.0), kw.get("label_smoothing", 0.0)
+    want, logz = cross_entropy_reference(logits, labels, mask, zw, ls)
+    assert float(s_nll) == pytest.approx(float(want[0]), rel=1e-5)
+    assert float(s_w) == float(want[1]) and float(s_hit) == float(want[2])
+    want_d = cross_entropy_backward_reference(
+        logits, labels, mask, logz, 1.0 / want[1], zw, ls)
+    assert x.grad.dtype == dtype
+    err = float((x.grad.float() - want_d.float()).abs().max())
+    assert err <= 2e-2 * float(want_d.float().abs().max())
+
+
+def test_cross_entropy_kernel_is_deterministic_and_refuses():
+    from kubeflow_tpu_torch.ops import cross_entropy as ce
+
+    g = torch.Generator(device="cuda").manual_seed(37)
+    logits = torch.randn(2000, 32000, generator=g, device="cuda").bfloat16()
+    labels = torch.randint(0, 32000, (2000,), generator=g, device="cuda")
+    a, la = ce._fwd_kernel(logits, labels, None, 1e-4, 0.0)
+    b, lb = ce._fwd_kernel(logits, labels, None, 1e-4, 0.0)
+    assert torch.equal(a, b) and torch.equal(la, lb)
+    one = torch.ones((), device="cuda")
+    assert torch.equal(ce._bwd_kernel(logits, labels, None, la, one, 1e-4, 0),
+                       ce._bwd_kernel(logits, labels, None, la, one, 1e-4, 0))
+    before = ce.cross_entropy_sums.fwd_launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ce.cross_entropy_sums(logits[:, :31999].contiguous(), labels)
+    with pytest.raises(ValueError, match="contiguous"):
+        ce.cross_entropy_sums(logits[:, :16000], labels)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        ce.cross_entropy_sums(logits.half(), labels)
+    ce.cross_entropy_sums(logits[:8].cpu(), labels[:8].cpu())   # plain
+    assert ce.cross_entropy_sums.fwd_launches == before
+
+
+def _opt_state(kind, pdt, gdt, mdt, seed=38):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sizes = [65536 * 3 + 5, 2048 * 7, 33, 1, 65536, 1000003]
+    mk = lambda n, s, dt: (torch.randn(n, generator=g, device="cuda")  # noqa: E731
+                           * s).to(dt)
+    p = [mk(n, 1.0, pdt) for n in sizes]
+    gr = [mk(n, 0.05, gdt) for n in sizes]
+    m = [mk(n, 0.01, mdt if kind != "sgd" else torch.float32)
+         for n in sizes]
+    v = [mk(n, 1e-3, torch.float32).abs() for n in sizes] \
+        if kind == "adamw" else None
+    return p, gr, m, v
+
+
+@pytest.mark.parametrize("kind,pdt,gdt,mdt", [
+    ("adamw", torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    ("adamw", torch.bfloat16, torch.float32, torch.float32),
+    ("adamw", torch.float32, torch.float32, torch.bfloat16),
+    ("lion", torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    ("sgd", torch.float32, torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("max_norm", [1.0, 1e4])          # clipped or not
+def test_optimizer_kernel_bitwise_plain(kind, pdt, gdt, mdt, max_norm):
+    from kubeflow_tpu_torch.ops import optimizer as fused
+
+    p, gr, m, v = _opt_state(kind, pdt, gdt, mdt)
+    norm = fused.global_norm(gr)
+    exact = sum(float((t.double() ** 2).sum()) for t in gr) ** 0.5
+    assert float(norm) == pytest.approx(exact, rel=1e-6)
+    assert torch.equal(norm, fused.global_norm(gr))
+    hyper = fused.Hyper(max_norm=max_norm, b1=0.9, b2=0.95, bc1=0.19,
+                        bc2=0.0975, weight_decay=0.1, lr=3e-4)
+    cp = lambda ts: None if ts is None else [t.clone() for t in ts]  # noqa: E731
+    p2, m2, v2 = cp(p), cp(m), cp(v)
+    before = fused.update.launches
+    fused.update(kind, p, gr, m, v, norm, hyper)
+    fused.update_reference(kind, p2, gr, m2, v2, norm, hyper)
+    torch.cuda.synchronize()
+    assert fused.update.launches == before + 1
+    for a, b in zip(p + m + (v or []), p2 + m2 + (v2 or [])):
+        assert torch.equal(a, b)
+
+
+def test_optimizer_kernel_refusals_and_cpu():
+    from kubeflow_tpu_torch.ops import optimizer as fused
+
+    p, gr, m, v = _opt_state("adamw", torch.bfloat16, torch.bfloat16,
+                             torch.bfloat16)
+    norm = fused.global_norm(gr)
+    hyper = fused.Hyper(max_norm=1.0, b1=0.9, b2=0.95)
+    before = fused.update.launches, fused.global_norm.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.update("adamw", [p[1].view(7, 2048).t()], [gr[1]], [m[1]],
+                     [v[1]], norm, hyper)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        fused.update("adamw", [p[2].half()], [gr[2]], [m[2]], [v[2]],
+                     norm, hyper)
+    with pytest.raises(ValueError, match="nu f32"):
+        fused.update("adamw", [p[2]], [gr[2]], [m[2]], [v[2].bfloat16()],
+                     norm, hyper)
+    with pytest.raises(ValueError, match="one"):
+        fused.update("adamw", [p[2].cpu()], [gr[2]], [m[2]], [v[2]],
+                     norm, hyper)
+    cpu = lambda ts: [t.cpu() for t in ts]   # noqa: E731
+    n_cpu = fused.global_norm(cpu(gr))       # the plain versions
+    fused.update("adamw", cpu(p), cpu(gr), cpu(m), cpu(v), n_cpu, hyper)
+    assert (fused.update.launches, fused.global_norm.launches) == before
+
+
+def test_rope_backward_takes_a_transposed_grad():
+    # The plain attention's dk comes out of its product with the head dim
+    # strided; the backward copies it into the layout the kernel reads.
+    from kubeflow_tpu_torch.ops.rope import apply_rope_qk, rope_reference
+
+    q, k, pos, cos, sin = _rope_case(2, 64, 4, 2, torch.bfloat16, 39)
+    qr, kr = q.clone().requires_grad_(), k.clone().requires_grad_()
+    qo, ko = apply_rope_qk(qr, kr, cos, sin, positions=pos)
+    dk = torch.randn(2, 2, 128, 64, device="cuda").bfloat16().permute(
+        0, 3, 1, 2)
+    assert dk.shape == ko.shape and dk.stride(3) != 1
+    torch.autograd.backward([qo, ko], [torch.zeros_like(qo), dk])
+    assert torch.equal(kr.grad, rope_reference(
+        dk.contiguous(), cos, sin, positions=pos, inverse=True))
