@@ -5,16 +5,22 @@ The JAX tree (``{"params": {...}}`` or its inner dict, numpy arrays as
 ``jax.device_get`` yields them, unboxed) keeps flax DenseGeneral layouts;
 the port keeps ``[out, in]`` matrices:
 
-=============  =================  ======================
-parameter      JAX                port
-=============  =================  ======================
-q/k/v_proj     [E, H, Dh]         [H*Dh, E]
-o_proj         [H, Dh, E]         [E, H*Dh]
-gate/up_proj   [E, M]             [M, E]
-down_proj      [M, E]             [E, M]
-lm_head        [E, V]             [V, E]
-embed, norms   as they are        as they are
-=============  =================  ======================
+=============  =====================  ======================
+parameter      JAX                    port
+=============  =====================  ======================
+q/k/v_proj     [E, H, Dh]             [H*Dh, E]
+qkv_proj       [E, Hkv, G + 2, Dh]    [Hkv*(G+2)*Dh, E]
+o_proj         [H, Dh, E]             [E, H*Dh]
+gate/up_proj   [E, M]                 [M, E]
+gate_up_proj   [E, 2, M]              [2*M, E]
+down_proj      [M, E]                 [E, M]
+lm_head        [E, V]                 [V, E]
+embed, norms   as they are            as they are
+=============  =====================  ======================
+
+``qkv_proj`` (``fused_qkv`` with H % Hkv == 0, G = H / Hkv) and
+``gate_up_proj`` (``fused_gate_up``) take the place of the projections
+they fuse; their rows keep the JAX kernel's output order.
 
 Both layer layouts convert: unrolled (``layer_{i}`` subtrees) and scanned
 (one ``layers`` subtree stacked over depth, as ``scan_layers=True``
@@ -49,6 +55,17 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _attn_inputs(cfg: LlamaConfig):
+    """The names of the q/k/v projections, as both models build them."""
+    return (("qkv_proj",) if cfg.fuses_qkv
+            else ("q_proj", "k_proj", "v_proj"))
+
+
+def _mlp_inputs(cfg: LlamaConfig):
+    return ("gate_up_proj",) if cfg.fused_gate_up else ("gate_proj",
+                                                        "up_proj")
+
+
 def llama_params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
     """JAX Llama param tree (scanned or unrolled) -> the port's state_dict
     (CPU tensors)."""
@@ -60,16 +77,17 @@ def llama_params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
         lp, pre = p[f"layer_{i}"], f"layers.{i}."
         attn, mlp = lp["attn"], lp["mlp"]
         sd[pre + "input_norm.weight"] = _tensor(lp["input_norm"]["weight"])
-        for n in ("q_proj", "k_proj", "v_proj"):
+        for n in _attn_inputs(cfg):
             kern = np.asarray(attn[n]["kernel"])
             sd[pre + f"attn.{n}.weight"] = _tensor(kern.reshape(E, -1).T)
         o = np.asarray(attn["o_proj"]["kernel"])
         sd[pre + "attn.o_proj.weight"] = _tensor(o.reshape(-1, E).T)
         sd[pre + "post_attn_norm.weight"] = _tensor(
             lp["post_attn_norm"]["weight"])
-        for n in ("gate_proj", "up_proj", "down_proj"):
+        for n in (*_mlp_inputs(cfg), "down_proj"):
+            kern = np.asarray(mlp[n]["kernel"])
             sd[pre + f"mlp.{n}.weight"] = _tensor(
-                np.asarray(mlp[n]["kernel"]).T)
+                kern.T if n == "down_proj" else kern.reshape(E, -1).T)
     sd["final_norm.weight"] = _tensor(p["final_norm"]["weight"])
     if not cfg.tie_embeddings:
         sd["lm_head.weight"] = _tensor(np.asarray(p["lm_head"]["kernel"]).T)
@@ -84,23 +102,24 @@ def llama_params_to_jax(state_dict: Dict[str, torch.Tensor],
     H, Hkv, Dh, E = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                      cfg.embed_dim)
     sd = {k: _array(v) for k, v in state_dict.items()}
+    M = cfg.mlp_dim
+    shapes = {"q_proj": (E, H, Dh), "k_proj": (E, Hkv, Dh),
+              "v_proj": (E, Hkv, Dh), "qkv_proj": (E, Hkv, -1, Dh),
+              "o_proj": (H, Dh, E), "gate_proj": (E, M), "up_proj": (E, M),
+              "gate_up_proj": (E, 2, M), "down_proj": (M, E)}
+
+    def kernels(prefix, names):
+        return {n: {"kernel": np.ascontiguousarray(
+            sd[f"{prefix}{n}.weight"].T.reshape(shapes[n]))} for n in names}
+
     p = {"embed": sd["embed"]}
     for i in range(cfg.num_layers):
         pre = f"layers.{i}."
-        heads = {"q_proj": H, "k_proj": Hkv, "v_proj": Hkv}
         p[f"layer_{i}"] = {
             "input_norm": {"weight": sd[pre + "input_norm.weight"]},
-            "attn": {
-                **{n: {"kernel": np.ascontiguousarray(
-                    sd[pre + f"attn.{n}.weight"].T.reshape(E, h, Dh))}
-                   for n, h in heads.items()},
-                "o_proj": {"kernel": np.ascontiguousarray(
-                    sd[pre + "attn.o_proj.weight"].T.reshape(H, Dh, E))},
-            },
+            "attn": kernels(pre + "attn.", (*_attn_inputs(cfg), "o_proj")),
             "post_attn_norm": {"weight": sd[pre + "post_attn_norm.weight"]},
-            "mlp": {n: {"kernel": np.ascontiguousarray(
-                sd[pre + f"mlp.{n}.weight"].T)}
-                for n in ("gate_proj", "up_proj", "down_proj")},
+            "mlp": kernels(pre + "mlp.", (*_mlp_inputs(cfg), "down_proj")),
         }
     p["final_norm"] = {"weight": sd["final_norm.weight"]}
     if not cfg.tie_embeddings:
@@ -114,9 +133,9 @@ def _projections(p, cfg: LlamaConfig):
     tree."""
     for i in range(cfg.num_layers):
         lp = p[f"layer_{i}"]
-        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        for n in (*_attn_inputs(cfg), "o_proj"):
             yield f"layers.{i}.attn.{n}", lp["attn"][n]
-        for n in ("gate_proj", "up_proj", "down_proj"):
+        for n in (*_mlp_inputs(cfg), "down_proj"):
             yield f"layers.{i}.mlp.{n}", lp["mlp"][n]
     if not cfg.tie_embeddings:
         yield "lm_head", p["lm_head"]
@@ -129,9 +148,11 @@ def quantized_params_from_jax(q_tree, scale_tree,
     :func:`llama_params_from_jax` converts it (an int8 kernel becomes the
     int8 ``<name>.weight`` [out, in]), plus ``<name>.scale`` bf16 [out, S]
     for each quantized projection, the weights an ``Int8Dense`` holds.
-    JAX's scales [1, out...] are one an output row (S = 1) except
-    o_proj's [1, Dh, E], one a (head dim, output row) pair, which becomes
-    [E, Dh]: weight column h * Dh + d takes scale[:, d].
+    JAX's scales [1, out...] are one an output row (S = 1; the fused
+    ``qkv_proj`` [1, Hkv, G + 2, Dh] and ``gate_up_proj`` [1, 2, M] too, in
+    the fused rows' order) except o_proj's [1, Dh, E], one a (head dim,
+    output row) pair, which becomes [E, Dh]: weight column h * Dh + d takes
+    scale[:, d].
 
     Only the unrolled tree the JAX server builds (``scan_layers=False``)
     converts: a stacked tree's [L, E] norm leaves were quantized across

@@ -1,11 +1,17 @@
 """Llama-family decoder-only transformer, the port of kubeflow_tpu.models.llama.
 
 Each layer runs RMSNorm -> q/k/v projections -> RoPE -> attention ->
-o_proj -> RMSNorm -> SwiGLU MLP, with the JAX package's rounding points:
-parameters are cast to the activation dtype at each product, norms and
-RoPE compute in f32 and cast back, residual adds stay in the activation
-dtype, attention logits are f32, and the logits come out f32
-(``logits_f32``).
+o_proj -> residual add + RMSNorm -> SwiGLU MLP -> residual add, with the
+JAX package's rounding points: parameters are cast to the activation dtype
+at each product, norms and RoPE compute in f32 and cast back, residual
+adds stay in the activation dtype, attention logits are f32, and the
+logits come out f32 (``logits_f32``). The element-wise work runs in the
+port's kernels on the card: RMSNorm (K6), RoPE (K7, reading a fused
+q/k/v projection in place), SwiGLU (K9, reading a fused gate/up
+projection in place) and the residual add fused with the norm that reads
+it (K10): within a layer always, and from one layer into the next layer's
+input norm (or the final norm) wherever no checkpoint boundary lies
+between them (every path but the remat policies').
 
 Three forward modes (``Llama.forward``):
 
@@ -13,7 +19,8 @@ Three forward modes (``Llama.forward``):
   through ``flash_attention`` (``attn_impl="flash"``: K1 forward, K2
   backward on the card) or the plain ``mha_reference``
   (``attn_impl="full"``). With ``remat`` and grad enabled each layer runs
-  under ``torch.utils.checkpoint`` (see ``remat_policy``);
+  as ``torch.utils.checkpoint`` segments that save what ``remat_policy``
+  names (``DecoderLayer.forward_remat``);
 - ``decode="prefill"``: fresh cache rows; k/v are written to the cache
   and attention runs causally over the incoming tokens through the flash
   kernel;
@@ -64,14 +71,19 @@ from kubeflow_tpu_torch.ops.int8_linear import (
     int8_linear,
     int8_linear_group,
 )
-from kubeflow_tpu_torch.ops.norms import rms_norm
+from kubeflow_tpu_torch.ops.norms import add_rms_norm, rms_norm
 from kubeflow_tpu_torch.ops.paged_attention import (
     gather_cache,
     physical_rows,
     pool_shape,
     scatter_kv_rows,
 )
-from kubeflow_tpu_torch.ops.rope import apply_rope_qk, rope_frequencies
+from kubeflow_tpu_torch.ops.rope import (
+    apply_rope_fused,
+    apply_rope_qk,
+    rope_frequencies,
+)
+from kubeflow_tpu_torch.ops.swiglu import swiglu, swiglu_fused
 
 LayerCache = Dict[str, torch.Tensor]
 DtypeLike = Union[str, torch.dtype]
@@ -108,15 +120,32 @@ class LlamaConfig:
     # ``scan_layers`` says which tree ``models/convert.py`` writes for the
     # JAX package (stacked ``layers`` or ``layer_{i}``).
     scan_layers: bool = True
-    # Rematerialisation in the training forward (grad enabled, no cache):
-    #   "full"     - each layer under one checkpoint: saves the layer input,
-    #                the backward replays the whole layer;
-    #   "qkv_attn" - saves q/k/v (post-RoPE) and the attention output (the
-    #                JAX policy's "qkv" and "attn_out" names): the backward
-    #                replays the norms and projections before them, the
-    #                attention forward (for its lse) and the o_proj + MLP
-    #                after them.
-    # The JAX package's other policy names are later work and raise.
+    # Rematerialisation in the training forward (grad enabled, no cache).
+    # Each policy saves, per layer and besides the layer input, exactly the
+    # tensors the JAX policy of the same name saves
+    # (kubeflow_tpu/models/llama.py::_remat_policy); the backward replays
+    # what it needs of the rest:
+    #   "full"         - nothing: the whole layer replays;
+    #   "qkv_attn"     - q/k/v (post-RoPE) and the attention output ("qkv",
+    #                    "attn_out"): the norm and projections before them,
+    #                    the attention forward (for its lse) and o_proj +
+    #                    MLP after them replay;
+    #   "qkv_attn_lse" - those and the attention's lse ("attn_resid"; its
+    #                    o is the attention output): no attention replay;
+    #   "minimal"      - those and gate/up ("mlp_gate", "mlp_up"): the
+    #                    norms, o_proj (nothing saves the residual it
+    #                    feeds), the add and SwiGLU replay; no attention, no
+    #                    q/k/v or gate/up projection;
+    #   "attn_only"    - the attention output: projections, attention and
+    #                    MLP replay;
+    #   "mlp_only"     - gate/up: the attention block replays;
+    #   "dots"         - the projections' outputs the backward needs (q/k/v
+    #                    before RoPE, o_proj's, gate/up; the down
+    #                    projection's feeds only the residual add, whose
+    #                    backward needs nothing, so neither saves it): the
+    #                    norms, RoPE, attention and SwiGLU replay.
+    # With the fused flags, q/k/v and gate/up are the fused products'
+    # slices (or, for "dots", the fused products themselves).
     remat: bool = True
     remat_policy: str = "full"
     # Serving cache options: "int8" stores the KV cache as absmax int8
@@ -131,15 +160,25 @@ class LlamaConfig:
     # caller passes block_tables (the serving engine does).
     paged_kv_blocks: int = 0
     paged_kv_block_size: int = 16
-    # Options of the JAX model that later slices port; setting one raises
-    # NotImplementedError when the model is built.
+    # One [E, Hkv * (G + 2) * Dh] q/k/v projection (rows ordered kv head,
+    # slot, d; G = H / Hkv; used only when H % Hkv == 0, as in the JAX
+    # model) and one [E, 2 * F] gate/up projection (rows slot, f): one
+    # product each instead of three and two. RoPE (K7) and SwiGLU (K9) read
+    # the fused outputs in place.
     fused_qkv: bool = False
     fused_gate_up: bool = False
+    # The pipeline layout is the multi-GPU slice's: > 1 raises.
     pipeline_stages: int = 1
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", as_dtype(self.dtype))
         object.__setattr__(self, "param_dtype", as_dtype(self.param_dtype))
+
+    @property
+    def fuses_qkv(self) -> bool:
+        """Whether the model builds one q/k/v projection: ``fused_qkv``
+        where the heads group evenly, as the JAX branch requires."""
+        return self.fused_qkv and self.num_heads % self.num_kv_heads == 0
 
     @classmethod
     def llama3_8b(cls, **kw) -> "LlamaConfig":
@@ -188,22 +227,10 @@ class Paging:
 #: remat_policy names of the JAX package (models/llama.py::_remat_policy).
 REMAT_POLICIES = ("full", "minimal", "qkv_attn", "qkv_attn_lse",
                   "attn_only", "mlp_only", "dots")
-PORTED_REMAT_POLICIES = ("full", "qkv_attn")
-
-#: Config options whose JAX code paths are later slices of the port.
-_LATER_SLICES = {
-    "fused_qkv": "fused projections",
-    "fused_gate_up": "fused projections",
-}
 KV_CACHE_DTYPES = ("", "int8")
 
 
 def _check_supported(cfg: LlamaConfig) -> None:
-    for name, slice_ in _LATER_SLICES.items():
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"LlamaConfig.{name}={getattr(cfg, name)!r} is not ported "
-                f"yet (the {slice_} slice); leave it unset")
     if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
         raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r} (one of "
                          f"{KV_CACHE_DTYPES})")
@@ -217,13 +244,9 @@ def _check_supported(cfg: LlamaConfig) -> None:
         raise NotImplementedError(
             "LlamaConfig.pipeline_stages > 1 is not ported yet (the "
             "multi-GPU slice)")
-    if cfg.remat:
-        if cfg.remat_policy not in REMAT_POLICIES:
-            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
-        if cfg.remat_policy not in PORTED_REMAT_POLICIES:
-            raise NotImplementedError(
-                f"LlamaConfig.remat_policy={cfg.remat_policy!r} is not "
-                f"ported yet (ported: {', '.join(PORTED_REMAT_POLICIES)})")
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} (one "
+                         f"of {', '.join(REMAT_POLICIES)})")
 
 
 class Dense(nn.Module):
@@ -289,21 +312,18 @@ def grouped_int8_products(x: torch.Tensor, *projections: Int8Dense):
 
 
 def int8_launches_per_pass(model: nn.Module) -> int:
-    """K4 launches in one forward pass of ``model``: a grouped product
-    counts once (q/k/v, gate/up), any other :class:`Int8Dense` once (o,
-    down, lm_head). With every projection int8, 4 a layer and the lm_head."""
+    """K4 launches in one forward pass of ``model``: a grouped or fused
+    product counts once (q/k/v, gate/up), any other :class:`Int8Dense` once
+    (o, down, lm_head). With every projection int8, 4 a layer and the
+    lm_head."""
     n = 0
     for m in model.modules():
-        if isinstance(m, Attention):
-            qkv = (m.q_proj, m.k_proj, m.v_proj)
-            n += 1 if int8_group(*qkv) else sum(
-                isinstance(p, Int8Dense) for p in qkv)
-            n += isinstance(m.o_proj, Int8Dense)
-        elif isinstance(m, Mlp):
-            gu = (m.gate_proj, m.up_proj)
-            n += 1 if int8_group(*gu) else sum(
-                isinstance(p, Int8Dense) for p in gu)
-            n += isinstance(m.down_proj, Int8Dense)
+        if isinstance(m, (Attention, Mlp)):
+            group = m.input_projections()
+            n += 1 if int8_group(*group) else sum(
+                isinstance(p, Int8Dense) for p in group)
+            n += isinstance(m.o_proj if isinstance(m, Attention)
+                            else m.down_proj, Int8Dense)
     return n + isinstance(getattr(model, "lm_head", None), Int8Dense)
 
 
@@ -329,6 +349,18 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.weight, eps=self.eps)
 
+    def add(self, x: torch.Tensor, h: torch.Tensor):
+        """(x + h, RMSNorm(x + h)) in one pass (K10 on the card)."""
+        return add_rms_norm(x, h, self.weight, eps=self.eps)
+
+
+def _products(x: torch.Tensor, *projections: nn.Module):
+    """The projections of x: one grouped int8 product when they form one
+    (:func:`int8_group`), else each on its own."""
+    if int8_group(*projections):
+        return grouped_int8_products(x, *projections)
+    return [p(x) for p in projections]
+
 
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
@@ -336,26 +368,46 @@ class Attention(nn.Module):
         self.cfg = cfg
         H, Hkv, Dh, E = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                          cfg.embed_dim)
-        self.q_proj = Dense(E, H * Dh, cfg)
-        self.k_proj = Dense(E, Hkv * Dh, cfg)
-        self.v_proj = Dense(E, Hkv * Dh, cfg)
+        self.fused_qkv = cfg.fuses_qkv
+        if self.fused_qkv:
+            self.qkv_proj = Dense(E, Hkv * (H // Hkv + 2) * Dh, cfg)
+        else:
+            self.q_proj = Dense(E, H * Dh, cfg)
+            self.k_proj = Dense(E, Hkv * Dh, cfg)
+            self.v_proj = Dense(E, Hkv * Dh, cfg)
         self.o_proj = Dense(H * Dh, E, cfg)
+
+    def input_projections(self) -> Tuple[nn.Module, ...]:
+        return ((self.qkv_proj,) if self.fused_qkv
+                else (self.q_proj, self.k_proj, self.v_proj))
+
+    def projections(self, x) -> Tuple[torch.Tensor, ...]:
+        """The products of the normed input before RoPE: (qkv [B, S, Hkv,
+        G + 2, D],) with ``fused_qkv``, else (q [B, S, H, D], k, v [B, S,
+        Hkv, D])."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
+        if self.fused_qkv:
+            return (self.qkv_proj(x).view(B, S, Hkv, -1, Dh),)
+        q, k, v = _products(x, *self.input_projections())
+        return (q.view(B, S, cfg.num_heads, Dh), k.view(B, S, Hkv, Dh),
+                v.view(B, S, Hkv, Dh))
+
+    @staticmethod
+    def rotate(products, positions, cos, sin):
+        """q, k (RoPE applied) and v of :meth:`projections`' products."""
+        if len(products) == 1:
+            return apply_rope_fused(products[0], cos, sin,
+                                    positions=positions)
+        q, k, v = products
+        q, k = apply_rope_qk(q, k, cos, sin, positions=positions)
+        return q, k, v
 
     def project(self, x, positions, cos, sin):
         """q [B, S, H, D], k and v [B, S, Hkv, D] of the normed input, with
         RoPE applied to q and k."""
-        cfg = self.cfg
-        B, S, _ = x.shape
-        if int8_group(self.q_proj, self.k_proj, self.v_proj):
-            q, k, v = grouped_int8_products(x, self.q_proj, self.k_proj,
-                                            self.v_proj)
-        else:
-            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        q = q.view(B, S, cfg.num_heads, cfg.head_dim)
-        k = k.view(B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = v.view(B, S, cfg.num_kv_heads, cfg.head_dim)
-        q, k = apply_rope_qk(q, k, cos, sin, positions=positions)
-        return q, k, v
+        return self.rotate(self.projections(x), positions, cos, sin)
 
     @staticmethod
     def attend(q, k, v, attn_impl: str = "flash") -> torch.Tensor:
@@ -545,16 +597,32 @@ def quantize_kv_rows(x: torch.Tensor):
 class Mlp(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        self.gate_proj = Dense(cfg.embed_dim, cfg.mlp_dim, cfg)
-        self.up_proj = Dense(cfg.embed_dim, cfg.mlp_dim, cfg)
+        self.fused_gate_up = cfg.fused_gate_up
+        if self.fused_gate_up:
+            self.gate_up_proj = Dense(cfg.embed_dim, 2 * cfg.mlp_dim, cfg)
+        else:
+            self.gate_proj = Dense(cfg.embed_dim, cfg.mlp_dim, cfg)
+            self.up_proj = Dense(cfg.embed_dim, cfg.mlp_dim, cfg)
         self.down_proj = Dense(cfg.mlp_dim, cfg.embed_dim, cfg)
 
+    def input_projections(self) -> Tuple[nn.Module, ...]:
+        return ((self.gate_up_proj,) if self.fused_gate_up
+                else (self.gate_proj, self.up_proj))
+
+    def products(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """(gu [..., 2, F],) with ``fused_gate_up``, else (gate, up)."""
+        if self.fused_gate_up:
+            return (self.gate_up_proj(x).unflatten(-1, (2, -1)),)
+        return tuple(_products(x, *self.input_projections()))
+
+    def reduce(self, *products: torch.Tensor) -> torch.Tensor:
+        """down(silu(gate) * up) of :meth:`products`' products (K9)."""
+        h = (swiglu_fused(products[0]) if len(products) == 1
+             else swiglu(*products))
+        return self.down_proj(h)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if int8_group(self.gate_proj, self.up_proj):
-            gate, up = grouped_int8_products(x, self.gate_proj, self.up_proj)
-        else:
-            gate, up = self.gate_proj(x), self.up_proj(x)
-        return self.down_proj(F.silu(gate) * up)
+        return self.reduce(*self.products(x))
 
 
 class DecoderLayer(nn.Module):
@@ -565,33 +633,92 @@ class DecoderLayer(nn.Module):
         self.post_attn_norm = RMSNorm(cfg)
         self.mlp = Mlp(cfg)
 
-    def forward(self, x, positions, cos, sin, *, cache=None, decode=False,
-                attn_impl="flash", stage_step=None,
-                paging=None) -> torch.Tensor:
-        h = self.attn(self.input_norm(x), positions, cos, sin, cache=cache,
+    def forward(self, x, positions, cos, sin, *, attn_impl="flash"):
+        """The layer on its input x: x + attention + MLP."""
+        r, d = self.residuals(x, self.input_norm(x), positions, cos, sin,
+                              attn_impl=attn_impl)
+        return r + d
+
+    def residuals(self, x, normed, positions, cos, sin, *, cache=None,
+                  decode=False, attn_impl="flash", stage_step=None,
+                  paging=None):
+        """(r, d) of the input x and its norm: r = x + attention (the add
+        fused with the post-attention norm, K10) and d the MLP's output.
+        The layer's output is r + d, which the caller fuses with the norm
+        that reads it (the next layer's input norm, or the final one)."""
+        h = self.attn(normed, positions, cos, sin, cache=cache,
                       decode=decode, attn_impl=attn_impl,
                       stage_step=stage_step, paging=paging)
-        return self._after_attention(x, h)
+        r, n = self.post_attn_norm.add(x, h)
+        return r, self.mlp(n)
+
+    # The segments of the remat policies (forward_remat).
 
     def _qkv(self, x, positions, cos, sin):
         return self.attn.project(self.input_norm(x), positions, cos, sin)
 
-    def _after_attention(self, x, h):
-        x = x + h
-        return x + self.mlp(self.post_attn_norm(x))
+    def _products(self, x):
+        return self.attn.projections(self.input_norm(x))
+
+    def _attention_out(self, x, positions, cos, sin, attn_impl):
+        return self.attn.attend(*self._qkv(x, positions, cos, sin),
+                                attn_impl)
+
+    def _attention_of(self, positions, cos, sin, attn_impl, *products):
+        q, k, v = self.attn.rotate(products, positions, cos, sin)
+        return self.attn.out_proj(self.attn.attend(q, k, v, attn_impl))
+
+    def _mlp_inputs(self, x, h):
+        r, n = self.post_attn_norm.add(x, h)
+        return (r, *self.mlp.products(n))
+
+    def _mlp_inputs_of_out(self, x, out):
+        return self._mlp_inputs(x, self.attn.out_proj(out))
+
+    def _mlp_inputs_of_x(self, x, positions, cos, sin, attn_impl):
+        h = self.attn(self.input_norm(x), positions, cos, sin,
+                      attn_impl=attn_impl)
+        return self._mlp_inputs(x, h)
 
     def _post_attention(self, x, out):
-        return self._after_attention(x, self.attn.out_proj(out))
+        r, *products = self._mlp_inputs_of_out(x, out)
+        return r + self.mlp.reduce(*products)
 
-    def forward_qkv_attn(self, x, positions, cos, sin, *,
-                         attn_impl="flash") -> torch.Tensor:
-        """The training forward under the ``qkv_attn`` policy: three
-        checkpointed segments, so what stays saved between forward and
-        backward is the layer input, q/k/v and the attention output; the
-        backward replays each segment for the rest."""
-        q, k, v = _ckpt(self._qkv, x, positions, cos, sin)
-        out = _ckpt(self.attn.attend, q, k, v, attn_impl)
-        return _ckpt(self._post_attention, x, out)
+    def forward_remat(self, x, positions, cos, sin, policy: str, *,
+                      attn_impl="flash") -> torch.Tensor:
+        """The training forward under remat ``policy``
+        (``LlamaConfig.remat_policy``): checkpointed segments whose inputs,
+        with what the autograd Functions between them save (K1 q, k, v, o
+        and lse; K7 only its tables and positions), are the layer input
+        and the policy's saved tensors and nothing else. Each segment
+        replays in the backward up to its last saved tensor: a projection
+        that ends a segment does not run again."""
+        rope = (positions, cos, sin)
+        if policy == "full":
+            return _ckpt(self, x, *rope, attn_impl=attn_impl)
+        if policy in ("qkv_attn", "qkv_attn_lse", "attn_only"):
+            if policy == "attn_only":
+                out = _ckpt(self._attention_out, x, *rope, attn_impl)
+            else:
+                q, k, v = _ckpt(self._qkv, x, *rope)
+                out = (_ckpt(self.attn.attend, q, k, v, attn_impl)
+                       if policy == "qkv_attn"
+                       else self.attn.attend(q, k, v, attn_impl))
+            return _ckpt(self._post_attention, x, out)
+        if policy == "minimal":
+            products = _ckpt(self._products, x)
+            q, k, v = self.attn.rotate(products, *rope)
+            out = self.attn.attend(q, k, v, attn_impl)
+            r, *mlp_in = _ckpt(self._mlp_inputs_of_out, x, out)
+        elif policy == "mlp_only":
+            r, *mlp_in = _ckpt(self._mlp_inputs_of_x, x, *rope, attn_impl)
+        elif policy == "dots":
+            products = _ckpt(self._products, x)
+            h = _ckpt(self._attention_of, *rope, attn_impl, *products)
+            r, *mlp_in = _ckpt(self._mlp_inputs, x, h)
+        else:
+            raise ValueError(f"unknown remat_policy {policy!r}")
+        return r + _ckpt(self.mlp.reduce, *mlp_in)
 
 
 def _ckpt(fn, *args, **kwargs):
@@ -704,19 +831,27 @@ class Llama(nn.Module):
             positions = torch.arange(S, device=tokens.device).expand(B, S)
         cos, sin = self.rope_tables(tokens.device)
         x = F.embedding(tokens, self.embed).to(cfg.dtype)
-        remat = cfg.remat and not decode and torch.is_grad_enabled()
-        for i, layer in enumerate(self.layers):
-            if remat and cfg.remat_policy == "qkv_attn":
-                x = layer.forward_qkv_attn(x, positions, cos, sin,
-                                           attn_impl=attn_impl)
-            elif remat:
-                x = _ckpt(layer, x, positions, cos, sin, attn_impl=attn_impl)
-            else:
-                x = layer(x, positions, cos, sin,
-                          cache=cache[i] if decode else None, decode=decode,
-                          attn_impl=attn_impl, stage_step=stage_step,
-                          paging=paging)
-        x = self.final_norm(x)
+        if cfg.remat and not decode and torch.is_grad_enabled():
+            for layer in self.layers:
+                x = layer.forward_remat(x, positions, cos, sin,
+                                        cfg.remat_policy,
+                                        attn_impl=attn_impl)
+            x = self.final_norm(x)
+        else:
+            # Each layer's closing add is fused with the norm that reads
+            # it (K10): the next layer's input norm, or the final one.
+            norms = [layer.input_norm for layer in self.layers[1:]]
+            normed = (self.layers[0].input_norm if self.layers
+                      else self.final_norm)(x)
+            for i, (layer, norm) in enumerate(zip(
+                    self.layers, norms + [self.final_norm])):
+                r, d = layer.residuals(
+                    x, normed, positions, cos, sin,
+                    cache=cache[i] if decode else None, decode=decode,
+                    attn_impl=attn_impl, stage_step=stage_step,
+                    paging=paging)
+                x, normed = norm.add(r, d)
+            x = normed
         out = x if return_hidden else self.head_logits(x)
         return (out, cache) if decode else out
 

@@ -77,6 +77,14 @@ __device__ __forceinline__ float round_to(float v, int dtype) {
   return dtype == kBF16 ? __uint_as_float(bf16_bits(v) << 16) : v;
 }
 
+// round_to for a storage type known at compile time.
+template <typename T>
+__device__ __forceinline__ float rnd(float v);
+template <>
+__device__ __forceinline__ float rnd<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float rnd<__nv_bfloat16>(float v) { return round_to(v, kBF16); }
+
 // The sum of v over the block's kThreads threads, returned to every thread.
 // A butterfly within each warp, then every warp sums the warps' totals in
 // warp order: a fixed order for a fixed block size. ``red`` holds

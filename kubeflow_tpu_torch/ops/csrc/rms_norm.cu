@@ -1,20 +1,29 @@
-// RMSNorm forward and backward for Hopper (sm_90a), bound to Python through
-// a plain C interface (ctypes); see kubeflow_tpu_torch/ops/norms.py.
+// RMSNorm forward and backward for Hopper (sm_90a), and the same with the
+// residual add in front (K10), bound to Python through a plain C interface
+// (ctypes); see kubeflow_tpu_torch/ops/norms.py.
 //
 // Replaces the XLA fusion of kubeflow_tpu/ops/norms.py::rms_norm (:9), which
 // jax.jit makes of its upcast, square, mean, rsqrt, two multiplies and cast
-// (and of their transposes in the backward). There is no Pallas kernel
-// behind it.
+// (and of their transposes in the backward); and, with the add (K10), the
+// fusion of ``x = x + h`` with the RMSNorm that reads it,
+// kubeflow_tpu/models/llama.py:677-678 (and :680 into the next layer's
+// :672, or the final norm). There is no Pallas kernel behind either.
 //
 // Function, per row of x [rows, E] (bf16 or f32) with weight w [E] (bf16 or
 // f32): r = 1 / sqrt(mean(x^2) + eps) in f32, y = (x r) w rounded once to
 // x's dtype; r is saved [rows] f32. Backward, with n = x r and g = dy w:
 // dx = r (g - n mean(g n)) rounded once to x's dtype, dw = sum over rows of
-// dy n in f32, rounded once to w's dtype.
+// dy n in f32, rounded once to w's dtype. With the add, x is first the
+// residual x + h rounded to x's dtype (written out, as the eager add
+// writes it), and the backward adds the residual's incoming gradient dres:
+// dx = dres + (the norm's dx, rounded), rounded again, as autograd's
+// accumulation of the two rounds.
 //
 // Bound on this card: bytes. Forward reads x and writes y (4 bytes an
 // element in bf16), backward reads x and dy and writes dx (6): at the
-// training shape [24564, 2048] 60 and 90 us at 3.35 TB/s.
+// training shape [24564, 2048] 60 and 90 us at 3.35 TB/s. With the add, the
+// forward also reads h and writes the sum, the backward also reads dres
+// (8 bytes an element each way): 120 us each.
 //
 // Design: one block of 256 threads a row; each thread holds its 16-byte
 // chunks of the row in registers (kChunks of them, E up to 2048 kChunks
@@ -32,11 +41,13 @@ using namespace kftpu_fused;
 
 constexpr int kThreads = 256;
 
-template <typename T, typename W, int kChunks>
-__global__ void __launch_bounds__(kThreads)
-    rmsnorm_fwd(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ y,
-                float* __restrict__ rstd, int E, float eps) {
-  __shared__ float red[kThreads / 32];
+// The forward of one row a block. kAdd: x is x + h, rounded to T, and
+// written to res (K10).
+template <typename T, typename W, int kChunks, bool kAdd>
+__device__ __forceinline__ void fwd_row(const T* __restrict__ x, const T* __restrict__ h,
+                                        const W* __restrict__ w, T* __restrict__ res,
+                                        T* __restrict__ y, float* __restrict__ rstd, int E,
+                                        float eps, float* red) {
   const size_t row = blockIdx.x;
   const int nc = E / 8;
   const T* xr = x + row * E;
@@ -47,6 +58,13 @@ __global__ void __launch_bounds__(kThreads)
     const int c = threadIdx.x + i * kThreads;
     if (c < nc) {
       load8(xr + c * 8, v[i]);
+      if (kAdd) {
+        float hv[8];
+        load8(h + row * E + c * 8, hv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[i][j] = rnd<T>(__fadd_rn(v[i][j], hv[j]));
+        store8(res + row * E + c * 8, v[i]);
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j) ss += v[i][j] * v[i][j];
     }
@@ -69,10 +87,31 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, typename W, int kChunks>
 __global__ void __launch_bounds__(kThreads)
-    rmsnorm_bwd(const T* __restrict__ x, const W* __restrict__ w, const T* __restrict__ dy,
-                const float* __restrict__ rstd, T* __restrict__ dx, float* __restrict__ partial,
-                long long rows, int E, long long rows_per_block) {
+    rmsnorm_fwd(const T* __restrict__ x, const T* __restrict__ h, const W* __restrict__ w,
+                T* __restrict__ res, T* __restrict__ y, float* __restrict__ rstd, int E,
+                float eps) {
   __shared__ float red[kThreads / 32];
+  fwd_row<T, W, kChunks, false>(x, h, w, res, y, rstd, E, eps, red);
+}
+
+// K10 under its own name, so a profile tells it from K6.
+template <typename T, typename W, int kChunks>
+__global__ void __launch_bounds__(kThreads)
+    add_rmsnorm_fwd(const T* __restrict__ x, const T* __restrict__ h, const W* __restrict__ w,
+                    T* __restrict__ res, T* __restrict__ y, float* __restrict__ rstd, int E,
+                    float eps) {
+  __shared__ float red[kThreads / 32];
+  fwd_row<T, W, kChunks, true>(x, h, w, res, y, rstd, E, eps, red);
+}
+
+// The backward of a run of rows a block. dres (may be null): the
+// residual's incoming gradient, added to dx (K10).
+template <typename T, typename W, int kChunks>
+__device__ __forceinline__ void bwd_rows(const T* __restrict__ x, const W* __restrict__ w,
+                                         const T* __restrict__ dy, const T* __restrict__ dres,
+                                         const float* __restrict__ rstd, T* __restrict__ dx,
+                                         float* __restrict__ partial, long long rows, int E,
+                                         long long rows_per_block, float* red) {
   const int nc = E / 8;
   const long long r0 = blockIdx.x * rows_per_block;
   const long long r1 = min(rows, r0 + rows_per_block);
@@ -114,6 +153,12 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < 8; ++j) {
           o[j] = __fmul_rn(r, __fsub_rn(g[i][j], __fmul_rn(n[i][j], mean)));
         }
+        if (dres != nullptr) {
+          float d[8];
+          load8(dres + row * E + c * 8, d);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) o[j] = __fadd_rn(d[j], rnd<T>(o[j]));
+        }
         store8(dx + row * E + c * 8, o);
       }
     }
@@ -125,15 +170,46 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T, typename W, int kChunks>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_bwd(const T* __restrict__ x, const W* __restrict__ w, const T* __restrict__ dy,
+                const T* __restrict__ dres, const float* __restrict__ rstd, T* __restrict__ dx,
+                float* __restrict__ partial, long long rows, int E, long long rows_per_block) {
+  __shared__ float red[kThreads / 32];
+  bwd_rows<T, W, kChunks>(x, w, dy, nullptr, rstd, dx, partial, rows, E, rows_per_block, red);
+}
+
+template <typename T, typename W, int kChunks>
+__global__ void __launch_bounds__(kThreads)
+    add_rmsnorm_bwd(const T* __restrict__ x, const W* __restrict__ w, const T* __restrict__ dy,
+                    const T* __restrict__ dres, const float* __restrict__ rstd,
+                    T* __restrict__ dx, float* __restrict__ partial, long long rows, int E,
+                    long long rows_per_block) {
+  __shared__ float red[kThreads / 32];
+  bwd_rows<T, W, kChunks>(x, w, dy, dres, rstd, dx, partial, rows, E, rows_per_block, red);
+}
+
 // dw[c] = sum over b of partial[b, c], b in order.
 template <typename W>
-__global__ void __launch_bounds__(kThreads)
-    rmsnorm_dw(const float* __restrict__ partial, W* __restrict__ dw, int blocks, int E) {
+__device__ __forceinline__ void dw_col(const float* __restrict__ partial, W* __restrict__ dw,
+                                       int blocks, int E) {
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= E) return;
   float s = 0.f;
   for (int b = 0; b < blocks; ++b) s += partial[static_cast<size_t>(b) * E + c];
   store1(dw + c, s);
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_dw(const float* __restrict__ partial, W* __restrict__ dw, int blocks, int E) {
+  dw_col<W>(partial, dw, blocks, E);
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+    add_rmsnorm_dw(const float* __restrict__ partial, W* __restrict__ dw, int blocks, int E) {
+  dw_col<W>(partial, dw, blocks, E);
 }
 
 // The smallest chunk count a thread holds for width E, 0 if too wide.
@@ -145,48 +221,93 @@ int chunks_for(int E) {
   return 0;
 }
 
+// h == nullptr: RMSNorm of x (K6); else of x + h, written to res (K10).
 template <typename T, typename W>
-cudaError_t fwd(const void* x, const void* w, void* y, float* rstd, long long rows, int E,
-                float eps, cudaStream_t st) {
+cudaError_t fwd(const void* x, const void* h, const void* w, void* res, void* y, float* rstd,
+                long long rows, int E, float eps, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>(rows));
   auto args = [&](auto kernel) {
-    kernel<<<grid, kThreads, 0, st>>>(static_cast<const T*>(x), static_cast<const W*>(w),
+    kernel<<<grid, kThreads, 0, st>>>(static_cast<const T*>(x), static_cast<const T*>(h),
+                                     static_cast<const W*>(w), static_cast<T*>(res),
                                      static_cast<T*>(y), rstd, E, eps);
   };
+  const bool add = h != nullptr;
   switch (chunks_for(E)) {
-    case 1: args(rmsnorm_fwd<T, W, 1>); break;
-    case 2: args(rmsnorm_fwd<T, W, 2>); break;
-    case 4: args(rmsnorm_fwd<T, W, 4>); break;
+    case 1: add ? args(add_rmsnorm_fwd<T, W, 1>) : args(rmsnorm_fwd<T, W, 1>); break;
+    case 2: add ? args(add_rmsnorm_fwd<T, W, 2>) : args(rmsnorm_fwd<T, W, 2>); break;
+    case 4: add ? args(add_rmsnorm_fwd<T, W, 4>) : args(rmsnorm_fwd<T, W, 4>); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
+// add: K10's kernels (dres may still be null: no residual gradient).
 template <typename T, typename W>
-cudaError_t bwd(const void* x, const void* w, const void* dy, const float* rstd, void* dx,
-                void* dw, float* partial, long long rows, int E, int blocks, cudaStream_t st) {
+cudaError_t bwd(bool add, const void* x, const void* w, const void* dy, const void* dres,
+                const float* rstd, void* dx, void* dw, float* partial, long long rows, int E,
+                int blocks, cudaStream_t st) {
   const long long per = (rows + blocks - 1) / blocks;
   auto args = [&](auto kernel) {
     kernel<<<blocks, kThreads, 0, st>>>(static_cast<const T*>(x), static_cast<const W*>(w),
-                                       static_cast<const T*>(dy), rstd, static_cast<T*>(dx),
-                                       partial, rows, E, per);
+                                       static_cast<const T*>(dy), static_cast<const T*>(dres),
+                                       rstd, static_cast<T*>(dx), partial, rows, E, per);
   };
   switch (chunks_for(E)) {
-    case 1: args(rmsnorm_bwd<T, W, 1>); break;
-    case 2: args(rmsnorm_bwd<T, W, 2>); break;
-    case 4: args(rmsnorm_bwd<T, W, 4>); break;
+    case 1: add ? args(add_rmsnorm_bwd<T, W, 1>) : args(rmsnorm_bwd<T, W, 1>); break;
+    case 2: add ? args(add_rmsnorm_bwd<T, W, 2>) : args(rmsnorm_bwd<T, W, 2>); break;
+    case 4: add ? args(add_rmsnorm_bwd<T, W, 4>) : args(rmsnorm_bwd<T, W, 4>); break;
     default: return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  rmsnorm_dw<W><<<(E + kThreads - 1) / kThreads, kThreads, 0, st>>>(partial, static_cast<W*>(dw),
-                                                                     blocks, E);
+  const unsigned grid = (E + kThreads - 1) / kThreads;
+  if (add) {
+    add_rmsnorm_dw<W><<<grid, kThreads, 0, st>>>(partial, static_cast<W*>(dw), blocks, E);
+  } else {
+    rmsnorm_dw<W><<<grid, kThreads, 0, st>>>(partial, static_cast<W*>(dw), blocks, E);
+  }
   return cudaGetLastError();
 }
 
 bool valid(int x_dtype, int w_dtype, long long rows, int E) {
   return (x_dtype == kF32 || x_dtype == kBF16) && (w_dtype == kF32 || w_dtype == kBF16) &&
          rows > 0 && rows < (1LL << 31) && E > 0 && E % 8 == 0 && chunks_for(E) > 0;
+}
+
+// The forward of either entry: h == nullptr for K6.
+int fwd_entry(int x_dtype, int w_dtype, const void* x, const void* h, const void* w, void* res,
+              void* y, void* rstd, long long rows, int E, float eps, void* stream) {
+  if (!valid(x_dtype, w_dtype, rows, E)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* r = static_cast<float*>(rstd);
+  using B = __nv_bfloat16;
+  if (x_dtype == kBF16) {
+    return w_dtype == kBF16 ? fwd<B, B>(x, h, w, res, y, r, rows, E, eps, st)
+                            : fwd<B, float>(x, h, w, res, y, r, rows, E, eps, st);
+  }
+  return w_dtype == kBF16 ? fwd<float, B>(x, h, w, res, y, r, rows, E, eps, st)
+                          : fwd<float, float>(x, h, w, res, y, r, rows, E, eps, st);
+}
+
+// The backward of either entry (add: K10's).
+int bwd_entry(bool add, int x_dtype, int w_dtype, const void* x, const void* w, const void* dy,
+              const void* dres, const void* rstd, void* dx, void* dw, void* partial,
+              long long rows, int E, int blocks, void* stream) {
+  if (!valid(x_dtype, w_dtype, rows, E) || blocks < 1 || blocks > rows) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(rstd);
+  float* part = static_cast<float*>(partial);
+  using B = __nv_bfloat16;
+  if (x_dtype == kBF16) {
+    return w_dtype == kBF16
+               ? bwd<B, B>(add, x, w, dy, dres, r, dx, dw, part, rows, E, blocks, st)
+               : bwd<B, float>(add, x, w, dy, dres, r, dx, dw, part, rows, E, blocks, st);
+  }
+  return w_dtype == kBF16
+             ? bwd<float, B>(add, x, w, dy, dres, r, dx, dw, part, rows, E, blocks, st)
+             : bwd<float, float>(add, x, w, dy, dres, r, dx, dw, part, rows, E, blocks, st);
 }
 
 }  // namespace
@@ -196,15 +317,7 @@ bool valid(int x_dtype, int w_dtype, long long rows, int E) {
 // of the launch (0 = launched).
 extern "C" int kftpu_rms_norm_fwd(int x_dtype, int w_dtype, const void* x, const void* w, void* y,
                                   void* rstd, long long rows, int E, float eps, void* stream) {
-  if (!valid(x_dtype, w_dtype, rows, E)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* r = static_cast<float*>(rstd);
-  if (x_dtype == kBF16) {
-    return w_dtype == kBF16 ? fwd<__nv_bfloat16, __nv_bfloat16>(x, w, y, r, rows, E, eps, st)
-                            : fwd<__nv_bfloat16, float>(x, w, y, r, rows, E, eps, st);
-  }
-  return w_dtype == kBF16 ? fwd<float, __nv_bfloat16>(x, w, y, r, rows, E, eps, st)
-                          : fwd<float, float>(x, w, y, r, rows, E, eps, st);
+  return fwd_entry(x_dtype, w_dtype, x, nullptr, w, nullptr, y, rstd, rows, E, eps, stream);
 }
 
 // dx [rows, E] (x's dtype) and dw [E] (w's dtype) from x, w, dy and the
@@ -214,17 +327,27 @@ extern "C" int kftpu_rms_norm_bwd(int x_dtype, int w_dtype, const void* x, const
                                   const void* dy, const void* rstd, void* dx, void* dw,
                                   void* partial, long long rows, int E, int blocks,
                                   void* stream) {
-  if (!valid(x_dtype, w_dtype, rows, E) || blocks < 1 || blocks > rows) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* r = static_cast<const float*>(rstd);
-  float* part = static_cast<float*>(partial);
-  if (x_dtype == kBF16) {
-    return w_dtype == kBF16
-               ? bwd<__nv_bfloat16, __nv_bfloat16>(x, w, dy, r, dx, dw, part, rows, E, blocks, st)
-               : bwd<__nv_bfloat16, float>(x, w, dy, r, dx, dw, part, rows, E, blocks, st);
-  }
-  return w_dtype == kBF16 ? bwd<float, __nv_bfloat16>(x, w, dy, r, dx, dw, part, rows, E, blocks, st)
-                          : bwd<float, float>(x, w, dy, r, dx, dw, part, rows, E, blocks, st);
+  return bwd_entry(false, x_dtype, w_dtype, x, w, dy, nullptr, rstd, dx, dw, partial, rows, E,
+                   blocks, stream);
+}
+
+// K10: res = x + h rounded to x's dtype, y = rms_norm(res, w), rstd [rows]
+// f32; x, h, res and y of one dtype, contiguous and 16-byte aligned.
+// Returns the CUDA error code of the launch.
+extern "C" int kftpu_add_rms_norm_fwd(int x_dtype, int w_dtype, const void* x, const void* h,
+                                      const void* w, void* res, void* y, void* rstd,
+                                      long long rows, int E, float eps, void* stream) {
+  if (h == nullptr || res == nullptr) return cudaErrorInvalidValue;
+  return fwd_entry(x_dtype, w_dtype, x, h, w, res, y, rstd, rows, E, eps, stream);
+}
+
+// K10's backward: dx = dres + rms_norm's dx of res (each rounded to the
+// dtype; dres may be null: no residual gradient) and dw, from res, w, dy
+// and the forward's rstd; ``partial`` and ``blocks`` as kftpu_rms_norm_bwd.
+extern "C" int kftpu_add_rms_norm_bwd(int x_dtype, int w_dtype, const void* res, const void* w,
+                                      const void* dy, const void* dres, const void* rstd,
+                                      void* dx, void* dw, void* partial, long long rows, int E,
+                                      int blocks, void* stream) {
+  return bwd_entry(true, x_dtype, w_dtype, res, w, dy, dres, rstd, dx, dw, partial, rows, E,
+                   blocks, stream);
 }

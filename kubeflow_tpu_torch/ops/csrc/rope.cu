@@ -17,8 +17,13 @@
 // Every product and sum is one f32 operation rounded to nearest (no fused
 // multiply-add), as the plain version's separate tensor ops are, and the
 // result is rounded once to x's dtype, so kernel and plain agree bitwise.
-// Outputs are contiguous; inputs may be strided over B, S and H (D
-// contiguous), as views of a fused projection are.
+// Each operand, inputs and outputs alike, is a strided view [B, S, H / G,
+// G, D] (D contiguous): head h sits at (h / G) * sh + (h % G) * sg. G = 1
+// is an ordinary [B, S, H, D] view. With G > 1 the kernel reads q in place
+// from the fused projection [B, S, Hkv, G + 2, D] of
+// kubeflow_tpu/models/llama.py:256-264 (q = qkv[..., :G, :] reshaped: head
+// h is kv head h / G, slot h % G) and, in the backward, writes dq and dk
+// into their slots of the fused product's gradient.
 //
 // Bound on this card: bytes. Reads q and k once and writes them once (4
 // bytes an element in bf16; the tables' rows come from L2): at the training
@@ -39,7 +44,11 @@ constexpr int kThreads = 256;
 struct Params {
   const void* x[2];       // q, k (k may be null: Hn[1] == 0)
   void* out[2];
-  long long sb[2], ss[2], sh[2];  // input strides in elements
+  // Strides in elements of the inputs (s) and outputs (o) over B, S, the
+  // head group (h / G) and the head within it (h % G).
+  long long sb[2], ss[2], sh[2], sg[2];
+  long long ob[2], os[2], oh[2], og[2];
+  int G[2];
   int Hn[2];
   int B, S, D;
   const void* pos;
@@ -71,8 +80,9 @@ __global__ void __launch_bounds__(kThreads) rope_kernel(Params p, long long item
   float c[8], sn[8], x1[8], x2[8], o1[8], o2[8];
   load8(p.cos + pos * half + chunk * 8, c);
   load8(p.sin + pos * half + chunk * 8, sn);
+  const int hg = h / p.G[which], hi = h % p.G[which];
   const T* src = static_cast<const T*>(p.x[which]) + b * p.sb[which] + s * p.ss[which] +
-                 h * p.sh[which] + chunk * 8;
+                 hg * p.sh[which] + hi * p.sg[which] + chunk * 8;
   load8(src, x1);
   load8(src + half, x2);
 #pragma unroll
@@ -85,8 +95,8 @@ __global__ void __launch_bounds__(kThreads) rope_kernel(Params p, long long item
       o2[j] = __fadd_rn(__fmul_rn(x2[j], c[j]), __fmul_rn(x1[j], sn[j]));
     }
   }
-  T* dst = static_cast<T*>(p.out[which]) +
-           ((static_cast<long long>(b) * p.S + s) * p.Hn[which] + h) * p.D + chunk * 8;
+  T* dst = static_cast<T*>(p.out[which]) + b * p.ob[which] + s * p.os[which] +
+           hg * p.oh[which] + hi * p.og[which] + chunk * 8;
   store8(dst, o1);
   store8(dst + half, o2);
 }
@@ -107,20 +117,23 @@ cudaError_t launch(const Params& p, bool inverse, cudaStream_t st) {
 
 }  // namespace
 
-// Rotates q [B, S, Hq, D] and, when k is not null, k [B, S, Hk, D] into the
-// contiguous qo and ko. ``dtype`` 0 = f32, 1 = bf16 (q, k and the outputs
-// alike); strides in elements over B, S and H (D contiguous, every row
-// start 16-byte aligned); positions [B, S] int32 (pos_int64 = 0) or int64
-// with strides pb, ps; cos, sin [L, D/2] f32 contiguous; D a multiple of 16.
-// ``inverse`` rotates by -p (the backward). Returns the CUDA error code of
-// the launch (0 = launched).
+// Rotates q (Hq heads) and, when k is not null, k (Hk heads) into qo and
+// ko. ``dtype`` 0 = f32, 1 = bf16 (q, k and the outputs alike).
+// ``strides``: 16 values in elements, for q then k: the input's over B, S,
+// head group and head within the group, then the output's likewise (D
+// contiguous, every row start 16-byte aligned); qg and kg the group sizes
+// (head h at group h / G, place h % G). positions [B, S] int32 (pos_int64 =
+// 0) or int64 with strides pb, ps; cos, sin [L, D/2] f32 contiguous; D a
+// multiple of 16. ``inverse`` rotates by -p (the backward). Returns the
+// CUDA error code of the launch (0 = launched).
 extern "C" int kftpu_rope(int dtype, int pos_int64, int inverse, const void* q, const void* k,
                           void* qo, void* ko, int B, int S, int Hq, int Hk, int D,
-                          long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                          long long k_ss, long long k_sh, const void* positions, long long pb,
-                          long long ps, const void* cos, const void* sin, int L, void* stream) {
+                          const long long* strides, int qg, int kg, const void* positions,
+                          long long pb, long long ps, const void* cos, const void* sin, int L,
+                          void* stream) {
   if ((dtype != kF32 && dtype != kBF16) || B < 1 || S < 1 || Hq < 1 || Hk < 0 || D < 16 ||
-      D % 16 != 0 || L < 1 || (Hk > 0 && (k == nullptr || ko == nullptr))) {
+      D % 16 != 0 || L < 1 || strides == nullptr || qg < 1 || kg < 1 || Hq % qg != 0 ||
+      (Hk > 0 && (k == nullptr || ko == nullptr || Hk % kg != 0))) {
     return cudaErrorInvalidValue;
   }
   Params p;
@@ -128,8 +141,13 @@ extern "C" int kftpu_rope(int dtype, int pos_int64, int inverse, const void* q, 
   p.x[1] = k;
   p.out[0] = qo;
   p.out[1] = ko;
-  p.sb[0] = q_sb; p.ss[0] = q_ss; p.sh[0] = q_sh;
-  p.sb[1] = k_sb; p.ss[1] = k_ss; p.sh[1] = k_sh;
+  for (int i = 0; i < 2; ++i) {
+    const long long* st = strides + 8 * i;
+    p.sb[i] = st[0]; p.ss[i] = st[1]; p.sh[i] = st[2]; p.sg[i] = st[3];
+    p.ob[i] = st[4]; p.os[i] = st[5]; p.oh[i] = st[6]; p.og[i] = st[7];
+  }
+  p.G[0] = qg;
+  p.G[1] = kg;
   p.Hn[0] = Hq;
   p.Hn[1] = Hk;
   p.B = B;

@@ -1,5 +1,6 @@
 """RMSNorm: the CUDA kernel (K6) and its plain PyTorch version (f32
-statistics regardless of activation dtype).
+statistics regardless of activation dtype); and the residual add fused
+in front of it (K10, :func:`add_rms_norm`).
 
 :func:`rms_norm` is a ``torch.autograd.Function`` whose forward saves the
 row statistic ``rstd`` [rows] f32 and whose backward is written out from
@@ -18,13 +19,22 @@ It dispatches on where x lives:
 
 Each forward launch adds one to ``rms_norm.fwd_launches``, each backward
 launch to ``rms_norm.bwd_launches``.
+
+:func:`add_rms_norm` (K10) returns ``r = x + h``, rounded to the dtype as
+the eager add rounds it, and ``rms_norm(r)``, from one read of x and h;
+it saves r, the weight and rstd. Its backward takes the residual's
+incoming gradient ``dr`` beside the norm's ``dy`` and writes ``dr +
+rms_norm's dx`` in the same pass (the accumulation autograd would run as
+a separate ``add_``); x and h get that one gradient. Same kernel source,
+same rules and dispatch; its counters are ``add_rms_norm.fwd_launches``
+and ``add_rms_norm.bwd_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,6 +73,28 @@ def rms_norm_backward_reference(
     return dx, dw
 
 
+def add_rms_norm_reference(
+    x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, *,
+    eps: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(r, y, rstd): r = x + h in x's dtype (one rounding, as the eager add),
+    then :func:`rms_norm_reference` of r."""
+    r = x + h
+    y, rstd = rms_norm_reference(r, weight, eps=eps)
+    return r, y, rstd
+
+
+def add_rms_norm_backward_reference(
+    r: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+    rstd: torch.Tensor, dr: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dweight) of :func:`add_rms_norm_reference`: the norm's dx of r,
+    in r's dtype, plus the residual's incoming gradient ``dr`` (None: none),
+    rounded again; dx is the gradient of both x and h."""
+    dx, dw = rms_norm_backward_reference(r, weight, dy, rstd)
+    return (dx if dr is None else dr + dx), dw
+
+
 def bind(lib: ctypes.CDLL):
     """K6's C entry points (forward, backward) with their signatures."""
     fwd = lib.kftpu_rms_norm_fwd
@@ -78,11 +110,33 @@ def bind(lib: ctypes.CDLL):
     return fwd, bwd
 
 
+def bind_add(lib: ctypes.CDLL):
+    """K10's C entry points (forward, backward) with their signatures."""
+    fwd = lib.kftpu_add_rms_norm_fwd
+    fwd.restype = ctypes.c_int
+    fwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_void_p])
+    bwd = lib.kftpu_add_rms_norm_bwd
+    bwd.restype = ctypes.c_int
+    bwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
+    return fwd, bwd
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
     from kubeflow_tpu_torch.ops._build import load_library
 
     return bind(load_library(_SOURCE))
+
+
+@functools.lru_cache(maxsize=None)
+def _add_kernel_fns():
+    from kubeflow_tpu_torch.ops._build import load_library
+
+    return bind_add(load_library(_SOURCE))
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,6 +213,59 @@ def _bwd_kernel(x, weight, dy, rstd) -> Tuple[torch.Tensor, torch.Tensor]:
     return dx, dw
 
 
+def _add_fwd_kernel(x, h, weight, eps):
+    _check(x, weight)
+    if h.shape != x.shape or h.dtype != x.dtype or h.device != x.device \
+            or not h.is_contiguous() or h.data_ptr() % 16:
+        raise ValueError(f"add_rms_norm kernel takes h like x "
+                         f"{tuple(x.shape)} {x.dtype}, contiguous and 16-byte "
+                         f"aligned; got {tuple(h.shape)} {h.dtype}")
+    E = x.shape[-1]
+    rows = x.numel() // E
+    r, y = torch.empty_like(x), torch.empty_like(x)
+    rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _add_kernel_fns()[0](
+            _DTYPES[x.dtype], _DTYPES[weight.dtype], x.data_ptr(),
+            h.data_ptr(), weight.data_ptr(), r.data_ptr(), y.data_ptr(),
+            rstd.data_ptr(), rows, E, float(eps), stream)
+    if rc != 0:
+        raise RuntimeError(f"add_rms_norm forward launch failed: CUDA error "
+                           f"{rc} (x {tuple(x.shape)} {x.dtype})")
+    add_rms_norm.fwd_launches += 1
+    return r, y, rstd
+
+
+def _add_bwd_kernel(r, weight, dy, rstd, dr):
+    _check(r, weight)
+    for name, g in (("dy", dy), ("dr", dr)):
+        if g is not None and (g.shape != r.shape or g.dtype != r.dtype):
+            raise ValueError(f"{name} {tuple(g.shape)} {g.dtype} does not "
+                             f"match r {tuple(r.shape)} {r.dtype}")
+    dy = dy.contiguous()
+    dr = None if dr is None else dr.contiguous()
+    E = r.shape[-1]
+    rows = r.numel() // E
+    blocks = min(rows, 4 * _sm_count(r.device.index or 0))
+    dx = torch.empty_like(r)
+    dw = torch.empty_like(weight)
+    partial = torch.empty((blocks, E), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = _add_kernel_fns()[1](
+            _DTYPES[r.dtype], _DTYPES[weight.dtype], r.data_ptr(),
+            weight.data_ptr(), dy.data_ptr(),
+            0 if dr is None else dr.data_ptr(), rstd.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), rows, E,
+            blocks, stream)
+    if rc != 0:
+        raise RuntimeError(f"add_rms_norm backward launch failed: CUDA error "
+                           f"{rc} (r {tuple(r.shape)} {r.dtype})")
+    add_rms_norm.bwd_launches += 1
+    return dx, dw
+
+
 class _RMSNorm(torch.autograd.Function):
     """y of (x, weight); saves x, weight and rstd."""
 
@@ -189,3 +296,39 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
 
 rms_norm.fwd_launches = 0
 rms_norm.bwd_launches = 0
+
+
+class _AddRMSNorm(torch.autograd.Function):
+    """(r, y) of (x, h, weight); saves r, weight and rstd."""
+
+    @staticmethod
+    def forward(ctx, x, h, weight, eps):
+        if _on_card(x):
+            r, y, rstd = _add_fwd_kernel(x, h, weight, eps)
+        else:
+            r, y, rstd = add_rms_norm_reference(x, h, weight, eps=eps)
+        ctx.save_for_backward(r, weight, rstd)
+        ctx.set_materialize_grads(False)
+        return r, y
+
+    @staticmethod
+    def backward(ctx, dr, dy):
+        if dy is None:                   # y unused: r = x + h alone
+            return dr, dr, None, None
+        r, weight, rstd = ctx.saved_tensors
+        if _on_card(r):
+            dx, dw = _add_bwd_kernel(r, weight, dy, rstd, dr)
+        else:
+            dx, dw = add_rms_norm_backward_reference(r, weight, dy, rstd, dr)
+        return dx, dx, dw, None
+
+
+def add_rms_norm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, *,
+                 eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(r, y): the residual r = x + h in x's dtype and y = RMSNorm(r) (stats
+    in f32), one kernel launch on the card."""
+    return _AddRMSNorm.apply(x, h, weight, eps)
+
+
+add_rms_norm.fwd_launches = 0
+add_rms_norm.bwd_launches = 0

@@ -4,7 +4,13 @@ kernel (K7) and its plain PyTorch version.
 :func:`apply_rope_qk` rotates q and k in one call and :func:`apply_rope`
 one tensor, both through a ``torch.autograd.Function`` whose backward is
 the inverse rotation (the transpose of a rotation), written out rather
-than replayed op by op. They dispatch on where the tensors live:
+than replayed op by op. :func:`apply_rope_fused` takes the fused q/k/v
+projection [B, S, Hkv, G + 2, D] (``LlamaConfig.fused_qkv``) and returns
+q and k rotated, contiguous, and v, a contiguous copy of its slot where a
+gradient is needed and a view of it otherwise: K7 reads q and k in place
+(the strided mode); its backward writes dq and dk into their slots of one
+[B, S, Hkv, G + 2, D] gradient and copies dv into the last, with no
+zero-fill. They dispatch on where the tensors live:
 
 - CUDA tensors launch ``ops/csrc/rope.cu``, built at first use by
   ``ops/_build.py``, or raise: q and k bf16 or f32 of one dtype, head dim
@@ -80,9 +86,10 @@ def bind(lib: ctypes.CDLL):
     fn = lib.kftpu_rope
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
-                   + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -100,11 +107,29 @@ def _on_card(x: torch.Tensor) -> bool:
                      f"version), not {x.device}")
 
 
+def _grouped(t: torch.Tensor) -> torch.Tensor:
+    """t as the kernel's [B, S, H / G, G, D] view: a 4-D [B, S, H, D] view is
+    one group a head (G = 1)."""
+    return t.unsqueeze(3) if t.dim() == 4 else t
+
+
+def _check_view(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
+    per = 16 // q.element_size()
+    if t.dtype != q.dtype or t.device != q.device:
+        raise ValueError(f"{name} {t.dtype} on {t.device} does not match q "
+                         f"{q.dtype} on {q.device}")
+    if t.stride(-1) != 1 or t.data_ptr() % 16 \
+            or any(st % per for st in t.stride()[:-1] if st):
+        raise ValueError(f"{name}'s head dim must be contiguous and its "
+                         f"rows 16-byte aligned")
+
+
 def _check(q, k, cos, sin, positions) -> None:
-    if q.dim() != 4 or q.dtype not in _DTYPES:
+    """q, k: [B, S, H / G, G, D] views (:func:`_grouped`)."""
+    if q.dim() != 5 or q.dtype not in _DTYPES:
         raise ValueError(f"apply_rope kernel takes bf16 or f32 [B, S, H, D], "
                          f"got {tuple(q.shape)} {q.dtype}")
-    B, S, _, D = q.shape
+    B, S, D = q.shape[0], q.shape[1], q.shape[-1]
     if D % 16 or cos.shape != (cos.shape[0], D // 2) \
             or sin.shape != cos.shape:
         raise ValueError(f"apply_rope kernel takes a head dim that is a "
@@ -119,35 +144,40 @@ def _check(q, k, cos, sin, positions) -> None:
         raise ValueError(f"positions must be int32 or int64 [{B}, {S}] on "
                          f"{q.device}, got {tuple(positions.shape)} "
                          f"{positions.dtype}")
-    per = 16 // q.element_size()
     for name, t in (("q", q), ("k", k)):
         if t is None:
             continue
-        if t.dim() != 4 or t.shape[:2] != (B, S) or t.shape[3] != D \
-                or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} does not "
-                             f"match q {tuple(q.shape)} {q.dtype}")
-        if t.stride(3) != 1 or t.data_ptr() % 16 \
-                or any(st % per for st in t.stride()[:3]):
-            raise ValueError(f"{name}'s head dim must be contiguous and its "
-                             f"rows 16-byte aligned")
+        if t.dim() != 5 or t.shape[:2] != (B, S) or t.shape[-1] != D:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match q "
+                             f"{tuple(q.shape)}")
+        _check_view(name, t, q)
 
 
-def _kernel(q, k, cos, sin, positions, inverse: bool):
+def _launch(q, k, qo, ko, cos, sin, positions, inverse: bool) -> None:
+    """Rotate the [B, S, H / G, G, D] views q (and k, when given) into the
+    views qo (and ko) of the same shapes."""
     _check(q, k, cos, sin, positions)
-    B, S, Hq, D = q.shape
-    Hk = 0 if k is None else k.shape[2]
-    qo = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ko = None if k is None else torch.empty(k.shape, dtype=k.dtype,
-                                            device=k.device)
-    ks = (0, 0, 0) if k is None else k.stride()[:3]
+    for name, t, src in (("qo", qo, q), ("ko", ko, k)):
+        if src is not None:
+            if t.shape != src.shape:
+                raise ValueError(f"{name} {tuple(t.shape)} does not match "
+                                 f"{tuple(src.shape)}")
+            _check_view(name, t, q)
+    B, S, D = q.shape[0], q.shape[1], q.shape[-1]
+
+    def heads(t):
+        return 0 if t is None else t.shape[2] * t.shape[3]
+
+    st = [*q.stride()[:4], *qo.stride()[:4]]
+    st += [0] * 8 if k is None else [*k.stride()[:4], *ko.stride()[:4]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel_fn()(
             _DTYPES[q.dtype], int(positions.dtype == torch.int64),
             int(inverse), q.data_ptr(), 0 if k is None else k.data_ptr(),
             qo.data_ptr(), 0 if ko is None else ko.data_ptr(),
-            B, S, Hq, Hk, D, *q.stride()[:3], *ks, positions.data_ptr(),
+            B, S, heads(q), heads(k), D, (ctypes.c_longlong * 16)(*st),
+            q.shape[3], 1 if k is None else k.shape[3], positions.data_ptr(),
             *positions.stride(), cos.data_ptr(), sin.data_ptr(),
             cos.shape[0], stream)
     if rc != 0:
@@ -157,6 +187,16 @@ def _kernel(q, k, cos, sin, positions, inverse: bool):
         apply_rope.bwd_launches += 1
     else:
         apply_rope.fwd_launches += 1
+
+
+def _kernel(q, k, cos, sin, positions, inverse: bool):
+    """(q', k') of [B, S, H, D] views into new contiguous tensors."""
+    qo = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ko = None if k is None else torch.empty(k.shape, dtype=k.dtype,
+                                            device=k.device)
+    _launch(_grouped(q), None if k is None else _grouped(k), _grouped(qo),
+            None if ko is None else _grouped(ko), cos, sin, positions,
+            inverse)
     return qo, ko
 
 
@@ -197,6 +237,80 @@ class _RoPE(torch.autograd.Function):
         dq, dk = (None if g is None else _kernel_layout(g) for g in (dq, dk))
         gq, gk = _rotate(dq, dk, cos, sin, positions, inverse=True)
         return gq, gk, None, None, None
+
+
+def _fused_slots(qkv: torch.Tensor):
+    """The [B, S, Hkv, G, D] q slots and the [B, S, Hkv, 1, D] k slot of a
+    fused [B, S, Hkv, G + 2, D] projection (or its gradient)."""
+    G = qkv.shape[3] - 2
+    return qkv[..., :G, :], qkv[..., G:G + 1, :]
+
+
+def _rotate_fused(qkv, cos, sin, positions):
+    """q' [B, S, Hkv * G, D] and k' [B, S, Hkv, D] of the fused projection
+    qkv, rotated and contiguous (q and k read in place on the card)."""
+    B, S, Hkv, G2, D = qkv.shape
+    qs, ks = _fused_slots(qkv)
+    if not _on_card(qkv):
+        return _rotate(qs.reshape(B, S, -1, D), ks[..., 0, :], cos, sin,
+                       positions, inverse=False)
+    qo = torch.empty((B, S, Hkv * (G2 - 2), D), dtype=qkv.dtype,
+                     device=qkv.device)
+    ko = torch.empty((B, S, Hkv, D), dtype=qkv.dtype, device=qkv.device)
+    _launch(qs, ks, qo.view(qs.shape), ko.unsqueeze(3), cos, sin, positions,
+            inverse=False)
+    return qo, ko
+
+
+class _RoPEFused(torch.autograd.Function):
+    """(q', k', v) of the fused projection qkv [B, S, Hkv, G + 2, D]: q'
+    and k' as :func:`_rotate_fused` gives them, v a contiguous copy of
+    slot G + 1 (a view would keep the whole product alive wherever v is
+    saved). Saves the tables and the positions."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos, sin, positions):
+        ctx.save_for_backward(cos, sin, positions)
+        qo, ko = _rotate_fused(qkv, cos, sin, positions)
+        return qo, ko, qkv[..., -1, :].contiguous()
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        cos, sin, positions = ctx.saved_tensors
+        B, S, H, D = dq.shape
+        Hkv = dk.shape[2]
+        dqkv = torch.empty((B, S, Hkv, H // Hkv + 2, D), dtype=dq.dtype,
+                           device=dq.device)
+        dqs, dks = _fused_slots(dqkv)
+        if _on_card(dq):
+            dq, dk = _kernel_layout(dq), _kernel_layout(dk)
+            _launch(dq.view(dqs.shape), dk.unsqueeze(3), dqs, dks, cos, sin,
+                    positions, inverse=True)
+        else:
+            gq, gk = _rotate(dq, dk, cos, sin, positions, inverse=True)
+            dqs.copy_(gq.view(dqs.shape))
+            dks.copy_(gk.unsqueeze(3))
+        dqkv[..., -1, :].copy_(dv)
+        return dqkv, None, None, None
+
+
+def apply_rope_fused(
+    qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
+    positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(q, k, v) of the fused projection qkv [B, S, Hkv, G + 2, D] (rows
+    ordered kv head, slot, d; q is slots 0..G-1, k slot G, v slot G + 1):
+    q [B, S, Hkv * G, D] and k [B, S, Hkv, D] rotated by the positions
+    [B, S] (arange when None), contiguous, in one kernel launch on the
+    card; v [B, S, Hkv, D] a contiguous copy where qkv needs a gradient,
+    else a view of its slot (the attention kernels read strided views)."""
+    if qkv.dim() != 5 or qkv.shape[3] < 3:
+        raise ValueError(f"apply_rope_fused takes [B, S, Hkv, G + 2, D], got "
+                         f"{tuple(qkv.shape)}")
+    positions = _positions(qkv, positions)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _RoPEFused.apply(qkv, cos, sin, positions)
+    return (*_rotate_fused(qkv, cos, sin, positions), qkv[..., -1, :])
 
 
 def apply_rope_qk(

@@ -28,7 +28,10 @@ of kubeflow_tpu.serving.engine.
   path runs the same steps eagerly.
 - ``quantize="int8"`` serves weight-only int8 projections
   (``_quantize_int8``): every product of every step, and the lm_head,
-  reads the int8 bytes through ``ops/int8_linear.py`` (K4 on the card).
+  reads the int8 bytes through ``ops/int8_linear.py`` (K4 on the card);
+  the fused ``qkv_proj`` and ``gate_up_proj`` (``LlamaConfig.fused_qkv``,
+  ``fused_gate_up``) quantize one scale an output row, as the JAX engine
+  quantizes them over their contraction axis, and run one product each.
 - A model built with ``paged_kv_blocks`` serves from the physically paged
   pool (``ops/paged_attention.py``): one pool per layer addressed through
   per-slot block tables from ``serving/blocks.py``. Prompts with a common
@@ -71,7 +74,7 @@ from kubeflow_tpu_torch.models.llama import (
 from kubeflow_tpu_torch.ops.decode_attention import decode_attention
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.int8_linear import int8_linear
-from kubeflow_tpu_torch.ops.norms import rms_norm
+from kubeflow_tpu_torch.ops.norms import add_rms_norm, rms_norm
 from kubeflow_tpu_torch.ops.paged_attention import (
     copy_block,
     physical_rows,
@@ -79,6 +82,7 @@ from kubeflow_tpu_torch.ops.paged_attention import (
     scratch_block_id,
 )
 from kubeflow_tpu_torch.ops.rope import apply_rope
+from kubeflow_tpu_torch.ops.swiglu import swiglu
 from kubeflow_tpu_torch.serving.blocks import (
     BlocksExhausted,
     KVBlockAllocator,
@@ -203,14 +207,16 @@ class _Slot:
 
 
 #: The Python launch counters of the kernels a captured step holds
-#: (K1's forward, K3, K4, K6's and K7's forwards): a replay launches
-#: without running Python, so each graph counts its captured launches once
-#: and adds them per replay.
+#: (K1's forward, K3, K4, and the forwards of K6, K7, K9 and K10): a
+#: replay launches without running Python, so each graph counts its
+#: captured launches once and adds them per replay.
 _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
                     (decode_attention, "launches"),
                     (int8_linear, "launches"),
                     (rms_norm, "fwd_launches"),
-                    (apply_rope, "fwd_launches"))
+                    (apply_rope, "fwd_launches"),
+                    (swiglu, "fwd_launches"),
+                    (add_rms_norm, "fwd_launches"))
 
 
 def _launch_counts() -> List[int]:

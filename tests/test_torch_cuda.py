@@ -1594,3 +1594,185 @@ def test_rope_backward_takes_a_transposed_grad():
     torch.autograd.backward([qo, ko], [torch.zeros_like(qo), dk])
     assert torch.equal(kr.grad, rope_reference(
         dk.contiguous(), cos, sin, positions=pos, inverse=True))
+
+
+# K9 (SwiGLU): bitwise its plain version, both layouts, forward and
+# backward. K10 (the residual add + RMSNorm): the sum bitwise the eager
+# add, y and dx within one bf16 ulp (the norm's statistics summed in
+# another order, as K6). K7's strided mode (the fused q/k/v projection
+# read in place, its gradient written into the fused slots): bitwise.
+
+
+def _swiglu_case(rows, F, seed, fused):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gu = (torch.randn(rows, 2, F, generator=g, device="cuda") * 3).bfloat16()
+    dh = torch.randn(rows, F, generator=g, device="cuda").bfloat16()
+    if fused:
+        return (gu,), dh
+    return (gu[:, 0].contiguous(), gu[:, 1].contiguous()), dh
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("rows,F", [(4096, 5632), (8, 14336), (512, 14336),
+                                    (3, 16)])
+def test_swiglu_kernel_matches_plain_bitwise(rows, F, fused):
+    from kubeflow_tpu_torch.ops.swiglu import (
+        swiglu,
+        swiglu_backward_reference,
+        swiglu_fused,
+        swiglu_reference,
+    )
+
+    args, dh = _swiglu_case(rows, F, 40, fused)
+    leaves = [a.clone().requires_grad_() for a in args]
+    before = swiglu.fwd_launches, swiglu.bwd_launches
+    h = (swiglu_fused if fused else swiglu)(*leaves)
+    h.backward(dh)
+    assert (swiglu.fwd_launches, swiglu.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    gate, up = (args[0][:, 0], args[0][:, 1]) if fused else args
+    assert torch.equal(h, swiglu_reference(gate, up))
+    dg, du = swiglu_backward_reference(gate, up, dh)
+    got = (leaves[0].grad[:, 0], leaves[0].grad[:, 1]) if fused else (
+        leaves[0].grad, leaves[1].grad)
+    assert torch.equal(got[0], dg) and torch.equal(got[1], du)
+
+
+def test_swiglu_kernel_f32_graph_safe_and_refusals():
+    from kubeflow_tpu_torch.ops.swiglu import swiglu, swiglu_reference
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    gate, up = (torch.randn(2, 64, 256, generator=g, device="cuda")
+                for _ in range(2))
+    assert torch.equal(swiglu(gate, up), swiglu_reference(gate, up))
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            swiglu(gate, up)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = swiglu(gate, up)
+        gate.mul_(-1)
+        graph.replay()
+        assert torch.equal(out, swiglu_reference(gate, up))
+    before = swiglu.fwd_launches
+    with pytest.raises(ValueError, match="multiple of"):
+        swiglu(gate[..., :250], up[..., :250])
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        swiglu(gate.half(), up.half())
+    with pytest.raises(ValueError, match="rows"):
+        swiglu(gate.transpose(0, 1), up.transpose(0, 1))
+    swiglu(gate.cpu(), up.cpu())                 # the plain version
+    assert swiglu.fwd_launches == before
+
+
+@pytest.mark.parametrize("shape,wdt", [
+    ((4096, 2048), torch.bfloat16), ((8, 1, 4096), torch.bfloat16),
+    ((4096, 4096), torch.bfloat16), ((33, 8192), torch.float32)])
+@pytest.mark.parametrize("with_dr", [True, False])
+def test_add_rms_norm_kernel_matches_plain(shape, wdt, with_dr):
+    """The norm's part of dx (no residual gradient) within one ulp, as
+    K6's; with the residual's gradient dr, dx is bitwise dr + that part
+    (one ulp of the part is many of a sum that cancels)."""
+    from kubeflow_tpu_torch.ops import norms
+
+    g = torch.Generator(device="cuda").manual_seed(42)
+    x, h, dr, dy = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                    for _ in range(4))
+    w = (1 + 0.1 * torch.randn(shape[-1], generator=g, device="cuda")).to(wdt)
+    leaves = [t.clone().requires_grad_() for t in (x, h, w)]
+    before = norms.add_rms_norm.fwd_launches, norms.add_rms_norm.bwd_launches
+    r, y = norms.add_rms_norm(*leaves, eps=1e-5)
+    torch.autograd.backward((r, y) if with_dr else (y,),
+                            (dr, dy) if with_dr else (dy,))
+    assert (norms.add_rms_norm.fwd_launches,
+            norms.add_rms_norm.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want_r, want_y, _ = norms.add_rms_norm_reference(x, h, w, eps=1e-5)
+    assert torch.equal(r, want_r)
+    _ulp_ok(y, want_y)
+    _, _, rstd = norms._add_fwd_kernel(x, h, w, 1e-5)
+    dxn, dw = norms._add_bwd_kernel(r, w, dy, rstd, None)
+    want_dxn, want_dw = norms.add_rms_norm_backward_reference(
+        r, w, dy, rstd, None)
+    _ulp_ok(dxn, want_dxn)
+    _ulp_ok(dw, want_dw)
+    assert torch.equal(leaves[0].grad, dr + dxn if with_dr else dxn)
+    assert torch.equal(leaves[0].grad, leaves[1].grad)
+    assert torch.equal(leaves[2].grad, dw)
+
+
+@pytest.mark.parametrize("b,s,hkv,g", [(2, 300, 8, 2), (8, 1, 8, 4),
+                                       (1, 512, 8, 4)])
+def test_rope_fused_projection_matches_plain_bitwise(b, s, hkv, g):
+    from kubeflow_tpu_torch.ops.rope import (
+        apply_rope,
+        apply_rope_fused,
+        rope_reference,
+    )
+
+    q, _, pos, cos, sin = _rope_case(b, s, hkv * (g + 2), 1, torch.bfloat16,
+                                     43)
+    qkv = q.view(b, s, hkv, g + 2, 128).clone().requires_grad_()
+    before = apply_rope.fwd_launches, apply_rope.bwd_launches
+    qo, ko, vo = apply_rope_fused(qkv, cos, sin, positions=pos)
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    cot = [torch.randn(t.shape, generator=gen, device="cuda").bfloat16()
+           for t in (qo, ko, vo)]
+    torch.autograd.backward([qo, ko, vo], cot)
+    assert (apply_rope.fwd_launches, apply_rope.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    src = qkv.detach()
+    assert torch.equal(qo, rope_reference(
+        src[..., :g, :].reshape(b, s, hkv * g, 128), cos, sin,
+        positions=pos))
+    assert torch.equal(ko, rope_reference(src[..., g, :], cos, sin,
+                                          positions=pos))
+    assert torch.equal(vo, src[..., g + 1, :]) and vo.is_contiguous()
+    dq = rope_reference(cot[0], cos, sin, positions=pos, inverse=True)
+    dk = rope_reference(cot[1], cos, sin, positions=pos, inverse=True)
+    grad = qkv.grad
+    assert torch.equal(grad[..., :g, :].reshape(dq.shape), dq)
+    assert torch.equal(grad[..., g, :], dk)
+    assert torch.equal(grad[..., g + 1, :], cot[2])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_every_remat_policy_gives_full_step_one(fused):
+    """A 2-layer bf16 model of the 700M's width: the loss and the
+    gradients under each policy equal ``full``'s, bitwise (the kernels are
+    deterministic, and a replay runs the same launches)."""
+    from kubeflow_tpu_torch.models.llama import (
+        REMAT_POLICIES,
+        Llama,
+        LlamaConfig,
+    )
+    from kubeflow_tpu_torch.train.losses import cross_entropy_loss
+
+    g = torch.Generator(device="cuda").manual_seed(45)
+    tokens = torch.randint(0, 32000, (2, 513), generator=g, device="cuda")
+    kw = dict(vocab_size=32000, embed_dim=2048, num_layers=2, num_heads=16,
+              num_kv_heads=8, head_dim=128, mlp_dim=5632, max_seq_len=1024,
+              param_dtype="bfloat16", dtype="bfloat16", remat=True,
+              fused_qkv=fused, fused_gate_up=fused)
+    with torch.device("cuda"):
+        model = Llama(LlamaConfig(**kw))
+    model.init_weights(torch.Generator(device="cuda").manual_seed(46))
+    sd = model.state_dict()
+    results = {}
+    for policy in REMAT_POLICIES:
+        with torch.device("cuda"):
+            m = Llama(LlamaConfig(**kw, remat_policy=policy))
+        m.load_state_dict(sd)
+        logits = m(tokens[:, :-1])
+        loss, _ = cross_entropy_loss(logits, tokens[:, 1:],
+                                     z_loss_weight=1e-4)
+        results[policy] = (loss.detach(), torch.autograd.grad(
+            loss, list(m.parameters())))
+        del m, logits, loss
+    want_loss, want_grads = results["full"]
+    for policy, (loss, grads) in results.items():
+        assert torch.equal(loss, want_loss), policy
+        for a, b in zip(grads, want_grads):
+            assert torch.equal(a, b), policy

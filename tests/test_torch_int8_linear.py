@@ -46,6 +46,7 @@ from kubeflow_tpu_torch.ops.int8_linear import (
     int8_linear_group,
     int8_linear_reference,
 )
+from kubeflow_tpu_torch.ops.swiglu import swiglu
 from kubeflow_tpu_torch.serving.engine import _quantize_int8
 
 MIN_SIZE = 64
@@ -258,7 +259,7 @@ def test_grouped_projections_equal_ungrouped(tiny, monkeypatch):
         (2, 5, cfg.embed_dim)).astype(np.float32))
     with torch.no_grad():
         gate, up = (layer.mlp.gate_proj(x), layer.mlp.up_proj(x))
-        want = layer.mlp.down_proj(torch.nn.functional.silu(gate) * up)
+        want = layer.mlp.down_proj(swiglu(gate, up))
         assert torch.equal(layer.mlp(x), want)
         positions = torch.arange(5).expand(2, 5)
         cos, sin = model.rope_tables(x.device)

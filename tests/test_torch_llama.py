@@ -99,6 +99,23 @@ def test_head_logits_tied_softcap_matches_jax():
     ("remat_policy", "minimal"),
 ])
 def test_unported_options_raise(flag, value):
+    if flag in ("fused_qkv", "fused_gate_up", "remat_policy"):
+        # Ported with the fused-projection slice: the model builds with the
+        # fused parameters in place of those they fuse (G = H / Hkv = 2),
+        # and every remat policy builds.
+        model = Llama(LlamaConfig.tiny(**{flag: value}, remat=True))
+        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        fused = {"fused_qkv": ("attn.qkv_proj", (2 * 4 * 16, 64),
+                               ("attn.q_proj", "attn.k_proj", "attn.v_proj")),
+                 "fused_gate_up": ("mlp.gate_up_proj", (2 * 128, 64),
+                                   ("mlp.gate_proj", "mlp.up_proj"))}
+        if flag in fused:
+            name, shape, gone = fused[flag]
+            assert shapes[f"layers.0.{name}.weight"] == shape
+            assert not any(f"layers.0.{g}.weight" in shapes for g in gone)
+        else:
+            assert "layers.0.attn.q_proj.weight" in shapes
+        return
     if flag in ("kv_cache_dtype", "decode_staging", "paged_kv_blocks"):
         # Ported with the serving slices: the model builds, and its cache
         # holds the int8 rows and scales, the staging rows, or the paged

@@ -50,7 +50,9 @@ def _jax_model(**kw):
     return jmodel, params
 
 
-@pytest.mark.parametrize("remat", ["none", "full", "qkv_attn"])
+@pytest.mark.parametrize("remat", ["none", "full", "qkv_attn", "minimal",
+                                   "qkv_attn_lse", "attn_only", "mlp_only",
+                                   "dots"])
 def test_llama_param_grads_match_jax(remat):
     kw = {} if remat == "none" else dict(remat=True, remat_policy=remat)
     jmodel, params = _jax_model(**kw)
