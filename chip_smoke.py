@@ -7,10 +7,12 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build — compiles the flash-attention kernels (K1, K2), the decode
    attention (K3), the int8-weight product (K4), the optimizer (K5),
    RMSNorm and the residual add + RMSNorm (K6, K10: one source), RoPE
-   (K7), the cross-entropy (K8) and SwiGLU (K9) from
-   kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one nvcc per source,
-   started together, and prints the seconds and each register/spill
-   report; then checks the SASS: every bf16 instantiation of K1's kernel
+   (K7), the cross-entropy (K8), SwiGLU (K9) and the adafactor update
+   (K11) from kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one nvcc per
+   source, and the native token loader (kubeflow_tpu_torch/train/csrc,
+   g++, into kubeflow_tpu_torch/_build/native), all started together, and
+   prints the seconds and each register/spill report; then checks the
+   SASS: every bf16 instantiation of K1's kernel
    and of K2's dk/dv and dq kernels holds wgmma (HGMMA) and TMA loads
    (UTMALDG), every one of K3's 32 (D 64/128, G 1/2/4/8, bf16/int8 cache,
    dense/paged) TMA loads and mma.sync (HMMA), every one of K4's 4 decode
@@ -120,6 +122,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    [24564, 2048] (forward and backward, with the residual's gradient) and
    [8, 4096], [4096, 4096]: the sum bitwise, y, dx and dw within one bf16
    ulp; each timed beside its byte bound, no library call;
+7b. kernel (K11, the adafactor update) — over the 700M model's 111
+   tensors at their real shapes (bf16 params and grads, the JAX leaves
+   stacked over the 12 layers, f32 moments of earlier steps), against its
+   plain version on the same inputs, clipped and not: params within one
+   bf16 ulp of it, moments within 1e-6 relative of it computed in f64,
+   two calls bitwise equal.
+   Times K11 (CUDA-graph replays; its six kernels apart from a profiled
+   pass), K5's norm in front of it, the plain version and
+   torch.optim.Adafactor's step on the same tensors (eager; a
+   yardstick the port never calls, and not the same function: its own
+   eps, clip and relative step), beside the byte bound (g read, p read
+   and written once: 6 bytes a parameter);
 8. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card; staged decode and
    CUDA graphs, as the server runs by default) and sends 9 concurrent
@@ -214,6 +228,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    gradient norm equal "full"'s, bitwise; every step's launches of K1,
    K2 and K5-K10 as train_launches_per_step derives them for the policy;
    prints the median of steps 2-4, MFU and the peak device memory;
+12b. train adafactor — the train phase's model (scanned leaves, remat
+   "qkv_attn") through the runner with KFTPU_LOADER=native,
+   KFTPU_DATA_PATH and KFTPU_EVAL_DATA_PATH naming int32 corpora written
+   from a seed (4M and 0.5M tokens in the vocabulary) and
+   KFTPU_HPARAMS {"optimizer": "adafactor"}, 6 steps and one eval: every
+   step's loss finite and its launches (K5's norm and K11 once, no K5
+   update, the rest as the adamw step's) asserted, the native loader
+   feeding the run and the eval, a finite eval loss; prints the median
+   synchronised step, MFU, peak memory beside the adamw train phase's,
+   the loader's stalls and one profiled step; then 3 loader-fed steps
+   under the profiler with no synchronisation between them, each batch
+   copied from pageable memory (the runner's copy before) or through the
+   runner's pinned DeviceFeed, in turns: the idle share of each;
 13. prints each phase's seconds and the total, the {"kernels": [...]}
    line (K1's entry at the serving prefill shape, with its training-shape
    ms, SDPA ms and bound under train_ keys and the extend's shapes and
@@ -231,7 +258,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    in the profiled step under step_ms, backward times under bwd_, K6 and
    K7 at the serving shapes under decode_ and prefill_, K7's strided mode
    under strided_<case>_; K9 and K10 likewise, K9's fused layout under
-   <case>_fused_), then the result line.
+   <case>_fused_; K11 over the 700M model's tensors with its launches
+   over the adafactor run and its ms in that run's profiled step), then
+   the result line.
 """
 
 from __future__ import annotations
@@ -1459,6 +1488,122 @@ def fused_phase():
     return out
 
 
+#: K11's six passes, by the names of their device kernels.
+K11_PASSES = ("::tile_stats", "::moments", "::row_factors", "::tile_u2",
+              "::leaf_sums", "::apply_update")
+
+
+def adafactor_phase():
+    """K11 (the adafactor update) over the 700M model's 111 tensors at
+    their real shapes, bf16 params and grads, the JAX leaves stacked
+    (scan_layers=True), moments of earlier steps: against its plain
+    version on the same inputs, clipped and not, moments within 1e-6
+    relative of the plain version in f64 and params within one bf16 ulp
+    of it in f32, two calls bitwise equal.
+    Times K11 (CUDA-graph replays), K5's norm in front of it, the plain
+    version and torch.optim.Adafactor's step on the same tensors (eager;
+    not the same function: its own eps, clip and relative step), beside
+    the byte bound (g read, p read and written once). Returns the row."""
+    from kubeflow_tpu_torch.models.layout import jax_leaves
+    from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
+    from kubeflow_tpu_torch.ops import adafactor
+    from kubeflow_tpu_torch.ops import optimizer as fused
+
+    cfg = LlamaConfig(**TRAIN_MODEL_KW)
+    with torch.device("meta"):
+        shapes = {n: p.shape for n, p in Llama(cfg).named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    mk = lambda s, sc: (torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+                        * sc).bfloat16()
+    params = {n: mk(s, 0.02) for n, s in shapes.items()}
+    grads = {n: mk(s, 1e-4) for n, s in shapes.items()}
+    leaves = jax_leaves(cfg)
+    state = adafactor.init_state(params, leaves)
+    moments = [m for k in ("v_row", "v_col", "v")
+               for m in state[k].values()]
+    for m in moments:                           # moments of earlier steps
+        m.copy_(torch.rand(m.shape, generator=gen, device="cuda") * 1e-8
+                + 1e-10)
+    n = sum(p.numel() for p in params.values())
+    norm = fused.global_norm(list(grads.values()))
+    hyper = adafactor.Hyper(max_norm=1.0, count=3, lr=3e-4,
+                            weight_decay=0.1)
+
+    def copy(d):
+        return {k: ({m: t.clone() for m, t in v.items()}
+                    if isinstance(v, dict) else v) for k, v in d.items()}
+
+    worst, rel, abs_err = 0.0, 0.0, 0.0
+    for clip in (1.0, 1e4):                      # clipped, not clipped
+        h = dataclasses.replace(hyper, max_norm=clip)
+        p_k, p_k2, p_p, p_64 = ({k: t.clone() for k, t in params.items()}
+                                for _ in range(4))
+        s_k, s_k2, s_p, s_64 = (copy(state) for _ in range(4))
+        adafactor.update(p_k, grads, s_k, leaves, norm, h)
+        adafactor.update(p_k2, grads, s_k2, leaves, norm, h)
+        adafactor.update_reference(p_p, grads, s_p, leaves, norm, h)
+        adafactor.update_reference(p_64, grads, s_64, leaves, norm, h,
+                                   dtype=torch.float64)
+        del p_64
+        for k in params:
+            if not torch.equal(p_k[k], p_k2[k]):
+                raise AssertionError(f"K11 {k}: two calls differ")
+            worst = max(worst, ulps(p_k[k], p_p[k]))
+            abs_err = max(abs_err, float((p_k[k].float()
+                                          - p_p[k].float()).abs().max()))
+        for key in ("v_row", "v_col", "v"):
+            for k, m in s_k[key].items():
+                if not torch.equal(m, s_k2[key][k]):
+                    raise AssertionError(f"K11 {key} {k}: two calls differ")
+                want = s_64[key][k]
+                rel = max(rel, float(((m - want).abs() / want.abs()).max()))
+        del p_k, p_k2, p_p, s_k, s_k2, s_p, s_64
+        torch.cuda.empty_cache()
+    if worst > 1 or rel > 1e-6:
+        raise AssertionError(f"K11: params {worst:.2f} ulp, moments "
+                             f"{rel:.2e} relative from the plain version")
+    blocks = len(adafactor.blocks(params, leaves))
+    factored = len(state["v_row"])
+    row = dict(max_abs_err=abs_err, ulps=worst, moment_rel_err=rel,
+               tensors=len(params), params=n, blocks=blocks,
+               factored=factored, bound_by="bytes")
+    row["ms"] = device_ms(lambda: adafactor.update(params, grads, state,
+                                                   leaves, norm, hyper),
+                          calls=2, replays=3)
+    passes = kernel_split_ms(lambda: adafactor.update(
+        params, grads, state, leaves, norm, hyper), K11_PASSES, runs=3)
+    row.update({f"{k.strip(':')}_ms": v for k, v in passes.items()})
+    row["norm_ms"] = device_ms(lambda: fused.global_norm(
+        list(grads.values())), calls=2, replays=3)
+    row["plain_ms"] = device_ms(lambda: adafactor.update_reference(
+        params, grads, state, leaves, norm, hyper), calls=1, replays=2)
+    row["bound_ms"] = bytes_ms(6 * n)
+    torch.cuda.empty_cache()
+    lib_params = [p.detach().clone().requires_grad_()
+                  for p in params.values()]
+    for leaf, g in zip(lib_params, grads.values()):
+        leaf.grad = g
+    opt = torch.optim.Adafactor(lib_params, lr=3e-4, weight_decay=0.1)
+    row["library_ms"] = eager_ms(opt.step, iters=5, repeats=3)
+    log(f"K11 {len(params)} tensors in {blocks} blocks ({factored} "
+        f"factored), {n / 1e6:.1f}M params (bf16 p and g; f32 moments in "
+        f"the JAX leaves' shapes): params within {worst:.2f} bf16 ulp of "
+        f"the plain update (max abs {abs_err:.3e}), moments {rel:.2e} "
+        f"relative of the plain update in f64, two calls bitwise equal "
+        f"(clipped and not); kernel "
+        f"{row['ms']:.4f} ms (" + ", ".join(
+            f"{k.strip(':')} {v:.4f}" for k, v in passes.items()
+            if v is not None) + f"; K5's norm in front "
+        f"{row['norm_ms']:.4f}), "
+        f"plain {row['plain_ms']:.4f}, torch.optim.Adafactor step "
+        f"{row['library_ms']:.4f} (eager; its own eps, clip and relative "
+        f"step: not the same function), bound {row['bound_ms']:.4f} "
+        f"(bytes)")
+    del params, grads, state, lib_params, opt
+    torch.cuda.empty_cache()
+    return row
+
+
 def _bitwise(name: str, pairs) -> None:
     for a, b in pairs:
         if not torch.equal(a, b):
@@ -2518,7 +2663,8 @@ def _greedy_check(model, bodies, outs, prompt_len):
 
 def fused_counters():
     """The launch counters of a train step's kernels, K1 and K2 (K1's
-    backward) and K5-K10: (name, object, attribute)."""
+    backward), K5-K10 and K11: (name, object, attribute)."""
+    from kubeflow_tpu_torch.ops import adafactor
     from kubeflow_tpu_torch.ops import optimizer as fused
     from kubeflow_tpu_torch.ops.cross_entropy import cross_entropy_sums
     from kubeflow_tpu_torch.ops.flash_attention import flash_attention
@@ -2530,6 +2676,7 @@ def fused_counters():
             ("K1 backward", flash_attention, "bwd_launches"),
             ("K5 norm", fused.global_norm, "launches"),
             ("K5 update", fused.update, "launches"),
+            ("K11 update", adafactor.update, "launches"),
             ("K6 forward", rms_norm, "fwd_launches"),
             ("K6 backward", rms_norm, "bwd_launches"),
             ("K7 forward", apply_rope, "fwd_launches"),
@@ -2542,7 +2689,8 @@ def fused_counters():
             ("K10 backward", add_rms_norm, "bwd_launches"))
 
 
-def train_launches_per_step(layers: int, policy: str = "qkv_attn") -> dict:
+def train_launches_per_step(layers: int, policy: str = "qkv_attn",
+                            optimizer: str = "adamw") -> dict:
     """Each kernel's launches a train step of a ``layers``-layer model
     under remat ``policy``. The forward: a layer's input norm (K6), RoPE
     of q and k in one launch (K7), attention (K1), the add + post-attention
@@ -2553,11 +2701,14 @@ def train_launches_per_step(layers: int, policy: str = "qkv_attn") -> dict:
     norm, K10 and K9 (nothing saves their outputs); RoPE replays except
     under "minimal" (it saves q and k after RoPE outside any segment), K1
     except under "minimal" and "qkv_attn_lse" (they keep K1's o and lse).
-    One backward each; one norm and one update of the optimizer."""
+    One backward each; one norm and one update of the optimizer: K5's, or
+    K11 for adafactor."""
     rope_replays = policy != "minimal"
     attn_replays = policy not in ("minimal", "qkv_attn_lse")
+    adafactor = optimizer == "adafactor"
     return {"K1 forward": layers * (1 + attn_replays),
-            "K1 backward": layers, "K5 norm": 1, "K5 update": 1,
+            "K1 backward": layers, "K5 norm": 1,
+            "K5 update": int(not adafactor), "K11 update": int(adafactor),
             "K6 forward": 2 * layers + 1, "K6 backward": layers + 1,
             "K7 forward": layers * (1 + rope_replays), "K7 backward": layers,
             "K8 forward": 1, "K8 backward": 1,
@@ -2704,7 +2855,8 @@ TRAIN_KERNELS = {
     "K6": ("::rmsnorm_fwd", "::rmsnorm_bwd", "::rmsnorm_dw"),
     "K7": ("::rope_kernel",), "K8": ("::ce_fwd", "::ce_sum", "::ce_bwd"),
     "K9": ("::swiglu_fwd", "::swiglu_bwd"),
-    "K10": ("::add_rmsnorm_fwd", "::add_rmsnorm_bwd", "::add_rmsnorm_dw")}
+    "K10": ("::add_rmsnorm_fwd", "::add_rmsnorm_bwd", "::add_rmsnorm_dw"),
+    "K11": K11_PASSES}
 #: The profiler ranges ``Trainer.step`` opens (record_function).
 TRAIN_RANGES = ("forward", "loss", "backward", "grad_norm", "optimizer")
 NODE_PREFIX = "autograd::engine::evaluate_function: "
@@ -3102,6 +3254,192 @@ def serve_fused_phase():
     return out
 
 
+# The loader-fed adafactor phase: the train phase's model through the
+# runner with KFTPU_LOADER=native, a corpus and an eval corpus written here
+# from a seed, and optimizer "adafactor".
+ADAFACTOR_STEPS = 6
+CORPUS_TOKENS = {"train.bin": 4_000_000, "eval.bin": 500_000}
+FEED_STEPS = 3
+
+
+def adafactor_train_phase(adamw_peak: float):
+    """The ~700M model trained with adafactor through the runner from a
+    token file: KFTPU_LOADER=native, KFTPU_DATA_PATH and
+    KFTPU_EVAL_DATA_PATH (int32 corpora in the vocabulary, written from a
+    seed), KFTPU_HPARAMS {"optimizer": "adafactor"}, ADAFACTOR_STEPS steps
+    and one eval at the end. Checks every step's loss is finite, the
+    launches of each step (K5's norm and K11 once, no K5 update, the rest
+    as the adamw step), that the native loader fed the run and the eval,
+    and the eval's loss; prints the median synchronised step, MFU, peak
+    memory beside the adamw train phase's, the loader's stalls, one
+    profiled step's idle share, and the idle share of FEED_STEPS
+    loader-fed steps with each batch copied from pageable memory (the
+    runner before this slice) and through the runner's pinned DeviceFeed,
+    in turns. The corpora go to a temporary directory that is removed
+    however it ends."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="kftpu-smoke-adafactor-")
+    try:
+        return _adafactor_runs(work, adamw_peak)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _adafactor_runs(work: str, adamw_peak: float):
+    from kubeflow_tpu_torch.models.llama import LlamaConfig
+    from kubeflow_tpu_torch.train import native_loader, runner
+    from kubeflow_tpu_torch.train.flops import train_flops_per_token
+    from kubeflow_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(14)
+    V = TRAIN_MODEL_KW["vocab_size"]
+    paths = {}
+    for name, count in CORPUS_TOKENS.items():
+        paths[name] = os.path.join(work, name)
+        rng.integers(0, V, count, dtype=np.int32).tofile(paths[name])
+    loaders = []
+    plain_loader, plain_step = native_loader.NativeTokenLoader, Trainer.step
+
+    class Recorded(plain_loader):
+        """The runner's loaders, with their counts kept at close."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.final = None
+            loaders.append(self)
+
+        def close(self):
+            if self._handle is not None:
+                self.final = (self.batches_produced, self.stalls)
+            super().close()
+
+    record = []
+
+    def timed_step(self, state, batch):
+        for _, obj, attr in fused_counters():
+            setattr(obj, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = plain_step(self, state, batch)
+        loss = float(metrics["loss"])
+        record.append(dict(ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+                           last=(self, state, batch), launches={
+                               name: getattr(obj, attr)
+                               for name, obj, attr in fused_counters()}))
+        return state, metrics
+
+    os.environ.update({
+        "KFTPU_MODEL": "llama-tiny",
+        "KFTPU_MODEL_KW": json.dumps(TRAIN_MODEL_KW),
+        "KFTPU_HPARAMS": json.dumps({"optimizer": "adafactor",
+                                     "warmup_steps": 2}),
+        "KFTPU_BATCH_PER_HOST": str(TRAIN_BATCH),
+        "KFTPU_SEQ_LEN": str(TRAIN_SEQ), "KFTPU_ATTN_IMPL": "flash",
+        "KFTPU_CHECKPOINT_DIR": "", "KFTPU_TRAIN_STEPS": str(ADAFACTOR_STEPS),
+        "KFTPU_LOADER": "native", "KFTPU_DATA_PATH": paths["train.bin"],
+        "KFTPU_EVAL_DATA_PATH": paths["eval.bin"],
+        "KFTPU_EVAL_EVERY": str(ADAFACTOR_STEPS), "KFTPU_EVAL_BATCHES": "2",
+        "KFTPU_TERMINATION_LOG": os.path.join(work, "termination.json"),
+    })
+    os.environ.pop("KFTPU_PLATFORM", None)          # cuda
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    native_loader.NativeTokenLoader, Trainer.step = Recorded, timed_step
+    try:
+        runner.run(runner.env_config())
+    finally:
+        native_loader.NativeTokenLoader, Trainer.step = (plain_loader,
+                                                         plain_step)
+        for key in ("KFTPU_LOADER", "KFTPU_DATA_PATH", "KFTPU_EVAL_DATA_PATH",
+                    "KFTPU_EVAL_EVERY", "KFTPU_EVAL_BATCHES"):
+            os.environ.pop(key, None)
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(work, "termination.json")) as f:
+        report = json.load(f)
+    layers = TRAIN_MODEL_KW["num_layers"]
+    want = train_launches_per_step(layers, TRAIN_MODEL_KW["remat_policy"],
+                                   "adafactor")
+    if len(record) != ADAFACTOR_STEPS:
+        raise AssertionError(f"adafactor: ran {len(record)} steps")
+    for i, r in enumerate(record):
+        if r["launches"] != want or not np.isfinite(r["loss"]):
+            raise AssertionError(f"adafactor step {i + 1}: loss {r['loss']}"
+                                 f", launches {r['launches']}, want {want}")
+    if [ldr.token_file for ldr in loaders] != [paths["train.bin"],
+                                               paths["eval.bin"]] \
+            or any(ldr.final is None for ldr in loaders):
+        raise AssertionError("the native loader did not feed the run and "
+                             f"its eval: {[x.token_file for x in loaders]}")
+    if not np.isfinite(report.get("eval_loss", np.nan)):
+        raise AssertionError(f"adafactor eval: {report}")
+    produced, stalls = loaders[0].final
+    cfg = LlamaConfig(**TRAIN_MODEL_KW)
+    step_ms = float(np.median([r["ms"] for r in record[1:]]))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    mfu = train_flops_per_token(cfg, TRAIN_SEQ) * tok_s / PEAK_BF16_FLOPS
+    launches = sum(r["launches"]["K11 update"] for r in record)
+    log(f"train adafactor (native loader, corpus {CORPUS_TOKENS['train.bin']}"
+        f" tokens): losses " + " ".join(f"{r['loss']:.4f}" for r in record)
+        + f"; eval loss {report['eval_loss']:.4f}; steps " + " ".join(
+            f"{r['ms']:.1f}" for r in record) + f" ms, median of 2-"
+        f"{ADAFACTOR_STEPS} {step_ms:.1f} ms, MFU {mfu:.4f}; peak device "
+        f"memory {peak / 1e9:.2f} GB (adamw train phase "
+        f"{adamw_peak / 1e9:.2f} GB); loader {produced} batches, {stalls} "
+        f"stalls; K11 {want['K11 update']} launch and K5's norm "
+        f"{want['K5 norm']} a step (asserted each step), {launches} in all")
+    losses = [r["loss"] for r in record]
+    trainer, state, batch = record[-1]["last"]
+    record.clear()
+    breakdown = train_breakdown(trainer, state, batch)
+    feed = feed_idle(trainer, state, paths["train.bin"])
+    return dict(step_ms=step_ms, mfu=mfu, peak=peak, stalls=stalls,
+                produced=produced, launches=launches, report=report,
+                losses=losses, breakdown=breakdown, feed=feed)
+
+
+def feed_idle(trainer, state, corpus: str) -> dict:
+    """FEED_STEPS loader-fed steps under the profiler, no synchronisation
+    between them, each batch copied to the card from pageable memory (the
+    runner's copy before this slice) or through runner.DeviceFeed (pinned,
+    non-blocking), in turns (pageable, pinned, pinned, pageable): wall
+    time, device busy time and idle share of each window."""
+    from kubeflow_tpu_torch.train import native_loader, runner
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    ldr = native_loader.NativeTokenLoader(
+        batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ + 1,
+        vocab_size=TRAIN_MODEL_KW["vocab_size"], token_file=corpus, seed=1)
+    copies = {"pageable": lambda b: {k: torch.as_tensor(v).to("cuda")
+                                     for k, v in b.items()},
+              "pinned": runner.DeviceFeed(torch.device("cuda"))}
+    out = {}
+    try:
+        for name in ("pageable", "pinned", "pinned", "pageable"):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                st = state
+                for _ in range(FEED_STEPS):
+                    st, _ = trainer.step(st, copies[name](next(ldr)))
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            busy = sum(e.device_time_total for e in prof.key_averages()
+                       if _is_kernel(e)) / 1e3
+            idle = 1 - busy / wall if busy > 0 else None
+            out.setdefault(name, []).append(dict(wall_ms=wall, busy_ms=busy,
+                                                 idle=idle))
+            log(f"  loader-fed window [{name} copy], {FEED_STEPS} steps: "
+                f"wall {wall:.2f} ms, device busy "
+                + (f"{busy:.2f} ms, idle share {idle:.4f}" if busy > 0
+                   else "not measured (no device events)"))
+    finally:
+        ldr.close()
+    return out
+
+
 def grad_check():
     """One step's grads of a 2-layer model of the training width, flash
     attention (K1 + K2) against the plain attention, same bf16 weights and
@@ -3157,14 +3495,24 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.train import native_loader
 
     t_start = t0 = time.time()
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                "decode_attention.cu", "int8_linear.cu", "optimizer.cu",
-               "rms_norm.cu", "rope.cu", "cross_entropy.cu", "swiglu.cu")
-    with ThreadPoolExecutor(len(sources)) as pool:     # one nvcc each
+               "rms_norm.cu", "rope.cu", "cross_entropy.cu", "swiglu.cu",
+               "adafactor.cu")
+    # The native loader's library goes beside the kernels (an ignored
+    # directory of the checkout), built by g++ alongside them.
+    native_cache = os.path.join(_build.BUILD_DIR, "native")
+    os.makedirs(native_cache, mode=0o700, exist_ok=True)
+    os.environ["KFTPU_NATIVE_CACHE"] = native_cache
+    with ThreadPoolExecutor(len(sources) + 1) as pool:  # one nvcc each
+        loader_lib = pool.submit(native_loader._build)
         libs = dict(zip(sources, pool.map(_build.build, sources)))
-    log(f"build: {', '.join(sources)} in {time.time() - t0:.1f} s")
+        log(f"native loader: {loader_lib.result()}")
+    log(f"build: {', '.join(sources)} and the native loader in "
+        f"{time.time() - t0:.1f} s")
     for src, lib in libs.items():
         with open(lib[:-3] + ".log") as f:
             for line in f:
@@ -3189,7 +3537,7 @@ def main() -> int:
     check_build(libs["int8_linear.cu"], {"int8_linear_decode": 4},
                 required=("HMMA", "LDGSTS"))
     check_build(libs["int8_linear.cu"], {"int8_linear_prefill": 6})
-    # K5-K10: element-wise and row kernels (no tensor cores); no spills.
+    # K5-K11: element-wise and row kernels (no tensor cores); no spills.
     for src in sources[4:]:
         check_build(libs[src], {})
     seconds = {"build": time.time() - t0}
@@ -3208,6 +3556,7 @@ def main() -> int:
     dec_rows, dec_long, dec_paged, dec_err = phase("K3", decode_phase)
     k4_rows, k4_err, k4_step = phase("K4", int8_phase)
     fused_rows = phase("K5-K10", fused_phase)
+    k11_row = phase("K11", adafactor_phase)
     serve = phase("serve bf16", serve_phase, "", "", True)
     serve_int8 = phase("serve int8 KV", serve_phase, "int8")
     serve_w8 = phase("serve int8 weights", serve_phase, "", "int8")
@@ -3239,12 +3588,29 @@ def main() -> int:
             f"{e['graphed_cold_ms']:.3f} ms (warm / cold)")
     train = phase("train", train_phase)
     policies = phase("train fused/policies", train_policies_phase)
+    ada = phase("train adafactor", adafactor_train_phase, train["peak"])
     phase("grad check", grad_check)
     log("train summary [unfused, qkv_attn]: median step "
         f"{train['step_ms_median']:.1f} ms, MFU {train['mfu']:.4f}, peak "
         f"{train['peak'] / 1e9:.2f} GB; [fused] " + "; ".join(
             f"{p} {r['step_ms']:.1f} ms, MFU {r['mfu']:.4f}, peak "
             f"{r['peak'] / 1e9:.2f} GB" for p, r in policies.items()))
+    def share(x):
+        return "not measured" if x is None else f"{x:.4f}"
+
+    bd = ada["breakdown"]
+    feed = {k: (None if any(w["idle"] is None for w in v)
+                else float(np.mean([w["idle"] for w in v])))
+            for k, v in ada["feed"].items()}
+    log(f"train summary [adafactor, native loader, qkv_attn]: median step "
+        f"{ada['step_ms']:.1f} ms, MFU {ada['mfu']:.4f}, peak "
+        f"{ada['peak'] / 1e9:.2f} GB (adamw {train['peak'] / 1e9:.2f}), "
+        f"loader stalls {ada['stalls']}, profiled step idle share "
+        + share(1 - bd["busy_ms"] / bd["wall_ms"] if bd["busy_ms"] > 0
+                else None)
+        + "; loader-fed windows' idle share, pageable copy "
+        + share(feed["pageable"]) + ", pinned DeviceFeed "
+        + share(feed["pinned"]))
     log("serve summary [fused, int8 weights]: decode "
         f"{serve_fused['fused']['step_ms']:.3f} ms/step (unfused, same "
         f"weights: {serve_fused['unfused']['step_ms']:.3f}); burst "
@@ -3390,8 +3756,20 @@ def main() -> int:
             if case != "train":
                 k.update({f"{case}_{key}": v for key, v in row.items()})
         k["serve_launches"] = serve[tag.lower()]
+    # K11 over the 700M model's tensors (scanned leaves); launches over the
+    # loader-fed adafactor run; its device ms in that run's profiled step.
+    ada_k = ada["breakdown"]["by_kernel"]["K11"]
+    k11 = {"name": "adafactor_update", "route": "cuda",
+           "source": "kubeflow_tpu_torch/ops/csrc/adafactor.cu",
+           "replaces": "kubeflow_tpu/train/trainer.py:146",
+           "launches": ada["launches"], "max_abs_err": k11_row["max_abs_err"],
+           "ms": k11_row["ms"], "plain_ms": k11_row["plain_ms"],
+           "bound_ms": k11_row["bound_ms"], "bound_by": "bytes",
+           "library_ms": k11_row["library_ms"], "step_ms": ada_k[0],
+           "step_kernels": ada_k[1]}
+    k11.update({key: v for key, v in k11_row.items() if key not in k11})
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k7, k8, k9,
-                                  k10]}), flush=True)
+                                  k10, k11]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

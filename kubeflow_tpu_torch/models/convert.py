@@ -37,7 +37,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.models.layout import adapt_layout, to_layer_layout
+from kubeflow_tpu_torch.models.layout import (
+    adapt_layout,
+    attn_inputs,
+    kernel_shapes,
+    mlp_inputs,
+    to_layer_layout,
+)
 from kubeflow_tpu_torch.models.llama import LlamaConfig
 
 
@@ -55,17 +61,6 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _attn_inputs(cfg: LlamaConfig):
-    """The names of the q/k/v projections, as both models build them."""
-    return (("qkv_proj",) if cfg.fuses_qkv
-            else ("q_proj", "k_proj", "v_proj"))
-
-
-def _mlp_inputs(cfg: LlamaConfig):
-    return ("gate_up_proj",) if cfg.fused_gate_up else ("gate_proj",
-                                                        "up_proj")
-
-
 def llama_params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
     """JAX Llama param tree (scanned or unrolled) -> the port's state_dict
     (CPU tensors)."""
@@ -77,14 +72,14 @@ def llama_params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
         lp, pre = p[f"layer_{i}"], f"layers.{i}."
         attn, mlp = lp["attn"], lp["mlp"]
         sd[pre + "input_norm.weight"] = _tensor(lp["input_norm"]["weight"])
-        for n in _attn_inputs(cfg):
+        for n in attn_inputs(cfg):
             kern = np.asarray(attn[n]["kernel"])
             sd[pre + f"attn.{n}.weight"] = _tensor(kern.reshape(E, -1).T)
         o = np.asarray(attn["o_proj"]["kernel"])
         sd[pre + "attn.o_proj.weight"] = _tensor(o.reshape(-1, E).T)
         sd[pre + "post_attn_norm.weight"] = _tensor(
             lp["post_attn_norm"]["weight"])
-        for n in (*_mlp_inputs(cfg), "down_proj"):
+        for n in (*mlp_inputs(cfg), "down_proj"):
             kern = np.asarray(mlp[n]["kernel"])
             sd[pre + f"mlp.{n}.weight"] = _tensor(
                 kern.T if n == "down_proj" else kern.reshape(E, -1).T)
@@ -99,14 +94,8 @@ def llama_params_to_jax(state_dict: Dict[str, torch.Tensor],
     """The port's state_dict -> ``{"params": ...}`` in the JAX layouts,
     scanned when ``cfg.scan_layers`` (numpy; bf16 tensors come back as f32,
     which holds them exactly)."""
-    H, Hkv, Dh, E = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                     cfg.embed_dim)
     sd = {k: _array(v) for k, v in state_dict.items()}
-    M = cfg.mlp_dim
-    shapes = {"q_proj": (E, H, Dh), "k_proj": (E, Hkv, Dh),
-              "v_proj": (E, Hkv, Dh), "qkv_proj": (E, Hkv, -1, Dh),
-              "o_proj": (H, Dh, E), "gate_proj": (E, M), "up_proj": (E, M),
-              "gate_up_proj": (E, 2, M), "down_proj": (M, E)}
+    shapes = kernel_shapes(cfg)
 
     def kernels(prefix, names):
         return {n: {"kernel": np.ascontiguousarray(
@@ -117,9 +106,9 @@ def llama_params_to_jax(state_dict: Dict[str, torch.Tensor],
         pre = f"layers.{i}."
         p[f"layer_{i}"] = {
             "input_norm": {"weight": sd[pre + "input_norm.weight"]},
-            "attn": kernels(pre + "attn.", (*_attn_inputs(cfg), "o_proj")),
+            "attn": kernels(pre + "attn.", (*attn_inputs(cfg), "o_proj")),
             "post_attn_norm": {"weight": sd[pre + "post_attn_norm.weight"]},
-            "mlp": kernels(pre + "mlp.", (*_mlp_inputs(cfg), "down_proj")),
+            "mlp": kernels(pre + "mlp.", (*mlp_inputs(cfg), "down_proj")),
         }
     p["final_norm"] = {"weight": sd["final_norm.weight"]}
     if not cfg.tie_embeddings:
@@ -133,9 +122,9 @@ def _projections(p, cfg: LlamaConfig):
     tree."""
     for i in range(cfg.num_layers):
         lp = p[f"layer_{i}"]
-        for n in (*_attn_inputs(cfg), "o_proj"):
+        for n in (*attn_inputs(cfg), "o_proj"):
             yield f"layers.{i}.attn.{n}", lp["attn"][n]
-        for n in (*_mlp_inputs(cfg), "down_proj"):
+        for n in (*mlp_inputs(cfg), "down_proj"):
             yield f"layers.{i}.mlp.{n}", lp["mlp"][n]
     if not cfg.tie_embeddings:
         yield "lm_head", p["lm_head"]

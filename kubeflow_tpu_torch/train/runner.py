@@ -8,11 +8,18 @@ one process on one device: ``cuda`` unless ``KFTPU_PLATFORM=cpu``
 ``KFTPU_ATTN_IMPL``, ``KFTPU_TRAIN_STEPS``, ``KFTPU_BATCH_PER_HOST``,
 ``KFTPU_SEQ_LEN``, ``KFTPU_CHECKPOINT_DIR`` + ``KFTPU_CHECKPOINT_EVERY``
 (auto-resume from the newest complete checkpoint), ``KFTPU_EVAL_EVERY`` /
-``KFTPU_EVAL_BATCHES``, ``KFTPU_SEED`` and the termination log
-(``KFTPU_TERMINATION_LOG``: ``tokens_per_sec``, ``steps``, ``loss``,
-``eval_*``). Multi-process gangs, meshes with an axis above 1, the native
-loader and its corpora, and the trace/profile directories raise
-``NotImplementedError`` naming the slice that brings them.
+``KFTPU_EVAL_BATCHES``, ``KFTPU_SEED``, the native loader
+(``KFTPU_LOADER=native``; ``KFTPU_DATA_PATH`` and ``KFTPU_EVAL_DATA_PATH``
+name int32 token files, rows of ``seq_len + 1`` tokens; without a
+toolchain it falls back to the synthetic stream, unless a corpus was
+named) and the termination log (``KFTPU_TERMINATION_LOG``:
+``tokens_per_sec``, ``steps``, ``loss``, ``eval_*``). Multi-process
+gangs, meshes with an axis above 1 and the trace/profile directories
+raise ``NotImplementedError`` naming the slice that brings them.
+
+On the card each batch goes to the device through pinned staging buffers
+with a non-blocking copy (:class:`DeviceFeed`), so a fresh batch does not
+wait for the step before it.
 """
 
 from __future__ import annotations
@@ -77,16 +84,46 @@ def _check_supported(cfg: dict) -> None:
         raise NotImplementedError(
             f"KFTPU_MESH axes {wide} are not supported by the PyTorch port "
             "yet (the multi-GPU slice): every axis must be 1 or -1")
-    for key, env, slice_ in (
-            ("loader", "KFTPU_LOADER", "native loader"),
-            ("data_path", "KFTPU_DATA_PATH", "native loader"),
-            ("eval_data_path", "KFTPU_EVAL_DATA_PATH", "native loader"),
-            ("trace_dir", "KFTPU_TRACE_DIR", "tooling"),
-            ("profile_dir", "KFTPU_PROFILE_DIR", "tooling")):
+    for key, env in (("trace_dir", "KFTPU_TRACE_DIR"),
+                     ("profile_dir", "KFTPU_PROFILE_DIR")):
         if cfg.get(key):
             raise NotImplementedError(
                 f"{env}={cfg[key]!r} is not supported by the PyTorch port "
-                f"yet (the {slice_} slice)")
+                "yet (the tooling slice)")
+
+
+class DeviceFeed:
+    """Host batches (numpy) to device tensors. On the card each key's
+    batch is copied into one of two pinned staging buffers and sent with
+    ``non_blocking=True``: a copy from pageable memory would wait for the
+    queued step first. A buffer is rewritten only once the copy that last
+    read it (two batches back) has finished. Elsewhere a plain copy."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self._slots = ({}, {})
+        self._done = [None, None]
+        self._turn = 0
+
+    def __call__(self, batch: dict) -> dict:
+        if self.device.type != "cuda":
+            return {k: torch.as_tensor(v).to(self.device)
+                    for k, v in batch.items()}
+        turn, self._turn = self._turn, self._turn ^ 1
+        if self._done[turn] is not None:
+            self._done[turn].synchronize()
+        slot, out = self._slots[turn], {}
+        for k, v in batch.items():
+            src = torch.as_tensor(v)
+            buf = slot.get(k)
+            if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
+                buf = slot[k] = torch.empty(src.shape, dtype=src.dtype,
+                                            pin_memory=True)
+            buf.copy_(src)
+            out[k] = buf.to(self.device, non_blocking=True)
+        self._done[turn] = torch.cuda.Event()
+        self._done[turn].record()
+        return out
 
 
 def run(cfg: dict) -> int:
@@ -120,22 +157,57 @@ def run(cfg: dict) -> int:
             cfg["steps"] = tc.total_steps
     trainer = Trainer(model, tc, device=device)
     batch_size = cfg["batch_per_host"]
-    it = synthetic_text(SyntheticTextConfig(
-        batch_size=batch_size, seq_len=cfg["seq_len"],
-        vocab_size=model_cfg.vocab_size, seed=cfg["seed"]))
+    loader = None
+    if cfg["loader"] == "native" or cfg["data_path"]:
+        from kubeflow_tpu_torch.train.native_loader import (
+            NativeLoaderUnavailable,
+            NativeTokenLoader,
+        )
+
+        try:
+            # seq_len + 1: the LM step shifts inputs and labels, so rows
+            # carry one extra token (synthetic_text's contract too).
+            loader = NativeTokenLoader(
+                batch_size=batch_size, seq_len=cfg["seq_len"] + 1,
+                vocab_size=model_cfg.vocab_size,
+                token_file=cfg["data_path"], seed=cfg["seed"])
+            log.info("native loader active",
+                     kv={"data": cfg["data_path"] or "synthetic"})
+        except NativeLoaderUnavailable as e:
+            if cfg["data_path"]:
+                raise      # a requested corpus must not silently degrade
+            log.info("native loader unavailable; synthetic fallback",
+                     kv={"err": str(e)})
+    it = loader if loader is not None else synthetic_text(
+        SyntheticTextConfig(batch_size=batch_size, seq_len=cfg["seq_len"],
+                            vocab_size=model_cfg.vocab_size,
+                            seed=cfg["seed"]))
     # The JAX runner draws its first batch to shape the init; drawing it
     # here too keeps the two runs on the same batch sequence.
     next(it)
     state = trainer.init_state(cfg["seed"])
 
     def run_eval(st):
-        """Score the held-out set: a fresh stream per call (same seed)
+        """Score the held-out set: a fresh iterator per call (same seed)
         keeps successive evals comparable."""
-        ev = synthetic_text(SyntheticTextConfig(
-            batch_size=batch_size, seq_len=cfg["seq_len"],
-            vocab_size=model_cfg.vocab_size, seed=7919 + cfg["seed"]))
-        return trainer.evaluate(st, (next(ev) for _ in
-                                     range(cfg["eval_batches"])))
+        if cfg["eval_data_path"]:
+            from kubeflow_tpu_torch.train.native_loader import (
+                NativeTokenLoader,
+            )
+
+            ev = NativeTokenLoader(
+                batch_size=batch_size, seq_len=cfg["seq_len"] + 1,
+                vocab_size=model_cfg.vocab_size,
+                token_file=cfg["eval_data_path"], seed=7919 + cfg["seed"])
+        else:
+            ev = synthetic_text(SyntheticTextConfig(
+                batch_size=batch_size, seq_len=cfg["seq_len"],
+                vocab_size=model_cfg.vocab_size, seed=7919 + cfg["seed"]))
+        try:
+            return trainer.evaluate(st, (next(ev) for _ in
+                                         range(cfg["eval_batches"])))
+        finally:
+            ev.close()
 
     ckpt = None
     if cfg["checkpoint_dir"]:
@@ -148,12 +220,11 @@ def run(cfg: dict) -> int:
     start_step = state.step
     last_eval = None               # (step, metrics) of the newest eval
     metrics = None
+    feed = DeviceFeed(device)
     t0 = time.time()
     try:
         for i in range(start_step, cfg["steps"]):
-            batch = {k: torch.as_tensor(v).to(device)
-                     for k, v in next(it).items()}
-            state, metrics = trainer.step(state, batch)
+            state, metrics = trainer.step(state, feed(next(it)))
             if ckpt is not None and (i + 1) % cfg["checkpoint_every"] == 0:
                 ckpt.save(state.step, state)
             if cfg["eval_every"] > 0 and (i + 1) % cfg["eval_every"] == 0:
@@ -176,6 +247,10 @@ def run(cfg: dict) -> int:
     finally:
         if ckpt is not None:
             ckpt.close()
+        if loader is not None:
+            log.info("native loader done", kv={
+                "batches": loader.batches_produced, "stalls": loader.stalls})
+            loader.close()
     final_eval = {}
     if cfg["eval_every"] > 0 and ran_steps:
         # Reuse the in-loop result when it already scored the final state.

@@ -21,19 +21,26 @@ indexes steps and clips differently):
 The port updates the model's parameters IN PLACE (no second copy of the
 parameters or of the updates is held): on the card every tensor in one
 launch of K5 after one launch for the norm (``ops/optimizer.py``), on the
-CPU tensor by tensor. Its optimizer state is a dict of tensors. Unlike the JAX trainer there is no
-mesh: one process, one device.
+CPU tensor by tensor. adafactor takes K11 (``ops/adafactor.py``) after
+K5's norm; its factored moments and block RMS follow the JAX leaves
+(``models/layout.py::jax_leaves``), and it mirrors the reference's weight
+decay, added after the learning rate (each step scales every weight by
+1 - weight_decay, even at lr = 0; ROADMAP.md Queue 3). Its optimizer state
+is a dict of tensors. Unlike the JAX trainer there is no mesh: one
+process, one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterable, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
+from kubeflow_tpu_torch.models.layout import JaxLeaf, jax_leaves
+from kubeflow_tpu_torch.ops import adafactor
 from kubeflow_tpu_torch.ops import optimizer as fused
 from kubeflow_tpu_torch.train.losses import (
     chunked_cross_entropy,
@@ -105,7 +112,8 @@ class TrainConfig:
     # >1 splits each step's batch into this many microbatches run one after
     # another, gradients accumulated in f32 and weighted by valid tokens.
     grad_accum_steps: int = 1
-    # adamw | lion | sgd ("adafactor" is not ported yet).
+    # adamw | lion | adafactor | sgd (adafactor ignores b1, b2 and
+    # mu_dtype, as the JAX trainer's does).
     optimizer: str = "adamw"
     # warmup_cosine | warmup_linear | constant | rsqrt, as the JAX trainer.
     lr_schedule: str = "warmup_cosine"
@@ -133,33 +141,40 @@ class TrainConfig:
             "(warmup_cosine | warmup_linear | constant | rsqrt)"
         )
 
-    def make_optimizer(self) -> "Optimizer":
-        if self.optimizer == "adafactor":
-            raise NotImplementedError(
-                "TrainConfig.optimizer='adafactor' is not ported yet "
-                "(adamw | lion | sgd)")
-        if self.optimizer not in ("adamw", "lion", "sgd"):
+    def make_optimizer(self, leaves: Optional[Dict[str, JaxLeaf]] = None
+                       ) -> "Optimizer":
+        """The optimizer; ``leaves`` (adafactor only) maps each parameter
+        to its JAX leaf, each parameter its own leaf when None."""
+        if self.optimizer not in ("adamw", "lion", "adafactor", "sgd"):
             raise ValueError(
                 f"unknown optimizer {self.optimizer!r} "
                 "(adamw | lion | adafactor | sgd)"
             )
-        return Optimizer(self)
+        return Optimizer(self, leaves)
 
 
 class Optimizer:
-    """clip_by_global_norm then adamw, lion or sgd (nesterov trace with
-    decoupled decay), with optax's arithmetic, applied in place.
+    """clip_by_global_norm then adamw, lion, adafactor or sgd (nesterov
+    trace with decoupled decay), with optax's arithmetic, applied in place.
 
     State: {"count": int, "mu": {name: tensor}, "nu": {name: tensor}} for
-    adamw; "mu" alone for lion; "trace" for sgd."""
+    adamw; "mu" alone for lion; "trace" for sgd; "v_row", "v_col" and "v"
+    for adafactor (``ops/adafactor.py::init_state``)."""
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig,
+                 leaves: Optional[Dict[str, JaxLeaf]] = None):
         self.cfg = cfg
+        self.leaves = leaves
         self.schedule = cfg.make_schedule()
         self.mu_dtype = (getattr(torch, cfg.mu_dtype) if cfg.mu_dtype
                          else torch.float32)
 
+    def _leaves(self, params) -> Dict[str, JaxLeaf]:
+        return self.leaves or adafactor.default_leaves(params)
+
     def init(self, params: Dict[str, torch.Tensor]) -> OptState:
+        if self.cfg.optimizer == "adafactor":
+            return adafactor.init_state(params, self._leaves(params))
         zeros = {n: torch.zeros(p.shape, dtype=torch.float32,
                                 device=p.device) for n, p in params.items()}
         if self.cfg.optimizer == "sgd":
@@ -176,8 +191,8 @@ class Optimizer:
              state: OptState) -> Tuple[OptState, torch.Tensor]:
         """One update of every parameter in place; returns the new state
         (its moment tensors are updated in place too) and the unclipped
-        gradients' global norm. On the card both are one K5 launch each
-        (``ops/optimizer.py``), whatever the number of tensors."""
+        gradients' global norm. On the card both are one launch each (K5's
+        norm, then K5's update or K11), whatever the number of tensors."""
         cfg = self.cfg
         count = state["count"]
         lr = self.schedule(count)            # optax: before the increment
@@ -185,6 +200,13 @@ class Optimizer:
         g = [grads[n] for n in names]
         with record_function("grad_norm"):
             norm = fused.global_norm(g)
+        if cfg.optimizer == "adafactor":
+            hyper = adafactor.Hyper(max_norm=cfg.grad_clip_norm, count=count,
+                                    lr=lr, weight_decay=cfg.weight_decay)
+            with record_function("optimizer"):
+                adafactor.update(params, {n: grads[n] for n in names}, state,
+                                 self._leaves(params), norm, hyper)
+            return {**state, "count": count + 1}, norm
         if cfg.optimizer == "adamw":
             t = torch.tensor(count + 1, dtype=torch.float32)
             bc1 = float(1 - torch.tensor(cfg.b1, dtype=torch.float32) ** t)
@@ -229,7 +251,11 @@ class Trainer:
         self.model = model.to(self.device)
         self.cfg = train_cfg
         self.attn_impl = _ONE_DEVICE_ATTN[train_cfg.attn_impl]
-        self.optimizer = train_cfg.make_optimizer()
+        # adafactor factors and blocks by the JAX leaves of the model.
+        model_cfg = getattr(model, "cfg", None)
+        self.optimizer = train_cfg.make_optimizer(
+            jax_leaves(model_cfg) if train_cfg.optimizer == "adafactor"
+            and model_cfg is not None else None)
 
     # ---------------- init ----------------
 

@@ -28,7 +28,12 @@ every slot and start. The training step's fused kernels: K5 (the
 optimizer) bitwise equal to its plain update given the same norm, the
 norm within relative 1e-6 of an f64 sum; K6 (RMSNorm) and K7 (RoPE) within
 one ulp of their plain versions (K7 also bitwise); K8 (cross-entropy) the
-loss within relative 1e-5, dlogits within 2e-2 x max |plain|.
+loss within relative 1e-5, dlogits within 2e-2 x max |plain|. K11 (the
+adafactor update) against its plain version: moments (v_row, v_col, v)
+within 1e-6 relative of the plain version in f64, params within one bf16
+ulp of max(|plain|, 2^-8 x max |plain|) of it in f32 (the means and block
+RMS are summed in another order; given the same sums the two agree
+bitwise), two calls bitwise equal.
 """
 
 import pytest
@@ -1578,6 +1583,145 @@ def test_optimizer_kernel_refusals_and_cpu():
     n_cpu = fused.global_norm(cpu(gr))       # the plain versions
     fused.update("adamw", cpu(p), cpu(gr), cpu(m), cpu(v), n_cpu, hyper)
     assert (fused.update.launches, fused.global_norm.launches) == before
+
+
+# K11 (adafactor): the kernel against its plain version on the same
+# inputs, moments within 1e-6 relative of it in f64, params within one
+# bf16 ulp of max(|plain|, 2^-8 max |plain|) of it in f32 (the sums are
+# taken in another order); two calls bitwise equal.
+K11_SMALL = dict(vocab_size=320, embed_dim=256, num_layers=2, num_heads=2,
+                 num_kv_heads=1, head_dim=128, mlp_dim=384)
+K11_700M = dict(vocab_size=32000, embed_dim=2048, num_layers=12,
+                num_heads=16, num_kv_heads=8, head_dim=128, mlp_dim=5632)
+
+
+def _adafactor_case(model_kw, pdt, gdt, seed=41):
+    from kubeflow_tpu_torch.models.layout import jax_leaves
+    from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
+    from kubeflow_tpu_torch.ops import adafactor
+
+    cfg = LlamaConfig(**model_kw)
+    with torch.device("meta"):
+        shapes = {n: p.shape for n, p in Llama(cfg).named_parameters()}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda s, sc, dt: (torch.randn(s, generator=g, device="cuda")  # noqa: E731
+                            * sc).to(dt)
+    params = {n: mk(s, 0.02, pdt) for n, s in shapes.items()}
+    grads = {n: mk(s, 1e-3, gdt) for n, s in shapes.items()}
+    leaves = jax_leaves(cfg)
+    state = adafactor.init_state(params, leaves)
+    for key in ("v_row", "v_col", "v"):        # moments of earlier steps
+        for m in state[key].values():
+            m.copy_(torch.rand(m.shape, generator=g, device="cuda") * 1e-6
+                    + 1e-8)
+    return params, grads, state, leaves
+
+
+def _copy_state(state):
+    return {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                else v) for k, v in state.items()}
+
+
+def _k11_check(model_kw, pdt, gdt, max_norm):
+    from kubeflow_tpu_torch.ops import adafactor
+    from kubeflow_tpu_torch.ops import optimizer as fused
+
+    params, grads, state, leaves = _adafactor_case(model_kw, pdt, gdt)
+    norm = fused.global_norm(list(grads.values()))
+    hyper = adafactor.Hyper(max_norm=max_norm, count=3, lr=1e-2,
+                            weight_decay=0.1)
+    p2, p3, p4 = ({n: t.clone() for n, t in params.items()}
+                  for _ in range(3))
+    s2, s3, s4 = (_copy_state(state) for _ in range(3))
+    before = adafactor.update.launches
+    adafactor.update(params, grads, state, leaves, norm, hyper)
+    adafactor.update(p3, grads, s3, leaves, norm, hyper)
+    adafactor.update_reference(p2, grads, s2, leaves, norm, hyper)
+    adafactor.update_reference(p4, grads, s4, leaves, norm, hyper,
+                               dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert adafactor.update.launches == before + 2
+    for n in params:
+        assert torch.equal(params[n], p3[n]), n
+        _ulp_ok(params[n], p2[n])
+    for key in ("v_row", "v_col", "v"):
+        for n, m in state[key].items():
+            assert torch.equal(m, s3[key][n]), (key, n)
+            torch.testing.assert_close(m, s4[key][n], rtol=1e-6, atol=0)
+    return state
+
+
+@pytest.mark.parametrize("scanned", [True, False])
+@pytest.mark.parametrize("pdt,gdt", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("max_norm", [1.0, 1e4])          # clipped or not
+def test_adafactor_kernel_matches_plain_small(scanned, pdt, gdt, max_norm):
+    state = _k11_check(dict(K11_SMALL, scan_layers=scanned), pdt, gdt,
+                       max_norm)
+    assert state["v_row"] and state["v"]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fused_qkv=True, fused_gate_up=True, scan_layers=True),
+    dict(vocab_size=256, embed_dim=64, num_layers=2, num_heads=4,
+         num_kv_heads=2, head_dim=16, mlp_dim=128, scan_layers=False)])
+def test_adafactor_kernel_fused_and_unfactored(kw):
+    # Two batch axes (the fused q/k/v [E, Hkv, G + 2, Dh]); a tiny model
+    # whose tensors are all unfactored (v laid out as each [out, in]
+    # weight, seen in its JAX shape).
+    _k11_check(dict(K11_SMALL, **kw), torch.bfloat16, torch.bfloat16, 1.0)
+
+
+@pytest.mark.parametrize("scanned", [True, False])
+def test_adafactor_kernel_matches_plain_700m(scanned):
+    _k11_check(dict(K11_700M, scan_layers=scanned), torch.bfloat16,
+               torch.bfloat16, 1.0)
+
+
+def test_adafactor_kernel_refusals_and_cpu():
+    from kubeflow_tpu_torch.ops import adafactor
+
+    params, grads, state, leaves = _adafactor_case(
+        dict(K11_SMALL, scan_layers=True), torch.bfloat16, torch.bfloat16)
+    norm = torch.ones((), device="cuda")
+    hyper = adafactor.Hyper(max_norm=1.0, count=0, lr=1e-2)
+    before = adafactor.update.launches
+    name = "layers.0.mlp.down_proj.weight"
+    bad = dict(params, **{name: params[name].t().contiguous().t()})
+    with pytest.raises(ValueError, match="contiguous"):
+        adafactor.update(bad, grads, state, leaves, norm, hyper)
+    bad = dict(params, **{name: params[name].half()})
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        adafactor.update(bad, grads, state, leaves, norm, hyper)
+    bad = dict(grads, **{name: grads[name].t()})
+    with pytest.raises(ValueError, match="contiguous"):
+        adafactor.update(params, bad, state, leaves, norm, hyper)
+    wrong = _copy_state(state)
+    wrong["v_row"][name] = wrong["v_row"][name].bfloat16()
+    with pytest.raises(ValueError, match="f32 moments"):
+        adafactor.update(params, grads, wrong, leaves, norm, hyper)
+    cpu = lambda d: {n: t.cpu() for n, t in d.items()}   # noqa: E731
+    adafactor.update(cpu(params), cpu(grads),
+                     {k: cpu(v) if isinstance(v, dict) else v
+                      for k, v in state.items()}, leaves, norm.cpu(), hyper)
+    assert adafactor.update.launches == before
+
+
+def test_device_feed_copies_through_pinned_buffers():
+    import numpy as np
+
+    from kubeflow_tpu_torch.train.runner import DeviceFeed
+
+    feed = DeviceFeed(torch.device("cuda"))
+    rng = np.random.default_rng(5)
+    batches = [{"inputs": rng.integers(0, 32000, (12, 2049),
+                                       dtype=np.int32)} for _ in range(5)]
+    outs = [feed(b) for b in batches]       # two buffers, reused in turn
+    torch.cuda.synchronize()
+    for b, o in zip(batches, outs):
+        assert o["inputs"].device.type == "cuda"
+        assert torch.equal(o["inputs"].cpu(), torch.from_numpy(b["inputs"]))
 
 
 def test_rope_backward_takes_a_transposed_grad():

@@ -172,7 +172,7 @@ def test_optimizer_updates_match_optax(optimizer, mu_dtype, pdtype):
         assert tstate["nu"]["w"].dtype == torch.float32
 
 
-def test_first_update_is_zero_and_adafactor_raises():
+def test_first_update_is_zero_and_adafactor_decays():
     params, grads = _opt_case(3, "float32")
     tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
     topt = TrainConfig(warmup_steps=3).make_optimizer()
@@ -180,8 +180,22 @@ def test_first_update_is_zero_and_adafactor_raises():
               topt.init(tparams))
     for k in params:                       # lr(0) = 0: decay included
         assert np.array_equal(tparams[k].numpy(), params[k])
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        TrainConfig(optimizer="adafactor").make_optimizer()
+    # adafactor adds the decay after the learning rate (the reference's
+    # chain, ROADMAP.md Queue 3): at lr(0) = 0 step 1 is p - wd p.
+    kw = dict(optimizer="adafactor", warmup_steps=3)
+    tparams = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    topt = TrainConfig(**kw).make_optimizer()
+    topt.step(tparams, {k: torch.from_numpy(v) for k, v in grads[0].items()},
+              topt.init(tparams))
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    opt = JaxTrainConfig(**kw).make_optimizer()
+    upd, _ = opt.update({k: jnp.asarray(v) for k, v in grads[0].items()},
+                        opt.init(jparams), jparams)
+    for k, v in params.items():
+        want = v - np.float32(0.1) * v
+        assert np.array_equal(tparams[k].numpy(), want)
+        assert np.array_equal(np.asarray(optax.apply_updates(jparams, upd)[k]),
+                              want)
     with pytest.raises(NotImplementedError, match="image"):
         Trainer(Llama(LlamaConfig.tiny()), TrainConfig(task="image"),
                 device="cpu")
@@ -313,7 +327,6 @@ def test_runner_writes_termination_log(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("env,value", [
     ("KFTPU_NUM_PROCESSES", "2"), ("KFTPU_MESH", '{"dp": 1, "tp": 2}'),
-    ("KFTPU_LOADER", "native"), ("KFTPU_DATA_PATH", "/corpus.bin"),
     ("KFTPU_TRACE_DIR", "/trace"), ("KFTPU_PROFILE_DIR", "/profile")])
 def test_runner_raises_on_unported_env(monkeypatch, env, value):
     for k, v in RUN_ENV.items():
