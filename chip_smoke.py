@@ -120,20 +120,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    train step's [24564, 5632] (forward and backward) and serving's [8,
    14336] and [512, 14336], bitwise; K10 (the residual add + RMSNorm) at
    [24564, 2048] (forward and backward, with the residual's gradient) and
-   [8, 4096], [4096, 4096]: the sum bitwise, y, dx and dw within one bf16
-   ulp; each timed beside its byte bound, no library call;
-7b. kernel (K11, the adafactor update) — over the 700M model's 111
-   tensors at their real shapes (bf16 params and grads, the JAX leaves
-   stacked over the 12 layers, f32 moments of earlier steps), against its
-   plain version on the same inputs, clipped and not: params within one
-   bf16 ulp of it, moments within 1e-6 relative of it computed in f64,
-   two calls bitwise equal.
-   Times K11 (CUDA-graph replays; its six kernels apart from a profiled
-   pass), K5's norm in front of it, the plain version and
-   torch.optim.Adafactor's step on the same tensors (eager; a
-   yardstick the port never calls, and not the same function: its own
-   eps, clip and relative step), beside the byte bound (g read, p read
-   and written once: 6 bytes a parameter);
+   [8, 4096], [48, 4096], [4096, 4096]: the sum bitwise, y, dx and dw
+   within one bf16 ulp; each timed beside its byte bound, no library
+   call; at 8 and 48 rows (and K6 at 8) through the rows kernel (a
+   thread a 16-byte chunk, the weight loaded with x; ops/norms.py's
+   ROWS_MAX), timed a launch beside the block-a-row kernel;
+7b. kernel (K11, the adafactor update with the global norm folded in) —
+   over the 700M model's 111 tensors at their real shapes (bf16 params
+   and grads, the JAX leaves stacked over the 12 layers, f32 moments of
+   earlier steps), against its plain version on the same inputs, clipped
+   and not: params within one bf16 ulp of it, moments within 1e-6
+   relative of it computed in f64, two calls bitwise equal, the norm it
+   computes within 1e-6 relative of K5's global_norm.
+   Times K11 (CUDA-graph replays; its seven kernels apart from a profiled
+   pass, each tile pass beside its own bytes; the bytes of g in flight an
+   SM in its g-only pass), beside PR 14's 4.54 ms of K5's norm and K11,
+   the plain version and torch.optim.Adafactor's step on the same tensors
+   (eager; a yardstick the port never calls, and not the same function:
+   its own eps, clip and relative step), beside the byte bound (g read, p
+   read and written once: 6 bytes a parameter);
 8. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card; staged decode and
    CUDA graphs, as the server runs by default) and sends 9 concurrent
@@ -167,6 +172,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    device synchronisations, median of 7, warm and after an L2 flush);
    then profiles one full-batch decode
    chunk (wall time, device busy time, idle share, top device kernels,
+   K6's and K10's rows kernels by name and counter, once a step and twice
+   a layer a step, with their time a launch,
    K3's kernel launches, which must be one per layer per step: 256, and
    with int8 weights K4's: 129 a step, 1032) and times three more without
    the profiler;
@@ -233,8 +240,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    KFTPU_DATA_PATH and KFTPU_EVAL_DATA_PATH naming int32 corpora written
    from a seed (4M and 0.5M tokens in the vocabulary) and
    KFTPU_HPARAMS {"optimizer": "adafactor"}, 6 steps and one eval: every
-   step's loss finite and its launches (K5's norm and K11 once, no K5
-   update, the rest as the adamw step's) asserted, the native loader
+   step's loss finite and its launches (K11 once, which computes the
+   gradients' norm itself: no K5 norm and no K5 update; the rest as the
+   adamw step's) asserted, the native loader
    feeding the run and the eval, a finite eval loss; prints the median
    synchronised step, MFU, peak memory beside the adamw train phase's,
    the loader's stalls and one profiled step; then 3 loader-fed steps
@@ -601,7 +609,9 @@ def backward_bound_ms(b, sq, skv, h, hkv, d, causal, offset, products=5):
 def kernel_split_ms(fn, names, runs: int = 5) -> dict:
     """Device ms per call of the kernels whose names hold each of
     ``names``, from a short torch.profiler pass over ``runs`` calls of
-    ``fn``; None where the profiler saw no device time."""
+    ``fn``: the mean event times the events a call (the count over the
+    runs, rounded: a session can lose one event, see
+    ``kernels_per_call``); None where the profiler saw no device time."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -612,8 +622,11 @@ def kernel_split_ms(fn, names, runs: int = 5) -> dict:
     events = prof.key_averages()
     out = {}
     for name in names:
-        total = sum(e.device_time_total for e in events if name in e.key)
-        out[name] = total / 1e3 / runs if total > 0 else None
+        own = [e for e in events if name in e.key]
+        total = sum(e.device_time_total for e in own)
+        count = sum(e.count for e in own)
+        out[name] = (total / 1e3 / count * max(1, round(count / runs))
+                     if total > 0 else None)
     return out
 
 
@@ -1268,6 +1281,9 @@ def fused_phase():
                    ulps=err, rows=rows_, width=E)
         row["ms"] = timed(lambda i: norms._fwd_kernel(xs[i], w, 1e-6), call,
                           train)
+        if rows_ <= norms.ROWS_MAX:     # the rows kernel; a block a row
+            row["block_ms"] = timed(lambda i: norms._fwd_kernel(
+                xs[i], w, 1e-6, by_rows=False), call, train)
         row["plain_ms"] = device_ms(
             lambda: norms.rms_norm_reference(x, w, eps=1e-6),
             calls=2 if train else 10, replays=3 if train else 5)
@@ -1299,7 +1315,10 @@ def fused_phase():
             del dy, dx, dw, pdx, pdw, again, xl, wl
         out["K6"][case] = row
         log(f"K6 {case} [{rows_}, {E}] bf16: {err:.2f} ulp, kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, F.rms_norm "
+            f"{row['ms']:.4f} ms"
+            + (f" (rows kernel; a block a row {row['block_ms']:.4f})"
+               if "block_ms" in row else "")
+            + f", plain {row['plain_ms']:.4f}, F.rms_norm "
             f"{row['library_ms']:.4f}, bound {row['bound_ms']:.5f} (bytes)"
             + (f"; backward {row['bwd_ulps']:.2f} ulp, kernel "
                f"{row['bwd_ms']:.4f} ms, plain {row['bwd_plain_ms']:.4f}, "
@@ -1488,22 +1507,27 @@ def fused_phase():
     return out
 
 
-#: K11's six passes, by the names of their device kernels.
-K11_PASSES = ("::tile_stats", "::moments", "::row_factors", "::tile_u2",
-              "::leaf_sums", "::apply_update")
+#: K11's seven passes, by the names of their device kernels.
+K11_PASSES = ("::tile_stats", "::norm_reduce", "::moments", "::row_factors",
+              "::tile_u2", "::leaf_sums", "::apply_update")
+#: What the adafactor step cost in PR 14's final run (run J): K5's norm in
+#: front of K11, and K11's three tile passes (ms).
+K11_PR14_MS, K11_PR14_TILE_MS = 4.54, 3.60
 
 
 def adafactor_phase():
-    """K11 (the adafactor update) over the 700M model's 111 tensors at
-    their real shapes, bf16 params and grads, the JAX leaves stacked
-    (scan_layers=True), moments of earlier steps: against its plain
-    version on the same inputs, clipped and not, moments within 1e-6
-    relative of the plain version in f64 and params within one bf16 ulp
-    of it in f32, two calls bitwise equal.
-    Times K11 (CUDA-graph replays), K5's norm in front of it, the plain
-    version and torch.optim.Adafactor's step on the same tensors (eager;
-    not the same function: its own eps, clip and relative step), beside
-    the byte bound (g read, p read and written once). Returns the row."""
+    """K11 (the adafactor update, the gradients' global norm included) over
+    the 700M model's 111 tensors at their real shapes, bf16 params and
+    grads, the JAX leaves stacked (scan_layers=True), moments of earlier
+    steps: against its plain version on the same inputs, clipped and not,
+    moments within 1e-6 relative of the plain version in f64 and params
+    within one bf16 ulp of it in f32, two calls bitwise equal, the norm it
+    computes within 1e-6 relative of K5's global_norm.
+    Times K11 (CUDA-graph replays; each pass by kernel name beside its own
+    bytes), the plain version and torch.optim.Adafactor's step on the same
+    tensors (eager; not the same function: its own eps, clip and relative
+    step), beside the byte bound (g read, p read and written once).
+    Returns the row."""
     from kubeflow_tpu_torch.models.layout import jax_leaves
     from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
     from kubeflow_tpu_torch.ops import adafactor
@@ -1525,7 +1549,7 @@ def adafactor_phase():
         m.copy_(torch.rand(m.shape, generator=gen, device="cuda") * 1e-8
                 + 1e-10)
     n = sum(p.numel() for p in params.values())
-    norm = fused.global_norm(list(grads.values()))
+    k5_norm = fused.global_norm(list(grads.values()))
     hyper = adafactor.Hyper(max_norm=1.0, count=3, lr=3e-4,
                             weight_decay=0.1)
 
@@ -1533,18 +1557,21 @@ def adafactor_phase():
         return {k: ({m: t.clone() for m, t in v.items()}
                     if isinstance(v, dict) else v) for k, v in d.items()}
 
-    worst, rel, abs_err = 0.0, 0.0, 0.0
+    worst, rel, abs_err, nrel = 0.0, 0.0, 0.0, 0.0
     for clip in (1.0, 1e4):                      # clipped, not clipped
         h = dataclasses.replace(hyper, max_norm=clip)
         p_k, p_k2, p_p, p_64 = ({k: t.clone() for k, t in params.items()}
                                 for _ in range(4))
         s_k, s_k2, s_p, s_64 = (copy(state) for _ in range(4))
-        adafactor.update(p_k, grads, s_k, leaves, norm, h)
-        adafactor.update(p_k2, grads, s_k2, leaves, norm, h)
-        adafactor.update_reference(p_p, grads, s_p, leaves, norm, h)
-        adafactor.update_reference(p_64, grads, s_64, leaves, norm, h,
+        norm = adafactor.update(p_k, grads, s_k, leaves, h)
+        norm2 = adafactor.update(p_k2, grads, s_k2, leaves, h)
+        adafactor.update_reference(p_p, grads, s_p, leaves, h)
+        adafactor.update_reference(p_64, grads, s_64, leaves, h,
                                    dtype=torch.float64)
         del p_64
+        if not torch.equal(norm, norm2):
+            raise AssertionError("K11 norm: two calls differ")
+        nrel = max(nrel, abs(float(norm) - float(k5_norm)) / float(k5_norm))
         for k in params:
             if not torch.equal(p_k[k], p_k2[k]):
                 raise AssertionError(f"K11 {k}: two calls differ")
@@ -1559,24 +1586,29 @@ def adafactor_phase():
                 rel = max(rel, float(((m - want).abs() / want.abs()).max()))
         del p_k, p_k2, p_p, s_k, s_k2, s_p, s_64
         torch.cuda.empty_cache()
-    if worst > 1 or rel > 1e-6:
+    if worst > 1 or rel > 1e-6 or nrel > 1e-6:
         raise AssertionError(f"K11: params {worst:.2f} ulp, moments "
-                             f"{rel:.2e} relative from the plain version")
+                             f"{rel:.2e} relative from the plain version, "
+                             f"norm {nrel:.2e} relative from K5's")
     blocks = len(adafactor.blocks(params, leaves))
     factored = len(state["v_row"])
     row = dict(max_abs_err=abs_err, ulps=worst, moment_rel_err=rel,
-               tensors=len(params), params=n, blocks=blocks,
-               factored=factored, bound_by="bytes")
+               norm_rel_err=nrel, tensors=len(params), params=n,
+               blocks=blocks, factored=factored, bound_by="bytes",
+               inflight_bytes_per_sm=adafactor.inflight_bytes())
     row["ms"] = device_ms(lambda: adafactor.update(params, grads, state,
-                                                   leaves, norm, hyper),
+                                                   leaves, hyper),
                           calls=2, replays=3)
     passes = kernel_split_ms(lambda: adafactor.update(
-        params, grads, state, leaves, norm, hyper), K11_PASSES, runs=3)
+        params, grads, state, leaves, hyper), K11_PASSES, runs=3)
     row.update({f"{k.strip(':')}_ms": v for k, v in passes.items()})
-    row["norm_ms"] = device_ms(lambda: fused.global_norm(
-        list(grads.values())), calls=2, replays=3)
+    # Each tile pass against its own bytes: tile_stats reads g and p,
+    # tile_u2 g, apply g and p and writes p.
+    own = {"tile_stats": 4 * n, "tile_u2": 2 * n, "apply_update": 6 * n}
+    for k, nbytes in own.items():
+        row[f"{k}_own_bound_ms"] = bytes_ms(nbytes)
     row["plain_ms"] = device_ms(lambda: adafactor.update_reference(
-        params, grads, state, leaves, norm, hyper), calls=1, replays=2)
+        params, grads, state, leaves, hyper), calls=1, replays=2)
     row["bound_ms"] = bytes_ms(6 * n)
     torch.cuda.empty_cache()
     lib_params = [p.detach().clone().requires_grad_()
@@ -1585,17 +1617,25 @@ def adafactor_phase():
         leaf.grad = g
     opt = torch.optim.Adafactor(lib_params, lr=3e-4, weight_decay=0.1)
     row["library_ms"] = eager_ms(opt.step, iters=5, repeats=3)
+
+    def share(k):
+        t = passes.get(f"::{k}")
+        return ("not measured" if t is None else
+                f"{row[f'{k}_own_bound_ms'] / t:.0%} of its own bytes")
+
     log(f"K11 {len(params)} tensors in {blocks} blocks ({factored} "
         f"factored), {n / 1e6:.1f}M params (bf16 p and g; f32 moments in "
         f"the JAX leaves' shapes): params within {worst:.2f} bf16 ulp of "
         f"the plain update (max abs {abs_err:.3e}), moments {rel:.2e} "
-        f"relative of the plain update in f64, two calls bitwise equal "
-        f"(clipped and not); kernel "
-        f"{row['ms']:.4f} ms (" + ", ".join(
+        f"relative of the plain update in f64, its norm {nrel:.2e} relative "
+        f"of K5's, two calls bitwise equal (clipped and not); kernel, norm "
+        f"included, {row['ms']:.4f} ms (PR 14: K5's norm + K11 "
+        f"{K11_PR14_MS}, tile passes {K11_PR14_TILE_MS}) (" + ", ".join(
             f"{k.strip(':')} {v:.4f}" for k, v in passes.items()
-            if v is not None) + f"; K5's norm in front "
-        f"{row['norm_ms']:.4f}), "
-        f"plain {row['plain_ms']:.4f}, torch.optim.Adafactor step "
+            if v is not None) + "; " + ", ".join(
+            f"{k} {share(k)}" for k in own) + "; bytes in flight an SM in "
+        f"tile_u2 {row['inflight_bytes_per_sm']}), plain "
+        f"{row['plain_ms']:.4f}, torch.optim.Adafactor step "
         f"{row['library_ms']:.4f} (eager; its own eps, clip and relative "
         f"step: not the same function), bound {row['bound_ms']:.4f} "
         f"(bytes)")
@@ -1765,8 +1805,10 @@ def swiglu_rows(gen) -> dict:
 def add_norm_rows(gen) -> dict:
     """K10 against its plain version: the sum bitwise, y within one bf16
     ulp, two calls bitwise equal; at the train step's [24564, 2048] forward
-    and backward and at llama3-8b's serving [8, 4096] and [4096, 4096]
-    forward. The backward's norm part (dx with no residual gradient) and
+    and backward and at llama3-8b's serving [8, 4096] (the 8-slot decode),
+    [48, 4096] (the paged step's 48 slots) and [4096, 4096] forward. Up to
+    ROWS_MAX rows through the rows kernel, held and timed (a launch, cold)
+    beside the block-a-row kernel at the same rows. The backward's norm part (dx with no residual gradient) and
     dw within one bf16 ulp, as K6's; with the residual's gradient dr, dx
     bitwise dr + that part, rounded as the plain add rounds it (one ulp of
     the norm part is many of a sum that cancels, so dx itself is held to
@@ -1777,6 +1819,7 @@ def add_norm_rows(gen) -> dict:
     out = {}
     for case, rows_, E, train in (("train", TRAIN_ROWS, 2048, True),
                                   ("decode", 8, SERVE_E, False),
+                                  ("paged", 48, SERVE_E, False),
                                   ("prefill", 4096, SERVE_E, False)):
         call = 4 * rows_ * E * 2
         n = sets_for(call)
@@ -1787,20 +1830,30 @@ def add_norm_rows(gen) -> dict:
         w = (1 + 0.1 * torch.randn(E, generator=gen, device="cuda")
              ).bfloat16()
         x, h = xs[0], hs[0]
-        r, y, rstd = norms._add_fwd_kernel(x, h, w, 1e-6)
+        small = rows_ <= norms.ROWS_MAX
         want_r, want_y, _ = norms.add_rms_norm_reference(x, h, w, eps=1e-6)
+        rows_before = norms.add_rms_norm.rows_launches
+        r, y, rstd = norms._add_fwd_kernel(x, h, w, 1e-6)
         err = ulps(y, want_y)
         again = norms._add_fwd_kernel(x, h, w, 1e-6)
+        if norms.add_rms_norm.rows_launches - rows_before != 2 * small:
+            raise AssertionError(f"K10 {case}: the rows kernel ran "
+                                 f"{norms.add_rms_norm.rows_launches - rows_before}"
+                                 f" times of 2 at {rows_} rows (ROWS_MAX "
+                                 f"{norms.ROWS_MAX})")
         if not torch.equal(r, want_r) or err > 1 or not (
                 torch.equal(again[0], r) and torch.equal(again[1], y)):
             raise AssertionError(f"K10 {case} forward: sum bitwise "
                                  f"{torch.equal(r, want_r)}, y {err:.2f} ulp,"
                                  f" or two calls differ")
         row = dict(max_abs_err=float((y.float() - want_y.float()).abs().max()),
-                   ulps=err, library_ms=None,
+                   ulps=err, library_ms=None, rows=rows_,
                    bound_ms=bytes_ms(call + 2 * E + 4 * rows_))
         row["ms"] = timed(lambda i: norms._add_fwd_kernel(xs[i], hs[i], w,
                                                           1e-6), call, train)
+        if small:                       # the block-a-row kernel beside it
+            row["block_ms"] = timed(lambda i: norms._add_fwd_kernel(
+                xs[i], hs[i], w, 1e-6, by_rows=False), call, train)
         row["plain_ms"] = device_ms(
             lambda: norms.add_rms_norm_reference(x, h, w, eps=1e-6),
             calls=2 if train else 10, replays=3 if train else 5)
@@ -1833,7 +1886,11 @@ def add_norm_rows(gen) -> dict:
             del dy, dr, dx, dw, dxn, dwn, pdx, pdw
         out[case] = row
         log(f"K10 {case} [{rows_}, {E}] bf16: sum bitwise, y {err:.2f} ulp, "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
+            f"kernel {row['ms']:.4f} ms"
+            + (f" (rows kernel, {row['ms'] * 1e3:.3f} us a launch; a block "
+               f"a row {row['block_ms'] * 1e3:.3f} us; PR 14: 3.5 us at 8 "
+               "rows)" if small else "")
+            + f", plain {row['plain_ms']:.4f}"
             + (f"; backward {row['bwd_ulps']:.2f} ulp, kernel "
                f"{row['bwd_ms']:.4f}, plain {row['bwd_plain_ms']:.4f}, "
                f"bound {row['bwd_bound_ms']:.4f}" if train else "")
@@ -2509,7 +2566,12 @@ def decode_breakdown(engine, rs):
     for _ in range(engine.cfg.max_batch):
         engine.submit(rs.randint(0, V, 100).tolist(), max_new_tokens=new)
     engine.step()                       # admit + prefill + first chunk
+    from kubeflow_tpu_torch.ops.norms import add_rms_norm, rms_norm
+
+    rows_before = rms_norm.rows_launches, add_rms_norm.rows_launches
     wall_ms, busy_ms, kernels = profiled(engine.step)
+    rows_counts = (rms_norm.rows_launches - rows_before[0],
+                   add_rms_norm.rows_launches - rows_before[1])
     steps = engine.cfg.decode_chunk
     plain = []
     for _ in range(3):                  # each step ends in a host fetch
@@ -2545,23 +2607,36 @@ def decode_breakdown(engine, rs):
                              int8_launches_per_pass(engine.model) * steps)
     # K6, K7, K9 and K10 by name (their launch counters, graph replays
     # counted, are asserted per burst; the profiler has dropped one event
-    # of 2080).
+    # of 2080). A decode step's rows (the slots) take K6's and K10's rows
+    # kernels: their counters and their kernels by name, once a step and
+    # twice a layer a step.
     layers = engine.model.cfg.num_layers
-    for tag, name, per_step in (("K6", "::rmsnorm_fwd", 1),
+    want_rows = (steps, 2 * layers * steps)
+    if rows_counts != want_rows:
+        raise AssertionError(f"K6, K10 rows kernel launches {rows_counts} "
+                             f"in the decode chunk, want {want_rows}")
+    per_launch = {}
+    for tag, name, per_step in (("K6", "::rmsnorm_fwd_rows", 1),
                                 ("K7", "::rope_kernel", layers),
                                 ("K9", "::swiglu_fwd", layers),
-                                ("K10", "::add_rmsnorm_fwd", 2 * layers)):
+                                ("K10", "::add_rmsnorm_fwd_rows",
+                                 2 * layers)):
         own = [e for e in kernels if name in e.key]
-        log(f"  {tag} ({name[2:]}): "
-            f"{sum(e.device_time_total for e in own) / 1e3:.3f} ms over "
-            f"{sum(e.count for e in own)} kernels (launched "
-            f"{per_step * steps})")
+        ms, count = (sum(e.device_time_total for e in own) / 1e3,
+                     sum(e.count for e in own))
+        per_launch[tag] = ms / count * 1e3 if count else None
+        log(f"  {tag} ({name[2:]}): {ms:.3f} ms over {count} kernels "
+            f"(launched {per_step * steps})"
+            + (f", {per_launch[tag]:.3f} us a launch" if count else ""))
+        if busy_ms > 0 and tag in ("K6", "K10"):
+            kernels_per_call(f"{tag} rows", count, per_step * steps)
     while engine.active_slots:
         engine.step()
     return dict(chunk_wall_ms=wall_ms, chunk_busy_ms=busy_ms, idle=idle,
                 step_ms=float(np.median(plain)) / steps,
                 k3_chunk_launches=k3_launches,
-                k4_chunk_launches=k4_launches, k4_chunk_ms=k4_ms)
+                k4_chunk_launches=k4_launches, k4_chunk_ms=k4_ms,
+                k10_chunk_us=per_launch["K10"])
 
 
 def greedy_check(model, bodies, outs, kv_int8: bool = False):
@@ -2686,7 +2761,9 @@ def fused_counters():
             ("K9 forward", swiglu, "fwd_launches"),
             ("K9 backward", swiglu, "bwd_launches"),
             ("K10 forward", add_rms_norm, "fwd_launches"),
-            ("K10 backward", add_rms_norm, "bwd_launches"))
+            ("K10 backward", add_rms_norm, "bwd_launches"),
+            ("K6 rows", rms_norm, "rows_launches"),
+            ("K10 rows", add_rms_norm, "rows_launches"))
 
 
 def train_launches_per_step(layers: int, policy: str = "qkv_attn",
@@ -2702,13 +2779,15 @@ def train_launches_per_step(layers: int, policy: str = "qkv_attn",
     under "minimal" (it saves q and k after RoPE outside any segment), K1
     except under "minimal" and "qkv_attn_lse" (they keep K1's o and lse).
     One backward each; one norm and one update of the optimizer: K5's, or
-    K11 for adafactor."""
+    K11 alone for adafactor (it computes the norm itself). The step's rows
+    (batch x sequence) are past ops/norms.py's ROWS_MAX: no rows kernel."""
     rope_replays = policy != "minimal"
     attn_replays = policy not in ("minimal", "qkv_attn_lse")
     adafactor = optimizer == "adafactor"
     return {"K1 forward": layers * (1 + attn_replays),
-            "K1 backward": layers, "K5 norm": 1,
+            "K1 backward": layers, "K5 norm": int(not adafactor),
             "K5 update": int(not adafactor), "K11 update": int(adafactor),
+            "K6 rows": 0, "K10 rows": 0,
             "K6 forward": 2 * layers + 1, "K6 backward": layers + 1,
             "K7 forward": layers * (1 + rope_replays), "K7 backward": layers,
             "K8 forward": 1, "K8 backward": 1,
@@ -3268,8 +3347,9 @@ def adafactor_train_phase(adamw_peak: float):
     KFTPU_EVAL_DATA_PATH (int32 corpora in the vocabulary, written from a
     seed), KFTPU_HPARAMS {"optimizer": "adafactor"}, ADAFACTOR_STEPS steps
     and one eval at the end. Checks every step's loss is finite, the
-    launches of each step (K5's norm and K11 once, no K5 update, the rest
-    as the adamw step), that the native loader fed the run and the eval,
+    launches of each step (K11 once, which computes the norm: no K5 norm
+    and no K5 update; the rest as the adamw step), that the native loader
+    fed the run and the eval,
     and the eval's loss; prints the median synchronised step, MFU, peak
     memory beside the adamw train phase's, the loader's stalls, one
     profiled step's idle share, and the idle share of FEED_STEPS
@@ -3756,6 +3836,11 @@ def main() -> int:
             if case != "train":
                 k.update({f"{case}_{key}": v for key, v in row.items()})
         k["serve_launches"] = serve[tag.lower()]
+    # K10's rows kernel a launch in each serve phase's profiled decode chunk.
+    for case, st in (("bf16", serve), ("int8_kv", serve_int8),
+                     ("int8_weights", serve_w8),
+                     ("paged", serve_paged[True])):
+        k10[f"chunk_{case}_us"] = st["k10_chunk_us"]
     # K11 over the 700M model's tensors (scanned leaves); launches over the
     # loader-fed adafactor run; its device ms in that run's profiled step.
     ada_k = ada["breakdown"]["by_kernel"]["K11"]

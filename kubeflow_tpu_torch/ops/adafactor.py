@@ -1,25 +1,34 @@
-"""adafactor's update over every parameter: the CUDA kernel (K11) and its
-plain PyTorch version.
+"""adafactor's update over every parameter, with the global norm that
+clips it: the CUDA kernel (K11) and its plain PyTorch version.
 
 The function is the JAX trainer's adafactor (``optax.adafactor`` with
 ``weight_decay_rate=weight_decay or None`` behind the global-norm clip,
-all in f32 under ``_f32_moments``), in optax 0.2.6's order:
+all in f32 under ``_f32_moments``), optax 0.2.6's, with the clip carried
+as one scalar: optax clips each element, ``(g / norm) * max_norm`` when
+the global norm reaches ``max_norm``; here ``s = max_norm / norm`` (1
+below the threshold) scales what the unclipped gradient g gives, since
+``mean(s^2 g^2 + eps) = s^2 mean(g^2) + eps`` and ``rms(s u) = s rms(u)``.
+So the sums of g^2 that the moments take are also the norm's, and no
+element is divided:
 
-- g is the clipped gradient: ``(g / norm) * max_norm`` when the global
-  norm (K5's, ``ops/optimizer.py::global_norm``) reaches ``max_norm``;
+- ``norm = sqrt(sum g^2)``, ``s = norm >= max_norm ? max_norm / norm :
+  1``, ``s2 = s * s``;
 - factored tensors (the JAX leaf's two largest axes d0, d1 reach 128):
-  ``v_row = decay v_row + keep mean_d0(g^2 + 1e-30)``, ``v_col`` the same
-  over d1, ``u = (g * (v_row / mean_d1 v_row)^-1/2) * v_col^-1/2``; the
-  others ``v = decay v + keep (g^2 + 1e-30)``, ``u = g * v^-1/2``, with
-  ``decay = 1 - (count + 1)^-0.8`` in f32 and ``keep = 1 - decay``;
+  ``v_row = decay v_row + keep (s2 mean_d0(g g) + 1e-30)``, ``v_col`` the
+  same over d1, ``u = (g * (v_row / mean_d1 v_row)^-1/2) * v_col^-1/2``;
+  the others ``v = decay v + keep (s2 (g g) + 1e-30)``, ``u = g *
+  v^-1/2``, with ``decay = 1 - (count + 1)^-0.8`` in f32 and ``keep = 1 -
+  decay``;
 - per block (one JAX leaf: stacked over the layers when the tree is
-  scanned, so one RMS spans every layer): ``u = u / max(1, rms(u))``,
-  ``u = lr u``, ``u = u * max(1e-3, rms(p))``, ``u = u + wd p``;
-- ``p = round_to_dtype(p - u)``.
+  scanned, so one RMS spans every layer): ``factor = ((s lr) scale) /
+  max(1, s rms(u))``, ``scale = max(1e-3, rms(p))``;
+- ``p = round_to_dtype(p - (u factor + wd p))``.
 
-The weight decay is added AFTER the learning rate: every step multiplies
-each weight by ``1 - wd`` whatever the learning rate, even at lr = 0.
-That is the reference's behaviour (ROADMAP.md Queue 3), mirrored here.
+That is optax's chain up to f32 rounding (the tests hold it to optax's
+within 1e-5 relative). The weight decay is added AFTER the learning rate:
+every step multiplies each weight by ``1 - wd`` whatever the learning
+rate, even at lr = 0. That is the reference's behaviour (ROADMAP.md
+Queue 3), mirrored here.
 
 Which axes factor, and what a block is, follow the JAX leaf, not the
 port's tensor: ``models/layout.py::JaxLeaf`` gives each parameter its
@@ -31,19 +40,21 @@ leaves): ``v_row`` and ``v_col`` for factored ones, ``v`` for the others
 
 The update dispatches on where the tensors live:
 
-- CUDA tensors launch ``ops/csrc/adafactor.cu`` (six kernels a call,
-  whatever the number of tensors), built at first use by
-  ``ops/_build.py``, or raise: params contiguous bf16 or f32, grads the
-  same, moments f32, every pointer 16-byte aligned. The kernels read a
-  device table of the tensors, their strides and blocks, built once for a
-  parameter set (``update.table_builds``), and an array of the gradients'
-  pointers.
+- CUDA tensors launch ``ops/csrc/adafactor.cu`` (seven kernels a call,
+  the norm's included, whatever the number of tensors), built at first
+  use by ``ops/_build.py``, or raise: params contiguous bf16 or f32,
+  grads the same, moments f32, every pointer 16-byte aligned. The kernels
+  read a device table of the tensors, their strides, tiles and blocks,
+  built once for a parameter set (``update.table_builds``), and an array
+  of the gradients' pointers.
 - CPU tensors take :func:`update_reference`, which the card also holds
   the kernel against: moments within 1e-6 relative of the plain version
-  in f64, params within one bf16 ulp of it in f32 (the sums are taken in
+  in f64, params within one bf16 ulp of it in f32, the norm within 1e-6
+  relative of ``ops/optimizer.py::global_norm`` (the sums are taken in
   another order; given the same sums the two agree bitwise).
 
-``update.launches`` counts the kernel calls.
+Both return the gradients' global norm (a 0-dim f32 tensor on their
+device). ``update.launches`` counts the kernel calls.
 """
 
 from __future__ import annotations
@@ -58,7 +69,13 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models.layout import JaxLeaf
-from kubeflow_tpu_torch.ops.optimizer import _f32, _on_card, _remember, _stream
+from kubeflow_tpu_torch.ops.optimizer import (
+    _f32,
+    _on_card,
+    _remember,
+    _stream,
+    global_norm_reference,
+)
 
 _SOURCE = "adafactor.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,9 +83,12 @@ EPS = 1e-30                 # optax.adafactor's eps
 DECAY_RATE = 0.8            # its decay_rate: decay = 1 - (count + 1)^-0.8
 MIN_SCALE = 1e-3            # scale_by_param_block_rms's min_scale
 #: The kernel's tile: TILE_F fast-axis elements by TILE_S slow-axis rows
-#: (an unfactored tensor's tile: TILE_F * TILE_S contiguous elements).
+#: (an unfactored tensor's tile: TILE_F * TILE_S contiguous elements); a
+#: factored tensor whose fast extent is at most NARROW_F takes NARROW_F by
+#: NARROW_S tiles, so its rows leave no lane idle.
 TILE_F, TILE_S = 256, 64
-_ENTRIES = 256      # moment entries a block of the kernel's pass (b)
+NARROW_F, NARROW_S = 128, 128
+_ENTRIES = 256      # moment entries a block of the kernel's moments pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,33 +154,42 @@ def blocks(names, leaves: Dict[str, JaxLeaf]) -> "OrderedDict[str, list]":
 
 def update_reference(params: Dict[str, torch.Tensor],
                      grads: Dict[str, torch.Tensor], state: dict,
-                     leaves: Dict[str, JaxLeaf], norm: torch.Tensor,
-                     hyper: Hyper, dtype: torch.dtype = torch.float32
-                     ) -> None:
+                     leaves: Dict[str, JaxLeaf], hyper: Hyper,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The update of :func:`update` in plain PyTorch, leaf by leaf, in
-    place on ``params`` and the state's moments. ``dtype`` is the
-    arithmetic's: f32 (the function; the card's checks hold the kernel's
-    params to it), or f64 for moments rounded once from exact-enough sums
-    (the card's checks hold the kernel's moments to those)."""
+    place on ``params`` and the state's moments; returns the gradients'
+    global norm. ``dtype`` is the arithmetic's: f32 (the function; the
+    norm is ``ops/optimizer.py::global_norm_reference``'s, and the card's
+    checks hold the kernel's params to this), or f64 for moments rounded
+    once from exact-enough sums (the card's checks hold the kernel's
+    moments to those)."""
     max_norm, decay, keep, lr, wd = hyper.scalars()
-    norm = norm.to(dtype)
-    clip = norm >= max_norm
+    gs = [grads[n] for n in params]
+    if dtype == torch.float32:
+        norm = global_norm_reference(gs)
+    else:
+        norm = sum((g.to(dtype).square().sum() for g in gs),
+                   torch.zeros((), dtype=dtype)).sqrt()
+    s = torch.where(norm >= max_norm, max_norm / norm,
+                    torch.ones_like(norm))
+    s2 = s * s
     for names in blocks(params, leaves).values():
         us = []
         for n in names:
             leaf = leaves[n]
-            g = grads[n].to(dtype).contiguous()
-            g = leaf.view(torch.where(clip, g / norm * max_norm, g))
-            sq = g * g + EPS
+            g = leaf.view(grads[n].to(dtype).contiguous())
+            sq = g * g
             dims = leaf.factored_dims()
             if dims is None:
-                v = decay * state["v"][n].to(dtype) + keep * sq
+                v = decay * state["v"][n].to(dtype) + keep * (s2 * sq + EPS)
                 state["v"][n].copy_(v)
                 us.append(g * v.sqrt().reciprocal())
                 continue
             d1, d0 = dims
-            vr = decay * state["v_row"][n].to(dtype) + keep * sq.mean(d0)
-            vc = decay * state["v_col"][n].to(dtype) + keep * sq.mean(d1)
+            vr = (decay * state["v_row"][n].to(dtype)
+                  + keep * (s2 * sq.mean(d0) + EPS))
+            vc = (decay * state["v_col"][n].to(dtype)
+                  + keep * (s2 * sq.mean(d1) + EPS))
             state["v_row"][n].copy_(vr)
             state["v_col"][n].copy_(vc)
             rcm = vr.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
@@ -172,16 +201,17 @@ def update_reference(params: Dict[str, torch.Tensor],
               for n in names]
         su = torch.stack([(u * u).sum() for u in us]).sum()
         sp = torch.stack([(p * p).sum() for p in ps]).sum()
-        denom = torch.clamp_min((su / count).sqrt(), 1.0)
+        denom = torch.clamp_min(s * (su / count).sqrt(), 1.0)
         rms_p = (sp / count).sqrt()
         scale = torch.where(rms_p <= MIN_SCALE,
                             torch.full_like(rms_p, MIN_SCALE), rms_p)
+        factor = s * lr * scale / denom
         for n, u, p in zip(names, us, ps):
-            u = lr * (u / denom)
-            u = u * scale
+            u = u * factor
             if wd:
                 u = u + wd * p
             leaves[n].view(params[n]).copy_(p - u)
+    return norm
 
 
 def bind(lib: ctypes.CDLL):
@@ -190,7 +220,7 @@ def bind(lib: ctypes.CDLL):
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
                    + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     return fn
 
@@ -200,7 +230,9 @@ FIELDS = ("p", "v", "vc", "numel", "first", "first_entry", "first_slice",
           "flags", "nF", "sF", "nS", "sS", "tilesF", "tilesS", "nA", "sA",
           "nB", "sB", "rA", "rB", "r1", "cA", "cB", "c0", "pf", "ps", "rf",
           "cf", "leaf")
-_FACTORED, _FAST_D0, _VEC = 1 << 4, 1 << 5, 1 << 6
+_FACTORED, _FAST_D0, _VEC, _NARROW = 1 << 4, 1 << 5, 1 << 6, 1 << 7
+#: The device scalars the kernel computes: norm, s, s2.
+_SCALARS = 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,8 +242,9 @@ def _kernel_fn():
     lib = load_library(_SOURCE)
     lib.kftpu_adafactor_layout.restype = ctypes.c_longlong
     lib.kftpu_adafactor_layout.argtypes = [ctypes.c_int]
-    got = tuple(lib.kftpu_adafactor_layout(i) for i in range(5))
-    want = (TILE_F * TILE_S, TILE_F, TILE_S, len(FIELDS), 3)
+    got = tuple(lib.kftpu_adafactor_layout(i) for i in range(9))
+    want = (TILE_F * TILE_S, TILE_F, TILE_S, NARROW_F, NARROW_S,
+            len(FIELDS), 3, _SCALARS, _ENTRIES)
     if got != want:
         raise RuntimeError(f"{_SOURCE}'s tile and table layout {got}, the "
                            f"wrapper's {want}")
@@ -235,7 +268,8 @@ class _Plan:
     scratch: int            # f32 elements in all
     p2_at: int              # where the tiles' p^2 sums start
     u2_at: int              # the tiles' u^2 sums
-    leaf_at: int            # the leaves' [denominator, scale]
+    g2_at: int              # the tiles' g^2 sums
+    leaf_at: int            # the leaves' factors
 
 
 def _row(name, p, g, leaf: JaxLeaf, state, dev) -> dict:
@@ -276,11 +310,13 @@ def _row(name, p, g, leaf: JaxLeaf, state, dev) -> dict:
     nF, nS = leaf.shape[fast], leaf.shape[slow]
     vec = st[fast] == 1 and nF % 8 == 0 and all(
         st[a] % 8 == 0 for a in [slow] + batch)
+    narrow = nF <= NARROW_F
+    tile_f, tile_s = (NARROW_F, NARROW_S) if narrow else (TILE_F, TILE_S)
     f.update(v=vr.data_ptr(), vc=vc.data_ptr(),
              flags=(dtypes | _FACTORED | (_FAST_D0 if fast == d0 else 0)
-                    | (_VEC if vec else 0)),
+                    | (_VEC if vec else 0) | (_NARROW if narrow else 0)),
              nF=nF, sF=st[fast], nS=nS, sS=st[slow],
-             tilesF=_cdiv(nF, TILE_F), tilesS=_cdiv(nS, TILE_S),
+             tilesF=_cdiv(nF, tile_f), tilesS=_cdiv(nS, tile_s),
              r1=vr.stride(d1 - (d1 > d0)), c0=vc.stride(d0 - (d0 > d1)))
     # Up to two batch axes (A, B): sizes and strides in p, v_row, v_col.
     for (n_, s_, r_, c_), a in zip((("nA", "sA", "rA", "cA"),
@@ -333,8 +369,8 @@ def _plan(params, grads, state, leaves, dev) -> _Plan:
     for f in rows:
         pairs |= 1 << (f["flags"] & 15)
     return _Plan(table, leaf_table, order, pairs, tile, entry, slices,
-                 part + 2 * tile + 2 * len(leaf_rows), part, part + tile,
-                 part + 2 * tile)
+                 part + 3 * tile + len(leaf_rows), part, part + tile,
+                 part + 2 * tile, part + 3 * tile)
 
 
 _plans: "OrderedDict[tuple, _Plan]" = OrderedDict()
@@ -342,18 +378,18 @@ _grad_ptrs: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
 
 
 def update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-           state: dict, leaves: Dict[str, JaxLeaf], norm: torch.Tensor,
-           hyper: Hyper) -> None:
-    """One adafactor step over every parameter, in place (see
-    :func:`update_reference` for the arithmetic); ``state``'s moments are
-    updated in place too, its count is the caller's."""
+           state: dict, leaves: Dict[str, JaxLeaf],
+           hyper: Hyper) -> torch.Tensor:
+    """One adafactor step over every parameter, in place, clipped by the
+    gradients' global norm (see :func:`update_reference` for the
+    arithmetic); ``state``'s moments are updated in place too, its count
+    is the caller's. Returns the norm, a 0-dim f32 tensor on the
+    parameters' device."""
     if not params:
-        return
+        return torch.zeros(())
     moments = [t for k in ("v_row", "v_col", "v") for t in state[k].values()]
-    if not _on_card(list(params.values()) + list(grads.values()) + moments
-                    + [norm]):
-        update_reference(params, grads, state, leaves, norm, hyper)
-        return
+    if not _on_card(list(params.values()) + list(grads.values()) + moments):
+        return update_reference(params, grads, state, leaves, hyper)
     dev = next(iter(params.values())).device
     for n, p in params.items():
         g = grads[n]
@@ -372,18 +408,31 @@ def update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
     gptrs = _remember(_grad_ptrs, (dev,) + ptrs, lambda: torch.tensor(
         ptrs, dtype=torch.int64).pin_memory().to(dev, non_blocking=True))
     scratch = torch.empty(plan.scratch, dtype=torch.float32, device=dev)
-    norm = norm.reshape(1).float().contiguous()
+    scalars = torch.empty(_SCALARS, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _kernel_fn()(plan.table.data_ptr(), plan.leaves.data_ptr(),
                           gptrs.data_ptr(), len(plan.order),
                           plan.leaves.shape[0], plan.pairs, plan.tiles,
                           plan.entry_blocks, plan.slices, scratch.data_ptr(),
-                          plan.p2_at, plan.u2_at, plan.leaf_at,
-                          norm.data_ptr(), *hyper.scalars(), _stream(dev))
+                          plan.p2_at, plan.u2_at, plan.g2_at, plan.leaf_at,
+                          scalars.data_ptr(), *hyper.scalars(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"adafactor launch failed: CUDA error {rc} "
                            f"({len(plan.order)} tensors, {plan.tiles} tiles)")
     update.launches += 1
+    return scalars[0]
+
+
+def inflight_bytes() -> int:
+    """Bytes of gradient rows in flight on an SM in the kernel's bf16 pass
+    that reads g alone (tile_u2): its resident blocks, by the occupancy
+    API, x threads x rows a thread loads ahead x 16 bytes."""
+    _kernel_fn()
+    from kubeflow_tpu_torch.ops._build import load_library
+
+    lib = load_library(_SOURCE)
+    lib.kftpu_adafactor_inflight.restype = ctypes.c_longlong
+    return int(lib.kftpu_adafactor_inflight())
 
 
 update.launches = 0

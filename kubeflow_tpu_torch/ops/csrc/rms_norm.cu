@@ -32,6 +32,16 @@
 // run of rows, keeps its columns' partial sums in registers and writes
 // them to partial[b, E]; a second kernel adds the partials of each column
 // in block order. Both are deterministic.
+//
+// At few rows (the serving forward's decode steps: 8 or 48 rows) a launch
+// is a chain of latencies, not a stream of bytes: [8, 4096] moves 0.26 MB,
+// 0.08 us at 3.35 TB/s, against some 3 us. The rows forward
+// (rmsnorm_fwd_rows, add_rmsnorm_fwd_rows: their own names, so a profile
+// tells them apart) shortens the chain: a block of E / 8 threads a row (up
+// to 1024), one 16-byte chunk of x, h and w a thread, w's load issued with
+// x's and h's instead of after the row sum, and one barrier in the row
+// sum (every warp sums the warps' totals itself). The wrapper takes it up
+// to ops/norms.py's ROWS_MAX rows.
 
 #include "fused_common.cuh"
 
@@ -83,6 +93,70 @@ __device__ __forceinline__ void fwd_row(const T* __restrict__ x, const T* __rest
     }
   }
   if (threadIdx.x == 0) rstd[row] = r;
+}
+
+// The rows forward: one chunk a thread, blockDim.x = E / 8 rounded up to
+// whole warps. kAdd: x is x + h, rounded to T, and written to res (K10).
+constexpr int kRowsThreads = 1024;
+
+template <typename T, typename W, bool kAdd>
+__device__ __forceinline__ void fwd_one_chunk(const T* __restrict__ x, const T* __restrict__ h,
+                                              const W* __restrict__ w, T* __restrict__ res,
+                                              T* __restrict__ y, float* __restrict__ rstd,
+                                              int E, float eps) {
+  __shared__ float red[kRowsThreads / 32];
+  const size_t at = static_cast<size_t>(blockIdx.x) * E + threadIdx.x * 8;
+  const bool live = static_cast<int>(threadIdx.x) < E / 8;
+  float v[8] = {}, hv[8], wv[8];
+  if (live) {                           // x, h and w in flight together
+    load8(x + at, v);
+    if (kAdd) load8(h + at, hv);
+    load8(w + threadIdx.x * 8, wv);
+  }
+  float ss = 0.f;
+  if (live) {
+    if (kAdd) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = rnd<T>(__fadd_rn(v[j], hv[j]));
+      store8(res + at, v);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ss += v[j] * v[j];
+  }
+  // The row sum: each warp's butterfly, then every warp sums the warps'
+  // totals in warp order (a fixed order for a fixed block size).
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) red[threadIdx.x / 32] = ss;
+  __syncthreads();
+  float t = lane < static_cast<int>(blockDim.x / 32) ? red[lane] : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+  const float r = 1.f / sqrtf(t / static_cast<float>(E) + eps);
+  if (live) {
+    float o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = __fmul_rn(__fmul_rn(v[j], r), wv[j]);
+    store8(y + at, o);
+  }
+  if (threadIdx.x == 0) rstd[blockIdx.x] = r;
+}
+
+template <typename T, typename W>
+__global__ void __launch_bounds__(kRowsThreads)
+    rmsnorm_fwd_rows(const T* __restrict__ x, const T* __restrict__ h, const W* __restrict__ w,
+                     T* __restrict__ res, T* __restrict__ y, float* __restrict__ rstd, int E,
+                     float eps) {
+  fwd_one_chunk<T, W, false>(x, h, w, res, y, rstd, E, eps);
+}
+
+template <typename T, typename W>
+__global__ void __launch_bounds__(kRowsThreads)
+    add_rmsnorm_fwd_rows(const T* __restrict__ x, const T* __restrict__ h,
+                         const W* __restrict__ w, T* __restrict__ res, T* __restrict__ y,
+                         float* __restrict__ rstd, int E, float eps) {
+  fwd_one_chunk<T, W, true>(x, h, w, res, y, rstd, E, eps);
 }
 
 template <typename T, typename W, int kChunks>
@@ -222,16 +296,23 @@ int chunks_for(int E) {
 }
 
 // h == nullptr: RMSNorm of x (K6); else of x + h, written to res (K10).
+// by_rows: the rows forward (a chunk a thread), else a block of kThreads
+// threads a row.
 template <typename T, typename W>
-cudaError_t fwd(const void* x, const void* h, const void* w, void* res, void* y, float* rstd,
-                long long rows, int E, float eps, cudaStream_t st) {
+cudaError_t fwd(bool by_rows, const void* x, const void* h, const void* w, void* res, void* y,
+                float* rstd, long long rows, int E, float eps, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>(rows));
+  const int threads = by_rows ? (E / 8 + 31) / 32 * 32 : kThreads;
   auto args = [&](auto kernel) {
-    kernel<<<grid, kThreads, 0, st>>>(static_cast<const T*>(x), static_cast<const T*>(h),
+    kernel<<<grid, threads, 0, st>>>(static_cast<const T*>(x), static_cast<const T*>(h),
                                      static_cast<const W*>(w), static_cast<T*>(res),
                                      static_cast<T*>(y), rstd, E, eps);
   };
   const bool add = h != nullptr;
+  if (by_rows) {
+    add ? args(add_rmsnorm_fwd_rows<T, W>) : args(rmsnorm_fwd_rows<T, W>);
+    return cudaGetLastError();
+  }
   switch (chunks_for(E)) {
     case 1: add ? args(add_rmsnorm_fwd<T, W, 1>) : args(rmsnorm_fwd<T, W, 1>); break;
     case 2: add ? args(add_rmsnorm_fwd<T, W, 2>) : args(rmsnorm_fwd<T, W, 2>); break;
@@ -275,18 +356,19 @@ bool valid(int x_dtype, int w_dtype, long long rows, int E) {
 }
 
 // The forward of either entry: h == nullptr for K6.
-int fwd_entry(int x_dtype, int w_dtype, const void* x, const void* h, const void* w, void* res,
-              void* y, void* rstd, long long rows, int E, float eps, void* stream) {
+int fwd_entry(bool by_rows, int x_dtype, int w_dtype, const void* x, const void* h,
+              const void* w, void* res, void* y, void* rstd, long long rows, int E, float eps,
+              void* stream) {
   if (!valid(x_dtype, w_dtype, rows, E)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* r = static_cast<float*>(rstd);
   using B = __nv_bfloat16;
   if (x_dtype == kBF16) {
-    return w_dtype == kBF16 ? fwd<B, B>(x, h, w, res, y, r, rows, E, eps, st)
-                            : fwd<B, float>(x, h, w, res, y, r, rows, E, eps, st);
+    return w_dtype == kBF16 ? fwd<B, B>(by_rows, x, h, w, res, y, r, rows, E, eps, st)
+                            : fwd<B, float>(by_rows, x, h, w, res, y, r, rows, E, eps, st);
   }
-  return w_dtype == kBF16 ? fwd<float, B>(x, h, w, res, y, r, rows, E, eps, st)
-                          : fwd<float, float>(x, h, w, res, y, r, rows, E, eps, st);
+  return w_dtype == kBF16 ? fwd<float, B>(by_rows, x, h, w, res, y, r, rows, E, eps, st)
+                          : fwd<float, float>(by_rows, x, h, w, res, y, r, rows, E, eps, st);
 }
 
 // The backward of either entry (add: K10's).
@@ -317,7 +399,16 @@ int bwd_entry(bool add, int x_dtype, int w_dtype, const void* x, const void* w, 
 // of the launch (0 = launched).
 extern "C" int kftpu_rms_norm_fwd(int x_dtype, int w_dtype, const void* x, const void* w, void* y,
                                   void* rstd, long long rows, int E, float eps, void* stream) {
-  return fwd_entry(x_dtype, w_dtype, x, nullptr, w, nullptr, y, rstd, rows, E, eps, stream);
+  return fwd_entry(false, x_dtype, w_dtype, x, nullptr, w, nullptr, y, rstd, rows, E, eps,
+                   stream);
+}
+
+// The same through the rows forward (one chunk a thread; any rows).
+extern "C" int kftpu_rms_norm_fwd_rows(int x_dtype, int w_dtype, const void* x, const void* w,
+                                       void* y, void* rstd, long long rows, int E, float eps,
+                                       void* stream) {
+  return fwd_entry(true, x_dtype, w_dtype, x, nullptr, w, nullptr, y, rstd, rows, E, eps,
+                   stream);
 }
 
 // dx [rows, E] (x's dtype) and dw [E] (w's dtype) from x, w, dy and the
@@ -338,7 +429,16 @@ extern "C" int kftpu_add_rms_norm_fwd(int x_dtype, int w_dtype, const void* x, c
                                       const void* w, void* res, void* y, void* rstd,
                                       long long rows, int E, float eps, void* stream) {
   if (h == nullptr || res == nullptr) return cudaErrorInvalidValue;
-  return fwd_entry(x_dtype, w_dtype, x, h, w, res, y, rstd, rows, E, eps, stream);
+  return fwd_entry(false, x_dtype, w_dtype, x, h, w, res, y, rstd, rows, E, eps, stream);
+}
+
+// K10 through the rows forward (one chunk a thread; any rows).
+extern "C" int kftpu_add_rms_norm_fwd_rows(int x_dtype, int w_dtype, const void* x,
+                                           const void* h, const void* w, void* res, void* y,
+                                           void* rstd, long long rows, int E, float eps,
+                                           void* stream) {
+  if (h == nullptr || res == nullptr) return cudaErrorInvalidValue;
+  return fwd_entry(true, x_dtype, w_dtype, x, h, w, res, y, rstd, rows, E, eps, stream);
 }
 
 // K10's backward: dx = dres + rms_norm's dx of res (each rounded to the

@@ -12,13 +12,18 @@ It dispatches on where x lives:
   16-byte aligned, the width a multiple of 8 up to
   :data:`MAX_WIDTH`. One launch a forward (a block a row), two a backward
   (dx and per-block dw partials, then their fixed-order sum), on the
-  current stream, capture-safe and deterministic.
+  current stream, capture-safe and deterministic. Up to :data:`ROWS_MAX`
+  rows (the serving forward's decode steps and smaller prefills) the
+  forward is the rows kernel (``rmsnorm_fwd_rows``: a thread a 16-byte
+  chunk, the weight loaded with x), whose launch is a shorter chain of
+  latencies.
 - CPU tensors take the plain pair (:func:`rms_norm_reference`,
   :func:`rms_norm_backward_reference`), which is also what the card holds
   the kernel against.
 
-Each forward launch adds one to ``rms_norm.fwd_launches``, each backward
-launch to ``rms_norm.bwd_launches``.
+Each forward launch adds one to ``rms_norm.fwd_launches`` (and, through
+the rows kernel, to ``rms_norm.rows_launches``), each backward launch to
+``rms_norm.bwd_launches``.
 
 :func:`add_rms_norm` (K10) returns ``r = x + h``, rounded to the dtype as
 the eager add rounds it, and ``rms_norm(r)``, from one read of x and h;
@@ -26,8 +31,10 @@ it saves r, the weight and rstd. Its backward takes the residual's
 incoming gradient ``dr`` beside the norm's ``dy`` and writes ``dr +
 rms_norm's dx`` in the same pass (the accumulation autograd would run as
 a separate ``add_``); x and h get that one gradient. Same kernel source,
-same rules and dispatch; its counters are ``add_rms_norm.fwd_launches``
-and ``add_rms_norm.bwd_launches``.
+same rules and dispatch (``add_rmsnorm_fwd_rows`` up to :data:`ROWS_MAX`
+rows); its counters are ``add_rms_norm.fwd_launches`` (every forward),
+``add_rms_norm.rows_launches`` (those through the rows kernel) and
+``add_rms_norm.bwd_launches``.
 """
 
 from __future__ import annotations
@@ -42,6 +49,12 @@ _SOURCE = "rms_norm.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The widest row the kernel takes (8 elements x 256 threads x 4 chunks).
 MAX_WIDTH = 8192
+#: The most rows a forward takes the rows kernel for (a thread a chunk):
+#: a decode step's slots, the extend's chunks, a prefill up to 1024
+#: tokens. Measured on an H100 (``tools/fused_ab.py --sweep``), it is the
+#: faster of the two up to 1024 rows of 2048 and 4096, and K6's is not
+#: from 2048 rows on; above it, a block of 256 threads a row.
+ROWS_MAX = 1024
 
 
 def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor, *,
@@ -95,34 +108,31 @@ def add_rms_norm_backward_reference(
     return (dx if dr is None else dr + dx), dw
 
 
+def _entry(lib: ctypes.CDLL, name: str, pointers: int, tail: list):
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * pointers + tail
+    return fn
+
+
+_FWD_TAIL = [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_BWD_TAIL = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
 def bind(lib: ctypes.CDLL):
-    """K6's C entry points (forward, backward) with their signatures."""
-    fwd = lib.kftpu_rms_norm_fwd
-    fwd.restype = ctypes.c_int
-    fwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_void_p])
-    bwd = lib.kftpu_rms_norm_bwd
-    bwd.restype = ctypes.c_int
-    bwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p])
-    return fwd, bwd
+    """K6's C entry points (forward, backward, the rows forward) with their
+    signatures."""
+    return (_entry(lib, "kftpu_rms_norm_fwd", 4, _FWD_TAIL),
+            _entry(lib, "kftpu_rms_norm_bwd", 7, _BWD_TAIL),
+            _entry(lib, "kftpu_rms_norm_fwd_rows", 4, _FWD_TAIL))
 
 
 def bind_add(lib: ctypes.CDLL):
-    """K10's C entry points (forward, backward) with their signatures."""
-    fwd = lib.kftpu_add_rms_norm_fwd
-    fwd.restype = ctypes.c_int
-    fwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_void_p])
-    bwd = lib.kftpu_add_rms_norm_bwd
-    bwd.restype = ctypes.c_int
-    bwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p])
-    return fwd, bwd
+    """K10's C entry points (forward, backward, the rows forward) with
+    their signatures."""
+    return (_entry(lib, "kftpu_add_rms_norm_fwd", 6, _FWD_TAIL),
+            _entry(lib, "kftpu_add_rms_norm_bwd", 8, _BWD_TAIL),
+            _entry(lib, "kftpu_add_rms_norm_fwd_rows", 6, _FWD_TAIL))
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,22 +179,32 @@ def _check(x: torch.Tensor, weight: torch.Tensor) -> None:
                              f"aligned {name}")
 
 
-def _fwd_kernel(x: torch.Tensor, weight: torch.Tensor,
-                eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _by_rows(rows: int, by_rows: Optional[bool]) -> bool:
+    return rows <= ROWS_MAX if by_rows is None else by_rows
+
+
+def _fwd_kernel(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                by_rows: Optional[bool] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward launch; ``by_rows``: the rows kernel (None: up to
+    ROWS_MAX rows)."""
     _check(x, weight)
     E = x.shape[-1]
     rows = x.numel() // E
+    by_rows = _by_rows(rows, by_rows)
     y = torch.empty_like(x)
     rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _kernel_fns()[0](_DTYPES[x.dtype], _DTYPES[weight.dtype],
-                              x.data_ptr(), weight.data_ptr(), y.data_ptr(),
-                              rstd.data_ptr(), rows, E, float(eps), stream)
+        rc = _kernel_fns()[2 if by_rows else 0](
+            _DTYPES[x.dtype], _DTYPES[weight.dtype], x.data_ptr(),
+            weight.data_ptr(), y.data_ptr(), rstd.data_ptr(), rows, E,
+            float(eps), stream)
     if rc != 0:
         raise RuntimeError(f"rms_norm forward launch failed: CUDA error {rc} "
                            f"(x {tuple(x.shape)} {x.dtype})")
     rms_norm.fwd_launches += 1
+    rms_norm.rows_launches += by_rows
     return y, rstd
 
 
@@ -213,7 +233,8 @@ def _bwd_kernel(x, weight, dy, rstd) -> Tuple[torch.Tensor, torch.Tensor]:
     return dx, dw
 
 
-def _add_fwd_kernel(x, h, weight, eps):
+def _add_fwd_kernel(x, h, weight, eps, by_rows: Optional[bool] = None):
+    """K10's forward launch; ``by_rows`` as :func:`_fwd_kernel`'s."""
     _check(x, weight)
     if h.shape != x.shape or h.dtype != x.dtype or h.device != x.device \
             or not h.is_contiguous() or h.data_ptr() % 16:
@@ -222,11 +243,12 @@ def _add_fwd_kernel(x, h, weight, eps):
                          f"aligned; got {tuple(h.shape)} {h.dtype}")
     E = x.shape[-1]
     rows = x.numel() // E
+    by_rows = _by_rows(rows, by_rows)
     r, y = torch.empty_like(x), torch.empty_like(x)
     rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _add_kernel_fns()[0](
+        rc = _add_kernel_fns()[2 if by_rows else 0](
             _DTYPES[x.dtype], _DTYPES[weight.dtype], x.data_ptr(),
             h.data_ptr(), weight.data_ptr(), r.data_ptr(), y.data_ptr(),
             rstd.data_ptr(), rows, E, float(eps), stream)
@@ -234,6 +256,7 @@ def _add_fwd_kernel(x, h, weight, eps):
         raise RuntimeError(f"add_rms_norm forward launch failed: CUDA error "
                            f"{rc} (x {tuple(x.shape)} {x.dtype})")
     add_rms_norm.fwd_launches += 1
+    add_rms_norm.rows_launches += by_rows
     return r, y, rstd
 
 
@@ -295,6 +318,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, *,
 
 
 rms_norm.fwd_launches = 0
+rms_norm.rows_launches = 0
 rms_norm.bwd_launches = 0
 
 
@@ -331,4 +355,5 @@ def add_rms_norm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, *,
 
 
 add_rms_norm.fwd_launches = 0
+add_rms_norm.rows_launches = 0
 add_rms_norm.bwd_launches = 0

@@ -207,16 +207,19 @@ class _Slot:
 
 
 #: The Python launch counters of the kernels a captured step holds
-#: (K1's forward, K3, K4, and the forwards of K6, K7, K9 and K10): a
-#: replay launches without running Python, so each graph counts its
-#: captured launches once and adds them per replay.
+#: (K1's forward, K3, K4, and the forwards of K6, K7, K9 and K10, with
+#: those of K6 and K10 through their rows kernels): a replay launches
+#: without running Python, so each graph counts its captured launches once
+#: and adds them per replay.
 _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
                     (decode_attention, "launches"),
                     (int8_linear, "launches"),
                     (rms_norm, "fwd_launches"),
                     (apply_rope, "fwd_launches"),
                     (swiglu, "fwd_launches"),
-                    (add_rms_norm, "fwd_launches"))
+                    (add_rms_norm, "fwd_launches"),
+                    (rms_norm, "rows_launches"),
+                    (add_rms_norm, "rows_launches"))
 
 
 def _launch_counts() -> List[int]:

@@ -21,8 +21,9 @@ indexes steps and clips differently):
 The port updates the model's parameters IN PLACE (no second copy of the
 parameters or of the updates is held): on the card every tensor in one
 launch of K5 after one launch for the norm (``ops/optimizer.py``), on the
-CPU tensor by tensor. adafactor takes K11 (``ops/adafactor.py``) after
-K5's norm; its factored moments and block RMS follow the JAX leaves
+CPU tensor by tensor. adafactor takes K11 (``ops/adafactor.py``), which
+computes the norm itself from the sums of g^2 its moments take (no K5
+launch); its factored moments and block RMS follow the JAX leaves
 (``models/layout.py::jax_leaves``), and it mirrors the reference's weight
 decay, added after the learning rate (each step scales every weight by
 1 - weight_decay, even at lr = 0; ROADMAP.md Queue 3). Its optimizer state
@@ -191,22 +192,23 @@ class Optimizer:
              state: OptState) -> Tuple[OptState, torch.Tensor]:
         """One update of every parameter in place; returns the new state
         (its moment tensors are updated in place too) and the unclipped
-        gradients' global norm. On the card both are one launch each (K5's
-        norm, then K5's update or K11), whatever the number of tensors."""
+        gradients' global norm. On the card, whatever the number of
+        tensors: K5's norm, then K5's update (two launches); or K11, which
+        computes the norm from the sums its moments take (one call)."""
         cfg = self.cfg
         count = state["count"]
         lr = self.schedule(count)            # optax: before the increment
         names = list(params)
         g = [grads[n] for n in names]
-        with record_function("grad_norm"):
-            norm = fused.global_norm(g)
         if cfg.optimizer == "adafactor":
             hyper = adafactor.Hyper(max_norm=cfg.grad_clip_norm, count=count,
                                     lr=lr, weight_decay=cfg.weight_decay)
             with record_function("optimizer"):
-                adafactor.update(params, {n: grads[n] for n in names}, state,
-                                 self._leaves(params), norm, hyper)
+                norm = adafactor.update(params, {n: grads[n] for n in names},
+                                        state, self._leaves(params), hyper)
             return {**state, "count": count + 1}, norm
+        with record_function("grad_norm"):
+            norm = fused.global_norm(g)
         if cfg.optimizer == "adamw":
             t = torch.tensor(count + 1, dtype=torch.float32)
             bc1 = float(1 - torch.tensor(cfg.b1, dtype=torch.float32) ** t)

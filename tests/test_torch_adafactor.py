@@ -272,8 +272,9 @@ def test_update_dispatch_and_state_layout():
     assert st["v_row"]["w"].shape == (128,)      # without d0 = 0 (256)
     assert st["v_col"]["w"].shape == (256,)
     before = adafactor.update.launches
-    adafactor.update(params, {k: torch.ones_like(v) for k, v in
-                              params.items()}, st, leaves, torch.tensor(2.0),
-                     adafactor.Hyper(max_norm=1.0, count=0, lr=0.1))
+    norm = adafactor.update(params, {k: torch.ones_like(v) for k, v in
+                                     params.items()}, st, leaves,
+                            adafactor.Hyper(max_norm=1.0, count=0, lr=0.1))
     assert adafactor.update.launches == before      # CPU: the plain version
+    assert float(norm) == float(np.float32(np.sqrt(256 * 128 + 8)))
     assert adafactor.Hyper(1.0, 0, 0.0).scalars()[1] == 0.0  # decay at t=1

@@ -33,7 +33,9 @@ adafactor update) against its plain version: moments (v_row, v_col, v)
 within 1e-6 relative of the plain version in f64, params within one bf16
 ulp of max(|plain|, 2^-8 x max |plain|) of it in f32 (the means and block
 RMS are summed in another order; given the same sums the two agree
-bitwise), two calls bitwise equal.
+bitwise), two calls bitwise equal, the norm it computes within 1e-6
+relative of K5's. K6 and K10's rows forward (the serving decode's rows)
+as their present forward: the sum bitwise, y within one bf16 ulp.
 """
 
 import pytest
@@ -1623,24 +1625,32 @@ def _copy_state(state):
 
 
 def _k11_check(model_kw, pdt, gdt, max_norm):
+    """K11 against its plain version; max_norm None: half the gradients'
+    norm (clipped). Returns the state and the norm K11 computed."""
     from kubeflow_tpu_torch.ops import adafactor
     from kubeflow_tpu_torch.ops import optimizer as fused
 
     params, grads, state, leaves = _adafactor_case(model_kw, pdt, gdt)
-    norm = fused.global_norm(list(grads.values()))
+    want = fused.global_norm(list(grads.values()))
+    if max_norm is None:
+        max_norm = 0.5 * float(want)
     hyper = adafactor.Hyper(max_norm=max_norm, count=3, lr=1e-2,
                             weight_decay=0.1)
     p2, p3, p4 = ({n: t.clone() for n, t in params.items()}
                   for _ in range(3))
     s2, s3, s4 = (_copy_state(state) for _ in range(3))
-    before = adafactor.update.launches
-    adafactor.update(params, grads, state, leaves, norm, hyper)
-    adafactor.update(p3, grads, s3, leaves, norm, hyper)
-    adafactor.update_reference(p2, grads, s2, leaves, norm, hyper)
-    adafactor.update_reference(p4, grads, s4, leaves, norm, hyper,
+    before = adafactor.update.launches, fused.global_norm.launches
+    norm = adafactor.update(params, grads, state, leaves, hyper)
+    norm3 = adafactor.update(p3, grads, s3, leaves, hyper)
+    adafactor.update_reference(p2, grads, s2, leaves, hyper)
+    adafactor.update_reference(p4, grads, s4, leaves, hyper,
                                dtype=torch.float64)
     torch.cuda.synchronize()
-    assert adafactor.update.launches == before + 2
+    # Two K11 calls; no K5 norm: K11 sums the gradients' squares itself.
+    assert (adafactor.update.launches, fused.global_norm.launches) == (
+        before[0] + 2, before[1])
+    assert norm.shape == () and torch.equal(norm, norm3)
+    assert abs(float(norm) - float(want)) <= 1e-6 * float(want)
     for n in params:
         assert torch.equal(params[n], p3[n]), n
         _ulp_ok(params[n], p2[n])
@@ -1648,7 +1658,7 @@ def _k11_check(model_kw, pdt, gdt, max_norm):
         for n, m in state[key].items():
             assert torch.equal(m, s3[key][n]), (key, n)
             torch.testing.assert_close(m, s4[key][n], rtol=1e-6, atol=0)
-    return state
+    return state, norm
 
 
 @pytest.mark.parametrize("scanned", [True, False])
@@ -1657,9 +1667,30 @@ def _k11_check(model_kw, pdt, gdt, max_norm):
     (torch.bfloat16, torch.float32)])
 @pytest.mark.parametrize("max_norm", [1.0, 1e4])          # clipped or not
 def test_adafactor_kernel_matches_plain_small(scanned, pdt, gdt, max_norm):
-    state = _k11_check(dict(K11_SMALL, scan_layers=scanned), pdt, gdt,
-                       max_norm)
+    state, _ = _k11_check(dict(K11_SMALL, scan_layers=scanned), pdt, gdt,
+                          max_norm)
     assert state["v_row"] and state["v"]
+
+
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("clip", [True, False])
+def test_adafactor_kernel_folds_the_norm(pdt, clip):
+    """The scanned 2-layer model (o_proj's fast axis is its 128-wide
+    head_dim: narrow tiles; the norms unfactored): the norm K11 computes
+    within 1e-6 of K5's, with no K5 launch; clipped or not against the
+    plain version, two calls bitwise."""
+    from kubeflow_tpu_torch.ops import adafactor
+
+    before = adafactor.update.table_builds
+    state, norm = _k11_check(dict(K11_SMALL, scan_layers=True), pdt, pdt,
+                             None if clip else 1e4)
+    assert state["v"] and float(norm) > 0
+    assert adafactor.update.table_builds == before + 2   # two param sets
+    plan = next(reversed(adafactor._plans.values()))
+    flags = dict(zip(plan.order, plan.table[:, adafactor.FIELDS.index(
+        "flags")].tolist()))
+    narrow = {n for n, f in flags.items() if f & adafactor._NARROW}
+    assert narrow == {n for n in flags if "o_proj" in n}
 
 
 @pytest.mark.parametrize("kw", [
@@ -1684,28 +1715,27 @@ def test_adafactor_kernel_refusals_and_cpu():
 
     params, grads, state, leaves = _adafactor_case(
         dict(K11_SMALL, scan_layers=True), torch.bfloat16, torch.bfloat16)
-    norm = torch.ones((), device="cuda")
     hyper = adafactor.Hyper(max_norm=1.0, count=0, lr=1e-2)
     before = adafactor.update.launches
     name = "layers.0.mlp.down_proj.weight"
     bad = dict(params, **{name: params[name].t().contiguous().t()})
     with pytest.raises(ValueError, match="contiguous"):
-        adafactor.update(bad, grads, state, leaves, norm, hyper)
+        adafactor.update(bad, grads, state, leaves, hyper)
     bad = dict(params, **{name: params[name].half()})
     with pytest.raises(ValueError, match="bf16 or f32"):
-        adafactor.update(bad, grads, state, leaves, norm, hyper)
+        adafactor.update(bad, grads, state, leaves, hyper)
     bad = dict(grads, **{name: grads[name].t()})
     with pytest.raises(ValueError, match="contiguous"):
-        adafactor.update(params, bad, state, leaves, norm, hyper)
+        adafactor.update(params, bad, state, leaves, hyper)
     wrong = _copy_state(state)
     wrong["v_row"][name] = wrong["v_row"][name].bfloat16()
     with pytest.raises(ValueError, match="f32 moments"):
-        adafactor.update(params, grads, wrong, leaves, norm, hyper)
+        adafactor.update(params, grads, wrong, leaves, hyper)
     cpu = lambda d: {n: t.cpu() for n, t in d.items()}   # noqa: E731
-    adafactor.update(cpu(params), cpu(grads),
-                     {k: cpu(v) if isinstance(v, dict) else v
-                      for k, v in state.items()}, leaves, norm.cpu(), hyper)
-    assert adafactor.update.launches == before
+    norm = adafactor.update(cpu(params), cpu(grads),
+                            {k: cpu(v) if isinstance(v, dict) else v
+                             for k, v in state.items()}, leaves, hyper)
+    assert adafactor.update.launches == before and norm.device.type == "cpu"
 
 
 def test_device_feed_copies_through_pinned_buffers():
@@ -1845,6 +1875,56 @@ def test_add_rms_norm_kernel_matches_plain(shape, wdt, with_dr):
     assert torch.equal(leaves[0].grad, dr + dxn if with_dr else dxn)
     assert torch.equal(leaves[0].grad, leaves[1].grad)
     assert torch.equal(leaves[2].grad, dw)
+
+
+def _rows_cases():
+    from kubeflow_tpu_torch.ops.norms import ROWS_MAX
+
+    return sorted({1, 8, 48, ROWS_MAX - 1, ROWS_MAX, ROWS_MAX + 1})
+
+
+@pytest.mark.parametrize("E", [2048, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rows_forward_matches_plain_and_takes_its_rows(dtype, E):
+    """K10's and K6's forward at the serving decode's rows: the rows kernel
+    up to ROWS_MAX rows, the present one above (their launch counters
+    say which); through either kernel at every row count, the sum bitwise,
+    y within one bf16 ulp of the plain version, two calls bitwise
+    equal."""
+    from kubeflow_tpu_torch.ops import norms
+
+    g = torch.Generator(device="cuda").manual_seed(47)
+    for rows in _rows_cases():
+        x, h = (torch.randn(rows, E, generator=g, device="cuda").to(dtype)
+                for _ in range(2))
+        w = (1 + 0.1 * torch.randn(E, generator=g, device="cuda")).to(dtype)
+        small = rows <= norms.ROWS_MAX
+        before = (norms.add_rms_norm.fwd_launches,
+                  norms.add_rms_norm.rows_launches,
+                  norms.rms_norm.fwd_launches, norms.rms_norm.rows_launches)
+        with torch.no_grad():
+            r, y = norms.add_rms_norm(x, h, w, eps=1e-6)
+            y6 = norms.rms_norm(x, w, eps=1e-6)
+        assert (norms.add_rms_norm.fwd_launches,
+                norms.add_rms_norm.rows_launches,
+                norms.rms_norm.fwd_launches,
+                norms.rms_norm.rows_launches) == (
+            before[0] + 1, before[1] + small, before[2] + 1,
+            before[3] + small), rows
+        want_r, want_y, _ = norms.add_rms_norm_reference(x, h, w, eps=1e-6)
+        assert torch.equal(r, want_r), rows
+        _ulp_ok(y, want_y)
+        _ulp_ok(y6, norms.rms_norm_reference(x, w, eps=1e-6)[0])
+        for by_rows in (True, False):        # either kernel at any rows
+            a = norms._add_fwd_kernel(x, h, w, 1e-6, by_rows=by_rows)
+            b = norms._add_fwd_kernel(x, h, w, 1e-6, by_rows=by_rows)
+            assert all(torch.equal(u, v) for u, v in zip(a, b)), rows
+            assert torch.equal(a[0], want_r)
+            _ulp_ok(a[1], want_y)
+            c = norms._fwd_kernel(x, w, 1e-6, by_rows=by_rows)
+            assert all(torch.equal(u, v) for u, v in zip(
+                c, norms._fwd_kernel(x, w, 1e-6, by_rows=by_rows)))
+            _ulp_ok(c[0], norms.rms_norm_reference(x, w, eps=1e-6)[0])
 
 
 @pytest.mark.parametrize("b,s,hkv,g", [(2, 300, 8, 2), (8, 1, 8, 4),
