@@ -15,9 +15,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    SASS: every bf16 instantiation of K1's kernel
    and of K2's dk/dv and dq kernels holds wgmma (HGMMA) and TMA loads
    (UTMALDG), every one of K3's 32 (D 64/128, G 1/2/4/8, bf16/int8 cache,
-   dense/paged) TMA loads and mma.sync (HMMA), every one of K4's 4 decode
-   ones (8 or 16 tokens; per-row or per-column scales) mma.sync and
-   cp.async (LDGSTS),
+   dense/paged) TMA loads and mma.sync (HMMA), every one of K4's 6 decode
+   ones (8 or 16 tokens; per-row or per-column scales, and the SwiGLU
+   epilogue's two) mma.sync and cp.async (LDGSTS),
    every one of its 6 prefill ones (64, 128 or 256 tokens a tile; per-row
    or per-column scales) wgmma and TMA loads, and ptxas reports no spills
    in any of the nine libraries;
@@ -91,7 +91,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    twice the bytes; a group's weights concatenated), cold and warm; at
    M <= 16 also each split of K over a cluster (1, 2, 4, 8 blocks); the
    bound max(bytes / 3.35 TB/s, 2 M N K / 989 TFLOP/s), and the sum over
-   a decode step's products, launched apart (225) and grouped (129);
+   a decode step's products, launched apart (225) and grouped (129); then
+   the SwiGLU epilogue at M = 8 (gate/up as two weights and as the fused
+   [2F, K] one): bitwise the grouped K4 followed by K9 at each split,
+   within the tolerance of the plain version, timed cold beside the
+   grouped K4 alone and the group then K9, in the same call;
 7. kernel (K5-K10, the element-wise work of the step and the serving
    forward) — holds
    each against its plain version on the same inputs: K6 (RMSNorm) at
@@ -99,7 +103,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    llama3-8b's serving rows [8, 4096] and [4096, 4096], forward; K7 (RoPE
    of q and k in one launch) at the train step's q [12, 2047, 16, 128], k
    [12, 2047, 8, 128], forward and backward, and at serving's [8, 1, 32/8,
-   128] and [1, 512, 32/8, 128]: within one bf16 ulp (an element below
+   128], [48, 1, 32/8, 128] and [1, 512, 32/8, 128]: within one bf16 ulp
+   (an element below
    2^-8 of the largest compared at that scale) and two calls bitwise
    equal; K8 (the cross-entropy) at [24564, 32000] bf16 logits with the
    trainer's z-loss: the loss within relative 1e-5, dlogits within 2e-2 x
@@ -115,10 +120,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    from the fused q/k/v projection, dq and dk written into the fused
    gradient's slots) at the fused train step's [12, 2047, 8, 2 + 2, 128]
    (and v's copy into the tensor K1 reads) and serving's [8, 1, 8, 4 + 2,
-   128] and [1, 512, 8, 4 + 2, 128], bitwise; K9 (SwiGLU) with gate and
+   128], [48, 1, 8, 4 + 2, 128] and [1, 512, 8, 4 + 2, 128], bitwise;
+   K7's staged-decode mode (q rotated, k rotated into a staging column, v
+   copied into it, one launch) at [8, 1, 32/8/8, 128] over 8 staging rows
+   and [48, ...] over 32, q/k/v apart and fused, bitwise with the staging
+   tensors compared whole, timed beside K7 then the two copies it
+   replaces; K9 (SwiGLU) with gate and
    up apart and as the halves of the fused [rows, 2, F] product at the
    train step's [24564, 5632] (forward and backward) and serving's [8,
-   14336] and [512, 14336], bitwise; K10 (the residual add + RMSNorm) at
+   14336], [48, 14336] and [512, 14336], bitwise; K10 (the residual add + RMSNorm) at
    [24564, 2048] (forward and backward, with the residual's gradient) and
    [8, 4096], [48, 4096], [4096, 4096]: the sum bitwise, y, dx and dw
    within one bf16 ulp; each timed beside its byte bound, no library
@@ -158,8 +168,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    and the lm_head: 129) per decode step and per grouped prefill or
    extend (launch counts zeroed just before the burst, graph replays
    counted; per decode step, prefill and extend chunk: K6 once (the
-   first layer's input norm), K7 and K9 once a layer, K10 twice a layer:
-   after the attention and into the next norm), and re-forwards two
+   first layer's input norm), K7 and SwiGLU once a layer, K10 twice a
+   layer: after the attention and into the next norm; every decode step
+   K7 in its staged mode, which writes the staging rows; SwiGLU as K9, or
+   at the int8-weight burst's decode steps as K4's epilogue, no K9), and
+   re-forwards two
    greedy
    requests through the model with the plain attention in f32 and in
    bf16 (for the int8 KV burst with the decode rows' k/v quantized and
@@ -173,7 +186,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    then profiles one full-batch decode
    chunk (wall time, device busy time, idle share, top device kernels,
    K6's and K10's rows kernels by name and counter, once a step and twice
-   a layer a step, with their time a launch,
+   a layer a step, with their time a launch, K7's staged kernel once a
+   layer a step and no plain K7, K9 none with int8 weights (the
+   epilogue), fewer copy kernels than the two staging writes a layer a
+   step would make, and the device kernels a step,
    K3's kernel launches, which must be one per layer per step: 256, and
    with int8 weights K4's: 129 a step, 1032) and times three more without
    the profiler;
@@ -258,14 +274,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    SDPA's under unstaged_/int8_ keys and the long context under l8192_
    keys; K4's at the gate shape, M = 8, cold, with its warm time,
    F.linear's as library_ms, the launches of the int8-weight burst and of
-   its profiled chunk, the other shapes and the groups under <name>_ keys,
-   a decode step's sums under step_apart_ and step_grouped_ keys; K3 by
+   its profiled chunk, the other shapes and the groups under <name>_ keys
+   (the SwiGLU epilogue under gateup_swiglu_ and gateup_fused_swiglu_,
+   with the group's time and the group then K9's beside it, and its
+   launches in the int8-weight burst as swiglu_launches), a decode
+   step's sums under step_apart_ and step_grouped_ keys; K3 by
    table under paged_bf16_ and paged_int8_ keys beside the dense call's
    dense_ms, and its launches in the paged burst; K5-K8 at the train
    step's shapes with their launches over the 10-step run, their device ms
    in the profiled step under step_ms, backward times under bwd_, K6 and
-   K7 at the serving shapes under decode_ and prefill_, K7's strided mode
-   under strided_<case>_; K9 and K10 likewise, K9's fused layout under
+   K7 at the serving shapes under decode_ and prefill_ (K7 also paged_),
+   K7's strided mode under strided_<case>_, its staged mode under
+   stage_<case>_ (with apart_ms: K7 then the two copies) and its staged
+   launches in the bf16 and paged bursts and its us a launch in each
+   profiled decode chunk; K9 and K10 likewise (K9's launches in the
+   int8-weight and paged bursts), K9's fused layout under
    <case>_fused_; K11 over the 700M model's tensors with its launches
    over the adafactor run and its ms in that run's profiled step), then
    the result line.
@@ -1173,6 +1196,7 @@ def int8_phase():
                 for c, v in splits.items()))
         del sets, plain_w, x
         torch.cuda.empty_cache()
+    rows += int8_swiglu_rows(gen)
     by = {r["case"]: r for r in rows}
     # A decode step's products: 32 layers x 7 + lm_head launched apart (225
     # launches), or with q/k/v and gate/up grouped (32 x 4 + 1 = 129).
@@ -1188,6 +1212,89 @@ def int8_phase():
             f"({sum(counts.values())} launches): " + ", ".join(
                 f"{key} {v:.3f}" for key, v in step[kind].items()))
     return rows, max_err, step
+
+
+def int8_swiglu_rows(gen) -> list:
+    """K4's SwiGLU epilogue at the decode step's M = 8, gate and up as two
+    weights (the group) and as the halves of the fused [2F, K] weight:
+    bitwise K4's grouped launch followed by K9 at the same K split (each
+    split of 1, 2, 4, 8 and the kernel's own), within INT8_TOL of the
+    plain version (int8_linear_swiglu_reference). Timed cold beside what
+    it replaces in the same call: the grouped K4 launch alone (its time
+    must stay that of the group without the epilogue) and the group then
+    K9. Returns the rows (no library call computes it)."""
+    from kubeflow_tpu_torch.ops import int8_linear as il
+    from kubeflow_tpu_torch.ops import swiglu as sw
+    from kubeflow_tpu_torch.serving.engine import _quantize_leaf
+
+    F_, k = INT8_SHAPES["gate_proj"][:2]
+    m = 8
+    n_sets = max(2, int(np.ceil(2 * L2_BYTES / (2 * F_ * k))))
+    rows = []
+    for fused in (False, True):
+        name = "gateup_fused_swiglu" if fused else "gateup_swiglu"
+        sets = []
+        for _ in range(n_sets):
+            w = torch.randn(2 * F_, k, generator=gen, device="cuda") * 0.02
+            if fused:
+                q, scale = _quantize_leaf(w, 1)
+                sets.append(((q[:F_], scale[:F_]), (q[F_:], scale[F_:])))
+            else:
+                sets.append((_quantize_leaf(w[:F_].contiguous(), 1),
+                             _quantize_leaf(w[F_:].contiguous(), 1)))
+            del w
+        x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+
+        def epilogue(i=0, splits=0):
+            return il._swiglu_kernel(x, *sets[i], None, splits=splits)
+
+        def group(i=0, splits=0):
+            return il._group_kernel(x, list(sets[i]), None, splits=splits)
+
+        def group_k9(i=0, splits=0):
+            return sw._fwd_kernel(*group(i, splits))
+
+        with torch.no_grad():
+            for splits in (0, 1, 2, 4, 8):
+                _bitwise(f"K4 {name} split {splits}",
+                         [(epilogue(0, splits), group_k9(0, splits))])
+            got = epilogue()
+            want = il.int8_linear_swiglu_reference(x, *sets[0])
+            err = (got.float() - want.float()).abs().max().item()
+            ref = want.float().abs().max().item()
+            if not err <= INT8_TOL * ref or not torch.equal(got, epilogue()):
+                raise AssertionError(f"K4 {name}: max err {err:.3e} > "
+                                     f"{INT8_TOL} x {ref:.3e}, or two calls "
+                                     "differ")
+            row = dict(case=name, m=m, max_abs_err=err, library_ms=None,
+                       library_warm_ms=None)
+            for key, fn in (("ms", epilogue), ("group_ms", group),
+                            ("group_k9_ms", group_k9), ("ms", epilogue)):
+                # The epilogue timed first and last; its least is kept.
+                ms = cold_ms(fn, n_sets, calls=10)
+                row[key] = min(ms, row.get(key, ms))
+            row["warm_ms"] = device_ms(epilogue)
+            row["plain_ms"] = device_ms(
+                lambda: il.int8_linear_swiglu_reference(x, *sets[0]),
+                calls=2, replays=3)
+        # x and both weights read once, h written once; the products.
+        nbytes = 2 * (F_ * k + 2 * F_) + 2 * m * k + 2 * m * F_
+        t_ops = 2.0 * m * 2 * F_ * k / PEAK_BF16_FLOPS
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
+        row["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+        rows.append(row)
+        log(f"K4 {name} (M {m}, gate/up {F_} x {k}, S 1): bitwise the "
+            f"grouped K4 then K9 at splits 0, 1, 2, 4, 8; err {err:.3e}; "
+            f"kernel {row['ms'] * 1e3:.2f} us cold ({n_sets} weight sets), "
+            f"{row['warm_ms'] * 1e3:.2f} warm; in the same call the grouped "
+            f"K4 alone {row['group_ms'] * 1e3:.2f} us, then K9 "
+            f"{row['group_k9_ms'] * 1e3:.2f}; plain "
+            f"{row['plain_ms'] * 1e3:.2f} us; bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
+        del sets, x
+        torch.cuda.empty_cache()
+    return rows
 
 
 # The train step's shapes for the fused kernels (K5-K8).
@@ -1332,6 +1439,7 @@ def fused_phase():
     for case, (b, s, hq, hk), train in (
             ("train", (TRAIN_BATCH, TRAIN_SEQ - 1, TRAIN_H, TRAIN_HKV), True),
             ("decode", (8, 1, H, HKV), False),
+            ("paged", (48, 1, H, HKV), False),
             ("prefill", (1, 512, H, HKV), False)):
         call = 2 * b * s * (hq + hk) * 128 * 2
         n = sets_for(call)
@@ -1502,6 +1610,7 @@ def fused_phase():
     del params, grads, mu, nu, leaves, opt
     torch.cuda.empty_cache()
     out["K7"].update(rope_strided_rows(gen))
+    out["K7"].update(rope_stage_rows(gen))
     out["K9"] = swiglu_rows(gen)
     out["K10"] = add_norm_rows(gen)
     return out
@@ -1668,6 +1777,7 @@ def rope_strided_rows(gen) -> dict:
     for case, (b, s, hkv, g), train in (
             ("train", (TRAIN_BATCH, TRAIN_SEQ - 1, TRAIN_HKV, 2), True),
             ("decode", (8, 1, HKV, H // HKV), False),
+            ("paged", (48, 1, HKV, H // HKV), False),
             ("prefill", (1, 512, HKV, H // HKV), False)):
         heads = hkv * (g + 1)                     # q's and k's
         call = 2 * b * s * heads * 128 * 2
@@ -1737,6 +1847,100 @@ def rope_strided_rows(gen) -> dict:
     return out
 
 
+def rope_stage_rows(gen) -> dict:
+    """K7's staged-decode mode (q rotated, k rotated into staging column
+    ``stage_step``, v copied into it: one launch) at the 8-slot decode
+    step ([8, 1, 32/8, 128], 8 staging rows) and the paged one's ([48, 1,
+    32/8, 128], 32 rows), q/k/v apart and as the fused [B, 1, 8, 4 + 2,
+    128] product read in place: bitwise the plain version (rope_reference
+    on q and k, then the two slice writes), the staging tensors compared
+    whole (only the column changes), two calls equal. Timed cold (calls
+    rotating over sets past twice the L2) beside what it replaces, in the
+    same call: K7 on q and k, then the two staging copies as the parent's
+    step made them. Bound: bytes (q, k, v read, q' and the two columns
+    written, the positions and the rows of the tables they select)."""
+    from kubeflow_tpu_torch.ops import rope
+
+    cos, sin = rope.rope_frequencies(128, 2048, theta=500000.0,
+                                     device="cuda")
+    out = {}
+    for case, b, C in (("decode", 8, 8), ("paged", 48, SP_CHUNK)):
+        for fused in (False, True):
+            name = f"stage_{case}" + ("_fused" if fused else "")
+            step = C - 1 if fused else C // 2
+            call = 2 * b * (H + 2 * HKV) * 128 * 2
+            n = sets_for(call)
+            qkvs = [torch.randn(b, 1, HKV, H // HKV + 2, 128, generator=gen,
+                                device="cuda").bfloat16() for _ in range(n)]
+            if fused:
+                ins = [(x,) for x in qkvs]
+            else:
+                ins = [(x[..., :H // HKV, :].reshape(b, 1, H, 128)
+                        .contiguous(), x[..., -2, :].contiguous(),
+                        x[..., -1, :].contiguous()) for x in qkvs]
+            pos = torch.randint(0, 1024, (b, 1), generator=gen,
+                                device="cuda")
+            stage = [torch.randn(b, C, HKV, 128, generator=gen,
+                                 device="cuda").bfloat16() for _ in range(2)]
+            fn = rope.rope_stage_fused if fused else rope.rope_stage
+
+            def kernel(i, fn=fn, ins=ins, pos=pos, stage=stage, step=step):
+                return fn(*ins[i], cos, sin, pos, *stage, step)
+
+            def apart(i, ins=ins, pos=pos, stage=stage, step=step,
+                      fused=fused):
+                # What the staged step ran before: K7 on q and k, then the
+                # two staging copies.
+                if fused:
+                    q, k, v = rope._rotate_fused(ins[i][0], cos, sin, pos)                         + (ins[i][0][..., -1, :],)
+                else:
+                    q, k, v = ins[i]
+                    q, k = rope._kernel(q, k, cos, sin, pos, False)
+                stage[0][:, step:step + 1] = k
+                stage[1][:, step:step + 1] = v
+                return q
+
+            def plain(ins=ins, pos=pos, stage=stage, step=step):
+                sk, sv = (t.clone() for t in stage)
+                if len(ins[0]) == 1:
+                    x = ins[0][0]
+                    args = (x[..., :H // HKV, :].reshape(b, 1, H, 128),
+                            x[..., -2, :], x[..., -1, :])
+                else:
+                    args = ins[0]
+                return (rope.rope_stage_reference(*args, cos, sin, pos, sk,
+                                                  sv, step), sk, sv)
+
+            before = [t.clone() for t in stage]
+            with torch.no_grad():
+                want = plain()
+                got = kernel(0)
+                _bitwise(f"K7 {name}", [(got, want[0]), (stage[0], want[1]),
+                                        (stage[1], want[2]),
+                                        (kernel(0), got)])
+                others = [c for c in range(C) if c != step]
+                _bitwise(f"K7 {name} (the other staging columns)",
+                         [(stage[0][:, others], before[0][:, others]),
+                          (stage[1][:, others], before[1][:, others])])
+                table = int(pos.unique().numel()) * 64 * 4 * 2
+                row = dict(max_abs_err=0.0, library_ms=None, rows=b,
+                           bound_ms=bytes_ms(call + table + b * 8))
+                row["ms"] = timed(kernel, call)
+                row["apart_ms"] = timed(apart, call)
+                row["ms"] = min(row["ms"], timed(kernel, call))
+                row["plain_ms"] = device_ms(lambda: plain()[0])
+            out[name] = row
+            log(f"K7 {name} [{b}, 1, {H}/{HKV}/{HKV}, 128], {C} staging "
+                f"rows, column {step}: bitwise (q and both staging tensors "
+                f"whole), kernel {row['ms'] * 1e3:.3f} us (one launch) "
+                f"against {row['apart_ms'] * 1e3:.3f} us for K7 then the two "
+                f"copies; plain {row['plain_ms']:.4f} ms; library n/a; bound "
+                f"{row['bound_ms']:.5f} ms (bytes)")
+            del qkvs, ins, stage, before, want, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def swiglu_rows(gen) -> dict:
     """K9 against its plain version, bitwise, with gate and up as two
     tensors and as the halves of one fused [rows, 2, F] product: at the
@@ -1749,6 +1953,7 @@ def swiglu_rows(gen) -> dict:
     out = {}
     for case, rows_, F_, train in (("train", TRAIN_ROWS, 5632, True),
                                    ("decode", 8, 14336, False),
+                                   ("paged", 48, 14336, False),
                                    ("prefill", 512, 14336, False)):
         for fused in (False, True):
             name = case + ("_fused" if fused else "")
@@ -1901,27 +2106,61 @@ def add_norm_rows(gen) -> dict:
     return out
 
 
+#: The served path's element-wise launch counters, in check_elementwise's
+#: order: K6, K7 (its staged mode included), K7's staged mode, K9, K4's
+#: SwiGLU epilogue, K10.
+SERVING_COUNTERS = ("K6", "K7", "K7 staged", "K9", "K4 epilogue", "K10")
+
+
 def serving_counters():
-    """K6, K7, K9 and K10's forward launch counters, in that order."""
+    """(function, counter name) of SERVING_COUNTERS, in that order."""
+    from kubeflow_tpu_torch.ops.int8_linear import int8_linear
     from kubeflow_tpu_torch.ops.norms import add_rms_norm, rms_norm
     from kubeflow_tpu_torch.ops.rope import apply_rope
     from kubeflow_tpu_torch.ops.swiglu import swiglu
 
-    return (rms_norm, apply_rope, swiglu, add_rms_norm)
+    return ((rms_norm, "fwd_launches"), (apply_rope, "fwd_launches"),
+            (apply_rope, "stage_launches"), (swiglu, "fwd_launches"),
+            (int8_linear, "swiglu_launches"), (add_rms_norm, "fwd_launches"))
 
 
-def check_elementwise(counts, layers: int, passes: int) -> None:
+def zero_serving_counters() -> None:
+    for fn, name in serving_counters():
+        setattr(fn, name, 0)
+
+
+def read_serving_counters() -> list:
+    return [getattr(fn, name) for fn, name in serving_counters()]
+
+
+def epilogue_engine(engine) -> bool:
+    """Whether ``engine``'s decode steps take K4's SwiGLU epilogue: int8
+    weights and at most DECODE_MAX_ROWS slots (the decode kernel's rows);
+    the paged phase's 48 slots, and bf16 weights, take K9."""
+    from kubeflow_tpu_torch.ops.int8_linear import DECODE_MAX_ROWS
+
+    return bool(engine.quantized) and engine.cfg.max_batch <= DECODE_MAX_ROWS
+
+
+def check_elementwise(counts, layers: int, passes: int, decode_steps: int,
+                      epilogue: bool) -> None:
     """K6, K7, K9 and K10 in the served path: every forward pass of the
     model (a decode step, a prefill, an extend chunk; graph replays
-    counted) runs the first layer's input norm (K6), RoPE (K7) and SwiGLU
-    (K9) once a layer, and the add + norm (K10) twice a layer: after the
-    attention, and from each layer into the next one's input norm or the
-    final norm."""
-    want = [passes, layers * passes, layers * passes, 2 * layers * passes]
+    counted) runs the first layer's input norm (K6) and RoPE (K7) once a
+    layer, and the add + norm (K10) twice a layer: after the attention,
+    and from each layer into the next one's input norm or the final norm.
+    Every decode step (all staged) runs K7's staged mode, which writes the
+    staging rows, once a layer. SwiGLU runs once a layer: as K4's
+    epilogue at ``epilogue`` engines' decode steps, else as K9."""
+    ep = layers * decode_steps if epilogue else 0
+    want = [passes, layers * passes, layers * decode_steps,
+            layers * passes - ep, ep, 2 * layers * passes]
     if list(counts) != want:
-        raise AssertionError(f"K6, K7, K9, K10 launches {list(counts)}: "
-                             f"want {want} ({passes} forward passes of "
-                             f"{layers} layers)")
+        raise AssertionError(
+            f"{', '.join(SERVING_COUNTERS)} launches {list(counts)}: want "
+            f"{want} ({passes} forward passes of {layers} layers, "
+            f"{decode_steps} of them decode steps"
+            + (", K4's epilogue at each" if epilogue else "") + ")")
 
 
 def post(base: str, body: dict):
@@ -2135,8 +2374,7 @@ def serve_phase(quantize_kv: str = "", quantize: str = "",
         torch.cuda.reset_peak_memory_stats()
         flash_attention.fwd_launches = decode_attention.launches = 0
         int8_linear.launches = 0
-        for counter in serving_counters():
-            counter.fwd_launches = 0
+        zero_serving_counters()
         engine.prefill_dispatches = engine.extend_dispatches = 0
         engine.decode_dispatches = 0
         t0 = time.time()
@@ -2149,7 +2387,8 @@ def serve_phase(quantize_kv: str = "", quantize: str = "",
         wall = time.time() - t0
         k1, k3 = flash_attention.fwd_launches, decode_attention.launches
         k4 = int8_linear.launches
-        k6, k7, k9, k10 = (c.fwd_launches for c in serving_counters())
+        counts = read_serving_counters()
+        k6, k7, k7s, k9, k4e, k10 = counts
         prefills, extends, decodes = (engine.prefill_dispatches,
                                       engine.extend_dispatches,
                                       engine.decode_dispatches)
@@ -2174,8 +2413,8 @@ def serve_phase(quantize_kv: str = "", quantize: str = "",
                 f"K4 launches {k4} != {per_pass} x ({chunk} steps x "
                 f"{decodes} decode + {prefills} prefill + {extends} extend "
                 "dispatches)")
-        check_elementwise((k6, k7, k9, k10), layers,
-                          chunk * decodes + prefills + extends)
+        check_elementwise(counts, layers, chunk * decodes + prefills + extends,
+                          chunk * decodes, epilogue_engine(engine))
         if extends and ("extend", 512, "greedy") not in engine._graphs:
             raise AssertionError("the chunked prefill ran without its graph")
         generated = sum(len(o["tokens"]) for o in outs)
@@ -2186,15 +2425,15 @@ def serve_phase(quantize_kv: str = "", quantize: str = "",
             f"{ttft_p50 * 1e3:.1f} ms (the 700-token request's "
             f"{ttft_long * 1e3:.1f} ms), {prefills} prefill + {extends} "
             f"extend + {decodes} decode dispatches, K1 launches {k1}, K3 "
-            f"launches {k3}, K4 launches {k4}, K6 launches {k6}, K7 "
-            f"launches {k7}, K9 launches {k9}, K10 launches {k10}, peak "
-            f"device memory "
+            f"launches {k3}, K4 launches {k4} ({k4e} with the SwiGLU "
+            f"epilogue), K6 launches {k6}, K7 launches {k7} ({k7s} staged), "
+            f"K9 launches {k9}, K10 launches {k10}, peak device memory "
             f"{peak / 1e9:.2f} GB; {len(engine._graphs)} graphs so far; "
             "TTFT ms by prompt length: " + ", ".join(
                 f"{len(b['tokens'])}: {o['ttft_s'] * 1e3:.1f}"
                 for b, o in zip(bodies, outs)))
-        return dict(outs=outs, k1=k1, k3=k3, k4=k4, k6=k6, k7=k7, k9=k9,
-                    k10=k10, tok_s=generated / wall,
+        return dict(outs=outs, k1=k1, k3=k3, k4=k4, k4e=k4e, k6=k6, k7=k7,
+                    k7s=k7s, k9=k9, k10=k10, tok_s=generated / wall,
                     ttft_p50=ttft_p50, ttft_long=ttft_long, peak=peak)
 
     try:
@@ -2315,8 +2554,7 @@ def paged_burst(engine, name, prompts, sharers=None, new=SP_GEN):
     torch.cuda.reset_peak_memory_stats()
     flash_attention.fwd_launches = decode_attention.launches = 0
     int8_linear.launches = 0
-    for counter in serving_counters():
-        counter.fwd_launches = 0
+    zero_serving_counters()
     engine.prefill_dispatches = engine.extend_dispatches = 0
     engine.decode_dispatches = 0
     t0 = time.perf_counter()
@@ -2326,7 +2564,8 @@ def paged_burst(engine, name, prompts, sharers=None, new=SP_GEN):
     wall = time.perf_counter() - t0
     k1, k3 = flash_attention.fwd_launches, decode_attention.launches
     k4 = int8_linear.launches
-    k6, k7, k9, k10 = (c.fwd_launches for c in serving_counters())
+    counts = read_serving_counters()
+    k6, k7, k7s, k9, _, k10 = counts
     peak = torch.cuda.max_memory_allocated()
     res = [engine.result(r) for r in rids]
     V = engine.model.cfg.vocab_size
@@ -2347,8 +2586,8 @@ def paged_burst(engine, name, prompts, sharers=None, new=SP_GEN):
         raise AssertionError(f"{name}: K4 launches {k4} != {per_pass} x "
                              f"({SP_CHUNK} x {decodes} + {prefills} + "
                              f"{extends})")
-    check_elementwise((k6, k7, k9, k10), layers,
-                      SP_CHUNK * decodes + prefills + extends)
+    check_elementwise(counts, layers, SP_CHUNK * decodes + prefills + extends,
+                      SP_CHUNK * decodes, epilogue_engine(engine))
     if extends and ("extend", SP_PROMPT, "greedy") not in engine._graphs:
         raise AssertionError(f"{name}: the chunked prefill ran without its "
                              "graph")
@@ -2357,7 +2596,7 @@ def paged_burst(engine, name, prompts, sharers=None, new=SP_GEN):
         raise AssertionError(f"{name}: {blocks.blocks_live} blocks live "
                              "after the drain")
     out = dict(tokens=[r.tokens for r in res], k1=k1, k3=k3, k4=k4, k6=k6,
-               k7=k7, k9=k9, k10=k10,
+               k7=k7, k7s=k7s, k9=k9, k10=k10,
                tok_s=new * len(res) / wall,
                ttft_p50=float(np.median([r.ttft_s for r in res])),
                peak=peak, prefills=prefills, decodes=decodes,
@@ -2569,9 +2808,12 @@ def decode_breakdown(engine, rs):
     from kubeflow_tpu_torch.ops.norms import add_rms_norm, rms_norm
 
     rows_before = rms_norm.rows_launches, add_rms_norm.rows_launches
+    counts_before = read_serving_counters()
     wall_ms, busy_ms, kernels = profiled(engine.step)
     rows_counts = (rms_norm.rows_launches - rows_before[0],
                    add_rms_norm.rows_launches - rows_before[1])
+    chunk_counts = [a - b for a, b in zip(read_serving_counters(),
+                                          counts_before)]
     steps = engine.cfg.decode_chunk
     plain = []
     for _ in range(3):                  # each step ends in a host fetch
@@ -2606,37 +2848,70 @@ def decode_breakdown(engine, rs):
             kernels_per_call("K4", k4_launches,
                              int8_launches_per_pass(engine.model) * steps)
     # K6, K7, K9 and K10 by name (their launch counters, graph replays
-    # counted, are asserted per burst; the profiler has dropped one event
-    # of 2080). A decode step's rows (the slots) take K6's and K10's rows
-    # kernels: their counters and their kernels by name, once a step and
-    # twice a layer a step.
+    # counted, are asserted per burst and here per chunk; the profiler has
+    # dropped one event of 2080). A decode step's rows (the slots) take
+    # K6's and K10's rows kernels and K7's staged kernel: their counters
+    # and their kernels by name, once a step, twice a layer a step and once
+    # a layer a step.
     layers = engine.model.cfg.num_layers
     want_rows = (steps, 2 * layers * steps)
     if rows_counts != want_rows:
         raise AssertionError(f"K6, K10 rows kernel launches {rows_counts} "
                              f"in the decode chunk, want {want_rows}")
-    per_launch = {}
+    # The chunk's counters: every step K7's staged mode once a layer (it
+    # writes the staging rows); SwiGLU once a layer, as K4's epilogue where
+    # the engine takes it, else as K9.
+    epilogue = epilogue_engine(engine)
+    check_elementwise(chunk_counts, layers, steps, steps, epilogue)
+    per_launch, chunk_kernels = {}, {}
     for tag, name, per_step in (("K6", "::rmsnorm_fwd_rows", 1),
-                                ("K7", "::rope_kernel", layers),
-                                ("K9", "::swiglu_fwd", layers),
+                                ("K7", "::rope_kernel", 0),
+                                ("K7 staged", "::rope_stage_kernel", layers),
+                                ("K9", "::swiglu_fwd",
+                                 0 if epilogue else layers),
                                 ("K10", "::add_rmsnorm_fwd_rows",
                                  2 * layers)):
         own = [e for e in kernels if name in e.key]
         ms, count = (sum(e.device_time_total for e in own) / 1e3,
                      sum(e.count for e in own))
         per_launch[tag] = ms / count * 1e3 if count else None
+        chunk_kernels[tag] = (count, ms)
         log(f"  {tag} ({name[2:]}): {ms:.3f} ms over {count} kernels "
             f"(launched {per_step * steps})"
             + (f", {per_launch[tag]:.3f} us a launch" if count else ""))
-        if busy_ms > 0 and tag in ("K6", "K10"):
+        if busy_ms > 0 and tag in ("K6", "K7 staged", "K10"):
             kernels_per_call(f"{tag} rows", count, per_step * steps)
+        if busy_ms > 0 and not per_step and count:
+            raise AssertionError(f"{tag} launched {count} kernels in the "
+                                 "decode chunk, want none")
+    # Copy kernels: the staging writes were two a layer a step (PR 15's
+    # step copied k and v into the staging rows); K7's staged mode writes
+    # them now, so the chunk's copies (its flush, the graph's inputs and
+    # outputs) stay below that count.
+    copies = [e for e in kernels if "copy" in e.key.lower()]
+    n_copies = sum(e.count for e in copies)
+    copy_ms = sum(e.device_time_total for e in copies) / 1e3
+    log(f"  copy kernels: {n_copies} ({copy_ms:.3f} ms; "
+        f"{copy_ms / steps * 1e3:.2f} us a step) in the chunk: "
+        + ", ".join(f"{e.key[:60]} x{e.count}" for e in copies[:4]))
+    log(f"  device kernels a step: {sum(e.count for e in kernels) / steps:.1f}"
+        f" (K3 {k3_launches / steps:.0f}, K4 {k4_launches / steps:.0f})")
+    if busy_ms > 0 and n_copies >= 2 * layers * steps:
+        raise AssertionError(f"{n_copies} copy kernels in the decode chunk: "
+                             "the staging rows' writes would make "
+                             f"{2 * layers * steps}")
     while engine.active_slots:
         engine.step()
     return dict(chunk_wall_ms=wall_ms, chunk_busy_ms=busy_ms, idle=idle,
                 step_ms=float(np.median(plain)) / steps,
                 k3_chunk_launches=k3_launches,
                 k4_chunk_launches=k4_launches, k4_chunk_ms=k4_ms,
-                k10_chunk_us=per_launch["K10"])
+                k10_chunk_us=per_launch["K10"],
+                k7s_chunk_us=per_launch["K7 staged"],
+                k9_chunk_us=per_launch["K9"],
+                launches_a_step=sum(e.count for e in kernels) / steps,
+                copies_a_step=n_copies / steps,
+                copy_us_a_step=copy_ms / steps * 1e3)
 
 
 def greedy_check(model, bodies, outs, kv_int8: bool = False):
@@ -3207,8 +3482,7 @@ def engine_burst(engine, prompts, new: int, tag: str):
 
     flash_attention.fwd_launches = decode_attention.launches = 0
     int8_linear.launches = 0
-    for counter in serving_counters():
-        counter.fwd_launches = 0
+    zero_serving_counters()
     engine.prefill_dispatches = engine.extend_dispatches = 0
     engine.decode_dispatches = 0
     torch.cuda.synchronize()
@@ -3233,16 +3507,17 @@ def engine_burst(engine, prompts, new: int, tag: str):
         raise AssertionError(f"{tag}: K1 {k1}, K3 {k3}, K4 {k4} launches "
                              f"for {prefills} prefill, {extends} extend and "
                              f"{decodes} decode dispatches")
-    counts = [c.fwd_launches for c in serving_counters()]
-    check_elementwise(counts, layers, passes)
+    counts = read_serving_counters()
+    check_elementwise(counts, layers, passes, chunk * decodes,
+                      epilogue_engine(engine))
     generated = new * len(res)
     ttft = float(np.median([r.ttft_s for r in res]))
     log(f"{tag} burst: {len(res)} requests, {generated} tokens in "
         f"{wall:.2f} s = {generated / wall:.1f} tok/s, p50 TTFT "
         f"{ttft * 1e3:.1f} ms; {prefills} prefill + {extends} extend + "
         f"{decodes} decode dispatches; launches K1 {k1}, K3 {k3}, K4 {k4} "
-        f"({int8_launches_per_pass(engine.model)} a pass), K6/K7/K9/K10 "
-        + "/".join(map(str, counts)))
+        f"({int8_launches_per_pass(engine.model)} a pass), "
+        + "/".join(SERVING_COUNTERS) + " " + "/".join(map(str, counts)))
     return [r.tokens for r in res], generated / wall, ttft
 
 
@@ -3611,10 +3886,11 @@ def main() -> int:
     check_build(libs["decode_attention.cu"], {"decode_attn": 32},
                 required=("UTMALDG", "HMMA"))
     # K4: the decode kernel at 8 or 16 tokens, per-row or per-column
-    # scales: mma.sync (HMMA) fed by cp.async (LDGSTS); the prefill kernel
-    # at 64, 128 or 256 tokens a tile, per-row or per-column scales: wgmma
-    # (HGMMA) fed by TMA (UTMALDG).
-    check_build(libs["int8_linear.cu"], {"int8_linear_decode": 4},
+    # scales, and with the SwiGLU epilogue (per-row scales): mma.sync
+    # (HMMA) fed by cp.async (LDGSTS); the prefill kernel at 64, 128 or 256
+    # tokens a tile, per-row or per-column scales: wgmma (HGMMA) fed by
+    # TMA (UTMALDG).
+    check_build(libs["int8_linear.cu"], {"int8_linear_decode": 6},
                 required=("HMMA", "LDGSTS"))
     check_build(libs["int8_linear.cu"], {"int8_linear_prefill": 6})
     # K5-K11: element-wise and row kernels (no tensor cores); no spills.
@@ -3777,7 +4053,10 @@ def main() -> int:
         if case != "gate_proj":
             k4.update({f"{case}_{key}": row[key]
                        for key in ("ms", "warm_ms", "plain_ms", "bound_ms",
-                                   "library_ms")})
+                                   "library_ms", "group_ms", "group_k9_ms")
+                       if key in row})
+    # The SwiGLU epilogue's launches in the 8-slot int8-weight burst.
+    k4["swiglu_launches"] = serve_w8["k4e"]
     # K5-K8 at the train step's shapes; launches over the 10-step run;
     # their device ms in the profiled step under step_ms; K6 and K7 at the
     # serving shapes under decode_ and prefill_, with the bf16 burst's
@@ -3806,15 +4085,16 @@ def main() -> int:
                      tf["K7 forward"] + tf["K7 backward"],
                      fused_rows["K7"]["train"])
     for k, tag in ((k6, "K6"), (k7, "K7")):
-        for case in ("decode", "prefill"):
-            k.update({f"{case}_{key}": v for key, v in
-                      fused_rows[tag][case].items()})
+        for case, row in fused_rows[tag].items():
+            if case != "train":
+                k.update({f"{case}_{key}": v for key, v in row.items()})
     # K7's strided mode (the fused q/k/v projection read in place) under
-    # strided_<case>_.
-    for case, row in fused_rows["K7"].items():
-        if case.startswith("strided_"):
-            k7.update({f"{case}_{key}": v for key, v in row.items()})
+    # strided_<case>_, its staged mode under stage_<case>_; the staged
+    # launches of the bf16 burst and the staged launch's us in each serve
+    # phase's profiled decode chunk.
     k6["serve_launches"], k7["serve_launches"] = serve["k6"], serve["k7"]
+    k7["stage_launches"] = serve["k7s"]
+    k7["paged_stage_launches"] = serve_paged[True]["a"]["k7s"]
     k8 = fused_entry("K8", "cross_entropy", "cross_entropy.cu",
                      "kubeflow_tpu/train/losses.py:11",
                      tf["K8 forward"] + tf["K8 backward"],
@@ -3836,11 +4116,16 @@ def main() -> int:
             if case != "train":
                 k.update({f"{case}_{key}": v for key, v in row.items()})
         k["serve_launches"] = serve[tag.lower()]
-    # K10's rows kernel a launch in each serve phase's profiled decode chunk.
+    k9["int8_weights_launches"] = serve_w8["k9"]
+    k9["paged_launches"] = serve_paged[True]["a"]["k9"]
+    # K10's rows kernel, K7's staged launch and K9 a launch in each serve
+    # phase's profiled decode chunk (K9 none with the epilogue).
     for case, st in (("bf16", serve), ("int8_kv", serve_int8),
                      ("int8_weights", serve_w8),
                      ("paged", serve_paged[True])):
         k10[f"chunk_{case}_us"] = st["k10_chunk_us"]
+        k7[f"chunk_{case}_stage_us"] = st["k7s_chunk_us"]
+        k9[f"chunk_{case}_us"] = st["k9_chunk_us"]
     # K11 over the 700M model's tensors (scanned leaves); launches over the
     # loader-fed adafactor run; its device ms in that run's profiled step.
     ada_k = ada["breakdown"]["by_kernel"]["K11"]

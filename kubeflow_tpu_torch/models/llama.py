@@ -31,7 +31,8 @@ Three forward modes (``Llama.forward``):
   row's cache on the card, and through the masked plain attention on the
   CPU. With ``stage_step`` (``decode_staging > 0``) the step writes its
   k/v into the chunk's staging rows instead of the cache, and the
-  serving engine flushes them once per chunk.
+  serving engine flushes them once per chunk: RoPE's staged mode (K7)
+  writes them in its own launch.
 
 With ``paged_kv_blocks`` = P > 0 the cache is the physically paged pool
 of ``ops/paged_attention.py`` (``Attention._paged_decode_attention``):
@@ -67,9 +68,11 @@ from kubeflow_tpu_torch.ops.flash_attention import (
     flash_attention_lse,
 )
 from kubeflow_tpu_torch.ops.int8_linear import (
+    DECODE_MAX_ROWS,
     dequantize_int8,
     int8_linear,
     int8_linear_group,
+    int8_linear_swiglu,
 )
 from kubeflow_tpu_torch.ops.norms import add_rms_norm, rms_norm
 from kubeflow_tpu_torch.ops.paged_attention import (
@@ -82,6 +85,8 @@ from kubeflow_tpu_torch.ops.rope import (
     apply_rope_fused,
     apply_rope_qk,
     rope_frequencies,
+    rope_stage,
+    rope_stage_fused,
 )
 from kubeflow_tpu_torch.ops.swiglu import swiglu, swiglu_fused
 
@@ -428,29 +433,68 @@ class Attention(nn.Module):
                 attn_impl: str = "flash",
                 stage_step: Optional[int] = None,
                 paging: Optional[Paging] = None) -> torch.Tensor:
+        if decode is True and stage_step is not None:
+            out = self._staged_attention(self.projections(x), positions,
+                                         cos, sin, cache, stage_step, paging)
+            return self.out_proj(out)
         q, k, v = self.project(x, positions, cos, sin)
         if decode:
             out = self._decode_attention(q, k, v, cache, mode=decode,
-                                         stage_step=stage_step, paging=paging)
+                                         paging=paging)
         else:
             out = self.attend(q, k, v, attn_impl)
         return self.out_proj(out)
 
+    def _by_table(self, paging: Optional[Paging]) -> dict:
+        """K3's block-table arguments for a paged cache (which needs
+        ``paging``), none for a dense one."""
+        if self.cfg.paged_kv_blocks <= 0:
+            return {}
+        if paging is None:
+            raise ValueError("a paged cache (LlamaConfig.paged_kv_blocks > "
+                             "0) needs paging=Paging(block tables)")
+        return {"block_tables": paging.tables,
+                "block_size": self.cfg.paged_kv_block_size}
+
+    def _staged_attention(self, products, positions, cos, sin,
+                          cache: LayerCache, stage_step: int,
+                          paging: Optional[Paging] = None):
+        """A staged decode step (``stage_step``, which needs
+        ``decode_staging``), as the JAX model's ``_decode_attention`` runs
+        it: q and k rotated and k/v written to staging column
+        ``stage_step`` of every row in one K7 launch (the staged mode, on
+        :meth:`projections`' products; the fused q/k/v read in place),
+        then attention over the flushed cache (``< cache_index``; dense,
+        or the pool by ``paging``'s tables) and staging rows
+        ``0..stage_step``. The engine's flush writes the cache and
+        advances ``cache_index``."""
+        if "stage_key" not in cache:
+            raise ValueError("stage_step needs a staging cache "
+                             "(LlamaConfig.decode_staging > 0)")
+        by_table = self._by_table(paging)
+        sk, sv = cache["stage_key"], cache["stage_value"]
+        if len(products) == 1:
+            q = rope_stage_fused(products[0], cos, sin, positions, sk, sv,
+                                 stage_step)
+        else:
+            q = rope_stage(*products, cos, sin, positions, sk, sv,
+                           stage_step)
+        return decode_attention(q, cache["cached_key"],
+                                cache["cached_value"], cache["cache_index"],
+                                k_scale=cache.get("key_scale"),
+                                v_scale=cache.get("value_scale"),
+                                stage_key=sk, stage_value=sv,
+                                stage_step=stage_step, **by_table)
+
     def _decode_attention(self, q, k, v, cache: LayerCache, mode,
-                          stage_step: Optional[int] = None,
                           paging: Optional[Paging] = None):
         """Write k/v and attend, as the JAX model's
         ``Attention._decode_attention`` does (a paged cache, which needs
-        ``paging``, as ``_paged_decode_attention`` says).
+        ``paging``, as ``_paged_decode_attention`` says; a staged step is
+        :meth:`_staged_attention`'s).
 
-        Staged step (``mode is True`` with ``stage_step``, which needs
-        ``decode_staging``): k/v go to staging column ``stage_step`` of
-        every row, and attention spans the flushed cache (``<
-        cache_index``) and staging rows ``0..stage_step``; the engine's
-        flush writes the cache and advances ``cache_index``.
-
-        Otherwise k/v are written at each row's ``cache_index`` (quantized
-        for an int8 cache) and ``cache_index`` advances in place.
+        k/v are written at each row's ``cache_index`` (quantized for an
+        int8 cache) and ``cache_index`` advances in place.
         ``mode == "prefill"``: the rows are fresh (index 0), so attention
         runs causally over the incoming tokens through the flash kernel
         and reads the live k/v, not the cache. ``mode is True``: attend
@@ -466,24 +510,7 @@ class Attention(nn.Module):
                        cache["cache_index"])
         ks, vs = cache.get("key_scale"), cache.get("value_scale")
         B, S_new = q.shape[:2]
-        paged = self.cfg.paged_kv_blocks > 0
-        if paged and paging is None:
-            raise ValueError("a paged cache (LlamaConfig.paged_kv_blocks > "
-                             "0) needs paging=Paging(block tables)")
-        by_table = ({"block_tables": paging.tables,
-                     "block_size": self.cfg.paged_kv_block_size}
-                    if paged else {})
-        if mode is True and stage_step is not None:
-            if "stage_key" not in cache:
-                raise ValueError("stage_step needs a staging cache "
-                                 "(LlamaConfig.decode_staging > 0)")
-            sk, sv = cache["stage_key"], cache["stage_value"]
-            sk[:, stage_step:stage_step + 1] = k.to(sk.dtype)
-            sv[:, stage_step:stage_step + 1] = v.to(sv.dtype)
-            return decode_attention(q, ck, cv, idx, k_scale=ks, v_scale=vs,
-                                    stage_key=sk, stage_value=sv,
-                                    stage_step=stage_step, **by_table)
-        if paged:
+        if self._by_table(paging):          # a paged cache (with paging)
             return self._paged_decode_attention(q, k, v, cache, mode, paging)
         L = ck.shape[1]
         steps = torch.arange(S_new, device=q.device)
@@ -538,7 +565,7 @@ class Attention(nn.Module):
         hold) or past the table redirect to the scratch page, so no junk
         write touches a live, possibly shared, page.
 
-        - a staged step (in ``_decode_attention``): the staging write is
+        - a staged step (``_staged_attention``): the staging write is
           the dense one (staging rows are per slot, not paged), and K3
           reads the pool by table;
         - ``mode == "prefill"``: attention over the live k/v (flash);
@@ -621,8 +648,32 @@ class Mlp(nn.Module):
              else swiglu(*products))
         return self.down_proj(h)
 
+    def epilogue_weights(self, x: torch.Tensor):
+        """The ``((q, scale), (q, scale))`` of gate and up when K4 writes
+        ``silu(gate) * up`` itself (:func:`int8_linear_swiglu`): int8
+        gate/up weights that form one group (:func:`int8_group`) with
+        per-row scales, at a decode step's rows (at most
+        :data:`DECODE_MAX_ROWS`: K4's decode kernel). Else None: more rows
+        (the paged step's 48 slots, prefill, extend) or bf16 weights take
+        :meth:`products` and K9's own launch."""
+        projections = self.input_projections()
+        if not int8_group(*projections) \
+                or projections[0].scale.shape[1] != 1 \
+                or x.numel() // x.shape[-1] > DECODE_MAX_ROWS:
+            return None
+        if self.fused_gate_up:
+            w, s = self.gate_up_proj.weight, self.gate_up_proj.scale
+            F = w.shape[0] // 2
+            return (w[:F], s[:F]), (w[F:], s[F:])
+        return tuple((p.weight, p.scale) for p in projections)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.reduce(*self.products(x))
+        weights = self.epilogue_weights(x)
+        if weights is None:
+            return self.reduce(*self.products(x))
+        dtype = self.input_projections()[0].dtype
+        return self.down_proj(int8_linear_swiglu(x.to(dtype), *weights,
+                                                 out_dtype=dtype))
 
 
 class DecoderLayer(nn.Module):
@@ -821,7 +872,7 @@ class Llama(nn.Module):
         [B, S, E] with ``return_hidden``). With ``decode`` (True or
         "prefill") the cache is required and ``(out, cache)`` returns;
         ``stage_step`` makes a decode step a staged one (see
-        ``Attention._decode_attention``); a paged cache needs ``paging``
+        ``Attention._staged_attention``); a paged cache needs ``paging``
         (see ``Attention._paged_decode_attention``)."""
         cfg = self.cfg
         B, S = tokens.shape

@@ -57,6 +57,19 @@
 // - A group's products share the grid and the split: q/k/v (48 tiles) is
 //   one launch where three paid a block start, a ring fill and a cluster
 //   sum each.
+// - SwiGLU epilogue (kftpu_int8_linear_swiglu): gate and up, each [F, K]
+//   with per-row scales, in one launch whose 128-row tiles hold 64 gate
+//   rows (warps 0-3) and the 64 up rows of the same columns (warps 4-7).
+//   The epilogue writes h = silu(gate) * up [M, F] in place of gate and up
+//   (K9's function, kubeflow_tpu/models/llama.py::Mlp :657, so a decode
+//   step's MLP makes no K9 launch): each block parks its sums in shared
+//   memory, as the split-K path does; g and u are summed over the
+//   cluster's blocks in rank order (or taken as they are with no split),
+//   rounded to bf16 where K4 rounds its outputs, and then run through
+//   swiglu.cu's forward operation by operation (__fadd_rn, expf,
+//   __fdiv_rn, the bf16 rounding, __fmul_rn), so h is bitwise K4 followed
+//   by K9. A tile of F / 64 columns: gate/up at F = 14336 is 224 tiles, as
+//   the grouped launch's 112 + 112, so the plan picks the same split.
 //
 // Prefill and extend (M > 16), int8_linear_prefill: TMA + wgmma,
 // warp-specialised, bound by operations from M = 512 on.
@@ -108,6 +121,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "fused_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -131,11 +145,14 @@ struct Seg {
   int tile0, tile1;
 };
 
-// A launch's products: the kernels' common arguments.
+// A launch's products: the kernels' common arguments. ``glu``: seg[0] is
+// gate, seg[1] up (same N = F), both writing h = silu(gate) * up to
+// seg[0].y; seg[0] owns every tile of F / 64 columns.
 struct Params {
   const __nv_bfloat16* x;          // [M, K], row stride ldx
   long long ldx;
   int M, K, nseg;
+  int glu;
   Seg seg[kMaxSegs];
 };
 
@@ -286,16 +303,36 @@ struct Shape {
   static constexpr int kMain = kRing > kPartial ? kRing : kPartial;
 };
 
-template <int NT, int MT, int WN, int WM, int STAGES, int SUB, bool ROW_SCALE>
+// silu(g) * u of K4's unrounded sums g and u, as K4 then K9 compute it:
+// g and u rounded to bf16 (K4's outputs), then swiglu.cu's forward
+// operation by operation, rounded once more where it rounds.
+__device__ __forceinline__ uint16_t swiglu_of_sums(float g, float u) {
+  const float gb = __bfloat162float(__float2bfloat16_rn(g));
+  const float ub = __bfloat162float(__float2bfloat16_rn(u));
+  const float den = __fadd_rn(1.f, expf(-gb));
+  const float a = kftpu_fused::rnd<__nv_bfloat16>(__fdiv_rn(gb, den));
+  return static_cast<uint16_t>(kftpu_fused::bf16_bits(__fmul_rn(a, ub)));
+}
+
+template <int NT, int MT, int WN, int WM, int STAGES, int SUB, bool ROW_SCALE, bool GLU>
 __global__ void __launch_bounds__(Shape<NT, MT, WN, WM, STAGES, SUB>::kThreads)
     int8_linear_decode(const Params p) {
   using Sh = Shape<NT, MT, WN, WM, STAGES, SUB>;
+  static_assert(!GLU || (ROW_SCALE && NT == 1 && WN == 8), "GLU: 8 warps of 16 rows, row scales");
+  constexpr int kHalf = Sh::BN / 2;    // GLU: a tile's columns (gate rows, then up rows)
   extern __shared__ __align__(128) uint8_t smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wn = warp % WN, wm = warp / WN;
   const int lr = lane >> 2, t = lane & 3;
   const Seg sg = segment(p, blockIdx.y);
-  const int n0 = (blockIdx.y - sg.tile0) * Sh::BN, m0 = blockIdx.x * Sh::BM;
+  const int n0 = GLU ? blockIdx.y * kHalf : (blockIdx.y - sg.tile0) * Sh::BN;
+  const int m0 = blockIdx.x * Sh::BM;
+  // Block row r's weight row: row n0 + r of the product, or (GLU) row
+  // n0 + r % 64 of gate (r < 64) or of up.
+  auto weight_row = [&](int r, int* n) -> int {
+    *n = GLU ? n0 + (r % kHalf) : n0 + r;
+    return GLU && r >= kHalf ? 1 : 0;
+  };
   // This block's run of stages (SUB spans of 64 k each): the cluster's
   // blocks split them evenly, in order.
   const int stages = (p.K + SUB * kSpan - 1) / (SUB * kSpan), splits = gridDim.z;
@@ -310,10 +347,12 @@ __global__ void __launch_bounds__(Shape<NT, MT, WN, WM, STAGES, SUB>::kThreads)
     uint8_t* st = smem + (j % STAGES) * Sh::kStage;
     const int k0 = (first + j) * SUB * kSpan;
     for (int c = threadIdx.x; c < Sh::BN * 4 * SUB; c += Sh::kThreads) {
-      const int row = c / (4 * SUB), ch = c % (4 * SUB), k = k0 + ch * 16, n = n0 + row;
+      const int row = c / (4 * SUB), ch = c % (4 * SUB), k = k0 + ch * 16;
+      int n;
+      const int8_t* q = weight_row(row, &n) ? p.seg[1].q : sg.q;
       const bool ok = n < sg.N && k < p.K;
       cp_async_16(st + (ch >> 2) * Sh::kSub + row * kSpan + (ch & 3) * 16,
-                  ok ? sg.q + (long long)n * p.K + k : sg.q, ok ? 16 : 0);
+                  ok ? q + (long long)n * p.K + k : sg.q, ok ? 16 : 0);
     }
     for (int c = threadIdx.x; c < Sh::BM * 8 * SUB; c += Sh::kThreads) {
       const int row = c / (8 * SUB), ch = c % (8 * SUB), k = k0 + ch * 8, m = m0 + row;
@@ -350,9 +389,11 @@ __global__ void __launch_bounds__(Shape<NT, MT, WN, WM, STAGES, SUB>::kThreads)
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int n = n0 + (wn * NT + nt) * 16 + lr + 8 * h;
+        int n;
+        const __nv_bfloat16* scale =
+            weight_row((wn * NT + nt) * 16 + lr + 8 * h, &n) ? p.seg[1].scale : sg.scale;
         const uint16_t s =
-            n < sg.N ? *reinterpret_cast<const uint16_t*>(sg.scale + n) : uint16_t(0);
+            n < sg.N ? *reinterpret_cast<const uint16_t*>(scale + n) : uint16_t(0);
         row_scale[nt][h] = uint32_t(s) * 0x10001u;
       }
   }
@@ -425,6 +466,54 @@ __global__ void __launch_bounds__(Shape<NT, MT, WN, WM, STAGES, SUB>::kThreads)
 
   // A lane holds rows lr, lr + 8 of each 16-row tile, tokens 2t, 2t + 1 of
   // each 8-token tile: acc[nt][mt][2 h + e] is (row lr + 8 h, token 2t + e).
+  if constexpr (GLU) {
+    // Every block parks its sums [BN rows][BM tokens]; block r of the
+    // cluster finishes columns [r 64 / splits, (r + 1) 64 / splits) of
+    // the tile: column c's gate sum is row c, its up sum row 64 + c, each
+    // summed over the blocks in rank order as the split path sums (no
+    // split: the block's own sums, as the path with no split writes them).
+    cp_async_wait<0>();
+    __syncthreads();
+    float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wn * 16 + lr + 8 * (i >> 1);
+        const int m = (wm * MT + mt) * 8 + 2 * t + (i & 1);
+        part[r * Sh::BM + m] = acc[0][mt][i];
+      }
+    const int cols = kHalf / splits;
+    if (splits == 1) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < kHalf * Sh::BM; e += Sh::kThreads) {
+        const int c = e % kHalf, m = e / kHalf, n = n0 + c, mg = m0 + m;
+        if (n < sg.N && mg < p.M) {
+          reinterpret_cast<uint16_t*>(sg.y)[(long long)mg * sg.N + n] =
+              swiglu_of_sums(part[c * Sh::BM + m], part[(kHalf + c) * Sh::BM + m]);
+        }
+      }
+      return;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int rank = static_cast<int>(cluster.block_rank());
+    for (int e = threadIdx.x; e < cols * Sh::BM; e += Sh::kThreads) {
+      const int c = rank * cols + e % cols, m = e / cols;
+      float g = 0.f, u = 0.f;
+      for (int b = 0; b < splits; ++b) {
+        const float* pb = cluster.map_shared_rank(part, b);
+        g += pb[c * Sh::BM + m];
+        u += pb[(kHalf + c) * Sh::BM + m];
+      }
+      const int n = n0 + c, mg = m0 + m;
+      if (n < sg.N && mg < p.M) {
+        reinterpret_cast<uint16_t*>(sg.y)[(long long)mg * sg.N + n] = swiglu_of_sums(g, u);
+      }
+    }
+    cluster.sync();
+    return;
+  }
   if (splits == 1) {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -679,13 +768,13 @@ __global__ void __launch_bounds__(Prefill<BM, ROW_SCALE>::kThreads, 1)
 // ---- host --------------------------------------------------------------------
 
 // The decode kernel's instantiation: its function, block and shared memory.
-template <int NT, int MT, int WN, int WM, int STAGES, int SUB, bool ROW_SCALE>
+template <int NT, int MT, int WN, int WM, int STAGES, int SUB, bool ROW_SCALE, bool GLU = false>
 struct Decode {
   using Sh = Shape<NT, MT, WN, WM, STAGES, SUB>;
   static constexpr bool kDecode = true;
   static constexpr int BN = Sh::BN, BM = Sh::BM, kThreads = Sh::kThreads;
   using P = Params;
-  static constexpr auto fn = &int8_linear_decode<NT, MT, WN, WM, STAGES, SUB, ROW_SCALE>;
+  static constexpr auto fn = &int8_linear_decode<NT, MT, WN, WM, STAGES, SUB, ROW_SCALE, GLU>;
   static int smem(int S) { return Sh::kMain + (ROW_SCALE ? 0 : BN * S * 2); }
   // Opts in to the most shared memory any scale period needs, once.
   static cudaError_t prepare() {
@@ -736,8 +825,16 @@ int max_period(const Params& p) {
   return s;
 }
 
-// Lays the products' row tiles of BN rows one after the other on the grid.
+// Lays the products' row tiles of BN rows one after the other on the grid
+// (glu: seg[0]'s tiles of BN / 2 columns, each holding gate's and up's
+// rows; seg[1] owns none).
 void set_tiles(Params& p, int bn) {
+  if (p.glu) {
+    const int tiles = (p.seg[0].N + bn / 2 - 1) / (bn / 2);
+    p.seg[0].tile0 = 0;
+    p.seg[0].tile1 = p.seg[1].tile0 = p.seg[1].tile1 = tiles;
+    return;
+  }
   int tile = 0;
   for (int i = 0; i < p.nseg; ++i) {
     p.seg[i].tile0 = tile;
@@ -855,6 +952,14 @@ cudaError_t with_kernel(const Params& p, F f) {
   return p.seg[0].S == 1 ? with_scales<F, true>(p, f) : with_scales<F, false>(p, f);
 }
 
+// The SwiGLU epilogue's instantiation (M <= 16, per-row scales): the
+// decode kernel's shapes.
+template <class F>
+cudaError_t with_glu_kernel(const Params& p, F f) {
+  if (p.M <= 8) return f(Decode<1, 1, 8, 1, kDecodeStages, kDecodeSub, true, true>{});
+  return f(Decode<1, 2, 8, 1, kDecodeStages, kDecodeSub, true, true>{});
+}
+
 bool valid_seg(int N, int K, int S) {
   return N >= 16 && N % 16 == 0 && (S == 1 || (S % 16 == 0 && S <= kMaxPeriod && K % S == 0));
 }
@@ -933,4 +1038,31 @@ extern "C" int kftpu_int8_linear_group(const void* x, int M, int K, long long ld
 extern "C" int kftpu_int8_linear(const void* x, const void* q, const void* scale, void* y, int M,
                                  int N, int K, int S, long long ldx, int splits, void* stream) {
   return kftpu_int8_linear_group(x, M, K, ldx, 1, &q, &scale, &y, &N, &S, splits, stream);
+}
+
+// h[M, F] = silu(x . Wg^T) * (x . Wu^T) in one launch (the SwiGLU
+// epilogue, see the header): gate_q, up_q int8 [F, K] and gate_scale,
+// up_scale bf16 [F, 1] (per-row scales), h bf16 [M, F] contiguous; M <=
+// 16; other arguments as kftpu_int8_linear's (``splits`` applies to both
+// halves; 0 for kftpu_int8_linear_splits' choice for the tile count).
+// Bitwise kftpu_int8_linear_group of gate and up at the same split, then
+// kftpu_swiglu_fwd. Returns the CUDA error code of the launch.
+extern "C" int kftpu_int8_linear_swiglu(const void* x, int M, int K, long long ldx,
+                                        const void* gate_q, const void* gate_scale,
+                                        const void* up_q, const void* up_scale, void* h, int F,
+                                        int splits, void* stream) {
+  const void* q[2] = {gate_q, up_q};
+  const void* scale[2] = {gate_scale, up_scale};
+  void* y[2] = {h, h};
+  const int N[2] = {F, F};
+  const int S[2] = {1, 1};
+  Params p;
+  if (M > 16 || !make_params(&p, x, M, K, ldx, 2, q, scale, y, N, S) ||
+      !valid_splits(M, splits)) {
+    return cudaErrorInvalidValue;
+  }
+  p.glu = 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      with_glu_kernel(p, [&](auto kn) { return launch<decltype(kn)>(p, splits, st); }));
 }

@@ -17,6 +17,13 @@ JAX engine only with the unrounded weight.
 :func:`int8_linear_group` computes up to three such products of the same
 x (q/k/v, gate/up) in one kernel launch, each into its own output.
 
+:func:`int8_linear_swiglu` computes ``silu(x @ Wg.T) * (x @ Wu.T)`` of a
+gate and an up weight with per-row scales: on the card at a decode step's
+rows (M <= :data:`DECODE_MAX_ROWS`) one K4 launch whose epilogue is K9's
+function, bitwise K4's grouped launch followed by K9 (``ops/swiglu.py``).
+Its plain version composes :func:`int8_linear_reference` with
+:func:`~kubeflow_tpu_torch.ops.swiglu.swiglu_reference`.
+
 Both dispatch on where x lives:
 
 - CUDA tensors launch ``ops/csrc/int8_linear.cu``, built at first use by
@@ -29,8 +36,9 @@ Both dispatch on where x lives:
   ``_materialize`` does and calls ``F.linear`` (a group: once a product).
   It is also what ``chip_smoke.py`` holds the kernel against on the card.
 
-Each kernel launch, single or grouped, adds one to
-``int8_linear.launches``.
+Each kernel launch, single, grouped or with the SwiGLU epilogue, adds one
+to ``int8_linear.launches``; each SwiGLU-epilogue launch also adds one to
+``int8_linear.swiglu_launches``.
 """
 
 from __future__ import annotations
@@ -42,11 +50,16 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from kubeflow_tpu_torch.ops.swiglu import swiglu_reference
+
 _SOURCE = "int8_linear.cu"
 #: The largest per-column scale period the kernel stages.
 MAX_PERIOD = 256
 #: The most products one grouped launch takes.
 MAX_GROUP = 3
+#: The most rows (tokens) of K4's decode kernel (``mma.sync``), the only
+#: one with the SwiGLU epilogue; more rows take the prefill kernel.
+DECODE_MAX_ROWS = 16
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
@@ -87,12 +100,29 @@ def bind(lib: ctypes.CDLL):
     return splits, group
 
 
+def bind_swiglu(lib: ctypes.CDLL):
+    """K4's SwiGLU-epilogue C entry point with its ctypes signature."""
+    fn = lib.kftpu_int8_linear_swiglu
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_longlong] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    return fn
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
     """K4's C entry points, built and loaded at first use."""
     from kubeflow_tpu_torch.ops._build import load_library
 
     return bind(load_library(_SOURCE))
+
+
+@functools.lru_cache(maxsize=None)
+def _swiglu_fn():
+    from kubeflow_tpu_torch.ops._build import load_library
+
+    return bind_swiglu(load_library(_SOURCE))
 
 
 def _check_weight(q, scale, x):
@@ -210,3 +240,63 @@ def int8_linear_group(x: torch.Tensor,
                          f"(plain version), not {x.device}")
     return tuple(int8_linear_reference(x, q, scale, out_dtype=out_dtype)
                  for q, scale in pairs)
+
+
+def int8_linear_swiglu_reference(
+        x: torch.Tensor, gate: Tuple[torch.Tensor, torch.Tensor],
+        up: Tuple[torch.Tensor, torch.Tensor], *,
+        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``silu(x @ Wg.T) * (x @ Wu.T)`` in plain PyTorch: each product as
+    :func:`int8_linear_reference` gives it, then
+    :func:`~kubeflow_tpu_torch.ops.swiglu.swiglu_reference`."""
+    return swiglu_reference(
+        int8_linear_reference(x, *gate, out_dtype=out_dtype),
+        int8_linear_reference(x, *up, out_dtype=out_dtype))
+
+
+def _swiglu_kernel(x, gate, up, out_dtype, splits: int = 0):
+    """K4 with the SwiGLU epilogue on CUDA tensors (``splits`` as
+    :func:`_kernel`'s)."""
+    (Ng, K, Sg), (Nu, _, Su) = (_check_weight(q, s, x) for q, s in (gate, up))
+    if Ng != Nu or Sg != 1 or Su != 1:
+        raise ValueError(f"int8_linear_swiglu takes gate and up weights of "
+                         f"one shape with per-row scales, got [{Ng}, {K}] S "
+                         f"{Sg} and [{Nu}, {K}] S {Su}")
+    x2 = _rows(x, out_dtype, K)
+    M = x2.shape[0]
+    if M > DECODE_MAX_ROWS:
+        raise ValueError(f"int8_linear_swiglu kernel takes at most "
+                         f"{DECODE_MAX_ROWS} rows, got {M}")
+    h = torch.empty((M, Ng), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _swiglu_fn()(x2.data_ptr(), M, K, x2.stride(0),
+                          gate[0].data_ptr(), gate[1].data_ptr(),
+                          up[0].data_ptr(), up[1].data_ptr(), h.data_ptr(),
+                          Ng, splits, stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_linear_swiglu launch failed: CUDA error "
+                           f"{rc} (x [{M}, {K}], weights [{Ng}, {K}])")
+    int8_linear.launches += 1
+    int8_linear.swiglu_launches += 1
+    return h.view(*x.shape[:-1], Ng)
+
+
+def int8_linear_swiglu(x: torch.Tensor,
+                       gate: Tuple[torch.Tensor, torch.Tensor],
+                       up: Tuple[torch.Tensor, torch.Tensor], *,
+                       out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """``silu(x @ Wg.T) * (x @ Wu.T)`` [..., F] of ``gate`` and ``up``,
+    each ``(q [F, K] int8, scale [F, 1] bf16)``: on the card one K4 launch
+    with the SwiGLU epilogue, for at most :data:`DECODE_MAX_ROWS` rows (or
+    ValueError); on the CPU :func:`int8_linear_swiglu_reference`."""
+    if x.device.type == "cuda":
+        return _swiglu_kernel(x, gate, up, out_dtype)
+    if x.device.type != "cpu":
+        raise ValueError(f"int8_linear_swiglu runs on cuda (kernel) or cpu "
+                         f"(plain version), not {x.device}")
+    return int8_linear_swiglu_reference(x, gate, up, out_dtype=out_dtype)
+
+
+int8_linear.swiglu_launches = 0

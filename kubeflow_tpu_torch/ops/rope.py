@@ -23,8 +23,18 @@ zero-fill. They dispatch on where the tensors live:
   holds the kernel against; kernel and plain version round alike, so
   they agree bitwise.
 
-Each forward launch adds one to ``apply_rope.fwd_launches``, each backward
-launch to ``apply_rope.bwd_launches``.
+A staged decode step (:func:`rope_stage`, :func:`rope_stage_fused`) also
+writes its staging rows in the same launch: q rotated into its output, k
+rotated straight into column ``stage_step`` of ``stage_key`` and v copied
+into that column of ``stage_value``, as the JAX model's step writes them
+with ``dynamic_update_slice_in_dim``. Its plain version
+(:func:`rope_stage_reference`) is :func:`rope_reference` on q and k and
+the two slice writes, and the kernel agrees with it bitwise.
+
+Each forward launch adds one to ``apply_rope.fwd_launches`` (the staged
+mode's too: one a layer a pass), each backward launch to
+``apply_rope.bwd_launches``, and each staged launch to
+``apply_rope.stage_launches``.
 """
 
 from __future__ import annotations
@@ -93,11 +103,30 @@ def bind(lib: ctypes.CDLL):
     return fn
 
 
+def bind_stage(lib: ctypes.CDLL):
+    """K7's staged-decode C entry point with its ctypes signature."""
+    fn = lib.kftpu_rope_stage
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     from kubeflow_tpu_torch.ops._build import load_library
 
     return bind(load_library(_SOURCE))
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_fn():
+    from kubeflow_tpu_torch.ops._build import load_library
+
+    return bind_stage(load_library(_SOURCE))
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -331,5 +360,123 @@ def apply_rope(
     return _RoPE.apply(x, None, cos, sin, _positions(x, positions))
 
 
+def rope_stage_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor,
+    sin: torch.Tensor, positions: torch.Tensor, stage_key: torch.Tensor,
+    stage_value: torch.Tensor, stage_step: int,
+) -> torch.Tensor:
+    """The staged decode step's RoPE in plain PyTorch: q [B, 1, H, D]
+    rotated (returned), k [B, 1, Hkv, D] rotated into column
+    ``stage_step`` of ``stage_key`` [B, C, Hkv, D] and v copied into that
+    column of ``stage_value``, both in place and in their dtype."""
+    q = rope_reference(q, cos, sin, positions=positions)
+    k = rope_reference(k, cos, sin, positions=positions)
+    stage_key[:, stage_step:stage_step + 1] = k.to(stage_key.dtype)
+    stage_value[:, stage_step:stage_step + 1] = v.to(stage_value.dtype)
+    return q
+
+
+def _check_stage(name: str, t: torch.Tensor, q: torch.Tensor, k) -> None:
+    """A staging tensor [B, C, Hkv, D] as the kernel writes it."""
+    B, D, Hkv = q.shape[0], q.shape[-1], k.shape[2] * k.shape[3]
+    if t.dim() != 4 or t.shape[0] != B or t.shape[2:] != (Hkv, D):
+        raise ValueError(f"{name} {tuple(t.shape)} is not [{B}, C, {Hkv}, "
+                         f"{D}]")
+    _check_view(name, t, q)
+
+
+def _stage_launch(q, k, v, cos, sin, positions, stage_key, stage_value,
+                  stage_step: int) -> torch.Tensor:
+    """The staged mode on the card: q, k, v as [B, 1, H / G, G, D] views
+    (:func:`_grouped`); returns q' [B, 1, H, D], contiguous."""
+    _check(q, k, cos, sin, positions)
+    _check_view("v", v, q)
+    if v.dim() != 5 or v.shape[:2] != k.shape[:2] \
+            or v.shape[2] * v.shape[3] != k.shape[2] * k.shape[3] \
+            or v.shape[-1] != q.shape[-1]:
+        raise ValueError(f"v {tuple(v.shape)} does not match k "
+                         f"{tuple(k.shape)}")
+    for name, t in (("stage_key", stage_key), ("stage_value", stage_value)):
+        _check_stage(name, t, q, k)
+    B, D = q.shape[0], q.shape[-1]
+    Hq, Hkv = q.shape[2] * q.shape[3], k.shape[2] * k.shape[3]
+    qo = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
+    strides = [st for t in (q, k, v) for st in (t.stride(0), *t.stride()[2:4])]
+    stage_strides = [*stage_key.stride()[:3], *stage_value.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _stage_fn()(
+            _DTYPES[q.dtype], int(positions.dtype == torch.int64),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qo.data_ptr(),
+            stage_key.data_ptr(), stage_value.data_ptr(), B, Hq, Hkv, D,
+            (ctypes.c_longlong * 9)(*strides), q.shape[3], k.shape[3],
+            v.shape[3], (ctypes.c_longlong * 6)(*stage_strides),
+            stage_key.shape[1], stage_step, positions.data_ptr(),
+            positions.stride(0), cos.data_ptr(), sin.data_ptr(),
+            cos.shape[0], stream)
+    if rc != 0:
+        raise RuntimeError(f"rope_stage launch failed: CUDA error {rc} "
+                           f"(q {tuple(q.shape)} {q.dtype})")
+    apply_rope.fwd_launches += 1
+    apply_rope.stage_launches += 1
+    return qo
+
+
+def _stage_step(stage_key: torch.Tensor, stage_step: int) -> int:
+    C = stage_key.shape[1]
+    if isinstance(stage_step, bool) or not isinstance(stage_step, int) \
+            or not 0 <= stage_step < C:
+        raise ValueError(f"stage_step {stage_step!r} is not a column of the "
+                         f"{C} staging rows")
+    return stage_step
+
+
+def rope_stage(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cos: torch.Tensor,
+    sin: torch.Tensor, positions: torch.Tensor, stage_key: torch.Tensor,
+    stage_value: torch.Tensor, stage_step: int,
+) -> torch.Tensor:
+    """A staged decode step's RoPE and staging writes: q [B, 1, H, D]
+    rotated by positions [B, 1] (returned, contiguous), k [B, 1, Hkv, D]
+    rotated into column ``stage_step`` (a host int) of ``stage_key`` [B,
+    C, Hkv, D] and v copied into that column of ``stage_value``, in place;
+    one kernel launch on the card, :func:`rope_stage_reference` on the
+    CPU."""
+    stage_step = _stage_step(stage_key, stage_step)
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"rope_stage takes one token a row, q [B, 1, H, D]; "
+                         f"got {tuple(q.shape)}")
+    if not _on_card(q):
+        return rope_stage_reference(q, k, v, cos, sin, positions, stage_key,
+                                    stage_value, stage_step)
+    return _stage_launch(_grouped(q), _grouped(k), _grouped(v), cos, sin,
+                         positions, stage_key, stage_value, stage_step)
+
+
+def rope_stage_fused(
+    qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+    positions: torch.Tensor, stage_key: torch.Tensor,
+    stage_value: torch.Tensor, stage_step: int,
+) -> torch.Tensor:
+    """:func:`rope_stage` of the fused projection qkv [B, 1, Hkv, G + 2, D]
+    (q slots 0..G-1, k slot G, v slot G + 1), read in place on the card;
+    returns q' [B, 1, Hkv * G, D]."""
+    stage_step = _stage_step(stage_key, stage_step)
+    if qkv.dim() != 5 or qkv.shape[1] != 1 or qkv.shape[3] < 3:
+        raise ValueError(f"rope_stage_fused takes [B, 1, Hkv, G + 2, D], got "
+                         f"{tuple(qkv.shape)}")
+    qs, ks = _fused_slots(qkv)
+    vs = qkv[..., -1:, :]
+    if not _on_card(qkv):
+        B, _, Hkv, G2, D = qkv.shape
+        return rope_stage_reference(
+            qs.reshape(B, 1, Hkv * (G2 - 2), D), ks[..., 0, :],
+            vs[..., 0, :], cos, sin, positions, stage_key, stage_value,
+            stage_step)
+    return _stage_launch(qs, ks, vs, cos, sin, positions, stage_key,
+                         stage_value, stage_step)
+
+
 apply_rope.fwd_launches = 0
 apply_rope.bwd_launches = 0
+apply_rope.stage_launches = 0

@@ -207,15 +207,17 @@ class _Slot:
 
 
 #: The Python launch counters of the kernels a captured step holds
-#: (K1's forward, K3, K4, and the forwards of K6, K7, K9 and K10, with
-#: those of K6 and K10 through their rows kernels): a replay launches
-#: without running Python, so each graph counts its captured launches once
-#: and adds them per replay.
+#: (K1's forward, K3, K4 and its SwiGLU epilogue, and the forwards of K6,
+#: K7 and its staged mode, K9 and K10, with those of K6 and K10 through
+#: their rows kernels): a replay launches without running Python, so each
+#: graph counts its captured launches once and adds them per replay.
 _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
                     (decode_attention, "launches"),
                     (int8_linear, "launches"),
+                    (int8_linear, "swiglu_launches"),
                     (rms_norm, "fwd_launches"),
                     (apply_rope, "fwd_launches"),
+                    (apply_rope, "stage_launches"),
                     (swiglu, "fwd_launches"),
                     (add_rms_norm, "fwd_launches"),
                     (rms_norm, "rows_launches"),

@@ -35,7 +35,11 @@ ulp of max(|plain|, 2^-8 x max |plain|) of it in f32 (the means and block
 RMS are summed in another order; given the same sums the two agree
 bitwise), two calls bitwise equal, the norm it computes within 1e-6
 relative of K5's. K6 and K10's rows forward (the serving decode's rows)
-as their present forward: the sum bitwise, y within one bf16 ulp.
+as their present forward: the sum bitwise, y within one bf16 ulp. K7's
+staged-decode mode bitwise its plain version (q, and the staging tensors
+whole); K4's SwiGLU epilogue bitwise K4's grouped gate/up launch followed
+by K9 at the same K split, and within K4's tolerance of its plain
+composition.
 """
 
 import pytest
@@ -2000,3 +2004,256 @@ def test_every_remat_policy_gives_full_step_one(fused):
         assert torch.equal(loss, want_loss), policy
         for a, b in zip(grads, want_grads):
             assert torch.equal(a, b), policy
+
+
+# K7's staged decode mode: q rotated, k rotated into staging column
+# stage_step and v copied into it, in one launch; bitwise its plain
+# version, the staging tensors checked whole (only that column changes).
+def _rope_stage_case(b, hkv, g, dtype, pdt, seed, fused, C=8):
+    from kubeflow_tpu_torch.ops.rope import rope_frequencies
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, 1, hkv, g + 2, 128, generator=gen,
+                      device="cuda").to(dtype)
+    pos = torch.randint(0, 2048 + 40, (b, 1), generator=gen,
+                        device="cuda").to(pdt)
+    stage = [torch.randn(b, C, hkv, 128, generator=gen,
+                         device="cuda").to(dtype) for _ in range(2)]
+    cos, sin = rope_frequencies(128, 2048, theta=500000.0, device="cuda")
+    if fused:
+        return (qkv,), pos, stage, cos, sin
+    q = qkv[..., :g, :].reshape(b, 1, hkv * g, 128).contiguous()
+    return ((q, qkv[..., g, :].contiguous(), qkv[..., g + 1, :].contiguous()),
+            pos, stage, cos, sin)
+
+
+def _rope_stage_plain(args, pos, stage, cos, sin, step):
+    from kubeflow_tpu_torch.ops.rope import rope_stage_reference
+
+    sk, sv = (t.clone() for t in stage)
+    if len(args) == 1:
+        (qkv,) = args
+        b, _, hkv, g2, d = qkv.shape
+        args = (qkv[..., :g2 - 2, :].reshape(b, 1, -1, d), qkv[..., -2, :],
+                qkv[..., -1, :])
+    q = rope_stage_reference(*args, cos, sin, pos, sk, sv, step)
+    return q, sk, sv
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype,pdt", [(torch.bfloat16, torch.int32),
+                                       (torch.bfloat16, torch.int64),
+                                       (torch.float32, torch.int64)])
+@pytest.mark.parametrize("b,step", [(8, 0), (8, 5), (48, 7), (1, 3)])
+def test_rope_stage_matches_plain_bitwise(b, step, dtype, pdt, fused):
+    from kubeflow_tpu_torch.ops.rope import (
+        apply_rope,
+        rope_stage,
+        rope_stage_fused,
+    )
+
+    args, pos, stage, cos, sin = _rope_stage_case(b, 8, 4, dtype, pdt, 50,
+                                                  fused)
+    want_q, want_k, want_v = _rope_stage_plain(args, pos, stage, cos, sin,
+                                               step)
+    sk, sv = (t.clone() for t in stage)
+    before = apply_rope.fwd_launches, apply_rope.stage_launches
+    with torch.no_grad():
+        q = (rope_stage_fused if fused else rope_stage)(
+            *args, cos, sin, pos, sk, sv, step)
+    assert (apply_rope.fwd_launches, apply_rope.stage_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert q.shape == (b, 1, 32, 128) and q.is_contiguous()
+    assert torch.equal(q, want_q)
+    assert torch.equal(sk, want_k) and torch.equal(sv, want_v)
+    others = [c for c in range(sk.shape[1]) if c != step]
+    assert torch.equal(sk[:, others], stage[0][:, others])
+    assert torch.equal(sv[:, others], stage[1][:, others])
+
+
+def test_rope_stage_graph_replay_and_deterministic():
+    from kubeflow_tpu_torch.ops.rope import rope_stage_fused
+
+    (qkv,), pos, stage, cos, sin = _rope_stage_case(
+        8, 8, 4, torch.bfloat16, torch.int32, 51, True)
+    with torch.no_grad():
+        a = rope_stage_fused(qkv, cos, sin, pos, *stage, 2)
+        b = rope_stage_fused(qkv, cos, sin, pos, *stage, 2)
+        assert torch.equal(a, b)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            rope_stage_fused(qkv, cos, sin, pos, *stage, 4)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = rope_stage_fused(qkv, cos, sin, pos, *stage, 4)
+        qkv.copy_(torch.randn_like(qkv.float()).bfloat16())
+        pos.add_(1)
+        graph.replay()
+        want = _rope_stage_plain((qkv,), pos, stage, cos, sin, 4)
+        assert torch.equal(out, want[0])
+        assert torch.equal(stage[0], want[1])
+        assert torch.equal(stage[1], want[2])
+
+
+def test_rope_stage_refusals():
+    from kubeflow_tpu_torch.ops.rope import (
+        apply_rope,
+        rope_stage,
+        rope_stage_fused,
+    )
+
+    (q, k, v), pos, stage, cos, sin = _rope_stage_case(
+        8, 8, 4, torch.bfloat16, torch.int64, 52, False)
+    before = apply_rope.fwd_launches, apply_rope.stage_launches
+    with torch.no_grad():
+        for bad in (8, -1, True, 2.0):
+            with pytest.raises(ValueError, match="stage_step"):
+                rope_stage(q, k, v, cos, sin, pos, *stage, bad)
+        # A view whose rows start off the 16-byte grid.
+        buf = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+        shifted = buf[1:].view(q.shape).copy_(q)
+        with pytest.raises(ValueError, match="16-byte"):
+            rope_stage(shifted, k, v, cos, sin, pos, *stage, 0)
+        buf = torch.empty(stage[0].numel() + 1, dtype=q.dtype,
+                          device="cuda")
+        with pytest.raises(ValueError, match="16-byte"):
+            rope_stage(q, k, v, cos, sin, pos,
+                       buf[1:].view(stage[0].shape), stage[1], 0)
+        with pytest.raises(ValueError, match="one token"):
+            rope_stage(q.expand(8, 2, 32, 128), k, v, cos, sin, pos,
+                       *stage, 0)
+        with pytest.raises(ValueError, match="stage_value"):
+            rope_stage(q, k, v, cos, sin, pos, stage[0], stage[1][:, :, :4],
+                       0)
+        with pytest.raises(ValueError, match="does not match"):
+            rope_stage(q, k, v.float(), cos, sin, pos, *stage, 0)
+        qkv = torch.zeros(8, 1, 8, 6, 128, dtype=torch.bfloat16,
+                          device="cuda")
+        with pytest.raises(ValueError, match="stage_step"):
+            rope_stage_fused(qkv, cos, sin, pos, *stage, 9)
+    assert (apply_rope.fwd_launches, apply_rope.stage_launches) == before
+
+
+# K4 with the SwiGLU epilogue: bitwise K4's grouped launch of gate and up
+# at the same split followed by K9, gate and up apart or the halves of one
+# fused [2F, K] weight; within K4's tolerance of the plain composition.
+def _epilogue_operands(m, F, k, seed, fused):
+    from kubeflow_tpu_torch.serving.engine import _quantize_leaf
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(2 * F, k, generator=gen, device="cuda") * 0.02
+    x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    if fused:
+        q, scale = _quantize_leaf(w, 1)
+        return x, (q[:F], scale[:F]), (q[F:], scale[F:])
+    return (x, _quantize_leaf(w[:F].contiguous(), 1),
+            _quantize_leaf(w[F:].contiguous(), 1))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", [1, 8, 9, 16])
+def test_int8_swiglu_epilogue_bitwise_k4_then_k9(m, splits, fused):
+    from kubeflow_tpu_torch.ops import int8_linear as il
+    from kubeflow_tpu_torch.ops import swiglu as sw
+
+    x, gate, up = _epilogue_operands(m, 1040, 4096, 60 + m, fused)
+    with torch.no_grad():
+        h = il._swiglu_kernel(x, gate, up, None, splits=splits)
+        g, u = il._group_kernel(x, [gate, up], None, splits=splits)
+        want = sw._fwd_kernel(g, u)
+        assert torch.equal(h, want)
+        assert torch.equal(h, il._swiglu_kernel(x, gate, up, None,
+                                                splits=splits))
+    _check_int8(h, il.int8_linear_swiglu_reference(x, gate, up))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_int8_swiglu_epilogue_at_the_decode_shape(fused):
+    """llama3-8b's gate/up at M = 8 through the public entry (the
+    kernel's own split), one launch counted as K4 and as the epilogue."""
+    from kubeflow_tpu_torch.ops import int8_linear as il
+    from kubeflow_tpu_torch.ops import swiglu as sw
+
+    x, gate, up = _epilogue_operands(8, 14336, 4096, 61, fused)
+    before = (il.int8_linear.launches, il.int8_linear.swiglu_launches,
+              sw.swiglu.fwd_launches)
+    with torch.no_grad():
+        h = il.int8_linear_swiglu(x.view(8, 1, 4096), gate, up)
+    assert (il.int8_linear.launches, il.int8_linear.swiglu_launches,
+            sw.swiglu.fwd_launches) == (before[0] + 1, before[1] + 1,
+                                        before[2])
+    assert h.shape == (8, 1, 14336)
+    with torch.no_grad():
+        g, u = il.int8_linear_group(x, [gate, up])
+        assert torch.equal(h.view(8, 14336), sw._fwd_kernel(g, u))
+    _check_int8(h.view(8, 14336),
+                il.int8_linear_swiglu_reference(x, gate, up))
+
+
+def test_int8_swiglu_epilogue_graph_replay_and_refusals():
+    from kubeflow_tpu_torch.ops import int8_linear as il
+
+    x, gate, up = _epilogue_operands(8, 1024, 1024, 62, False)
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            il.int8_linear_swiglu(x, gate, up)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = il.int8_linear_swiglu(x, gate, up)
+        x.copy_(torch.randn_like(x.float()).bfloat16())
+        graph.replay()
+        assert torch.equal(out, il.int8_linear_swiglu(x, gate, up))
+        before = il.int8_linear.launches, il.int8_linear.swiglu_launches
+        x17, _, _ = _epilogue_operands(17, 1024, 1024, 62, False)
+        with pytest.raises(ValueError, match="at most 16 rows"):
+            il.int8_linear_swiglu(x17, gate, up)
+        _, cols = _int8_group_operands(8, 128)
+        with pytest.raises(ValueError, match="per-row scales"):
+            il.int8_linear_swiglu(x, gate, (up[0], cols[0][1][:1024]))
+        with pytest.raises(ValueError, match="one shape"):
+            il.int8_linear_swiglu(x, gate, (up[0][:512], up[1][:512]))
+        with pytest.raises(ValueError, match="bf16 x"):
+            il.int8_linear_swiglu(x.float(), gate, up)
+        assert (il.int8_linear.launches,
+                il.int8_linear.swiglu_launches) == before
+
+
+def test_mlp_decode_rows_take_the_swiglu_epilogue(monkeypatch):
+    """An int8-weight Mlp at a decode step's rows (8) makes one K4 launch
+    with the epilogue and no K9; at 48 rows, or with K4's products
+    followed by K9 forced, the same function through K9: bitwise."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops import int8_linear as il
+    from kubeflow_tpu_torch.ops import swiglu as sw
+    from kubeflow_tpu_torch.serving.engine import _quantize_int8
+
+    for fused in (False, True):
+        cfg = llama.LlamaConfig.tiny(embed_dim=256, mlp_dim=1024,
+                                     dtype=torch.bfloat16,
+                                     param_dtype=torch.bfloat16,
+                                     fused_gate_up=fused)
+        with torch.device("cuda"):
+            model = llama.Llama(cfg)
+        model.init_weights(torch.Generator(device="cuda").manual_seed(63))
+        _quantize_int8(model, min_size=64)
+        mlp = model.layers[0].mlp
+        for rows, epilogue in ((8, True), (48, False)):
+            x = torch.randn(rows, 1, 256, device="cuda").bfloat16()
+            before = (il.int8_linear.launches,
+                      il.int8_linear.swiglu_launches, sw.swiglu.fwd_launches)
+            with torch.no_grad():
+                got = mlp(x)
+            assert (il.int8_linear.launches - before[0],
+                    il.int8_linear.swiglu_launches - before[1],
+                    sw.swiglu.fwd_launches - before[2]) == (
+                2, int(epilogue), int(not epilogue))
+            with monkeypatch.context() as mp:
+                mp.setattr(mlp, "epilogue_weights", lambda x: None)
+                with torch.no_grad():
+                    assert torch.equal(mlp(x), got)
