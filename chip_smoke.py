@@ -7,8 +7,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build — compiles the flash-attention kernels (K1, K2), the decode
    attention (K3), the int8-weight product (K4), the optimizer (K5),
    RMSNorm and the residual add + RMSNorm (K6, K10: one source), RoPE
-   (K7), the cross-entropy (K8), SwiGLU (K9) and the adafactor update
-   (K11) from kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one nvcc per
+   (K7), the cross-entropy (K8), SwiGLU (K9), the adafactor update
+   (K11) and the MoE routing, gather and combine (K12-K14: one source)
+   from kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one nvcc per
    source, and the native token loader (kubeflow_tpu_torch/train/csrc,
    g++, into kubeflow_tpu_torch/_build/native), all started together, and
    prints the seconds and each register/spill report; then checks the
@@ -20,7 +21,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    epilogue's two) mma.sync and cp.async (LDGSTS),
    every one of its 6 prefill ones (64, 128 or 256 tokens a tile; per-row
    or per-column scales) wgmma and TMA loads, and ptxas reports no spills
-   in any of the nine libraries;
+   in any of the eleven libraries;
 3. kernel (K1, forward) — holds the kernel against its plain PyTorch
    version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
    Sq=Skv 32, 128 and 512; one full-attention case; one D=64 case; one
@@ -149,6 +150,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    (eager; a yardstick the port never calls, and not the same function:
    its own eps, clip and relative step), beside the byte bound (g read, p
    read and written once: 6 bytes a parameter);
+7c. kernel (K12-K14, the MoE dispatch) — the routing, the row gather
+   into the expert buffers and the weighted combine against their plain
+   versions (ops/moe.py) at mixtral-8x7b's decode step (8 rows, 8
+   experts, capacity 4, width 4096, bf16) and a prefill group (4096 rows,
+   capacity 1280), logits with a hot expert so that capacity drops
+   choices: K12's integer outputs equal and its weights and aux bitwise,
+   K13 and K14 bitwise, two calls bitwise equal; each timed (CUDA-graph
+   replays, cold over sets past twice the L2 where a call is smaller)
+   beside its plain version and its byte bound; no library call;
 8. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card; staged decode and
    CUDA graphs, as the server runs by default) and sends 9 concurrent
@@ -226,6 +236,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    argmax within the bf16 noise), K1, K3, K4 (129 a pass: one product
    each for q/k/v and gate/up), K6, K7, K9 and K10 launches checked; a
    profiled decode chunk and decode ms a step for each;
+10b. serve mixtral — mixtral-8x7b at full published width (4096, 32/8
+   heads of 128, 8 experts of 14336, vocab 32000, rope_theta 1e6) cut to
+   16 of its 32 layers (its bf16 weights, 46.97 GB, fit the card; 32
+   layers would not), random bf16 weights made on the card from seed 0,
+   through the engine (8 slots, max_len 1024, chunk 8, staged decode,
+   CUDA graphs, bf16 KV cache), warmed with a 700-token length: a greedy
+   burst of 9 requests (20-700 tokens, one through the chunked extend),
+   32 new tokens each. Checks the token counts, K1, K3, K6, K7, K9 and
+   K10 as the Llama bursts and K12-K14 once a layer a decode step,
+   prefill group and extend chunk (graph replays counted); replays one
+   served decode step eagerly from a copy of its inputs, cache and
+   staging rows: each layer's MoE output bitwise with K12-K14 swapped for
+   their plain versions on the same layer input, the swapped replay's
+   greedy tokens equal to the served ones; prints decode ms a step
+   beside the byte bound of its weights (13.94 ms), tok/s, peak memory,
+   weight bytes, a profiled decode chunk (K12-K14 by kernel name, once a
+   layer a step) and the phase's seconds;
 11. train — runs the training runner in-process (the KFTPU_* env) on the
    ~700M-parameter Llama of ``bench.py train`` at full width and depth
    (vocab 32000, embed 2048, 12 layers, 16/8 heads, head_dim 128, MLP
@@ -290,8 +317,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    profiled decode chunk; K9 and K10 likewise (K9's launches in the
    int8-weight and paged bursts), K9's fused layout under
    <case>_fused_; K11 over the 700M model's tensors with its launches
-   over the adafactor run and its ms in that run's profiled step), then
-   the result line.
+   over the adafactor run and its ms in that run's profiled step; K12,
+   K13 and K14 at the decode step's shape with the prefill group's under
+   prefill_, their launches over the mixtral burst and their kernels and
+   ms in its profiled chunk), then the result line.
 """
 
 from __future__ import annotations
@@ -1753,6 +1782,105 @@ def adafactor_phase():
     return row
 
 
+# Mixtral-8x7B's MoE layer: 8 experts of width 4096, bf16 activations, at
+# the served decode step (8 rows, capacity 4) and at a prefill group of
+# 8 x 512 tokens (capacity 1280; group_size 8192 keeps it one group).
+MOE_E, MOE_M = 8, 4096
+MOE_CASES = (("decode", 8), ("prefill", 4096))
+
+
+def moe_phase():
+    """K12-K14 against their plain versions (ops/moe.py) at MOE_CASES'
+    shapes, bf16 router logits N(0, 1) with expert 1 raised by 3 so that
+    capacity drops choices: K12's integer outputs equal and its weights,
+    slot flags and aux loss bitwise, K13 and K14 bitwise, each twice
+    bitwise equal. Times each (CUDA-graph replays; cold over sets past
+    twice the L2 where a call is smaller) and its plain version beside
+    its byte bound (K12: logits read, maps written; K13: x read once,
+    the buffers written; K14: the kept choices' rows of y read, the
+    tokens written); no library call computes any of them."""
+    from kubeflow_tpu_torch.ops import moe
+    from kubeflow_tpu_torch.parallel.moe import Top2GateConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cfg = Top2GateConfig(num_experts=MOE_E)
+    rows = {"K12": {}, "K13": {}, "K14": {}}
+    for case, T in MOE_CASES:
+        C = cfg.capacity(T)
+        S = MOE_E * C
+        big = T > 8
+        # bf16, as the router's product reaches K12 on the served path.
+        logits = torch.randn(T, MOE_E, generator=gen, device="cuda")
+        logits[:, 1] += 3.0
+        logits = logits.bfloat16()
+        r = moe.route(logits, 1, C, torch.bfloat16)
+        _bitwise(f"K12 {case}", zip(r, moe.route_reference(
+            logits, 1, C, torch.bfloat16)))
+        _bitwise(f"K12 {case} twice", zip(r, moe.route(
+            logits, 1, C, torch.bfloat16)))
+        kept = int((r.dest1 < S).sum() + (r.dest2 < S).sum())
+        if kept >= 2 * T:
+            raise AssertionError(f"K12 {case}: no choice dropped")
+        route_bytes = T * MOE_E * 2 + 16 * T + 6 * S + 4
+        row = dict(max_abs_err=0.0, library_ms=None, bound_by="bytes",
+                   bound_ms=bytes_ms(route_bytes), kept=kept, slots=S)
+        row["ms"] = device_ms(lambda: moe.route(logits, 1, C,
+                                                torch.bfloat16))
+        row["plain_ms"] = device_ms(
+            lambda: moe.route_reference(logits, 1, C, torch.bfloat16),
+            calls=2, replays=3)
+        rows["K12"][case] = row
+
+        gather_bytes = T * MOE_M * 2 + 6 * S + S * MOE_M * 2
+        n = sets_for(gather_bytes)
+        xs = [torch.randn(T, MOE_M, generator=gen, device="cuda").bfloat16()
+              for _ in range(n)]
+        ein = moe.gather_rows(xs[0], r.slot_tok, r.slot_valid)
+        _bitwise(f"K13 {case}", [
+            (ein, moe.gather_rows_reference(xs[0], r.slot_tok,
+                                            r.slot_valid)),
+            (ein, moe.gather_rows(xs[0], r.slot_tok, r.slot_valid))])
+        row = dict(max_abs_err=0.0, library_ms=None, bound_by="bytes",
+                   bound_ms=bytes_ms(gather_bytes))
+        row["ms"] = timed(lambda i: moe.gather_rows(xs[i], r.slot_tok,
+                                                    r.slot_valid),
+                          gather_bytes, big)
+        row["plain_ms"] = device_ms(
+            lambda: moe.gather_rows_reference(xs[0], r.slot_tok,
+                                              r.slot_valid),
+            calls=2, replays=3)
+        rows["K13"][case] = row
+
+        combine_bytes = kept * MOE_M * 2 + 16 * T + T * MOE_M * 2
+        n = sets_for(S * MOE_M * 2)
+        ys = [torch.randn(S, MOE_M, generator=gen, device="cuda").bfloat16()
+              for _ in range(n)]
+        out = moe.combine_rows(ys[0], r.g1, r.g2, r.dest1, r.dest2)
+        _bitwise(f"K14 {case}", [
+            (out, moe.combine_rows_reference(ys[0], r.g1, r.g2, r.dest1,
+                                             r.dest2)),
+            (out, moe.combine_rows(ys[0], r.g1, r.g2, r.dest1, r.dest2))])
+        row = dict(max_abs_err=0.0, library_ms=None, bound_by="bytes",
+                   bound_ms=bytes_ms(combine_bytes))
+        row["ms"] = timed(lambda i: moe.combine_rows(ys[i], r.g1, r.g2,
+                                                     r.dest1, r.dest2),
+                          S * MOE_M * 2, big)
+        row["plain_ms"] = device_ms(
+            lambda: moe.combine_rows_reference(ys[0], r.g1, r.g2, r.dest1,
+                                               r.dest2),
+            calls=2, replays=3)
+        rows["K14"][case] = row
+        for tag in ("K12", "K13", "K14"):
+            x = rows[tag][case]
+            log(f"{tag} {case} (T={T}, E={MOE_E}, C={C}, M={MOE_M}, "
+                f"{kept} of {2 * T} choices kept): bitwise, kernel "
+                f"{x['ms']:.5f} ms, plain {x['plain_ms']:.5f}, bound "
+                f"{x['bound_ms']:.6f} (bytes); library n/a (no single call)")
+        del xs, ys, ein, out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _bitwise(name: str, pairs) -> None:
     for a, b in pairs:
         if not torch.equal(a, b):
@@ -2793,11 +2921,12 @@ def kernels_per_call(tag: str, kernels: int, calls: int) -> None:
                              f"profiled chunk, want {calls} (one a call)")
 
 
-def decode_breakdown(engine, rs):
+def decode_breakdown(engine, rs, named=()):
     """One decode chunk (decode_chunk steps for every slot, all slots
     busy) under torch.profiler: wall time, device busy time (the sum of
     the device kernels' own times) and the device's idle share; then the
-    wall time of three more chunks without the profiler."""
+    wall time of three more chunks without the profiler. ``named``: kernel
+    names whose (kernels, device ms) in the chunk it also returns."""
     from kubeflow_tpu_torch.models.llama import int8_launches_per_pass
 
     V = engine.model.cfg.vocab_size
@@ -2902,7 +3031,13 @@ def decode_breakdown(engine, rs):
                              f"{2 * layers * steps}")
     while engine.active_slots:
         engine.step()
-    return dict(chunk_wall_ms=wall_ms, chunk_busy_ms=busy_ms, idle=idle,
+    stats = {}
+    for name in named:
+        own = [e for e in kernels if name in e.key]
+        stats[name] = (sum(e.count for e in own),
+                       sum(e.device_time_total for e in own) / 1e3)
+    return dict(**({"named": stats} if named else {}),
+                chunk_wall_ms=wall_ms, chunk_busy_ms=busy_ms, idle=idle,
                 step_ms=float(np.median(plain)) / steps,
                 k3_chunk_launches=k3_launches,
                 k4_chunk_launches=k4_launches, k4_chunk_ms=k4_ms,
@@ -3608,6 +3743,199 @@ def serve_fused_phase():
     return out
 
 
+# The serve mixtral phase: mixtral-8x7b at its published width, cut to 16
+# of its 32 layers so that its bf16 weights (46.97 GB) fit one card.
+MIXTRAL_LAYERS = 16
+MOE_COUNTERS = ("K12", "K13", "K14")
+
+
+def moe_counters():
+    from kubeflow_tpu_torch.ops import moe
+
+    return ((moe.route, "launches"), (moe.gather_rows, "launches"),
+            (moe.combine_rows, "launches"))
+
+
+class plain_moe:
+    """Within the block, the MoE layer's dispatch runs K12-K14's plain
+    versions (ops/moe.py) in place of the kernels: the check's swap,
+    never the served path's."""
+
+    def __enter__(self):
+        from kubeflow_tpu_torch.ops import moe
+        from kubeflow_tpu_torch.parallel import moe as dispatch
+
+        self.saved = (dispatch.route, dispatch.gather_rows,
+                      dispatch.combine_rows)
+        dispatch.route, dispatch.gather_rows, dispatch.combine_rows = (
+            moe.route_reference, moe.gather_rows_reference,
+            moe.combine_rows_reference)
+        return self
+
+    def __exit__(self, *exc):
+        from kubeflow_tpu_torch.parallel import moe as dispatch
+
+        dispatch.route, dispatch.gather_rows, dispatch.combine_rows = \
+            self.saved
+
+
+def replay_step(model, snap, plain: bool):
+    """One decode step of the served burst replayed eagerly from ``snap``
+    (the dispatch's tokens, positions and a copy of every cache tensor,
+    staging rows included; a staged step at column 0, as the chunk's
+    first step runs): (greedy tokens [B], [(MoE input, MoE output)] a
+    layer)."""
+    cache = [{k: v.clone() for k, v in layer.items()}
+             for layer in snap["cache"]]
+    records = []
+    hooks = [layer.mlp.register_forward_hook(
+        lambda m, i, o: records.append((i[0].clone(), o.clone())))
+        for layer in model.layers]
+    try:
+        with torch.no_grad():
+            if plain:
+                with plain_moe():
+                    logits, _ = model(snap["tokens"],
+                                      positions=snap["positions"],
+                                      cache=cache, decode=True, stage_step=0)
+            else:
+                logits, _ = model(snap["tokens"], positions=snap["positions"],
+                                  cache=cache, decode=True, stage_step=0)
+    finally:
+        for h in hooks:
+            h.remove()
+    return torch.argmax(logits[:, 0].float(), dim=-1), records
+
+
+def serve_mixtral_phase():
+    """mixtral-8x7b at full published width cut to MIXTRAL_LAYERS layers
+    (4096 wide, 32/8 heads of 128, 8 experts of 14336, vocab 32000,
+    rope_theta 1e6), random bf16 weights made on the card from seed 0,
+    served through the engine as the JAX server builds it (8 slots,
+    max_len 1024, chunk 8, staged decode, CUDA graphs, bf16 KV cache),
+    warmed with a 700-token length: a greedy burst of 9 requests (20-700
+    tokens, the 700-token one through the chunked extend) of 32 new
+    tokens. Checks the token counts; K1, K3, K6, K7, K9 and K10 as the
+    Llama bursts (``engine_burst``) and K12, K13 and K14 once a layer a
+    forward pass (decode step, prefill group, extend chunk; graph replays
+    counted). Then one decode dispatch of the burst (its first step,
+    whose inputs, cache and staging rows were copied before it was
+    queued) is replayed eagerly with the kernels and with K12-K14 swapped
+    for their plain versions: each layer's MoE output, on the kernels'
+    layer input, bitwise the kernels', and the replay's greedy tokens
+    equal to the served ones. Prints decode ms a step beside its byte
+    bound (every weight but the embedding read once: 13.94 ms at 3.35
+    TB/s), tok/s, peak memory, weight bytes and the phase's seconds; a
+    profiled decode chunk with K12-K14's kernels by name."""
+    from kubeflow_tpu_torch.models.mixtral import Mixtral, MixtralConfig
+    from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
+    from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
+
+    t_phase = time.time()
+    cfg = MixtralConfig.mixtral_8x7b(num_layers=MIXTRAL_LAYERS,
+                                     param_dtype="bfloat16",
+                                     decode_staging=8)
+    with torch.device("cuda"):
+        model = Mixtral(cfg)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    step_bytes = weight_bytes - model.embed.numel() * model.embed.element_size()
+    engine = ServingEngine(model, ServingConfig(
+        max_batch=8, max_len=1024, decode_chunk=8, param_dtype="bfloat16"),
+        device="cuda", registry=MetricsRegistry())
+    t0 = time.time()
+    engine.warmup(700)
+    log(f"serve mixtral: mixtral-8x7b, {MIXTRAL_LAYERS} layers, weights "
+        f"{weight_bytes / 1e9:.2f} GB; warmup {time.time() - t0:.1f} s")
+
+    snap = {}
+    served = engine._run_decode
+
+    def spy(tokens, positions, samp):
+        # The third decode dispatch of the burst: every slot is busy.
+        snap["calls"] = snap.get("calls", 0) + 1
+        if snap["calls"] != 3:
+            return served(tokens, positions, samp)
+        snap.update(tokens=tokens.clone(),
+                    positions=torch.as_tensor(positions, device="cuda"),
+                    cache=[{k: v.clone() for k, v in layer.items()}
+                           for layer in engine._cache])
+        out = served(tokens, positions, samp)
+        snap["served"] = out[0][:, 0].clone()
+        return out
+
+    rs = np.random.RandomState(0)
+    lengths = (20, 30, 100, 120, 200, 250, 400, 500, 700)
+    prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in lengths]
+    for fn, name in moe_counters():
+        setattr(fn, name, 0)
+    engine._run_decode = spy
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _, tok_s, ttft = engine_burst(engine, prompts, 32, "serve mixtral")
+    finally:
+        del engine._run_decode
+    peak = torch.cuda.max_memory_allocated()
+    passes = (engine.cfg.decode_chunk * engine.decode_dispatches
+              + engine.prefill_dispatches + engine.extend_dispatches)
+    moe_launches = [getattr(fn, name) for fn, name in moe_counters()]
+    if moe_launches != [MIXTRAL_LAYERS * passes] * 3:
+        raise AssertionError(f"serve mixtral: K12/K13/K14 launches "
+                             f"{moe_launches}, want {MIXTRAL_LAYERS} a "
+                             f"layer for each of {passes} forward passes")
+    if "served" not in snap:
+        raise AssertionError("serve mixtral: the burst made fewer than 3 "
+                             "decode dispatches")
+
+    # The replay: the kernels eagerly, then K12-K14's plain versions on
+    # each layer's input (bitwise) and through the whole step (tokens).
+    kernel_tokens, kernel_moe = replay_step(model, snap, plain=False)
+    with plain_moe(), torch.no_grad():
+        for i, (layer, (x, y)) in enumerate(zip(model.layers, kernel_moe)):
+            _bitwise(f"serve mixtral: layer {i}'s MoE output",
+                     [(y, layer.mlp(x))])
+    plain_tokens, _ = replay_step(model, snap, plain=True)
+    if not torch.equal(plain_tokens, snap["served"]):
+        raise AssertionError(
+            f"serve mixtral: the plain versions' replay gives "
+            f"{plain_tokens.tolist()}, the served step "
+            f"{snap['served'].tolist()}")
+    log(f"serve mixtral: decode dispatch 3 replayed eagerly: each of "
+        f"{MIXTRAL_LAYERS} layers' MoE output bitwise with K12-K14's plain "
+        f"versions on its input; greedy tokens {plain_tokens.tolist()} equal "
+        f"the served ones (the kernels' eager replay's "
+        + ("equal too)" if torch.equal(kernel_tokens, snap["served"])
+           else f"differ: {kernel_tokens.tolist()})"))
+    del snap, kernel_moe
+
+    names = ("moe_route", "moe_gather", "moe_combine")
+    bd = decode_breakdown(engine, rs, names)
+    kernels_ms = {tag: bd["named"][name]
+                  for tag, name in zip(MOE_COUNTERS, names)}
+    steps = engine.cfg.decode_chunk
+    if bd["chunk_busy_ms"] > 0:
+        for tag, (n, _) in kernels_ms.items():
+            kernels_per_call(tag, n, MIXTRAL_LAYERS * steps)
+    bound = bytes_ms(step_bytes)
+    seconds = time.time() - t_phase
+    log(f"serve mixtral summary: decode {bd['step_ms']:.3f} ms a step "
+        f"against its byte bound {bound:.2f} ms ({step_bytes / 1e9:.2f} GB "
+        f"of weights at 3.35 TB/s); burst {tok_s:.1f} tok/s, p50 TTFT "
+        f"{ttft * 1e3:.1f} ms; peak {peak / 1e9:.2f} GB; weights "
+        f"{weight_bytes / 1e9:.2f} GB; idle share "
+        + ("not measured" if bd["idle"] is None else f"{bd['idle']:.3f}")
+        + "; in one profiled chunk " + ", ".join(
+            f"{tag} {n} kernels {ms:.3f} ms" for tag, (n, ms)
+            in kernels_ms.items())
+        + f"; phase {seconds:.1f} s")
+    del engine, model
+    return dict(step_ms=bd["step_ms"], bound_ms=bound, tok_s=tok_s,
+                ttft_p50=ttft, peak=peak, weight_bytes=weight_bytes,
+                idle=bd["idle"], launches=moe_launches,
+                chunk_kernels=kernels_ms, seconds=seconds)
+
+
 # The loader-fed adafactor phase: the train phase's model through the
 # runner with KFTPU_LOADER=native, a corpus and an eval corpus written here
 # from a seed, and optimizer "adafactor".
@@ -3856,7 +4184,7 @@ def main() -> int:
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                "decode_attention.cu", "int8_linear.cu", "optimizer.cu",
                "rms_norm.cu", "rope.cu", "cross_entropy.cu", "swiglu.cu",
-               "adafactor.cu")
+               "adafactor.cu", "moe.cu")
     # The native loader's library goes beside the kernels (an ignored
     # directory of the checkout), built by g++ alongside them.
     native_cache = os.path.join(_build.BUILD_DIR, "native")
@@ -3893,7 +4221,8 @@ def main() -> int:
     check_build(libs["int8_linear.cu"], {"int8_linear_decode": 6},
                 required=("HMMA", "LDGSTS"))
     check_build(libs["int8_linear.cu"], {"int8_linear_prefill": 6})
-    # K5-K11: element-wise and row kernels (no tensor cores); no spills.
+    # K5-K14: element-wise, row and index kernels (no tensor cores); no
+    # spills.
     for src in sources[4:]:
         check_build(libs[src], {})
     seconds = {"build": time.time() - t0}
@@ -3913,11 +4242,13 @@ def main() -> int:
     k4_rows, k4_err, k4_step = phase("K4", int8_phase)
     fused_rows = phase("K5-K10", fused_phase)
     k11_row = phase("K11", adafactor_phase)
+    moe_rows = phase("K12-K14", moe_phase)
     serve = phase("serve bf16", serve_phase, "", "", True)
     serve_int8 = phase("serve int8 KV", serve_phase, "int8")
     serve_w8 = phase("serve int8 weights", serve_phase, "", "int8")
     serve_paged = phase("serve paged", serve_paged_phase)
     serve_fused = phase("serve fused int8 weights", serve_fused_phase)
+    serve_moe = phase("serve mixtral", serve_mixtral_phase)
     for name, s in (("bf16 KV cache", serve), ("int8 KV cache", serve_int8),
                     ("int8 weights, bf16 KV cache", serve_w8)):
         w = s["warm"]
@@ -3973,6 +4304,12 @@ def main() -> int:
         f"{serve_fused['fused']['tok_s']:.1f} tok/s (unfused "
         f"{serve_fused['unfused']['tok_s']:.1f}); "
         f"{serve_fused['differ']} requests' tokens differ")
+    log(f"serve summary [mixtral-8x7b, {MIXTRAL_LAYERS} layers]: decode "
+        f"{serve_moe['step_ms']:.3f} ms/step (byte bound "
+        f"{serve_moe['bound_ms']:.2f}), burst {serve_moe['tok_s']:.1f} tok/s,"
+        f" peak {serve_moe['peak'] / 1e9:.2f} GB, weights "
+        f"{serve_moe['weight_bytes'] / 1e9:.2f} GB, phase "
+        f"{serve_moe['seconds']:.1f} s")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                       seconds.items())
         + f"; total {time.time() - t_start:.1f}")
@@ -4138,8 +4475,27 @@ def main() -> int:
            "library_ms": k11_row["library_ms"], "step_ms": ada_k[0],
            "step_kernels": ada_k[1]}
     k11.update({key: v for key, v in k11_row.items() if key not in k11})
+    # K12-K14 at the served decode step's shape (8 rows), the prefill
+    # group's (4096) under prefill_; launches over the mixtral burst, and
+    # the kernels and device ms in its profiled decode chunk.
+    moe_entries = []
+    for (tag, name, line), launches in zip(
+            (("K12", "moe_route", 57), ("K13", "moe_gather", 159),
+             ("K14", "moe_combine", 187)), serve_moe["launches"]):
+        row = moe_rows[tag]["decode"]
+        e = {"name": name, "route": "cuda",
+             "source": "kubeflow_tpu_torch/ops/csrc/moe.cu",
+             "replaces": f"kubeflow_tpu/parallel/moe.py:{line}",
+             "launches": launches, "max_abs_err": row["max_abs_err"],
+             "ms": row["ms"], "plain_ms": row["plain_ms"],
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": row["library_ms"]}
+        e.update({f"prefill_{key}": v
+                  for key, v in moe_rows[tag]["prefill"].items()})
+        e["chunk_kernels"], e["chunk_ms"] = serve_moe["chunk_kernels"][tag]
+        moe_entries.append(e)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k7, k8, k9,
-                                  k10, k11]}), flush=True)
+                                  k10, k11, *moe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

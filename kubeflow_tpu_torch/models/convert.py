@@ -15,8 +15,15 @@ gate/up_proj   [E, M]                 [M, E]
 gate_up_proj   [E, 2, M]              [2*M, E]
 down_proj      [M, E]                 [E, M]
 lm_head        [E, V]                 [V, E]
+router         [E, X]                 [X, E]
+w_gate, w_up   [X, E, M]              as they are
+w_down         [X, M, E]              as they are
 embed, norms   as they are            as they are
 =============  =====================  ======================
+
+(X: Mixtral's experts.) A Mixtral layer's expert bank is the JAX
+subtree ``moe`` and the port's module ``mlp`` (``MoeMlp``):
+:func:`mixtral_params_from_jax` and :func:`mixtral_params_to_jax`.
 
 ``qkv_proj`` (``fused_qkv`` with H % Hkv == 0, G = H / Hkv) and
 ``gate_up_proj`` (``fused_gate_up``) take the place of the projections
@@ -61,16 +68,33 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def llama_params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
-    """JAX Llama param tree (scanned or unrolled) -> the port's state_dict
-    (CPU tensors)."""
+_EXPERTS = ("w_gate", "w_up", "w_down")
+
+
+def _mlp_from_jax(mlp, pre: str, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+    E = cfg.embed_dim
+    return {pre + f"mlp.{n}.weight": _tensor(
+        np.asarray(mlp[n]["kernel"]).T if n == "down_proj"
+        else np.asarray(mlp[n]["kernel"]).reshape(E, -1).T)
+        for n in (*mlp_inputs(cfg), "down_proj")}
+
+
+def _moe_from_jax(moe, pre: str, cfg) -> Dict[str, torch.Tensor]:
+    sd = {pre + "mlp.router.weight": _tensor(
+        np.asarray(moe["router"]["kernel"]).T)}
+    sd.update({pre + f"mlp.{n}": _tensor(moe[n]) for n in _EXPERTS})
+    return sd
+
+
+def _from_jax(tree, cfg: LlamaConfig, ffn: str,
+              ffn_from_jax) -> Dict[str, torch.Tensor]:
     p = to_layer_layout(tree["params"] if "params" in tree else tree,
                         cfg.num_layers)
     E = cfg.embed_dim
     sd = {"embed": _tensor(p["embed"])}
     for i in range(cfg.num_layers):
         lp, pre = p[f"layer_{i}"], f"layers.{i}."
-        attn, mlp = lp["attn"], lp["mlp"]
+        attn = lp["attn"]
         sd[pre + "input_norm.weight"] = _tensor(lp["input_norm"]["weight"])
         for n in attn_inputs(cfg):
             kern = np.asarray(attn[n]["kernel"])
@@ -79,21 +103,27 @@ def llama_params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
         sd[pre + "attn.o_proj.weight"] = _tensor(o.reshape(-1, E).T)
         sd[pre + "post_attn_norm.weight"] = _tensor(
             lp["post_attn_norm"]["weight"])
-        for n in (*mlp_inputs(cfg), "down_proj"):
-            kern = np.asarray(mlp[n]["kernel"])
-            sd[pre + f"mlp.{n}.weight"] = _tensor(
-                kern.T if n == "down_proj" else kern.reshape(E, -1).T)
+        sd.update(ffn_from_jax(lp[ffn], pre, cfg))
     sd["final_norm.weight"] = _tensor(p["final_norm"]["weight"])
     if not cfg.tie_embeddings:
         sd["lm_head.weight"] = _tensor(np.asarray(p["lm_head"]["kernel"]).T)
     return sd
 
 
-def llama_params_to_jax(state_dict: Dict[str, torch.Tensor],
-                        cfg: LlamaConfig) -> dict:
-    """The port's state_dict -> ``{"params": ...}`` in the JAX layouts,
-    scanned when ``cfg.scan_layers`` (numpy; bf16 tensors come back as f32,
-    which holds them exactly)."""
+def llama_params_from_jax(tree, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+    """JAX Llama param tree (scanned or unrolled) -> the port's state_dict
+    (CPU tensors)."""
+    return _from_jax(tree, cfg, "mlp", _mlp_from_jax)
+
+
+def mixtral_params_from_jax(tree, cfg) -> Dict[str, torch.Tensor]:
+    """JAX Mixtral param tree (scanned or unrolled) -> the port's
+    state_dict (CPU tensors)."""
+    return _from_jax(tree, cfg, "moe", _moe_from_jax)
+
+
+def _to_jax(state_dict: Dict[str, torch.Tensor], cfg: LlamaConfig,
+            ffn: str, ffn_to_jax) -> dict:
     sd = {k: _array(v) for k, v in state_dict.items()}
     shapes = kernel_shapes(cfg)
 
@@ -108,13 +138,34 @@ def llama_params_to_jax(state_dict: Dict[str, torch.Tensor],
             "input_norm": {"weight": sd[pre + "input_norm.weight"]},
             "attn": kernels(pre + "attn.", (*attn_inputs(cfg), "o_proj")),
             "post_attn_norm": {"weight": sd[pre + "post_attn_norm.weight"]},
-            "mlp": kernels(pre + "mlp.", (*mlp_inputs(cfg), "down_proj")),
+            ffn: ffn_to_jax(sd, pre + "mlp.", kernels),
         }
     p["final_norm"] = {"weight": sd["final_norm.weight"]}
     if not cfg.tie_embeddings:
         p["lm_head"] = {"kernel": np.ascontiguousarray(
             sd["lm_head.weight"].T)}
     return {"params": adapt_layout(p, cfg.num_layers, cfg.scan_layers)}
+
+
+def llama_params_to_jax(state_dict: Dict[str, torch.Tensor],
+                        cfg: LlamaConfig) -> dict:
+    """The port's state_dict -> ``{"params": ...}`` in the JAX layouts,
+    scanned when ``cfg.scan_layers`` (numpy; bf16 tensors come back as f32,
+    which holds them exactly)."""
+    return _to_jax(state_dict, cfg, "mlp", lambda sd, pre, kernels: kernels(
+        pre, (*mlp_inputs(cfg), "down_proj")))
+
+
+def mixtral_params_to_jax(state_dict: Dict[str, torch.Tensor], cfg) -> dict:
+    """The port's Mixtral state_dict -> ``{"params": ...}`` in the JAX
+    layouts (the expert bank under ``moe``), as
+    :func:`llama_params_to_jax` writes them."""
+    def moe(sd, pre, kernels):
+        return {"router": {"kernel": np.ascontiguousarray(
+            sd[pre + "router.weight"].T)},
+            **{n: sd[pre + n] for n in _EXPERTS}}
+
+    return _to_jax(state_dict, cfg, "moe", moe)
 
 
 def _projections(p, cfg: LlamaConfig):

@@ -677,12 +677,15 @@ class Mlp(nn.Module):
 
 
 class DecoderLayer(nn.Module):
+    #: The feed-forward block (Mixtral's layer swaps in its expert bank).
+    MLP_CLS = Mlp
+
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.input_norm = RMSNorm(cfg)
         self.attn = Attention(cfg)
         self.post_attn_norm = RMSNorm(cfg)
-        self.mlp = Mlp(cfg)
+        self.mlp = type(self).MLP_CLS(cfg)
 
     def forward(self, x, positions, cos, sin, *, attn_impl="flash"):
         """The layer on its input x: x + attention + MLP."""
@@ -781,7 +784,15 @@ def _ckpt(fn, *args, **kwargs):
 class Llama(nn.Module):
     """Decoder-only LM. Parameters are created uninitialised in
     ``param_dtype`` on the current default device; :meth:`init_weights`
-    fills them from a generator, or a state dict is loaded."""
+    fills them from a generator, or a state dict is loaded. ``LAYER_CLS``
+    is the layer a subclass swaps (the JAX ``Llama``'s hook; Mixtral).
+    ``TRAINING_UNPORTED`` and ``INT8_UNPORTED`` say why the trainer, or
+    the serving engine's int8 weights, refuse a subclass (None: they take
+    it)."""
+
+    LAYER_CLS = DecoderLayer
+    TRAINING_UNPORTED: Optional[str] = None
+    INT8_UNPORTED: Optional[str] = None
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -789,7 +800,7 @@ class Llama(nn.Module):
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.embed_dim,
                                               dtype=cfg.param_dtype))
-        self.layers = nn.ModuleList(DecoderLayer(cfg)
+        self.layers = nn.ModuleList(type(self).LAYER_CLS(cfg)
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg)
         self.lm_head = (None if cfg.tie_embeddings
@@ -798,9 +809,10 @@ class Llama(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """The JAX initialisers: N(0, 0.02) for projections and the
-        embedding, ones for the norms. In place, in each parameter's own
-        dtype and device (an 8B model initialises on the card in bf16)."""
+        """The JAX initialisers: N(0, 0.02) for projections (experts
+        included) and the embedding, ones for the norms. In place, in each
+        parameter's own dtype and device (an 8B model initialises on the
+        card in bf16)."""
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)

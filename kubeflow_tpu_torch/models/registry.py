@@ -7,11 +7,14 @@ from __future__ import annotations
 from typing import Callable, Dict, Tuple
 
 from kubeflow_tpu_torch.models.llama import Llama, LlamaConfig
+from kubeflow_tpu_torch.models.mixtral import Mixtral, MixtralConfig
 
 _REGISTRY: Dict[str, Tuple[type, Callable[..., object]]] = {
     "llama3-8b": (Llama, LlamaConfig.llama3_8b),
     "llama3-70b": (Llama, LlamaConfig.llama3_70b),
     "llama-tiny": (Llama, LlamaConfig.tiny),
+    "mixtral-8x7b": (Mixtral, MixtralConfig.mixtral_8x7b),
+    "mixtral-tiny": (Mixtral, MixtralConfig.tiny),
 }
 
 

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import hashlib
 import itertools
 import threading
@@ -74,6 +75,7 @@ from kubeflow_tpu_torch.models.llama import (
 from kubeflow_tpu_torch.ops.decode_attention import decode_attention
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.int8_linear import int8_linear
+from kubeflow_tpu_torch.ops.moe import combine_rows, gather_rows, route
 from kubeflow_tpu_torch.ops.norms import add_rms_norm, rms_norm
 from kubeflow_tpu_torch.ops.paged_attention import (
     copy_block,
@@ -209,8 +211,9 @@ class _Slot:
 #: The Python launch counters of the kernels a captured step holds
 #: (K1's forward, K3, K4 and its SwiGLU epilogue, and the forwards of K6,
 #: K7 and its staged mode, K9 and K10, with those of K6 and K10 through
-#: their rows kernels): a replay launches without running Python, so each
-#: graph counts its captured launches once and adds them per replay.
+#: their rows kernels; a MoE model's K12-K14): a replay launches without
+#: running Python, so each graph counts its captured launches once and
+#: adds them per replay.
 _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
                     (decode_attention, "launches"),
                     (int8_linear, "launches"),
@@ -221,7 +224,10 @@ _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
                     (swiglu, "fwd_launches"),
                     (add_rms_norm, "fwd_launches"),
                     (rms_norm, "rows_launches"),
-                    (add_rms_norm, "rows_launches"))
+                    (add_rms_norm, "rows_launches"),
+                    (route, "launches"),
+                    (gather_rows, "launches"),
+                    (combine_rows, "launches"))
 
 
 def _launch_counts() -> List[int]:
@@ -512,6 +518,8 @@ class ServingEngine:
             for p in model.parameters():
                 if p.is_floating_point():
                     p.data = p.data.to(dt)
+        if cfg.quantize and model.INT8_UNPORTED:
+            raise NotImplementedError(model.INT8_UNPORTED)
         # After the cast, as the JAX engine quantizes the cast tree.
         self.quantized = (_quantize_int8(model, cfg.quantize_min_size)
                           if cfg.quantize else [])
@@ -1052,7 +1060,12 @@ class ServingEngine:
 
     def _capture(self, fn, variant: str, inputs) -> _Graph:
         """Capture ``fn`` on static copies of ``inputs``. A failed capture
-        raises: there is no eager fallback on the card."""
+        raises: there is no eager fallback on the card.
+
+        The cyclic garbage collector is off while the capture runs: a pass
+        that frees a dropped engine's CUDA graph destroys it in the middle
+        of the capture, which invalidates the capture (cuBLAS then fails
+        in the next product)."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         static = {name: t.clone() for name, t in inputs.items()}
@@ -1065,10 +1078,16 @@ class ServingEngine:
                     "graph: a sampled graph would replay the same noise")
             register(self._gen)
         before = _launch_counts()
-        with torch.cuda.graph(graph, pool=self._graph_pool,
-                              stream=self._capture_stream,
-                              capture_error_mode="thread_local"):
-            outputs = fn(**static)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  stream=self._capture_stream,
+                                  capture_error_mode="thread_local"):
+                outputs = fn(**static)
+        finally:
+            if collecting:
+                gc.enable()
         captured = [a - b for a, b in zip(_launch_counts(), before)]
         _add_launches([-d for d in captured])    # nothing ran yet
         return _Graph(graph, static, outputs, captured)
@@ -1103,10 +1122,11 @@ class ServingEngine:
     def _prefill_step(self, tok: torch.Tensor, lens: torch.Tensor,
                       slots: torch.Tensor, samp: torch.Tensor, variant: str):
         """Prefill a [k, bucket] padded group against fresh cache rows,
-        install the rows at ``slots`` and sample each row's first token
-        from its last prompt position. Pad tokens past a row's length
-        write junk K/V beyond its ``cache_index``, which stays masked
-        until decode overwrites it. Device inputs only (it is captured)."""
+        install them at ``slots`` (a slot that several rows name keeps the
+        last one's) and sample each row's first token from its last prompt
+        position. Pad tokens past a row's length write junk K/V beyond its
+        ``cache_index``, which stays masked until decode overwrites it.
+        Device inputs only (it is captured)."""
         dev = self.device
         k, S = tok.shape
         rows = self.model.init_cache(k, S, device=dev)
@@ -1117,15 +1137,19 @@ class ServingEngine:
         # prefix — what the JAX engine's whole-row scatter leaves. The
         # previous occupant's rows past cache_index are masked, but a
         # non-finite one would still poison the product (0 * inf = NaN).
-        # k-pad rows repeat row 0 at row 0's slot: duplicate indices
-        # write IDENTICAL rows (same tokens, same positions), so whichever
-        # write lands last leaves the same cache.
+        # k-pad rows repeat row 0 at row 0's slot, and which duplicate
+        # write lands is not defined on the card; the last row, k - 1, is
+        # the last to name its slot (_prefill_group), so writing it again
+        # leaves each slot the rows of its last row, as the reference's
+        # scatter leaves it on the CPU (a Llama's copies are identical; a
+        # MoE layer's are not).
         width = min(S, self.cfg.max_len)
         for layer, new in zip(self._cache, rows):
             for name in _ROW_LEAVES:
                 if name in layer:
                     layer[name].index_fill_(0, slots, 0)
                     layer[name][slots, :width] = new[name][:, :width]
+                    layer[name][slots[-1:], :width] = new[name][-1:, :width]
             layer["cache_index"][slots] = lens.to(torch.int32)
         last_h = hidden[torch.arange(k, device=dev), lens - 1][:, None]
         logits = self.model.head_logits(last_h)[:, 0]
@@ -1164,8 +1188,7 @@ class ServingEngine:
         lengths = np.zeros((k,), np.int64)
         slot_idxs = np.zeros((k,), np.int64)
         samp = np.zeros((k, 3), np.float32)
-        # Paged: pad rows write nothing (from position bucket on).
-        write_from = np.full((k,), bucket, np.int64)
+        write_from = np.zeros((k,), np.int64)
         for row, (i, req) in enumerate(group):
             tokens[row, : len(req.prompt)] = req.prompt
             lengths[row] = len(req.prompt)
@@ -1173,11 +1196,21 @@ class ServingEngine:
             samp[row] = self._samp_row(req)
             if self._paged:
                 write_from[row] = self._prefill_write_from(req)
-        for row in range(len(group), k):          # pad: repeat row 0
+        # Pad: repeat row 0 and its slot, as the JAX engine does. A MoE
+        # layer routes the copies apart from row 0 (capacity goes in row
+        # order), so which row's k/v the slot keeps matters: the last
+        # row's, k - 1, as the reference's scatter leaves it on the CPU.
+        # Dense, _prefill_step writes that row last; paged, it alone
+        # writes the slot's pages, and row 0 and the other pads write the
+        # scratch page (from position bucket on).
+        for row in range(len(group), k):
             tokens[row] = tokens[0]
             lengths[row] = lengths[0]
             slot_idxs[row] = slot_idxs[0]
             samp[row] = samp[0]
+        if k > len(group):
+            write_from[k - 1] = write_from[0]
+            write_from[[0, *range(len(group), k - 1)]] = bucket
         paged = ((self._block_tables[slot_idxs], write_from) if self._paged
                  else ())
         toks, lps = self._run_prefill(tokens, lengths, slot_idxs, samp,

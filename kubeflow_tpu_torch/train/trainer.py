@@ -246,6 +246,8 @@ class Trainer:
             raise NotImplementedError(
                 f"TrainConfig.task={train_cfg.task!r} is not ported yet "
                 "(the image-model slice); the port trains LMs")
+        if getattr(model, "TRAINING_UNPORTED", None):
+            raise NotImplementedError(model.TRAINING_UNPORTED)
         if train_cfg.attn_impl not in _ONE_DEVICE_ATTN:
             raise ValueError(f"unknown attn_impl {train_cfg.attn_impl!r} "
                              f"({' | '.join(_ONE_DEVICE_ATTN)})")

@@ -39,6 +39,11 @@ from kubeflow_tpu_torch.ops import adafactor
 from kubeflow_tpu_torch.train.checkpoint import CheckpointService
 from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 L = 2
 # name: (JAX leaf shape (stacked: one layer's), stacked over L layers,
 # the port keeps [out, in] of a [in, heads, head_dim] kernel).

@@ -34,6 +34,11 @@ from kubeflow_tpu_torch.ops import adafactor
 from kubeflow_tpu_torch.ops.optimizer import global_norm_reference
 from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 # name: JAX leaf shape; "w" factors, "norm" and "bias" do not.
 SHAPES = {"w": (256, 384), "norm": (256,), "bias": (96,)}
 KW = dict(optimizer="adafactor", learning_rate=0.05, warmup_steps=1,

@@ -39,7 +39,10 @@ as their present forward: the sum bitwise, y within one bf16 ulp. K7's
 staged-decode mode bitwise its plain version (q, and the staging tensors
 whole); K4's SwiGLU epilogue bitwise K4's grouped gate/up launch followed
 by K9 at the same K split, and within K4's tolerance of its plain
-composition.
+composition. The MoE dispatch (K12-K14) bitwise its plain versions: the
+routing's integer outputs equal and its weights, slot flags and aux loss
+bitwise, the gather and the combine bitwise; a small Mixtral engine's
+graphs give its eager path's greedy tokens.
 """
 
 import pytest
@@ -2257,3 +2260,167 @@ def test_mlp_decode_rows_take_the_swiglu_epilogue(monkeypatch):
                 mp.setattr(mlp, "epilogue_weights", lambda x: None)
                 with torch.no_grad():
                     assert torch.equal(mlp(x), got)
+
+
+# ------------------------------------------------- the MoE dispatch (K12-K14)
+
+# (T tokens, E experts, G groups, C capacity): mixtral-8x7b's decode step
+# and prefill group, two groups, a group that is not a power of two, and
+# the most experts K12 takes.
+MOE_CASES = [(8, 8, 1, 4), (4096, 8, 1, 1280), (512, 8, 2, 64),
+             (96, 8, 2, 12), (256, 64, 1, 8)]
+
+
+def _moe_logits(T, E, seed, hot=3.0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn(T, E, generator=g, device="cuda")
+    logits[:, 1] += hot                   # a hot expert: capacity drops
+    return logits
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,E,G,C", MOE_CASES)
+def test_moe_route_matches_plain_bitwise(T, E, G, C, dtype):
+    from kubeflow_tpu_torch.ops import moe
+
+    # f32 logits, and the served path's bf16 ones (widened exactly).
+    for logits in (_moe_logits(T, E, T + E),
+                   _moe_logits(T, E, T + E).bfloat16()):
+        before = moe.route.launches
+        got = moe.route(logits, G, C, dtype)
+        assert moe.route.launches == before + 1
+        want = moe.route_reference(logits, G, C, dtype)
+        for name, a, b in zip(moe.Routing._fields, got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+        S = E * G * C
+        assert int((got.dest1 == S).sum()) > 0          # drops happened
+        for a, b in zip(got, moe.route(logits, G, C, dtype)):
+            assert torch.equal(a, b)
+
+
+def test_moe_route_ties_and_a_lone_token_group():
+    from kubeflow_tpu_torch.ops import moe
+
+    logits = torch.round(_moe_logits(64, 8, 5, hot=0.0))   # tied gates
+    for G, C in ((1, 16), (64, 4)):
+        for a, b in zip(moe.route(logits, G, C, torch.bfloat16),
+                        moe.route_reference(logits, G, C, torch.bfloat16)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,E,G,C", MOE_CASES[:3])
+def test_moe_gather_and_combine_match_plain_bitwise(T, E, G, C, dtype):
+    from kubeflow_tpu_torch.ops import moe
+
+    M = 4096 if T <= 512 else 1024
+    r = moe.route(_moe_logits(T, E, 7), G, C, dtype)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(T, M, generator=g, device="cuda").to(dtype)
+    before = moe.gather_rows.launches, moe.combine_rows.launches
+    ein = moe.gather_rows(x, r.slot_tok, r.slot_valid)
+    assert torch.equal(ein, moe.gather_rows_reference(x, r.slot_tok,
+                                                      r.slot_valid))
+    y = torch.randn(E * G * C, M, generator=g, device="cuda").to(dtype)
+    out = moe.combine_rows(y, r.g1, r.g2, r.dest1, r.dest2)
+    assert out.dtype == dtype
+    assert torch.equal(out, moe.combine_rows_reference(y, r.g1, r.g2,
+                                                       r.dest1, r.dest2))
+    assert (moe.gather_rows.launches, moe.combine_rows.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_moe_kernels_replay_in_a_graph_and_refuse():
+    from kubeflow_tpu_torch.ops import moe
+
+    logits = _moe_logits(8, 8, 9)
+    x = torch.randn(8, 4096, device="cuda").bfloat16()
+
+    def dispatch():
+        r = moe.route(logits, 1, 4, torch.bfloat16)
+        y = moe.gather_rows(x, r.slot_tok, r.slot_valid) * 2
+        return moe.combine_rows(y, r.g1, r.g2, r.dest1, r.dest2)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dispatch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dispatch()
+    logits.copy_(_moe_logits(8, 8, 10))
+    x.copy_(torch.randn_like(x.float()).bfloat16())
+    graph.replay()
+    assert torch.equal(out, dispatch())
+    before = (moe.route.launches, moe.gather_rows.launches,
+              moe.combine_rows.launches)
+    with pytest.raises(ValueError, match="E <= 64"):
+        moe.route(torch.zeros(8, 65, device="cuda"), 1, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 logits"):
+        moe.route(logits.half(), 1, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of groups"):
+        moe.route(logits, 3, 4, torch.bfloat16)
+    r = moe.route_reference(logits, 1, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        moe.gather_rows(x[:, :100], r.slot_tok, r.slot_valid)
+    with pytest.raises(ValueError, match="slot_valid"):
+        moe.gather_rows(x, r.slot_tok, r.slot_valid.float())
+    with pytest.raises(NotImplementedError, match="backward"):
+        moe.gather_rows(x.float().requires_grad_(), r.slot_tok,
+                        r.slot_valid.float())
+    assert (moe.route.launches, moe.gather_rows.launches,
+            moe.combine_rows.launches) == before
+
+
+# ENGINE_PROMPTS reordered: the first admission prefills three prompts of
+# one bucket, padded to four rows (k-padding), beside one of the other.
+MOE_PROMPTS = [ENGINE_PROMPTS[i] for i in (0, 2, 4, 1, 3, 5)]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_mixtral_engine_graph_tokens_equal_eager(paged):
+    """A small Mixtral of K1/K3's head_dim on the card, staged, dense or
+    paged, its graphs against its eager path with a k-padded prefill (the
+    pad rows route apart from row 0, and only the last row naming a slot
+    may write it): greedy tokens equal, and K12-K14 once a layer a
+    forward pass (graph replays counted)."""
+    from kubeflow_tpu_torch.models.mixtral import Mixtral, MixtralConfig
+    from kubeflow_tpu_torch.ops import moe
+    from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
+    from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
+
+    model_kw, serve_kw = (({"paged_kv_blocks": 64}, {"kv_blocks": 64,
+                                                     "kv_block_size": 16})
+                          if paged else ({}, {}))
+    cfg = MixtralConfig.tiny(vocab_size=512, embed_dim=256, num_heads=4,
+                             num_kv_heads=2, head_dim=64, mlp_dim=512,
+                             max_seq_len=256, decode_staging=4,
+                             capacity_factor=1.0, **model_kw)
+    with torch.device("cuda"):
+        model = Mixtral(cfg)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    out = {}
+    with torch.no_grad():
+        for eager in (True, False):
+            eng = ServingEngine(model, ServingConfig(
+                max_batch=4, max_len=256, prefill_buckets=(16, 32),
+                decode_chunk=4, pipeline_depth=2, **serve_kw),
+                device="cuda", registry=MetricsRegistry(), _eager=eager)
+            if not eager:
+                eng.warmup(16)
+            groups = []
+            k_pad = eng._k_pad
+            eng._k_pad = lambda n: groups.append(n) or k_pad(n)
+            eng.prefill_dispatches = eng.extend_dispatches = 0
+            eng.decode_dispatches = 0
+            moe.route.launches = moe.gather_rows.launches = 0
+            moe.combine_rows.launches = 0
+            out[eager] = _serve(eng, MOE_PROMPTS)
+            assert 3 in groups                    # one pad row
+            passes = (4 * eng.decode_dispatches + eng.prefill_dispatches
+                      + eng.extend_dispatches)
+            assert (moe.route.launches, moe.gather_rows.launches,
+                    moe.combine_rows.launches) == (2 * passes,) * 3
+    assert out[False] == out[True]
+    assert [len(t) for t in out[False]] == [n for _, n in MOE_PROMPTS]

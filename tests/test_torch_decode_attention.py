@@ -29,6 +29,11 @@ from kubeflow_tpu_torch.ops.decode_attention import (
     split_plan,
 )
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 B, H, HKV, D, L, C = 4, 8, 2, 16, 40, 4

@@ -44,6 +44,11 @@ from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
 from kubeflow_tpu_torch.serving.engine import _quantize_int8
 from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 FUSED = dict(fused_qkv=True, fused_gate_up=True)
 
 

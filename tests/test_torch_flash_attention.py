@@ -16,6 +16,11 @@ from kubeflow_tpu.ops import attention as jattn
 from kubeflow_tpu.ops import flash_attention as jflash
 from kubeflow_tpu_torch.ops import flash_attention as tflash
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 B, S, H = 2, 512, 4
 BLK = dict(block_q=128, block_kv=128)
 O_TOL = dict(atol=2e-5, rtol=2e-5)

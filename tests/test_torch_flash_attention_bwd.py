@@ -18,6 +18,11 @@ import torch
 from kubeflow_tpu.ops import flash_attention as jflash
 from kubeflow_tpu_torch.ops import flash_attention as tflash
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 B, S, H = 2, 256, 4
 BLK = dict(block_q=128, block_kv=128)
 G_TOL = dict(atol=5e-4, rtol=5e-4)

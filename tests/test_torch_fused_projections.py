@@ -36,6 +36,11 @@ from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
 from kubeflow_tpu_torch.train import losses as tlosses
 from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 V = 256
 TOKENS = np.random.RandomState(5).randint(0, V, (2, 17))
 FLAGS = [(True, False), (False, True), (True, True)]

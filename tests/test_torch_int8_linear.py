@@ -49,6 +49,11 @@ from kubeflow_tpu_torch.ops.int8_linear import (
 from kubeflow_tpu_torch.ops.swiglu import swiglu
 from kubeflow_tpu_torch.serving.engine import _quantize_int8
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 MIN_SIZE = 64
 
 

@@ -20,6 +20,11 @@ from kubeflow_tpu_torch.models.convert import (
     llama_params_to_jax,
 )
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 TOKENS = np.random.RandomState(0).randint(0, 256, (2, 24))
 
 
@@ -156,7 +161,8 @@ def test_scanned_tree_raises():
 
 
 def test_registry_names():
-    assert list_models() == ["llama-tiny", "llama3-70b", "llama3-8b"]
+    assert list_models() == ["llama-tiny", "llama3-70b", "llama3-8b",
+                             "mixtral-8x7b", "mixtral-tiny"]
     model, cfg = get_model("llama-tiny", param_dtype="bfloat16")
     assert cfg.param_dtype == torch.bfloat16
     assert model.embed.dtype == torch.bfloat16
@@ -164,4 +170,4 @@ def test_registry_names():
     assert (cfg8b.num_layers, cfg8b.embed_dim, cfg8b.vocab_size,
             cfg8b.num_heads, cfg8b.num_kv_heads) == (32, 4096, 128256, 32, 8)
     with pytest.raises(KeyError, match="unknown model"):
-        get_model("mixtral-tiny")
+        get_model("resnet-tiny")

@@ -21,6 +21,11 @@ from kubeflow_tpu.train import native_loader as jnl
 from kubeflow_tpu_torch.train import native_loader as tnl
 from kubeflow_tpu_torch.train import runner
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -13,6 +13,11 @@ from kubeflow_tpu.ops import norms as jnorms
 from kubeflow_tpu.ops import rope as jrope
 from kubeflow_tpu_torch.ops import attention, norms, rope
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 

@@ -38,6 +38,11 @@ from kubeflow_tpu_torch.ops.decode_attention import decode_attention
 from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
 from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 BS, MAX_LEN = 8, 64
 KV_BLOCKS = 4 * (MAX_LEN // BS)
 MIXED_TRACE = [[7, 3, 9, 1, 4], [2] * 17, [250, 100, 3],

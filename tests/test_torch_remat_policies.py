@@ -32,6 +32,11 @@ from kubeflow_tpu_torch.models.convert import llama_params_from_jax
 from kubeflow_tpu_torch.models.llama import REMAT_POLICIES
 from kubeflow_tpu_torch.train import losses as tlosses
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 TOKENS = np.random.RandomState(6).randint(0, 256, (2, 17))
 B, S = 2, 16
 # llama-tiny: E 64, H 4, Hkv 2 (G 2), D 16, F 128.

@@ -37,6 +37,11 @@ from kubeflow_tpu_torch.serving import (
 from kubeflow_tpu_torch.serving.server import build_server, env_config
 from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 MAX_SEQ = 64
 
 

@@ -48,6 +48,11 @@ from kubeflow_tpu_torch.serving import (
 from kubeflow_tpu_torch.serving.server import build_server, env_config
 from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 MAX_LEN, BUCKETS, BS = 64, (8, 16), 8
 # A 40-token prompt takes chunks at 0 and 16 and a final chunk slid back
 # from 32 to 24.

@@ -34,6 +34,11 @@ from kubeflow_tpu_torch.train.data import SyntheticTextConfig, synthetic_text
 from kubeflow_tpu_torch.train.flops import device_peak_tflops
 from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
 
+# The suite runs in several pytest-xdist workers that share the cores:
+# one intra-op thread a worker (process-wide) keeps PyTorch's pools from
+# oversubscribing them.
+torch.set_num_threads(1)
+
 V = 256
 
 
