@@ -34,7 +34,8 @@ Both layer layouts convert: unrolled (``layer_{i}`` subtrees) and scanned
 training writes it). ``llama_params_to_jax`` writes the layout that
 ``cfg.scan_layers`` names. Gradients have the params' tree, so they convert
 with the same functions. ``quantized_params_from_jax`` carries the JAX
-engine's int8 weights and their scales across (unrolled trees only).
+engine's int8 weights and their scales across (unrolled trees only; a
+Mixtral's expert leaves transposed to the port's int8 layout).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from kubeflow_tpu_torch.models.layout import (
     to_layer_layout,
 )
 from kubeflow_tpu_torch.models.llama import LlamaConfig
+from kubeflow_tpu_torch.models.mixtral import EXPERT_LEAVES, MixtralConfig
 
 
 def _tensor(a) -> torch.Tensor:
@@ -68,9 +70,6 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-_EXPERTS = ("w_gate", "w_up", "w_down")
-
-
 def _mlp_from_jax(mlp, pre: str, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
     E = cfg.embed_dim
     return {pre + f"mlp.{n}.weight": _tensor(
@@ -82,7 +81,7 @@ def _mlp_from_jax(mlp, pre: str, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
 def _moe_from_jax(moe, pre: str, cfg) -> Dict[str, torch.Tensor]:
     sd = {pre + "mlp.router.weight": _tensor(
         np.asarray(moe["router"]["kernel"]).T)}
-    sd.update({pre + f"mlp.{n}": _tensor(moe[n]) for n in _EXPERTS})
+    sd.update({pre + f"mlp.{n}": _tensor(moe[n]) for n in EXPERT_LEAVES})
     return sd
 
 
@@ -163,18 +162,22 @@ def mixtral_params_to_jax(state_dict: Dict[str, torch.Tensor], cfg) -> dict:
     def moe(sd, pre, kernels):
         return {"router": {"kernel": np.ascontiguousarray(
             sd[pre + "router.weight"].T)},
-            **{n: sd[pre + n] for n in _EXPERTS}}
+            **{n: sd[pre + n] for n in EXPERT_LEAVES}}
 
     return _to_jax(state_dict, cfg, "moe", moe)
 
 
 def _projections(p, cfg: LlamaConfig):
     """(port module name, JAX subtree) of every projection of an unrolled
-    tree."""
+    tree (a Mixtral's router among them, its expert leaves not)."""
+    moe = isinstance(cfg, MixtralConfig)
     for i in range(cfg.num_layers):
         lp = p[f"layer_{i}"]
         for n in (*attn_inputs(cfg), "o_proj"):
             yield f"layers.{i}.attn.{n}", lp["attn"][n]
+        if moe:
+            yield f"layers.{i}.mlp.router", lp["moe"]["router"]
+            continue
         for n in (*mlp_inputs(cfg), "down_proj"):
             yield f"layers.{i}.mlp.{n}", lp["mlp"][n]
     if not cfg.tie_embeddings:
@@ -192,7 +195,11 @@ def quantized_params_from_jax(q_tree, scale_tree,
     ``qkv_proj`` [1, Hkv, G + 2, Dh] and ``gate_up_proj`` [1, 2, M] too, in
     the fused rows' order) except o_proj's [1, Dh, E], one a (head dim,
     output row) pair, which becomes [E, Dh]: weight column h * Dh + d takes
-    scale[:, d].
+    scale[:, d]. A Mixtral's quantized expert leaf [X, K, N] and its scales
+    [1, K, N] (one an element, over the experts) become the
+    ``Int8Experts`` buffers ``<leaf>.weight`` [X, N, K] and ``<leaf>.scale``
+    [1, N, K], transposed (K contiguous); its router converts as a
+    projection.
 
     Only the unrolled tree the JAX server builds (``scan_layers=False``)
     converts: a stacked tree's [L, E] norm leaves were quantized across
@@ -203,7 +210,9 @@ def quantized_params_from_jax(q_tree, scale_tree,
         raise ValueError("a stacked (scan_layers=True) quantized tree does "
                          "not convert: its norms were quantized across "
                          "layers; quantize the unrolled tree")
-    sd = llama_params_from_jax(q_tree, cfg)
+    moe = isinstance(cfg, MixtralConfig)
+    sd = (mixtral_params_from_jax if moe else llama_params_from_jax)(
+        q_tree, cfg)
     scales = dict(_projections(s, cfg))
     for name, _ in _projections(p, cfg):
         sc = np.asarray(scales[name]["kernel"])
@@ -211,4 +220,15 @@ def quantized_params_from_jax(q_tree, scale_tree,
             continue
         sc = sc[0].T if name.endswith("o_proj") else sc.reshape(-1, 1)
         sd[f"{name}.scale"] = _tensor(np.ascontiguousarray(sc))
+    for i in range(cfg.num_layers if moe else 0):
+        for n in EXPERT_LEAVES:
+            sc = np.asarray(s[f"layer_{i}"]["moe"][n])
+            if sc.size == 0:                      # not quantized
+                continue
+            name = f"layers.{i}.mlp.{n}"
+            del sd[name]
+            for key, a in (("weight", p[f"layer_{i}"]["moe"][n]),
+                           ("scale", sc)):
+                sd[f"{name}.{key}"] = _tensor(
+                    np.ascontiguousarray(np.swapaxes(np.asarray(a), 1, 2)))
     return sd

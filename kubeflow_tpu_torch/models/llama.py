@@ -786,13 +786,11 @@ class Llama(nn.Module):
     ``param_dtype`` on the current default device; :meth:`init_weights`
     fills them from a generator, or a state dict is loaded. ``LAYER_CLS``
     is the layer a subclass swaps (the JAX ``Llama``'s hook; Mixtral).
-    ``TRAINING_UNPORTED`` and ``INT8_UNPORTED`` say why the trainer, or
-    the serving engine's int8 weights, refuse a subclass (None: they take
-    it)."""
+    ``TRAINING_UNPORTED`` says why the trainer refuses a subclass (None:
+    it takes it)."""
 
     LAYER_CLS = DecoderLayer
     TRAINING_UNPORTED: Optional[str] = None
-    INT8_UNPORTED: Optional[str] = None
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -814,10 +812,18 @@ class Llama(nn.Module):
         parameter's own dtype and device (an 8B model initialises on the
         card in bf16)."""
         for name, p in self.named_parameters():
-            if name.endswith("norm.weight"):
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, 0.02, generator=generator)
+            self.init_param(name, p, generator)
+
+    @staticmethod
+    @torch.no_grad()
+    def init_param(name: str, p: torch.Tensor,
+                   generator: torch.Generator) -> None:
+        """:meth:`init_weights` on one parameter (in its order, from the
+        same generator, it gives the same values)."""
+        if name.endswith("norm.weight"):
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, 0.02, generator=generator)
 
     def rope_tables(self, device: torch.device):
         """(cos, sin) [max_seq_len, head_dim // 2] f32 on ``device``."""

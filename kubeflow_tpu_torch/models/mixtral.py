@@ -10,10 +10,18 @@ accumulation rounded to the activation dtype (``torch.bmm``, as the JAX
 package leaves its einsums to XLA), ``silu(gate) * up`` through K9. The
 dispatch is the index dispatch of ``ops/moe.py`` (K12-K14 on the card).
 
+With the serving engine's int8 weights (``ServingConfig.quantize="int8"``)
+each expert leaf becomes an :class:`Int8Experts` (one bf16 scale an
+element, shared by the experts, as the JAX engine quantizes the leaf over
+its expert axis) whose product runs through
+:func:`~kubeflow_tpu_torch.ops.int8_experts.int8_experts` (K15 on the
+card); the attention projections and the lm_head become ``Int8Dense`` (K4),
+as on Llama; the router [E, M] stays bf16 below ``quantize_min_size``.
+
 Serving only, in this slice: the remat policies and the trainer raise
 NotImplementedError on a Mixtral model (their aux-loss term, jitter and
 the kernels' backward are the Mixtral training slice, ROADMAP Queue 1
-item 6c), and so does the serving engine's int8 weights (item 6b).
+item 6c).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from kubeflow_tpu_torch.models.llama import (
     Llama,
     LlamaConfig,
 )
+from kubeflow_tpu_torch.ops.int8_experts import int8_experts
 from kubeflow_tpu_torch.ops.swiglu import swiglu
 from kubeflow_tpu_torch.parallel.moe import Top2GateConfig, moe_dispatch
 
@@ -63,6 +72,48 @@ class MixtralConfig(LlamaConfig):
         return cls(**kw)
 
 
+#: The expert leaves of :class:`MoeMlp`, in the JAX layout [E, K, N].
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+class Int8Experts(nn.Module):
+    """Inference-only expert leaf with int8 weights, which the serving
+    engine swaps in for a :class:`MoeMlp` leaf [E, K, N]
+    (``ServingConfig.quantize="int8"``). It holds ``weight`` int8 [E, N, K]
+    and ``scale`` bf16 [1, N, K] as buffers: the JAX engine's int8 leaf and
+    its scales [1, K, N], transposed so that K is contiguous. The weight it
+    applies is ``weight * scale`` rounded once to the activation dtype, as
+    the JAX engine's jitted steps apply ``_materialize``'s leaves; the
+    product runs through :func:`~kubeflow_tpu_torch.ops.int8_experts.
+    int8_experts` (K15 on the card). It has no gradient."""
+
+    def __init__(self, weight: torch.Tensor, scale: torch.Tensor,
+                 cfg: LlamaConfig):
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.register_buffer("weight", weight)
+        self.register_buffer("scale", scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [E, R, K] -> [E, R, N]."""
+        return int8_experts(x.to(self.dtype), self.weight, self.scale,
+                            out_dtype=self.dtype)
+
+
+def _expert_product(x: torch.Tensor, w) -> torch.Tensor:
+    """x [E, C, K] times an expert leaf: an :class:`Int8Experts`, or a
+    bf16 parameter [E, K, N] through ``torch.bmm``."""
+    if isinstance(w, Int8Experts):
+        return w(x)
+    return torch.bmm(x, w.to(x.dtype))
+
+
+def expert_launches_per_pass(model: nn.Module) -> int:
+    """K15 launches in one forward pass of ``model``: one an
+    :class:`Int8Experts` leaf (3 a layer with every expert leaf int8)."""
+    return sum(isinstance(m, Int8Experts) for m in model.modules())
+
+
 class MoeMlp(nn.Module):
     """Expert bank: stacked SwiGLU experts [E, ...] and the top-2 router."""
 
@@ -80,10 +131,9 @@ class MoeMlp(nn.Module):
 
     def experts(self, e_in: torch.Tensor) -> torch.Tensor:
         """The expert MLPs on their buffers [E, C, M] -> [E, C, M]."""
-        dtype = e_in.dtype
-        gate = torch.bmm(e_in, self.w_gate.to(dtype))
-        up = torch.bmm(e_in, self.w_up.to(dtype))
-        return torch.bmm(swiglu(gate, up), self.w_down.to(dtype))
+        gate = _expert_product(e_in, self.w_gate)
+        up = _expert_product(e_in, self.w_up)
+        return _expert_product(swiglu(gate, up), self.w_down)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         M = x.shape[-1]
@@ -114,8 +164,3 @@ class Mixtral(Llama):
         "training a MoE model is not ported yet: its aux-loss term, router "
         "jitter and the dispatch kernels' backward are the Mixtral training "
         "slice (ROADMAP Queue 1 item 6c)")
-    # The JAX engine's scales on an expert leaf [E, M, F] reduce over the
-    # expert axis (one scale an element, shared by the experts): a layout
-    # K4 does not take yet.
-    INT8_UNPORTED = ("int8 weights on a MoE model are not ported yet "
-                     "(ROADMAP Queue 1 item 6b)")

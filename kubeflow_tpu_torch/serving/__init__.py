@@ -6,10 +6,11 @@ from kubeflow_tpu_torch.serving.engine import (
     GenerationResult,
     ServingConfig,
     ServingEngine,
+    init_int8,
 )
 from kubeflow_tpu_torch.serving.server import ServingServer
 
 __all__ = [
     "EngineOverloaded", "GenerationRequest", "GenerationResult",
-    "ServingConfig", "ServingEngine", "ServingServer",
+    "ServingConfig", "ServingEngine", "ServingServer", "init_int8",
 ]

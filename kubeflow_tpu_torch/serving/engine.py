@@ -32,6 +32,10 @@ of kubeflow_tpu.serving.engine.
   the fused ``qkv_proj`` and ``gate_up_proj`` (``LlamaConfig.fused_qkv``,
   ``fused_gate_up``) quantize one scale an output row, as the JAX engine
   quantizes them over their contraction axis, and run one product each.
+  A Mixtral's expert leaves quantize over their expert axis (one scale an
+  element, as the JAX engine's) and run through ``ops/int8_experts.py``
+  (K15). :func:`init_int8` builds a random int8 model leaf by leaf, as
+  the JAX engine's random-init int8 server does.
 - A model built with ``paged_kv_blocks`` serves from the physically paged
   pool (``ops/paged_attention.py``): one pool per layer addressed through
   per-slot block tables from ``serving/blocks.py``. Prompts with a common
@@ -72,8 +76,14 @@ from kubeflow_tpu_torch.models.llama import (
     Paging,
     quantize_kv_rows,
 )
+from kubeflow_tpu_torch.models.mixtral import (
+    EXPERT_LEAVES,
+    Int8Experts,
+    MoeMlp,
+)
 from kubeflow_tpu_torch.ops.decode_attention import decode_attention
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+from kubeflow_tpu_torch.ops.int8_experts import int8_experts
 from kubeflow_tpu_torch.ops.int8_linear import int8_linear
 from kubeflow_tpu_torch.ops.moe import combine_rows, gather_rows, route
 from kubeflow_tpu_torch.ops.norms import add_rms_norm, rms_norm
@@ -227,7 +237,8 @@ _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
                     (add_rms_norm, "rows_launches"),
                     (route, "launches"),
                     (gather_rows, "launches"),
-                    (combine_rows, "launches"))
+                    (combine_rows, "launches"),
+                    (int8_experts, "launches"))
 
 
 def _launch_counts() -> List[int]:
@@ -268,30 +279,101 @@ def _quantize_leaf(w: torch.Tensor, period: int):
     return q.view(out, inn), scale.view(out, period).to(torch.bfloat16)
 
 
+def _quantize_expert_leaf(w: torch.Tensor):
+    """The JAX engine's ``_quantize_leaf(x, 0)`` on a MoE expert leaf [E,
+    K, N]: it quantizes an unstacked leaf over its axis 0, which here is
+    the expert axis, so every element has its own scale, shared by the
+    experts: amax over the experts, scale = max(amax / 127, 1e-12) in f32,
+    q = clip(round(x / scale), -127, 127) with the f32 scale, which is
+    then stored as bf16. Returns them transposed, K contiguous, as
+    :class:`Int8Experts` holds them: (int8 [E, N, K], bf16 [1, N, K])."""
+    x = w.detach().to(torch.float32, copy=True)
+    amax = torch.maximum(x.amax(dim=0, keepdim=True),
+                         -x.amin(dim=0, keepdim=True))        # = max |x|
+    scale = (amax / 127.0).clamp_min(1e-12)
+    q = x.div_(scale).round_().clamp_(-127, 127).to(torch.int8)
+    del x
+    return (q.transpose(1, 2).contiguous(),
+            scale.to(torch.bfloat16).transpose(1, 2).contiguous())
+
+
+@torch.no_grad()
+def _quantize_param(model: Llama, name: str, p: torch.Tensor,
+                    min_size: int) -> bool:
+    """Quantize parameter ``name`` of ``model`` (``p``, its values) IN
+    PLACE if it is ``_quantizable``: a :class:`Dense` weight becomes an
+    :class:`Int8Dense`, a :class:`MoeMlp` expert leaf an
+    :class:`Int8Experts`. Returns whether it did."""
+    if not _quantizable(name, p, min_size):
+        return False
+    owner_name, _, leaf = name.rpartition(".")
+    owner = model.get_submodule(owner_name)
+    if isinstance(owner, Dense) and leaf == "weight":
+        parent_name, _, child = owner_name.rpartition(".")
+        period = model.cfg.head_dim if child == "o_proj" else 1
+        q, scale = _quantize_leaf(p, period)
+        setattr(model.get_submodule(parent_name), child,
+                Int8Dense(q, scale, model.cfg))
+    elif isinstance(owner, MoeMlp) and leaf in EXPERT_LEAVES:
+        q, scale = _quantize_expert_leaf(p)
+        delattr(owner, leaf)
+        setattr(owner, leaf, Int8Experts(q, scale, model.cfg))
+    else:
+        raise ValueError(f"{name}: only Dense projections and MoE expert "
+                         f"leaves quantize, not {type(owner).__name__}")
+    return True
+
+
+def quantized_names(model: Llama) -> List[str]:
+    """The names of ``model``'s int8 weights: each :class:`Int8Dense`'s
+    ``<module>.weight`` and each :class:`Int8Experts` leaf's name, the
+    parameters they took the place of."""
+    return [f"{n}.weight" if isinstance(m, Int8Dense) else n
+            for n, m in model.named_modules()
+            if isinstance(m, (Int8Dense, Int8Experts))]
+
+
 @torch.no_grad()
 def _quantize_int8(model: Llama, min_size: int = 65536) -> List[str]:
     """Replace every :class:`Dense` whose weight is ``_quantizable`` by an
-    :class:`Int8Dense`, IN PLACE and one leaf at a time: each bf16 weight
-    is freed before the next is quantized, so the peak is the model plus
-    one leaf's f32 copy. The model must be unrolled-equivalent (the port
-    always is): the JAX engine's stacked (``scan_layers=True``) tree would
-    quantize its [L, E] norm leaves across layers, which this does not
-    reproduce. Returns the quantized weights' names."""
+    :class:`Int8Dense` and every such expert leaf by an
+    :class:`Int8Experts`, IN PLACE and one leaf at a time: each bf16
+    weight is freed before the next is quantized, so the peak is the model
+    plus one leaf's f32 copies. The model must be unrolled-equivalent (the
+    port always is): the JAX engine's stacked (``scan_layers=True``) tree
+    would quantize its [L, E] norm leaves across layers, which this does
+    not reproduce. Returns :func:`quantized_names` (a model built by
+    :func:`init_int8` has them already)."""
     names = [n for n, p in model.named_parameters()
              if _quantizable(n, p, min_size)]
     for name in names:
-        path = name.rsplit(".", 1)[0]
-        parent_name, _, child = path.rpartition(".")
-        parent = model.get_submodule(parent_name)
-        dense = getattr(parent, child)
-        if not isinstance(dense, Dense):
-            raise ValueError(f"{name}: only Dense projections quantize, "
-                             f"not {type(dense).__name__}")
-        period = model.cfg.head_dim if child == "o_proj" else 1
-        q, scale = _quantize_leaf(dense.weight, period)
-        setattr(parent, child, Int8Dense(q, scale, model.cfg))
-        del dense, q, scale
-    return names
+        _quantize_param(model, name, model.get_parameter(name), min_size)
+    return quantized_names(model)
+
+
+@torch.no_grad()
+def init_int8(model: Llama, generator: torch.Generator,
+              min_size: int = 65536) -> List[str]:
+    """The streaming int8 build, the port's counterpart of the JAX
+    engine's ``_surrogate_quantized``: ``model``, built on the meta
+    device, gets each parameter in :meth:`Llama.init_weights`' order, made
+    on the generator's device in its own dtype, initialised as
+    ``init_weights`` does (:meth:`Llama.init_param`) and, if
+    ``_quantizable``, quantized (:func:`_quantize_param`) before the next
+    one is made. So no full-precision leaf but the one being quantized is
+    resident beside the int8 model (mixtral-8x7b: ~58 GB where its bf16
+    weights are ~93 GB), and from the same generator the int8 weights and
+    scales are bitwise those of ``init_weights`` then
+    :func:`_quantize_int8`. Returns :func:`quantized_names`."""
+    for name, p in list(model.named_parameters()):
+        t = torch.empty(p.shape, dtype=p.dtype, device=generator.device)
+        Llama.init_param(name, t, generator)
+        if not _quantize_param(model, name, t, min_size):
+            owner_name, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner_name), leaf,
+                    torch.nn.Parameter(t, requires_grad=False))
+        del t
+    return quantized_names(model)
 
 
 def sampling_variant(samp: np.ndarray) -> str:
@@ -518,11 +600,13 @@ class ServingEngine:
             for p in model.parameters():
                 if p.is_floating_point():
                     p.data = p.data.to(dt)
-        if cfg.quantize and model.INT8_UNPORTED:
-            raise NotImplementedError(model.INT8_UNPORTED)
         # After the cast, as the JAX engine quantizes the cast tree.
         self.quantized = (_quantize_int8(model, cfg.quantize_min_size)
                           if cfg.quantize else [])
+        #: The served weights' bytes (parameters and int8 buffers).
+        self.weight_bytes = sum(
+            t.numel() * t.element_size()
+            for t in itertools.chain(model.parameters(), model.buffers()))
         self._cache = model.init_cache(cfg.max_batch, cfg.max_len,
                                        device=self.device)
         # The one device copy of the tables, read by every decode step (and

@@ -35,6 +35,7 @@ from kubeflow_tpu_torch.serving.engine import (
     EngineOverloaded,
     ServingConfig,
     ServingEngine,
+    init_int8,
 )
 from kubeflow_tpu_torch.utils.device import platform_device
 from kubeflow_tpu_torch.utils.logging import get_logger
@@ -358,7 +359,11 @@ def build_server(cfg: dict) -> ServingServer:
     dtype; a directory without one raises. Otherwise they are random,
     made on the device directly in the serving dtype from a seeded
     generator (an f32 host init of an 8B model would take 32 GB and
-    minutes): N(0, 0.02) for projections and embeddings, ones for norms.
+    minutes): N(0, 0.02) for projections and embeddings, ones for norms;
+    with ``quantize`` ("int8") the random model is built leaf by leaf,
+    each quantized before the next is made (``engine.init_int8``, as the
+    JAX server's lazy ``params``), so neither the host nor the card holds
+    its bf16 weights.
 
     As the JAX server, it stages decode writes (``decode_staging =
     decode_chunk``), ``quantize_kv`` ("int8") selects the int8 KV cache
@@ -389,14 +394,21 @@ def build_server(cfg: dict) -> ServingServer:
                 "decode_staging": cfg["decode_chunk"]}
     if cfg.get("quantize_kv"):
         model_kw["kv_cache_dtype"] = cfg["quantize_kv"]
-    with torch.device(device):
+    # Random int8 weights stream: built on the meta device, each leaf made
+    # and quantized before the next (mixtral-8x7b's bf16 weights do not fit
+    # the card), bitwise the random bf16 model quantized by the engine.
+    stream = restored is None and cfg.get("quantize") == "int8"
+    with torch.device("meta" if stream else device):
         model, _ = get_model(cfg["model"], **model_kw)
+    generator = torch.Generator(device=device).manual_seed(0)
     if restored is not None:
         model.load_state_dict(restored["params"])
         log.info("serving from checkpoint", kv={
             "dir": cfg["checkpoint_dir"], "step": restored["step"]})
+    elif stream:
+        init_int8(model, generator)
     else:
-        model.init_weights(torch.Generator(device=device).manual_seed(0))
+        model.init_weights(generator)
     log.info("serving model build", kv={
         "model": cfg["model"], "device": str(device),
         "param_dtype": param_dtype, "decode_staging": cfg["decode_chunk"],

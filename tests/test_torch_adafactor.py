@@ -125,6 +125,9 @@ def test_plain_adafactor_matches_optax(scanned, pdtype, wd):
     leaves = {name: leaf for name, (_, _, leaf) in names.items()}
     opt = JaxTrainConfig(**kw).make_optimizer()
     jstate = opt.init(jparams)
+    # Jitted: one program for the chain (op by op, its first call paid a
+    # compile for every small op of it).
+    update, apply = jax.jit(opt.update), jax.jit(optax.apply_updates)
     topt = TrainConfig(**kw).make_optimizer(leaves)
     tstate = topt.init(tparams)
     # Step 1 under the clip norm (lr 0: the decay alone), 2 and 3 over it.
@@ -133,10 +136,10 @@ def test_plain_adafactor_matches_optax(scanned, pdtype, wd):
         if pdtype == "bfloat16":
             grads = {k: np.asarray(jnp.asarray(v, jdt).astype(jnp.float32))
                      for k, v in grads.items()}
-        upd, jstate = opt.update(
+        upd, jstate = update(
             {k: jnp.asarray(v, jdt) for k, v in _jax_tree(
                 grads, names, scanned).items()}, jstate, jparams)
-        jparams = optax.apply_updates(jparams, upd)
+        jparams = apply(jparams, upd)
         tstate, _ = topt.step(tparams, _to_port(grads, names, tdt), tstate)
         want = _to_port({k: np.asarray(v.astype(jnp.float32))
                          for k, v in (jparams.items() if scanned else

@@ -42,7 +42,10 @@ by K9 at the same K split, and within K4's tolerance of its plain
 composition. The MoE dispatch (K12-K14) bitwise its plain versions: the
 routing's integer outputs equal and its weights, slot flags and aux loss
 bitwise, the gather and the combine bitwise; a small Mixtral engine's
-graphs give its eager path's greedy tokens.
+graphs give its eager path's greedy tokens, with bf16 and with int8
+weights. The int8 expert product (K15) against its plain version (the
+leaf dequantized to bf16, then ``torch.bmm``): max |got - plain| <= 1e-2 *
+max |plain|, K4's bound; two calls and a graph replay bitwise.
 """
 
 import pytest
@@ -2378,15 +2381,20 @@ def test_moe_kernels_replay_in_a_graph_and_refuse():
 MOE_PROMPTS = [ENGINE_PROMPTS[i] for i in (0, 2, 4, 1, 3, 5)]
 
 
-@pytest.mark.parametrize("paged", [False, True])
-def test_mixtral_engine_graph_tokens_equal_eager(paged):
+def _mixtral_graphs_against_eager(paged, quantize=""):
     """A small Mixtral of K1/K3's head_dim on the card, staged, dense or
     paged, its graphs against its eager path with a k-padded prefill (the
     pad rows route apart from row 0, and only the last row naming a slot
     may write it): greedy tokens equal, and K12-K14 once a layer a
-    forward pass (graph replays counted)."""
-    from kubeflow_tpu_torch.models.mixtral import Mixtral, MixtralConfig
+    forward pass, K15 three times with int8 weights (graph replays
+    counted)."""
+    from kubeflow_tpu_torch.models.mixtral import (
+        Mixtral,
+        MixtralConfig,
+        expert_launches_per_pass,
+    )
     from kubeflow_tpu_torch.ops import moe
+    from kubeflow_tpu_torch.ops.int8_experts import int8_experts
     from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
     from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
 
@@ -2397,15 +2405,17 @@ def test_mixtral_engine_graph_tokens_equal_eager(paged):
                              num_kv_heads=2, head_dim=64, mlp_dim=512,
                              max_seq_len=256, decode_staging=4,
                              capacity_factor=1.0, **model_kw)
-    with torch.device("cuda"):
-        model = Mixtral(cfg)
-    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
     out = {}
     with torch.no_grad():
         for eager in (True, False):
+            # The engine quantizes its model in place: a fresh one each.
+            with torch.device("cuda"):
+                model = Mixtral(cfg)
+            model.init_weights(torch.Generator(device="cuda").manual_seed(0))
             eng = ServingEngine(model, ServingConfig(
                 max_batch=4, max_len=256, prefill_buckets=(16, 32),
-                decode_chunk=4, pipeline_depth=2, **serve_kw),
+                decode_chunk=4, pipeline_depth=2, quantize=quantize,
+                **serve_kw),
                 device="cuda", registry=MetricsRegistry(), _eager=eager)
             if not eager:
                 eng.warmup(16)
@@ -2415,12 +2425,100 @@ def test_mixtral_engine_graph_tokens_equal_eager(paged):
             eng.prefill_dispatches = eng.extend_dispatches = 0
             eng.decode_dispatches = 0
             moe.route.launches = moe.gather_rows.launches = 0
-            moe.combine_rows.launches = 0
+            moe.combine_rows.launches = int8_experts.launches = 0
             out[eager] = _serve(eng, MOE_PROMPTS)
             assert 3 in groups                    # one pad row
             passes = (4 * eng.decode_dispatches + eng.prefill_dispatches
                       + eng.extend_dispatches)
             assert (moe.route.launches, moe.gather_rows.launches,
                     moe.combine_rows.launches) == (2 * passes,) * 3
+            per_pass = expert_launches_per_pass(model)
+            assert per_pass == (6 if quantize else 0)
+            assert int8_experts.launches == per_pass * passes
     assert out[False] == out[True]
     assert [len(t) for t in out[False]] == [n for _, n in MOE_PROMPTS]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_mixtral_engine_graph_tokens_equal_eager(paged):
+    _mixtral_graphs_against_eager(paged)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_mixtral_engine_graph_tokens_equal_eager(paged):
+    """The same with int8 weights: the experts through K15, q, o and the
+    lm_head through K4 (k and v stay bf16 below the minimum size)."""
+    _mixtral_graphs_against_eager(paged, quantize="int8")
+
+
+def _experts(E, R, N, K, seed=0):
+    """x [E, R, K] bf16 N(0, 1) and an expert leaf [E, K, N] of N(0, 0.02)
+    quantized as the engine quantizes it: (x, q [E, N, K], scale [1, N,
+    K])."""
+    from kubeflow_tpu_torch.serving.engine import _quantize_expert_leaf
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(E, K, N, generator=g, device="cuda") * 0.02
+    q, scale = _quantize_expert_leaf(w.bfloat16())
+    x = torch.randn(E, R, K, generator=g, device="cuda").bfloat16()
+    return x, q, scale
+
+
+# K15 at a decode step's rows (4, 16), past them (17, an odd 37) and a
+# prefill group's (1280), gate/up (K -> N) and down (N -> K).
+@pytest.mark.parametrize("r", [4, 16, 17, 37, 1280])
+@pytest.mark.parametrize("n,k", [(1536, 512), (512, 1536)])
+def test_int8_experts_matches_plain(r, n, k):
+    from kubeflow_tpu_torch.ops import int8_experts as ie
+
+    x, q, scale = _experts(8, r, n, k, seed=r)
+    before = ie.int8_experts.launches
+    y = ie.int8_experts(x, q, scale)
+    want = ie.int8_experts_reference(x, q, scale)
+    assert y.shape == (8, r, n) and y.dtype == torch.bfloat16
+    err = (y.float() - want.float()).abs().max()
+    assert err <= 1e-2 * want.float().abs().max()
+    assert torch.equal(ie.int8_experts(x, q, scale), y)   # deterministic
+    assert ie.int8_experts.launches == before + 2
+
+
+@pytest.mark.parametrize("r", [4, 37])
+def test_int8_experts_graph_replay_equals_eager(r):
+    from kubeflow_tpu_torch.ops import int8_experts as ie
+
+    x, q, scale = _experts(4, r, 256, 512, seed=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ie.int8_experts(x, q, scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = ie.int8_experts(x, q, scale)
+    x.copy_(torch.randn_like(x.float()).bfloat16())
+    graph.replay()
+    assert torch.equal(y, ie.int8_experts(x, q, scale))
+
+
+def test_int8_experts_refusals():
+    from kubeflow_tpu_torch.ops import int8_experts as ie
+
+    x, q, scale = _experts(4, 4, 256, 512)
+    before = ie.int8_experts.launches
+    with pytest.raises(ValueError, match="is on cpu"):
+        ie.int8_experts(x, q.cpu(), scale)
+    with pytest.raises(ValueError, match="bf16 x"):
+        ie.int8_experts(x.float(), q, scale)
+    with pytest.raises(ValueError, match="int8"):
+        ie.int8_experts(x, q.to(torch.int16), scale)
+    with pytest.raises(ValueError, match="scale"):
+        ie.int8_experts(x, q, scale[0])
+    with pytest.raises(ValueError, match="scale"):
+        ie.int8_experts(x, q, scale.float())
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ie.int8_experts(x[..., :504], q[..., :504].contiguous(),
+                        scale[..., :504].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ie.int8_experts(x.transpose(0, 1).contiguous().transpose(0, 1), q,
+                        scale)
+    assert ie.int8_experts.launches == before

@@ -130,7 +130,8 @@ def test_int8_mlp_at_decode_rows_matches_jax(fused):
     model.requires_grad_(False)
     _quantize_int8(model, 64)
     mlp = model.layers[0].mlp
-    q_tree, s_tree = jax_quantize_int8(params, 64)
+    # Jitted: one program, bitwise the engine's eager leaf-by-leaf calls.
+    q_tree, s_tree = jax.jit(jax_quantize_int8, static_argnums=1)(params, 64)
 
     def materialize(q, s):            # the JAX engine's _materialize
         return (q.astype(jnp.bfloat16) * s.astype(jnp.bfloat16)

@@ -55,12 +55,20 @@ def _jax_model(**kw):
     return jmodel, params
 
 
+@pytest.fixture(scope="module")
+def grads_params():
+    """llama-tiny's JAX params, initialised once for every remat policy
+    (a policy changes no parameter, and the tree is the same)."""
+    return _jax_model()[1]
+
+
 @pytest.mark.parametrize("remat", ["none", "full", "qkv_attn", "minimal",
                                    "qkv_attn_lse", "attn_only", "mlp_only",
                                    "dots"])
-def test_llama_param_grads_match_jax(remat):
+def test_llama_param_grads_match_jax(grads_params, remat):
     kw = {} if remat == "none" else dict(remat=True, remat_policy=remat)
-    jmodel, params = _jax_model(**kw)
+    jmodel = JaxLlama(JaxLlamaConfig.tiny(dtype=jnp.float32, **kw))
+    params = grads_params
     inputs, labels = TOKENS[:, :-1], TOKENS[:, 1:]
 
     def jloss(p):
