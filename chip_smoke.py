@@ -8,10 +8,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    attention (K3), the int8-weight product (K4), the optimizer (K5),
    RMSNorm and the residual add + RMSNorm (K6, K10: one source), RoPE
    (K7), the cross-entropy (K8), SwiGLU (K9), the adafactor update
-   (K11) and the MoE routing, gather and combine (K12-K14: one source)
-   from kubeflow_tpu_torch/ops/csrc with nvcc (sm_90a), one nvcc per
-   source, and the native token loader (kubeflow_tpu_torch/train/csrc,
-   g++, into kubeflow_tpu_torch/_build/native), all started together, and
+   (K11), the MoE routing, gather and combine (K12-K14: one source) and
+   the int8 expert product (K15) from kubeflow_tpu_torch/ops/csrc with
+   nvcc (sm_90a), one nvcc per source, and the native token loader
+   (kubeflow_tpu_torch/train/csrc, g++, into
+   kubeflow_tpu_torch/_build/native), all started together, and
    prints the seconds and each register/spill report; then checks the
    SASS: every bf16 instantiation of K1's kernel
    and of K2's dk/dv and dq kernels holds wgmma (HGMMA) and TMA loads
@@ -20,8 +21,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    ones (8 or 16 tokens; per-row or per-column scales, and the SwiGLU
    epilogue's two) mma.sync and cp.async (LDGSTS),
    every one of its 6 prefill ones (64, 128 or 256 tokens a tile; per-row
-   or per-column scales) wgmma and TMA loads, and ptxas reports no spills
-   in any of the eleven libraries;
+   or per-column scales) wgmma and TMA loads, K15's 2 decode ones (8 or 16
+   tokens) TMA loads and mma.sync and its 3 tiled ones (64, 128 or 256
+   tokens a tile) wgmma and TMA loads, none of them a cp.async copy
+   (LDGSTS), and ptxas reports no spills in any of the libraries;
 3. kernel (K1, forward) — holds the kernel against its plain PyTorch
    version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
    Sq=Skv 32, 128 and 512; one full-attention case; one D=64 case; one
@@ -159,6 +162,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    K13 and K14 bitwise, two calls bitwise equal; each timed (CUDA-graph
    replays, cold over sets past twice the L2 where a call is smaller)
    beside its plain version and its byte bound; no library call;
+7d. kernel (K15, the int8 expert product) — at mixtral-8x7b's expert
+   shapes (K15_CASES: 4 rows an expert at a decode step, 1280 at a
+   4096-token prefill group, an odd 37, an extend chunk's 128; gate/up
+   and down) against its plain version within K15_TOL x max|plain|, two
+   calls and a graph replay bitwise; timed beside its bound and
+   torch.bmm on experts dequantized beforehand;
 8. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card; staged decode and
    CUDA graphs, as the server runs by default) and sends 9 concurrent
@@ -447,11 +456,12 @@ def attention_bound_ms(b, sq, skv, h, hkv, d, causal, offset):
 
 
 def check_build(lib: str, families: dict,
-                required=("HGMMA", "UTMALDG")) -> None:
+                required=("HGMMA", "UTMALDG"), forbidden=()) -> None:
     """A kernel library's build is the Hopper design: every instantiation
     of each family (name -> how many the library must hold) has each of
-    the ``required`` SASS instructions (wgmma is HGMMA, a TMA load UTMALDG),
-    and ptxas reports no spills for any kernel of the library."""
+    the ``required`` SASS instructions (wgmma is HGMMA, a TMA load UTMALDG)
+    and none of the ``forbidden`` ones (a cp.async copy is LDGSTS), and
+    ptxas reports no spills for any kernel of the library."""
     import re
 
     from kubeflow_tpu_torch.ops import _build
@@ -465,8 +475,8 @@ def check_build(lib: str, families: dict,
         name = chunk.split("\n", 1)[0].strip()
         for family in families:
             if family in name:
-                found[family][name] = {op: chunk.count(op)
-                                       for op in (*required, "UTMASTG")}
+                found[family][name] = {op: chunk.count(op) for op in (
+                    *required, *forbidden, "UTMASTG")}
     for family, want in families.items():
         got = found[family]
         if len(got) != want or not all(counts[op] for counts in got.values()
@@ -474,6 +484,9 @@ def check_build(lib: str, families: dict,
             raise AssertionError(
                 f"{family} SASS lacks {'/'.join(required)} (want {want} "
                 f"instantiations): {got}")
+        if any(counts[op] for counts in got.values() for op in forbidden):
+            raise AssertionError(
+                f"{family} SASS holds {'/'.join(forbidden)}: {got}")
         for name, counts in sorted(got.items()):
             tiles = name.split(family)[1].split("EEEEE")[0]
             log(f"  sass {family}{tiles}: " + ", ".join(
@@ -1884,12 +1897,13 @@ def moe_phase():
 # K15, the int8 expert product, at mixtral-8x7b's expert shapes: E = 8
 # experts, gate/up (K = 4096 -> N = 14336) and down (14336 -> 4096); rows an
 # expert at a decode step (8 slots, capacity 4), at a 4096-token prefill
-# group (capacity 1280) and an odd count.
+# group (capacity 1280), an odd count and an extend chunk's 128.
 K15_E = 8
 K15_CASES = (("decode_gate", 4, 14336, 4096), ("decode_down", 4, 4096, 14336),
              ("prefill_gate", 1280, 14336, 4096),
              ("prefill_down", 1280, 4096, 14336),
-             ("odd_gate", 37, 14336, 4096))
+             ("odd_gate", 37, 14336, 4096),
+             ("extend_gate", 128, 14336, 4096))
 K15_TOL = 1e-2      # of max|plain|, K4's
 
 
@@ -4395,12 +4409,15 @@ def main() -> int:
     check_build(libs["int8_linear.cu"], {"int8_linear_decode": 6},
                 required=("HMMA", "LDGSTS"))
     check_build(libs["int8_linear.cu"], {"int8_linear_prefill": 6})
-    # K15: the expert-group decode kernel at 8 or 16 tokens and the tiled
-    # kernel at 128 or 256 tokens a tile, mma.sync (HMMA) fed by cp.async
-    # (LDGSTS).
-    check_build(libs["int8_experts.cu"],
-                {"int8_experts_decode": 2, "int8_experts_tiled": 2},
-                required=("HMMA", "LDGSTS"))
+    # K15: the expert-group decode kernel at 8 or 16 tokens, mma.sync
+    # (HMMA) fed by TMA (UTMALDG); the tiled kernel at 64, 128 or 256 tokens
+    # a tile, wgmma (HGMMA) fed by TMA, the scale tile a TMA tile of each
+    # stage. Neither holds a cp.async copy (LDGSTS): a build of the earlier
+    # cp.async kernels fails here.
+    check_build(libs["int8_experts.cu"], {"int8_experts_decode": 2},
+                required=("UTMALDG", "HMMA"), forbidden=("LDGSTS",))
+    check_build(libs["int8_experts.cu"], {"int8_experts_tiled": 3},
+                forbidden=("LDGSTS",))
     # K5-K14: element-wise, row and index kernels (no tensor cores); no
     # spills.
     for src in sources[4:-1]:

@@ -1,8 +1,8 @@
 """A/B device timing of builds of one kernel on one NVIDIA GPU: the
-flash-attention backward (K2, the default), the decode attention (K3) or
-the int8-weight product (K4):
-``python3 kernel_ab.py DIR [DIR ...] [--kernel bwd|decode|int8]
-[--shapes ...]``.
+flash-attention backward (K2, the default), the decode attention (K3),
+the int8-weight product (K4) or the int8 expert product (K15):
+``python3 kernel_ab.py DIR [DIR ...] [--kernel bwd|decode|int8|experts]
+[--shapes ...] [--variants ...]``.
 
 Each DIR is the root of a checkout, or of a copy of its
 ``kubeflow_tpu_torch/ops/csrc`` (for instance ``git archive <rev>
@@ -56,6 +56,21 @@ the same weights in bf16 (cuBLAS products) as the yardstick, then
 full-batch decode chunks (8 steps) timed in turns on the host clock, each
 ending in the tokens' fetch: the decode step as the server runs it,
 launch gaps and all.
+
+``--kernel experts`` does the same for ``int8_experts.cu`` at
+``chip_smoke.py``'s K15 cases (E = 8; rows an expert, N, K): ``decode_gate``
+4, 14336, 4096; ``decode_down`` 4, 4096, 14336; ``prefill_gate`` 1280,
+14336, 4096; ``prefill_down`` 1280, 4096, 14336; ``odd_gate`` 37, 14336,
+4096; ``extend_gate`` 128, 14336, 4096. Each build is held against
+``int8_experts_reference`` (within 1e-2 x max|plain|, two calls bitwise
+equal) and timed in CUDA-graph replays in turns (a product's weights,
+470-587 MB, exceed the L2 ten times: every call reads them from device
+memory), beside the bound and ``torch.bmm`` on experts dequantized
+beforehand. ``--variants`` times the tiled kernel's launch plans apart
+(rows an expert > 16), where the build's source has
+``kftpu_int8_experts_config``: ``bm64``/``bm128``/``bm256`` tokens a
+tile, ``o1``/``o2`` the grid's order (token tiles or experts fastest),
+combined as in ``bm256o1``.
 """
 
 from __future__ import annotations
@@ -74,6 +89,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from chip_smoke import K15_CASES, K15_E, int8_experts_bound_ms
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import decode_attention as da
 from kubeflow_tpu_torch.ops import flash_attention as fa
@@ -88,7 +104,8 @@ CSRC = os.path.join("kubeflow_tpu_torch", "ops", "csrc")
 # kernel -> (source, the kernels' name stem, the entries ptxas reports on)
 KERNELS = {"bwd": ("flash_attention_bwd.cu", "flash_bwd", "bf16"),
            "decode": ("decode_attention.cu", "decode_attn", "decode_attn"),
-           "int8": ("int8_linear.cu", "int8_linear", "int8_linear")}
+           "int8": ("int8_linear.cu", "int8_linear", "int8_linear"),
+           "experts": ("int8_experts.cu", "int8_experts", "int8_experts")}
 
 
 def kernel_name(name: str, stem: str = "flash_bwd") -> str:
@@ -614,6 +631,106 @@ PAGED_B, PAGED_L, PAGED_BS, PAGED_C = 48, 512, 16, 32
 PAGED_LENGTHS = [128 + (37 * i) % 128 for i in range(PAGED_B)]
 
 
+# name -> (rows an expert, N, K): chip_smoke.py's K15 cases, E = K15_E.
+EXPERT_SHAPES = {case: (r, n, k) for case, r, n, k in K15_CASES}
+
+
+def parse_variant(v: str):
+    """``bm128``, ``o2``, ``bm256o1`` -> (bm, order), 0 where the variant
+    leaves the plan's choice."""
+    import re
+
+    m = re.fullmatch(r"(?:bm(64|128|256))?(?:o([12]))?", v)
+    if m is None or not v:
+        raise ValueError(f"unknown experts variant {v!r}")
+    return tuple(int(g or 0) for g in m.groups())
+
+
+def experts_callers(root: str, lib: str, variants: list) -> dict:
+    """The build's K15 as ``{label: call(x, q, scale) -> y}``: its own plan
+    (label ``root``), and each variant where the build has the config
+    entry (label ``root:variant``)."""
+    so = ctypes.CDLL(lib)
+    plain = so.kftpu_int8_experts
+    plain.restype = ctypes.c_int
+    plain.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    config = getattr(so, "kftpu_int8_experts_config", None)
+    if config is not None:
+        config.restype = ctypes.c_int
+        config.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+
+    def caller(cfg):
+        def call(x, q, scale):
+            e, r, k = x.shape
+            n = q.shape[1]
+            y = torch.empty(e, r, n, dtype=torch.bfloat16, device=x.device)
+            args = (x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                    y.data_ptr(), e, r, n, k)
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = (plain(*args, stream) if cfg is None
+                  else config(*args, *cfg, stream))
+            if rc != 0:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+            return y
+        call.cfg = cfg
+        return call
+
+    calls = {root: caller(None)}
+    if config is not None:
+        for v in variants:
+            calls[f"{root}:{v}"] = caller(parse_variant(v))
+    return calls
+
+
+def run_experts(name: str, calls: dict) -> bool:
+    """Every build (and variant that applies) at one K15 case: the check,
+    then device ms per call in turns beside the bound and torch.bmm."""
+    from kubeflow_tpu_torch.ops import int8_experts as ie
+    from kubeflow_tpu_torch.serving.engine import _quantize_expert_leaf
+
+    r, n, k = EXPERT_SHAPES[name]
+    e = K15_E
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    w = torch.randn(e, k, n, generator=gen, device="cuda",
+                    dtype=torch.bfloat16) * 0.02
+    q, scale = _quantize_expert_leaf(w)
+    del w
+    x = torch.randn(e, r, k, generator=gen, device="cuda").bfloat16()
+    want = ie.int8_experts_reference(x, q, scale).float()
+    top = want.abs().max().item()
+    # A variant (the tiled kernel's plan) applies above 16 rows.
+    calls = {label: call for label, call in calls.items()
+             if call.cfg is None or r > 16}
+    ok = True
+    for label, call in calls.items():
+        got = call(x, q, scale)
+        err = (got.float() - want).abs().max().item()
+        same = torch.equal(got, call(x, q, scale))
+        good = err <= 1e-2 * top and same
+        ok &= good
+        print(f"{name} {label}: max err / max|plain| {err / top:.3e}; two "
+              f"calls bitwise equal: {same}{'' if good else '  FAIL'}",
+              flush=True)
+    del want
+    bound = int8_experts_bound_ms(e, r, n, k)[0]
+    wt = ie.dequantize_experts(q, scale).transpose(1, 2).contiguous()
+    per = 10 if r <= 16 else 2
+    graphs = {label: capture(lambda c=call: c(x, q, scale), per)
+              for label, call in calls.items()}
+    graphs["torch.bmm (bf16 experts)"] = capture(lambda: torch.bmm(x, wt), per)
+    times = turns(graphs, per)
+    print(f"{name} (E {e}, R {r}, N {n}, K {k}) device ms per call (median "
+          f"/ least of 6 turns): " + "; ".join(
+              f"{label} {statistics.median(t):.5f} / {min(t):.5f}"
+              for label, t in times.items()) + f"; bound {bound:.5f}",
+          flush=True)
+    del graphs, wt, q, scale, x
+    torch.cuda.empty_cache()
+    return ok
+
+
 def run_decode_paged(calls: dict) -> bool:
     """Each build with the block-table entry, paged and dense over the same
     rows, cold (pool sets whose live rows exceed twice the L2), in turns."""
@@ -704,12 +821,18 @@ def main() -> int:
                     "decode: served,long,even,one,paged (default served,"
                     "long); "
                     "int8: q,kv,o,gate,down,lm_head,qkv,gateup,m64,m512,"
-                    "m1024,m4096,step (default the first eight)")
+                    "m1024,m4096,step (default the first eight); "
+                    "experts: " + ",".join(EXPERT_SHAPES) + " (default "
+                    "all)")
+    ap.add_argument("--variants", default="",
+                    help="experts: tiled launch plans of a build that has "
+                    "kftpu_int8_experts_config, e.g. bm128,o1,bm256o2")
     args = ap.parse_args()
     decode = args.kernel == "decode"
     shapes = args.shapes or {
         "decode": "served,long", "bwd": "train,s512",
-        "int8": "q,kv,o,gate,down,lm_head,qkv,gateup"}[args.kernel]
+        "int8": "q,kv,o,gate,down,lm_head,qkv,gateup",
+        "experts": ",".join(EXPERT_SHAPES)}[args.kernel]
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
@@ -731,6 +854,11 @@ def main() -> int:
         elif args.kernel == "int8":
             fns = {root: int8_caller(lib)
                    for root, lib in zip(args.dirs, libs)}
+        elif args.kernel == "experts":
+            variants = [v for v in args.variants.split(",") if v]
+            fns = {label: call for root, lib in zip(args.dirs, libs)
+                   for label, call in experts_callers(
+                       root, lib, variants).items()}
         else:
             fns = {root: fa.bind_bwd(ctypes.CDLL(lib))
                    for root, lib in zip(args.dirs, libs)}
@@ -740,6 +868,8 @@ def main() -> int:
             ok &= run_int8_step(fns)
         elif args.kernel == "int8":
             ok &= run_int8(name, fns, step)
+        elif args.kernel == "experts":
+            ok &= run_experts(name, fns)
         else:
             ok &= (run_decode_paged(fns) if name == "paged" else
                    run_decode(name, fns)) if decode else run_shape(name, fns)

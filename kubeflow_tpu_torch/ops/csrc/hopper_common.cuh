@@ -3,9 +3,10 @@
 // barriers, wgmma (shared-memory descriptors, fence/commit/wait and
 // the products themselves), setmaxnreg and exp2 on the special-function
 // unit. The flash-attention forward (flash_attention_fwd.cu) and backward
-// (flash_attention_bwd.cu) and the int8-weight product (int8_linear.cu)
-// are built from them. ops/_build.py hashes every header of this directory
-// into each library's name.
+// (flash_attention_bwd.cu), the int8-weight product (int8_linear.cu) and
+// the int8 expert product (int8_experts.cu) are built from them.
+// ops/_build.py hashes every header of this directory into each library's
+// name.
 //
 // Layout convention: a tile of R rows x 64 bf16 (128 bytes a row) is one
 // TMA box written with the 128-byte swizzle (the 16-byte chunk c of row r
@@ -92,6 +93,29 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The 3-D box at (c0, c1, c2) of ``map`` into shared memory at ``dst``;
+// completion is counted in bytes on ``bar``; elements outside the tensor
+// arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Stores the 3-D box at ``src`` to coordinates (c0, c1, c2) of ``map``;
+// elements outside the tensor are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -461,6 +485,25 @@ inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* pt
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t unit[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a row-major 3-D tensor [outer2, outer1, inner] of
+// ``type``, its outer strides in bytes (multiples of 16), read or written
+// in boxes of box0 x box1 x box2 with ``swizzle``.
+// Returns false when the driver refuses it.
+inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                      uint64_t inner, uint64_t outer1, uint64_t outer2, uint64_t stride1,
+                      uint64_t stride2, uint32_t box0, uint32_t box1, uint32_t box2,
+                      CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {inner, outer1, outer2};
+  const cuuint64_t strides[2] = {stride1, stride2};
+  const cuuint32_t box[3] = {box0, box1, box2};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -1,6 +1,7 @@
 // Pieces shared by the int8-weight products: K4 (int8_linear.cu) and K15
-// (int8_experts.cu). cp.async copies into shared memory, 16-byte shared
-// loads, the mma.sync bf16 product, the exact int8 -> bf16 widening and
+// (int8_experts.cu). cp.async copies into shared memory, 4- and 16-byte
+// shared loads, the wgmma of a register A tile at 64, 128 or 256 tokens,
+// the mma.sync bf16 product, the exact int8 -> bf16 widening and
 // the once-rounded bf16 product with a scale (_materialize's bf16(q s)),
 // and the swizzle of a lane's two 16-byte chunks of a 128-byte row.
 // ops/_build.py hashes this header into every kernel library's name.
@@ -42,6 +43,33 @@ __device__ __forceinline__ uint4 lds128(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return v;
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// The first 1024-byte boundary at or after ``p`` in shared memory (where
+// 128-byte-swizzled TMA tiles start).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// d[BM / 2] += A (64 x 16, bf16 registers) * B (16 x BM, bf16 in shared
+// memory, K-major: db): the wgmma of a 64-row A tile and BM = 64, 128 or
+// 256 tokens.
+template <int BM>
+__device__ __forceinline__ void wgmma_rs_n(float (&d)[BM / 2], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (BM == 256) {
+    hopper::wgmma_rs_m64n256k16(d, a, db);
+  } else if constexpr (BM == 128) {
+    hopper::wgmma_rs_m64n128k16(d, a, db);
+  } else {
+    hopper::wgmma_rs_m64n64k16(d, a, db, 1);
+  }
 }
 
 // d[4] += A (16 x 16 bf16) * B (16 x 8 bf16), f32 accumulators.

@@ -24,41 +24,63 @@
 // = 4): 587.2 MB a product (469.8 MB int8, 117.4 MB scale), 0.175 ms; a
 // 4096-token prefill group (R = 1280): 1.20 TFLOP, 1.216 ms.
 //
-// The weights are the A operand of mma.sync m16n8k16 (16 output rows x 16
-// k), x^T the B operand (16 k x 8 tokens); each weight is widened exactly
-// from int8 to bf16 by byte permutes and multiplied by its scale with one
-// rounding (fma.rn.bf16x2 with -0), as K4 (int8_linear.cu) does. Weights,
-// scales and x arrive by 16-byte cp.async copies into a ring of stages
-// shared by the block's warps, zero-filled past N, R and K.
+// Both kernels are fed by TMA: one producer thread keeps the loads of a
+// ring of stages in flight on mbarriers (a full barrier a stage that counts
+// the bytes, an empty one that counts the consumers' releases), and the
+// compute warps neither issue copies nor meet at a block-wide barrier. 3-D
+// tensor maps over [E, R, K], [E, N, K] and [E, R, N] zero-fill (or clip,
+// on the store) a tile past R, N or K inside its own expert. Each weight
+// is widened exactly from int8 to bf16 by byte permutes and multiplied by
+// its scale with one rounding (fma.rn.bf16x2 with -0), as K4 does.
 //
-// - Decode rows (R <= 16: one 8- or 16-token tile), int8_experts_decode.
-//   The scale is as large as two int8 weights and shared by the experts,
-//   so one block holds 32 weight rows for a group of 8 experts, a warp an
-//   expert, over all of K: a scale byte leaves device memory once and
-//   reaches the SM once, and a step reads 1.25 bytes a weight. (A block an
-//   (expert, tile) would read each scale tile 8 times from L2: 3 bytes a
-//   weight into the SMs.) As in K4's decode kernel, a lane's k slots are
-//   permuted alike in A and B so that it reads 16 consecutive int8 of each
-//   of its two weight rows, their 16 scales and 16 bf16 of its token row
-//   with 16-byte loads. Stages of two spans of 64 k (128 contiguous bytes
-//   of each int8 row), three in the ring (168 KB, a block a SM): gate/up
-//   (N = 14336) is 448 blocks, down (N = 4096) 128, about one a SM, so K
-//   is not split. (Blocks of 16 rows, or two blocks a SM, were slower.)
-// - More rows (prefill groups, extend chunks), int8_experts_tiled: a block
-//   a (expert, 128 weight rows, 128 or 256 tokens), 8 warps of 64 rows.
-//   The block's threads dequantize each span once into shared memory, in
-//   place of its scales (each weight once a block; warps that dequantized
-//   their own fragments, as the decode kernel does, were about three
-//   times slower), then the warps read A and B with ldmatrix; span j + 1
-//   is dequantized between span j's k-steps, one barrier a span. The
-//   cp.async copies into the SMs, not the products, appear to bound both
-//   kernels (PERF.md); TMA and wgmma (K4's prefill design) are later work.
+// - Decode rows (R <= 16), int8_experts_decode: one block holds 16 weight
+//   rows for a group of 8 experts over all of K, a compute warp an expert,
+//   so a scale byte leaves device memory once and reaches the SM once (a
+//   step reads 1.25 bytes a weight; a block an (expert, tile) would bring
+//   each scale tile into the SMs 8 times). A stage is one 64-k span: the
+//   [16 x 64] scale tile, the int8 tiles of the 8 experts and their x rows,
+//   three TMA loads (the q and x boxes span the 8 experts), 12 stages in
+//   the ring. The weights are the A operand of mma.sync m16n8k16, x^T the
+//   B operand; a lane's k slots are permuted alike in A and B so that it
+//   reads 16 consecutive int8 of each of its rows, their 16 scales and 16
+//   bf16 of its token row with 16-byte loads (chunks 2t and 2t + 1 of a
+//   128-byte row, at the TMA's 128-byte swizzle positions c ^ (r % 8): a
+//   quarter warp's 8 loads hit distinct banks). 16-row blocks give
+//   gate/up 896 blocks, 6.8 waves on 132 SMs (32-row blocks: 3.4 waves, 6 %
+//   slower; 16 compute warps a 32-row block, two an expert, no faster).
+// - More rows (prefill groups, extend chunks), int8_experts_tiled: TMA +
+//   wgmma, warp-specialised as K4's prefill kernel (int8_linear.cu). A
+//   block is (expert, 128 weight rows, BM = 64, 128 or 256 tokens); its
+//   two consumer warpgroups (64 rows each) compute y^T = W . x^T with the
+//   weights dequantized straight into wgmma's register A operand and the x
+//   tile its K-major B operand from shared memory. A stage holds three TMA
+//   tiles: x (128-byte swizzle), the int8 rows (64 bytes a row, 64-byte
+//   swizzle) and the bf16 scale rows of the same 128 x 64 span (128-byte
+//   swizzle; a lane reads its two scale pairs of a k-step and row with two
+//   4-byte loads, the 8 rows x 4 lanes of a warp on distinct banks).
+// - The scale tile is the same for every expert. Where x of all experts
+//   (2 E R K bytes) is small beside the L2, the grid runs experts fastest,
+//   so the 8 blocks of a row tile run together and its scale tile leaves
+//   device memory once (37 rows: 0.28 against 0.46 ms). A prefill group's
+//   x (84 MB) runs token tiles fastest, so each expert's x stays in the L2
+//   while its row tiles pass. (Thread-block clusters of 2-8 experts that
+//   multicast the scale tile by TMA, and pairs of row tiles sharing x, were
+//   slower at every case: PERF.md.)
+// - Tokens a tile by R (tile_tokens): the fewest padded tokens plus a
+//   tile's fixed cost of dequantizing its weights, so an extend chunk's
+//   17-128 rows do not run in 256-token tiles of zeros. The epilogue
+//   stages y^T in the drained ring with transposing stmatrix stores and
+//   writes it with one TMA store, as K4's does.
 // Capture-safe: nothing is allocated, nothing synchronises, the launch goes
-// on the caller's stream. Deterministic: no atomics, a fixed order of sums.
+// on the caller's stream (the tensor maps are kernel parameters).
+// Deterministic: no atomics, a fixed order of sums.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -66,348 +88,369 @@
 
 namespace {
 
-using hopper::smem_u32;
+using namespace hopper;
 using namespace int8w;
 
-constexpr int kSpan = 64;   // k a span
+constexpr int kSpan = 64;          // k a stage
+constexpr int kMaxSmem = 232448;   // a block's shared memory on this card
 
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// The launch's operands: tensor maps over x [E, R, K], q [E, N, K], the
+// scale [N, K] and y [E, R, N] (the tiled kernel's store), y's pointer (the
+// decode kernel's stores) and the shape; ``experts_first``: the tiled grid
+// runs experts fastest (x: experts, y: token tiles, z: row tiles), else
+// token tiles fastest (x: token tiles, y: row tiles, z: experts).
 struct Params {
-  const __nv_bfloat16* x;      // [E, R, K]
-  const int8_t* q;             // [E, N, K]
-  const __nv_bfloat16* scale;  // [N, K]
-  __nv_bfloat16* y;            // [E, R, N]
+  CUtensorMap tm_x, tm_q, tm_s, tm_y;
+  __nv_bfloat16* y;
   int E, R, N, K;
+  int experts_first;
 };
 
-// ---- decode rows: a warp an expert ----------------------------------------------
+// ---- decode rows: a group of 8 experts a block --------------------------------
 
-// A block of G = 8 warps, one an expert of its group, each over the block's
-// BN = 16 NT weight rows and BM = 8 MT tokens. The warps share one ring of
-// STAGES stages of SUB consecutive spans; a span holds the BN scale rows
-// once, then each expert's BN int8 rows and BM x rows.
-constexpr int G = 8;
+constexpr int G = 8;   // experts a decode block, a compute warp each
 
-template <int NT, int MT, int STAGES, int SUB>
+template <int MT>
 struct Decode {
-  static constexpr int kThreads = 32 * G;
-  static constexpr int BN = 16 * NT;
-  static constexpr int BM = 8 * MT;
-  static constexpr int kSBytes = BN * kSpan * 2;    // bf16 scale rows of 128 bytes
-  static constexpr int kQBytes = BN * kSpan;        // an expert's int8 rows of 64 bytes
-  static constexpr int kXBytes = BM * kSpan * 2;    // an expert's bf16 x rows of 128 bytes
-  static constexpr int kSub = kSBytes + G * (kQBytes + kXBytes);
-  static constexpr int kStage = SUB * kSub;
-  static constexpr int kSmem = STAGES * kStage;
+  static constexpr int BN = 16;                  // weight rows a block
+  static constexpr int BM = 8 * MT;              // tokens: R <= BM
+  static constexpr int kThreads = 32 * G + 32;   // and the producer warp
+  static constexpr int kSBytes = BN * 128;       // [16 rows][64 bf16], 128-byte swizzle
+  static constexpr int kQBytes = G * BN * kSpan;     // [8 experts][16 rows][64 int8]
+  static constexpr int kXBytes = G * BM * 128;       // [8 experts][BM rows][64 bf16], swizzled
+  static constexpr int kStage = kSBytes + kQBytes + kXBytes;
+  static constexpr int kStages = cmin(12, (kMaxSmem - 1024 - 192) / kStage);
+  static constexpr int kSmem = 1024 + kStages * kStage + 16 * kStages;
+  static_assert(kStage % 1024 == 0, "tiles must stay 1024-byte aligned");
 };
 
-template <int NT, int MT, int STAGES, int SUB>
-__global__ void __launch_bounds__(32 * G) int8_experts_decode(const Params p) {
-  using Sh = Decode<NT, MT, STAGES, SUB>;
-  extern __shared__ __align__(128) uint8_t smem[];
-  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lr = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * Sh::BM, n0 = blockIdx.y * Sh::BN, e0 = blockIdx.z * G;
-  const int e = e0 + g;   // this warp's expert
-  const int stages = (p.K + SUB * kSpan - 1) / (SUB * kSpan);
+template <int MT>
+__global__ void __launch_bounds__(Decode<MT>::kThreads, 1)
+    int8_experts_decode(const __grid_constant__ Params p) {
+  using D = Decode<MT>;
+  constexpr int S = D::kStages;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * D::kStage);
+  uint64_t* empty = full + S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * D::BN, e0 = blockIdx.y * G;
+  const int nk = (p.K + kSpan - 1) / kSpan;
 
-  // Stage j: SUB spans of 64 k from k = j SUB 64. Consecutive threads copy
-  // consecutive 16-byte chunks of a row.
-  auto load = [&](int j) {
-    uint8_t* st = smem + (j % STAGES) * Sh::kStage;
-    const int k0 = j * SUB * kSpan;
-    for (int c = threadIdx.x; c < Sh::BN * 8 * SUB; c += Sh::kThreads) {
-      const int row = c / (8 * SUB), ch = c % (8 * SUB), k = k0 + ch * 8, n = n0 + row;
-      const bool ok = n < p.N && k < p.K;
-      cp_async_16(st + (ch >> 3) * Sh::kSub + row * 128 + (x_pos(ch & 7, row) << 4),
-                  ok ? p.scale + (long long)n * p.K + k : p.scale, ok ? 16 : 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], G);   // one arrival a compute warp
     }
-    for (int c = threadIdx.x; c < G * Sh::BN * 4 * SUB; c += Sh::kThreads) {
-      const int ge = c / (Sh::BN * 4 * SUB), rc = c % (Sh::BN * 4 * SUB);
-      const int row = rc / (4 * SUB), ch = rc % (4 * SUB), k = k0 + ch * 16, n = n0 + row;
-      const bool ok = e0 + ge < p.E && n < p.N && k < p.K;
-      cp_async_16(st + (ch >> 2) * Sh::kSub + Sh::kSBytes + ge * Sh::kQBytes + row * kSpan +
-                      (ch & 3) * 16,
-                  ok ? p.q + ((long long)(e0 + ge) * p.N + n) * p.K + k : p.q, ok ? 16 : 0);
-    }
-    for (int c = threadIdx.x; c < G * Sh::BM * 8 * SUB; c += Sh::kThreads) {
-      const int ge = c / (Sh::BM * 8 * SUB), rc = c % (Sh::BM * 8 * SUB);
-      const int row = rc / (8 * SUB), ch = rc % (8 * SUB), k = k0 + ch * 8, m = m0 + row;
-      const bool ok = e0 + ge < p.E && m < p.R && k < p.K;
-      cp_async_16(st + (ch >> 3) * Sh::kSub + Sh::kSBytes + G * Sh::kQBytes + ge * Sh::kXBytes +
-                      row * 128 + (x_pos(ch & 7, row) << 4),
-                  ok ? p.x + ((long long)(e0 + ge) * p.R + m) * p.K + k : p.x, ok ? 16 : 0);
-    }
-  };
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-#pragma unroll
-  for (int j = 0; j < STAGES - 1; ++j) {
-    if (j < stages) load(j);
-    cp_async_commit();
+  if (warp == G) {
+    // Producer: a stage is the scale tile, the 8 experts' int8 tiles and
+    // their x rows (experts past E and rows past R arrive as zeros).
+    if (lane == 0) {
+      prefetch_tensor_map(&p.tm_s);
+      prefetch_tensor_map(&p.tm_q);
+      prefetch_tensor_map(&p.tm_x);
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % S;
+        uint8_t* st = ring + s * D::kStage;
+        mbar_wait(&empty[s], ((i / S) & 1) ^ 1);   // the first S pass at once
+        mbar_arrive_expect_tx(&full[s], D::kStage);
+        tma_load_2d(st, &p.tm_s, &full[s], i * kSpan, n0);
+        tma_load_3d(st + D::kSBytes, &p.tm_q, &full[s], i * kSpan, n0, e0);
+        tma_load_3d(st + D::kSBytes + D::kQBytes, &p.tm_x, &full[s], i * kSpan, 0, e0);
+      }
+    }
+    return;
   }
 
-  float acc[NT][MT][4];
+  // Compute warp: expert e = e0 + warp, the block's 16 rows; a lane holds
+  // rows lr and lr + 8.
+  const int e = e0 + warp;
+  const int lr = lane >> 2, t = lane & 3;
+  float acc[MT][4];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][mt][i] = 0.f;
+    for (int i = 0; i < 4; ++i) acc[mt][i] = 0.f;
 
-  for (int j = 0; j < stages; ++j) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();             // stage j landed for all; stage j - 1's slot is free
-    if (j + STAGES - 1 < stages) load(j + STAGES - 1);
-    cp_async_commit();
-    if (e >= p.E) continue;      // a warp of a missing expert (E not a multiple of G)
-
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % S;
+    mbar_wait(&full[s], (i / S) & 1);
+    const uint32_t ss = smem_u32(ring + s * D::kStage);
+    const uint32_t qs = ss + D::kSBytes + warp * D::BN * kSpan;
+    const uint32_t xs = ss + D::kSBytes + D::kQBytes + warp * D::BM * 128;
+    // B fragments of the span's four k-steps: words 2i, 2i + 1 of a token
+    // row's k 16t .. 16t + 15 (chunks 2t, 2t + 1).
+    uint32_t b[MT][8];
 #pragma unroll
-    for (int sub = 0; sub < SUB; ++sub) {
-      const uint32_t ss = smem_u32(smem + (j % STAGES) * Sh::kStage + sub * Sh::kSub);
-      const uint32_t qs = ss + Sh::kSBytes + g * Sh::kQBytes;
-      const uint32_t xs = ss + Sh::kSBytes + G * Sh::kQBytes + g * Sh::kXBytes;
-      // B fragments of the span's four k-steps: words 2i, 2i + 1 of a token row.
-      uint32_t b[MT][8];
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r = mt * 8 + lr;
+      const uint4 lo = lds128(xs + r * 128 + (((2 * t) ^ (r & 7)) << 4));
+      const uint4 hi = lds128(xs + r * 128 + (((2 * t + 1) ^ (r & 7)) << 4));
+      b[mt][0] = lo.x; b[mt][1] = lo.y; b[mt][2] = lo.z; b[mt][3] = lo.w;
+      b[mt][4] = hi.x; b[mt][5] = hi.y; b[mt][6] = hi.z; b[mt][7] = hi.w;
+    }
+    uint32_t a[4][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int r = mt * 8 + lr;
-        const uint4 lo = lds128(xs + r * 128 + (x_pos(2 * t, r) << 4));
-        const uint4 hi = lds128(xs + r * 128 + (x_pos(2 * t + 1, r) << 4));
-        b[mt][0] = lo.x; b[mt][1] = lo.y; b[mt][2] = lo.z; b[mt][3] = lo.w;
-        b[mt][4] = hi.x; b[mt][5] = hi.y; b[mt][6] = hi.z; b[mt][7] = hi.w;
+    for (int h = 0; h < 2; ++h) {
+      const int r = lr + 8 * h;
+      const uint4 w = lds128(qs + r * kSpan + t * 16);
+      // The scales of k 16t .. 16t + 15: chunks 2t, 2t + 1 of row r.
+      const uint4 s0 = lds128(ss + r * 128 + (((2 * t) ^ (r & 7)) << 4));
+      const uint4 s1 = lds128(ss + r * 128 + (((2 * t + 1) ^ (r & 7)) << 4));
+      const uint32_t sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+      uint32_t d[8];
+      dequant16(w, sc, d);
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        a[k4][h] = d[2 * k4];
+        a[k4][2 + h] = d[2 * k4 + 1];
       }
+    }
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t a[4][4];
+    for (int k4 = 0; k4 < 4; ++k4)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_16816(acc[mt], a[k4], b[mt][2 * k4], b[mt][2 * k4 + 1]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  if (e >= p.E) return;   // a warp of a missing expert (E not a multiple of 8)
+
+  // acc[mt][2 h + c] is (row lr + 8 h, token 8 mt + 2t + c).
+  __nv_bfloat16* y = p.y + (long long)e * p.R * p.N;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = n0 + lr + 8 * (i >> 1);
+      const int m = mt * 8 + 2 * t + (i & 1);
+      if (n < p.N && m < p.R) y[(long long)m * p.N + n] = __float2bfloat16_rn(acc[mt][i]);
+    }
+}
+
+// ---- more rows: TMA + wgmma, the weights as the register A operand -------------
+
+// A block: 128 weight rows (two consumer warpgroups of 64) x BM tokens of
+// one expert, and a producer warpgroup.
+template <int BM_>
+struct Tiled {
+  static constexpr int BN = 128, BM = BM_;
+  static constexpr int kThreads = 384;
+  static constexpr int kXBytes = BM * 128;        // [BM tokens][64 bf16], 128-byte swizzle
+  static constexpr int kQBytes = BN * kSpan;      // [128 rows][64 int8], 64-byte swizzle
+  static constexpr int kSBytes = BN * 128;        // [128 rows][64 bf16], 128-byte swizzle
+  static constexpr int kStage = kXBytes + kQBytes + kSBytes;
+  static constexpr int kStages = cmin(8, (kMaxSmem - 1024 - 128) / kStage);
+  static constexpr int kSmem = 1024 + kStages * kStage + 16 * kStages;
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
+  static_assert(kStage % 1024 == 0, "tiles must stay 1024-byte aligned");
+  static_assert(2 * BM * 128 <= kStages * kStage, "the epilogue stages y in the ring");
+};
+
+template <int BM>
+__global__ void __launch_bounds__(384, 1) int8_experts_tiled(const __grid_constant__ Params p) {
+  using T = Tiled<BM>;
+  constexpr int S = T::kStages;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * T::kStage);
+  uint64_t* empty = full + S;
+  const bool ef = p.experts_first;
+  const int e = ef ? blockIdx.x : blockIdx.z;
+  const int m0 = (ef ? blockIdx.y : blockIdx.x) * BM;
+  const int n0 = (ef ? blockIdx.z : blockIdx.y) * T::BN;
+  const int nk = (p.K + kSpan - 1) / kSpan;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (wg == 0) {
+    // Producer: one thread issues every load.
+    reg_dealloc<T::kProducerRegs>();
+    if (tid == 0) {
+      prefetch_tensor_map(&p.tm_x);
+      prefetch_tensor_map(&p.tm_q);
+      prefetch_tensor_map(&p.tm_s);
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % S, k = i * kSpan;
+        uint8_t* st = ring + s * T::kStage;
+        mbar_wait(&empty[s], ((i / S) & 1) ^ 1);   // the first S pass at once
+        mbar_arrive_expect_tx(&full[s], T::kStage);
+        tma_load_3d(st, &p.tm_x, &full[s], k, m0, e);
+        tma_load_3d(st + T::kXBytes, &p.tm_q, &full[s], k, n0, e);
+        tma_load_2d(st + T::kXBytes + T::kQBytes, &p.tm_s, &full[s], k, n0);
+      }
+    }
+  } else {
+    // Consumer warpgroup cw: weight rows n0 + 64 cw .. + 63. A lane's A
+    // fragment rows are 16 warp + g + 8 h; for k-step ks its k are 2t, 2t + 1
+    // (a[ks][h]) and 2t + 8, 2t + 9 (a[ks][2 + h]), wgmma's natural order:
+    // two 4-byte loads of the row's int8 chunk (64-byte swizzle: chunk ks of
+    // row r at ks ^ (r / 2 % 4)) and one byte permute give the four weights,
+    // two 4-byte loads of the scale row (128-byte swizzle: chunks 2 ks and
+    // 2 ks + 1 at ^ r % 8) their scales.
+    reg_alloc<T::kConsumerRegs>();
+    const int cw = wg - 1, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const uint32_t sel = (t & 1) ? 0x7632u : 0x5410u;
+    float acc[BM / 2];
+#pragma unroll
+    for (int j = 0; j < BM / 2; ++j) acc[j] = 0.f;
+    // Stage i's int8 words (flipped to q + 128) and scale pairs, loaded
+    // while stage i - 1's products run.
+    uint32_t f[4][2], sc[4][2][2];
+    auto fetch = [&](int i) {
+      const int s = i % S;
+      mbar_wait(&full[s], (i / S) & 1);
+      const uint32_t q8 = smem_u32(ring + s * T::kStage) + T::kXBytes;
+      const uint32_t s16 = q8 + T::kQBytes;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int r = nt * 16 + lr + 8 * h;
-          const uint4 w = lds128(qs + r * kSpan + t * 16);
-          // The scales of k 16t .. 16t + 15: chunks 2t, 2t + 1 of row r.
-          const uint4 s0 = lds128(ss + r * 128 + (x_pos(2 * t, r) << 4));
-          const uint4 s1 = lds128(ss + r * 128 + (x_pos(2 * t + 1, r) << 4));
-          const uint32_t sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-          uint32_t d[8];
-          dequant16(w, sc, d);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            a[i][h] = d[2 * i];
-            a[i][2 + h] = d[2 * i + 1];
-          }
+          const int r = 64 * cw + 16 * warp + g + 8 * h;
+          const uint32_t chunk = q8 + r * kSpan + ((ks ^ ((r >> 1) & 3)) << 4) + 4 * (t >> 1);
+          f[ks][h] = __byte_perm(lds32(chunk), lds32(chunk + 8), sel) ^ 0x80808080u;
+          const uint32_t srow = s16 + r * 128 + 4 * t;
+          sc[ks][h][0] = lds32(srow + (((2 * ks) ^ (r & 7)) << 4));
+          sc[ks][h][1] = lds32(srow + (((2 * ks + 1) ^ (r & 7)) << 4));
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma_16816(acc[nt][mt], a[i], b[mt][2 * i], b[mt][2 * i + 1]);
-      }
-    }
-  }
-  if (e >= p.E) return;
-
-  // A lane holds rows lr, lr + 8 of each 16-row tile, tokens 2t, 2t + 1 of
-  // each 8-token tile: acc[nt][mt][2 h + c] is (row lr + 8 h, token 2t + c).
-  __nv_bfloat16* y = p.y + (long long)e * p.R * p.N;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = n0 + nt * 16 + lr + 8 * (i >> 1);
-        const int m = m0 + mt * 8 + 2 * t + (i & 1);
-        if (n < p.N && m < p.R) y[(long long)m * p.N + n] = __float2bfloat16_rn(acc[nt][mt][i]);
-      }
-}
-
-// ---- more rows: the dequantized tile in shared memory -------------------------
-
-// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
-// row l % 8 of matrix l / 8; d[i] is matrix i's fragment (a lane holds row
-// lane / 4, columns 2 (lane % 4), + 1).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-               : "r"(addr));
-}
-
-// The byte offset of 16-byte chunk c of row r in a tile of 128-byte rows,
-// swizzled (c ^ r % 8) so that ldmatrix's 8 rows of one chunk hit
-// distinct banks.
-__device__ __forceinline__ int sw128(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
-
-// A block a (expert, BN = 128 weight rows, BM tokens), 8 warps of 64 rows x
-// BM / 4 tokens (NT = 4 16-row tiles x MT 8-token tiles). Each stage brings
-// one 64-k span of the int8 rows, their scales and the x rows by cp.async.
-// The block's threads dequantize a span once, in place: each 16-byte chunk
-// of 8 scales becomes the chunk of its 8 weights, bf16(q s) (each weight
-// once a block, where the decode kernel's warps would do it once a warp).
-// The warps then take A from that tile and B from the x tile with ldmatrix
-// and multiply with mma.sync; span j + 1 is dequantized between span j's
-// k-steps, so its ALU work overlaps the products and one barrier a span
-// suffices.
-template <int MT, int STAGES>
-struct Tiled {
-  static constexpr int kThreads = 256;
-  static constexpr int BN = 128, NT = 4;
-  static constexpr int BM = 32 * MT;
-  static constexpr int kQBytes = BN * kSpan;          // int8 rows of 64 bytes
-  static constexpr int kSBytes = BN * kSpan * 2;      // bf16 scale, then weight, rows of 128 bytes
-  static constexpr int kXBytes = BM * kSpan * 2;      // bf16 x rows of 128 bytes
-  static constexpr int kStage = kQBytes + kSBytes + kXBytes;
-  static constexpr int kSmem = STAGES * kStage;
-};
-
-template <int MT, int STAGES>
-__global__ void __launch_bounds__(256) int8_experts_tiled(const Params p) {
-  using T = Tiled<MT, STAGES>;
-  static_assert(STAGES >= 3, "span j + 1 is dequantized while j is multiplied");
-  extern __shared__ __align__(128) uint8_t smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wn = warp & 1, wm = warp >> 1;            // 2 x 4 warps
-  const int lr = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN, e = blockIdx.z;
-  const int8_t* q = p.q + (long long)e * p.N * p.K;
-  const __nv_bfloat16* x = p.x + (long long)e * p.R * p.K;
-  const int stages = (p.K + kSpan - 1) / kSpan;
-
-  auto load = [&](int j) {
-    uint8_t* st = smem + (j % STAGES) * T::kStage;
-    const int k0 = j * kSpan;
-    for (int c = threadIdx.x; c < T::BN * 4; c += T::kThreads) {
-      const int row = c >> 2, ch = c & 3, k = k0 + ch * 16, n = n0 + row;
-      const bool ok = n < p.N && k < p.K;
-      cp_async_16(st + row * kSpan + ch * 16, ok ? q + (long long)n * p.K + k : p.q, ok ? 16 : 0);
-    }
-    for (int c = threadIdx.x; c < T::BN * 8; c += T::kThreads) {
-      const int row = c >> 3, ch = c & 7, k = k0 + ch * 8, n = n0 + row;
-      const bool ok = n < p.N && k < p.K;
-      cp_async_16(st + T::kQBytes + sw128(row, ch),
-                  ok ? p.scale + (long long)n * p.K + k : p.scale, ok ? 16 : 0);
-    }
-    for (int c = threadIdx.x; c < T::BM * 8; c += T::kThreads) {
-      const int row = c >> 3, ch = c & 7, k = k0 + ch * 8, m = m0 + row;
-      const bool ok = m < p.R && k < p.K;
-      cp_async_16(st + T::kQBytes + T::kSBytes + sw128(row, ch),
-                  ok ? x + (long long)m * p.K + k : p.x, ok ? 16 : 0);
-    }
-  };
-  // Chunk i (of 4) of this thread in span j's tile: its 8 int8 weights and
-  // 8 scales become 8 bf16 weights, bf16(q s), written over the scales (a
-  // thread reads and writes only its own chunks).
-  auto dequant = [&](int j, int i) {
-    const uint32_t st = smem_u32(smem + (j % STAGES) * T::kStage);
-    const int c = threadIdx.x + i * T::kThreads, row = c >> 3, ch = c & 7;
-    uint32_t w0, w1;
-    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
-                 : "=r"(w0), "=r"(w1)
-                 : "r"(st + row * kSpan + ch * 8)
-                 : "memory");
-    const uint32_t at = st + T::kQBytes + sw128(row, ch);
-    const uint4 sc = lds128(at);
-    const uint32_t f0 = w0 ^ 0x80808080u, f1 = w1 ^ 0x80808080u;
-    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(at),
-                 "r"(bf16x2_mul(int8_pair<0, 1>(f0), sc.x)),
-                 "r"(bf16x2_mul(int8_pair<2, 3>(f0), sc.y)),
-                 "r"(bf16x2_mul(int8_pair<0, 1>(f1), sc.z)),
-                 "r"(bf16x2_mul(int8_pair<2, 3>(f1), sc.w))
-                 : "memory");
-  };
-
-#pragma unroll
-  for (int j = 0; j < STAGES - 1; ++j) {
-    if (j < stages) load(j);
-    cp_async_commit();
-  }
-  cp_async_wait<STAGES - 2>();
-  __syncthreads();                // span 0 landed
-#pragma unroll
-  for (int i = 0; i < 4; ++i) dequant(0, i);
-
-  float acc[T::NT][MT][4];
-#pragma unroll
-  for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][mt][i] = 0.f;
-
-  for (int j = 0; j < stages; ++j) {
-    cp_async_wait<STAGES - 3>();
-    // Span j + 1 landed and span j dequantized for all; span j - 1's slot
-    // is free.
-    __syncthreads();
-    if (j + STAGES - 1 < stages) load(j + STAGES - 1);
-    cp_async_commit();
-    const uint32_t st = smem_u32(smem + (j % STAGES) * T::kStage);
-    const uint32_t ws = st + T::kQBytes, xs = ws + T::kSBytes;
-    // A's and B's fragments of k-step kk (16 k): A [nt] from the weight
-    // tile; B [mp] the tokens of two 8-token tiles, matrices (tile 0, k
-    // 0-7), (tile 0, k 8-15), (tile 1, k 0-7), (tile 1, k 8-15).
-    uint32_t a[2][T::NT][4], b[2][MT / 2][4];
-    auto fragments = [&](int kk, uint32_t (&fa)[T::NT][4], uint32_t (&fb)[MT / 2][4]) {
-#pragma unroll
-      for (int nt = 0; nt < T::NT; ++nt) {
-        const int r = wn * 64 + nt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-        ldmatrix_x4(fa[nt], ws + sw128(r, 2 * kk + (lane >> 4)));
-      }
-#pragma unroll
-      for (int mp = 0; mp < MT / 2; ++mp) {
-        const int r = wm * (8 * MT) + mp * 16 + (lane & 7) + 8 * (lane >> 4);
-        ldmatrix_x4(fb[mp], xs + sw128(r, 2 * kk + ((lane >> 3) & 1)));
-      }
     };
-    fragments(0, a[0], b[0]);
+    fetch(0);
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % S;
+      const uint32_t xb = smem_u32(ring + s * T::kStage);
+      uint32_t a[4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {   // 16 k a step; the next step's fragments load first
-      const int cur = kk & 1;
-      if (kk < 3) fragments(kk + 1, a[cur ^ 1], b[cur ^ 1]);
+      for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
-      for (int mp = 0; mp < MT / 2; ++mp)
-#pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt) {
-          mma_16816(acc[nt][2 * mp], a[cur][nt], b[cur][mp][0], b[cur][mp][1]);
-          mma_16816(acc[nt][2 * mp + 1], a[cur][nt], b[cur][mp][2], b[cur][mp][3]);
+        for (int h = 0; h < 2; ++h) {
+          a[ks][h] = bf16x2_mul(int8_pair<0, 1>(f[ks][h]), sc[ks][h][0]);
+          a[ks][2 + h] = bf16x2_mul(int8_pair<2, 3>(f[ks][h]), sc[ks][h][1]);
         }
-      if (j + 1 < stages) dequant(j + 1, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) wgmma_rs_n<BM>(acc, a[ks], sw128_desc(xb + ks * 32, 16, 1024));
+      wgmma_commit();
+      if (i + 1 < nk) fetch(i + 1);
+      // The A registers are rewritten next stage: wait for the products
+      // (the other warpgroup's keep the tensor cores busy meanwhile).
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    fence_operands(acc);
+    // Epilogue: y's [BM tokens][64 rows] of this warpgroup, staged in the
+    // drained ring by transposing stmatrix stores (the 128-byte swizzle: the
+    // 16-byte chunk of rows 8 q .. + 7 of token m at q ^ (m % 8)), then one
+    // TMA store, which clips tokens past R and rows past N. acc[4 j + 2 h +
+    // v] is (weight row 16 warp + g + 8 h, token 8 j + 2 t + v).
+    named_bar_sync(1, 256);              // both warpgroups are done with the ring
+    uint8_t* stage = ring + cw * (BM * 128);
+    const int q4 = lane >> 3, rr = lane & 7;
+#pragma unroll
+    for (int j = 0; j < BM / 8; j += 2) {
+      const int m = 8 * (j + (q4 >> 1)) + rr, chunk = 2 * warp + (q4 & 1);
+      stmatrix_x4_trans(smem_u32(stage) + m * 128 + ((chunk ^ (m & 7)) << 4),
+                        flash::pack_bf16(acc[4 * j], acc[4 * j + 1]),
+                        flash::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]),
+                        flash::pack_bf16(acc[4 * j + 4], acc[4 * j + 5]),
+                        flash::pack_bf16(acc[4 * j + 6], acc[4 * j + 7]));
+    }
+    fence_proxy_async();                 // the TMA store reads what stmatrix wrote
+    named_bar_sync(2 + cw, 128);
+    if (tid == 0 && n0 + 64 * cw < p.N) {
+      tma_store_3d(&p.tm_y, stage, n0 + 64 * cw, m0, e);
+      tma_store_commit();
+      tma_store_wait_read();             // the block's shared memory outlives the read
     }
   }
-
-  __nv_bfloat16* y = p.y + (long long)e * p.R * p.N;
-#pragma unroll
-  for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = n0 + wn * 64 + nt * 16 + lr + 8 * (i >> 1);
-        const int m = m0 + wm * (8 * MT) + mt * 8 + 2 * t + (i & 1);
-        if (n < p.N && m < p.R) y[(long long)m * p.N + n] = __float2bfloat16_rn(acc[nt][mt][i]);
-      }
 }
 
-// The launches: grid (token tiles, row tiles, experts or expert groups),
-// tokens the fastest axis.
-template <int NT, int MT, int STAGES, int SUB>
-cudaError_t launch_decode(const Params& p, cudaStream_t stream) {
-  using Sh = Decode<NT, MT, STAGES, SUB>;
-  constexpr auto fn = &int8_experts_decode<NT, MT, STAGES, SUB>;
+// ---- host --------------------------------------------------------------------
+
+// Experts run fastest on the tiled grid while x of all of them (2 E R K
+// bytes) stays this far below the 50 MB L2; larger x (a prefill group's 84
+// MB) takes token tiles fastest.
+constexpr long long kExpertsFirstBytes = 16ll << 20;
+
+// Tokens a tiled block for R rows: the fewest padded tokens plus 64 a tile
+// for dequantizing its weights once (ties to the larger tile): 17-64 rows
+// take 64, 65-128 take 128, 129-256 take 256, 1280 takes 5 x 256.
+int tile_tokens(int R) {
+  int best = 256;
+  long long best_cost = -1;
+  for (int bm : {256, 128, 64}) {
+    const long long cost = (long long)((R + bm - 1) / bm) * (bm + 64);
+    if (best_cost < 0 || cost < best_cost) {
+      best = bm;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+bool encode_x(Params& kp, const void* x, int rows, int experts) {
+  return encode_3d(&kp.tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, kp.K, kp.R, kp.E,
+                   2ull * kp.K, 2ull * kp.K * kp.R, 64, rows, experts,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+bool encode_q(Params& kp, const void* q, int rows, int experts, CUtensorMapSwizzle swizzle) {
+  return encode_3d(&kp.tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, kp.K, kp.N, kp.E, 1ull * kp.K,
+                   1ull * kp.K * kp.N, 64, rows, experts, swizzle);
+}
+
+bool encode_s(Params& kp, const void* scale, int rows) {
+  return encode_2d(&kp.tm_s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scale, kp.K, kp.N, 2ull * kp.K,
+                   64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int MT>
+cudaError_t launch_decode(Params& kp, const void* x, const void* q, const void* scale,
+                          cudaStream_t stream) {
+  using D = Decode<MT>;
+  constexpr auto fn = &int8_experts_decode<MT>;
   static bool opted = false;
-  cudaError_t err = flash::allow_smem(fn, Sh::kSmem, opted);
+  cudaError_t err = flash::allow_smem(fn, D::kSmem, opted);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.R + Sh::BM - 1) / Sh::BM, (p.N + Sh::BN - 1) / Sh::BN, (p.E + G - 1) / G);
-  fn<<<grid, Sh::kThreads, Sh::kSmem, stream>>>(p);
+  if (!encode_x(kp, x, D::BM, G) || !encode_q(kp, q, D::BN, G, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_s(kp, scale, D::BN)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((kp.N + D::BN - 1) / D::BN, (kp.E + G - 1) / G);
+  fn<<<grid, D::kThreads, D::kSmem, stream>>>(kp);
   return cudaGetLastError();
 }
 
-template <int MT, int STAGES>
-cudaError_t launch_tiled(const Params& p, cudaStream_t stream) {
-  using T = Tiled<MT, STAGES>;
-  constexpr auto fn = &int8_experts_tiled<MT, STAGES>;
+template <int BM>
+cudaError_t launch_tiled(Params& kp, const void* x, const void* q, const void* scale, void* y,
+                         cudaStream_t stream) {
+  using T = Tiled<BM>;
+  constexpr auto fn = &int8_experts_tiled<BM>;
   static bool opted = false;
   cudaError_t err = flash::allow_smem(fn, T::kSmem, opted);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.R + T::BM - 1) / T::BM, (p.N + T::BN - 1) / T::BN, p.E);
-  fn<<<grid, T::kThreads, T::kSmem, stream>>>(p);
+  if (!encode_x(kp, x, BM, 1) || !encode_q(kp, q, T::BN, 1, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode_s(kp, scale, T::BN) ||
+      !encode_3d(&kp.tm_y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, y, kp.N, kp.R, kp.E, 2ull * kp.N,
+                 2ull * kp.N * kp.R, 64, BM, 1, CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return cudaErrorInvalidValue;
+  }
+  const unsigned rows = (kp.N + T::BN - 1) / T::BN, tokens = (kp.R + BM - 1) / BM;
+  const dim3 grid = kp.experts_first ? dim3(kp.E, tokens, rows) : dim3(tokens, rows, kp.E);
+  fn<<<grid, T::kThreads, T::kSmem, stream>>>(kp);
   return cudaGetLastError();
 }
 
@@ -416,17 +459,44 @@ cudaError_t launch_tiled(const Params& p, cudaStream_t stream) {
 // y[e] = x[e] . dequant(q[e], scale)^T for every expert e (see the header):
 // x bf16 [E, R, K], q int8 [E, N, K], scale bf16 [N, K], y bf16 [E, R, N],
 // all contiguous and 16-byte aligned; N and K multiples of 16, E and R >= 1.
-// Decode rows (R <= 8 or <= 16) take the expert-group kernel, more rows the
-// tiled one. Returns the CUDA error code of the launch (0 = launched).
+// Overrides of the tiled kernel's plan (R > 16), each 0 for the plan's own
+// choice: ``bm`` (64, 128 or 256 tokens a tile; tile_tokens) and
+// ``order`` (1: token tiles fastest, 2: experts fastest; by x's size).
+// Returns the CUDA error code of the launch (0 = launched).
+extern "C" int kftpu_int8_experts_config(const void* x, const void* q, const void* scale, void* y,
+                                         int E, int R, int N, int K, int bm, int order,
+                                         void* stream) {
+  if (E < 1 || R < 1 || N < 16 || N % 16 || K < 16 || K % 16) return cudaErrorInvalidValue;
+  if (bm == 0) bm = tile_tokens(R);
+  if (order == 0) order = 2ll * E * R * K <= kExpertsFirstBytes ? 2 : 1;
+  if ((bm != 64 && bm != 128 && bm != 256) || (order != 1 && order != 2)) {
+    return cudaErrorInvalidValue;
+  }
+  Params p = {};
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.E = E;
+  p.R = R;
+  p.N = N;
+  p.K = K;
+  p.experts_first = order == 2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (R <= 8) {
+    err = launch_decode<1>(p, x, q, scale, st);
+  } else if (R <= 16) {
+    err = launch_decode<2>(p, x, q, scale, st);
+  } else if (bm == 64) {
+    err = launch_tiled<64>(p, x, q, scale, y, st);
+  } else if (bm == 128) {
+    err = launch_tiled<128>(p, x, q, scale, y, st);
+  } else {
+    err = launch_tiled<256>(p, x, q, scale, y, st);
+  }
+  return static_cast<int>(err);
+}
+
+// The same with the plan's choices (see kftpu_int8_experts_config).
 extern "C" int kftpu_int8_experts(const void* x, const void* q, const void* scale, void* y, int E,
                                   int R, int N, int K, void* stream) {
-  if (E < 1 || R < 1 || N < 16 || N % 16 || K < 16 || K % 16) return cudaErrorInvalidValue;
-  const Params p{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-                 static_cast<const __nv_bfloat16*>(scale), static_cast<__nv_bfloat16*>(y),
-                 E, R, N, K};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R <= 8) return static_cast<int>(launch_decode<2, 1, 3, 2>(p, st));
-  if (R <= 16) return static_cast<int>(launch_decode<2, 2, 3, 2>(p, st));
-  if (R <= 128) return static_cast<int>(launch_tiled<4, 4>(p, st));
-  return static_cast<int>(launch_tiled<8, 3>(p, st));
+  return kftpu_int8_experts_config(x, q, scale, y, E, R, N, K, 0, 0, stream);
 }

@@ -204,10 +204,6 @@ __device__ __forceinline__ uint32_t int8_pair_scaled(uint32_t flipped, float s, 
   return flash::pack_bf16(lo, hi);
 }
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
 // ---- decode (M <= 16): mma.sync over cp.async rings --------------------------
 
 // A block of WN x WM warps tiles BN output rows x BM tokens (each warp NT
@@ -512,24 +508,6 @@ struct Prefill {
   static_assert(2 * BM * 128 <= kRawStages * kRaw, "the epilogue stages y in the ring");
   static_assert(kSmem <= 232448, "more shared memory than a block may have");
 };
-
-template <int BM>
-__device__ __forceinline__ void wgmma_rs_n(float (&d)[BM / 2], const uint32_t (&a)[4],
-                                           uint64_t db) {
-  if constexpr (BM == 256) {
-    wgmma_rs_m64n256k16(d, a, db);
-  } else if constexpr (BM == 128) {
-    wgmma_rs_m64n128k16(d, a, db);
-  } else {
-    wgmma_rs_m64n64k16(d, a, db, 1);
-  }
-}
-
-__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
 
 template <int BM, bool ROW_SCALE>
 __global__ void __launch_bounds__(Prefill<BM, ROW_SCALE>::kThreads, 1)

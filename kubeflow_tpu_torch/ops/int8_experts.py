@@ -20,9 +20,12 @@ It dispatches on where x lives:
 
 - CUDA tensors launch ``ops/csrc/int8_experts.cu``, built at first use by
   ``ops/_build.py``, or raise: the kernel takes bf16 x and output, N and K
-  multiples of 16, any E and R >= 1, contiguous operands. It reads the
-  int8 bytes and each scale once a call (the weight is never dequantized
-  whole), is capture-safe and deterministic.
+  multiples of 16, any E and R >= 1, contiguous operands. Up to 16 rows an
+  expert, a TMA-fed block a group of 8 experts (each scale reaches the SM
+  once); more rows, a TMA + wgmma kernel whose grid runs the experts of a
+  row tile together while x is small. The weight is never dequantized
+  whole; the kernel is capture-safe and deterministic, and a launch it
+  refuses (a shape, a tensor map) raises here.
 - CPU tensors take :func:`int8_experts_reference`, which dequantizes the
   leaf as ``_materialize`` does and calls ``torch.bmm``. It is also what
   ``chip_smoke.py`` holds the kernel against on the card.

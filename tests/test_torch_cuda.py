@@ -2464,29 +2464,38 @@ def _experts(E, R, N, K, seed=0):
     return x, q, scale
 
 
-# K15 at a decode step's rows (4, 16), past them (17, an odd 37) and a
-# prefill group's (1280), gate/up (K -> N) and down (N -> K).
-@pytest.mark.parametrize("r", [4, 16, 17, 37, 1280])
-@pytest.mark.parametrize("n,k", [(1536, 512), (512, 1536)])
-def test_int8_experts_matches_plain(r, n, k):
+# K15 at decode rows (1, 4, 16: the expert-group kernel), past them (17,
+# 37, 64, 128, 129, 255, 256, 257: the tiled kernel's 64-, 128- and
+# 256-token tiles and their edges) and a prefill group's (1280); gate/up (K
+# -> N), down (N -> K) and N, K multiples of 16 but not of 64 (the tensor
+# maps' zero fill and clipping at the expert's edge); E = 8, 4 and 3 (the
+# decode block's group of 8 experts full, half and ragged).
+K15_ROWS = [1, 4, 16, 17, 37, 64, 128, 129, 255, 256, 257, 1280]
+
+
+@pytest.mark.parametrize("e", [8, 4, 3])
+@pytest.mark.parametrize("r", K15_ROWS)
+@pytest.mark.parametrize("n,k", [(1536, 512), (512, 1536), (1552, 528)])
+def test_int8_experts_matches_plain(e, r, n, k):
     from kubeflow_tpu_torch.ops import int8_experts as ie
 
-    x, q, scale = _experts(8, r, n, k, seed=r)
+    x, q, scale = _experts(e, r, n, k, seed=r)
     before = ie.int8_experts.launches
     y = ie.int8_experts(x, q, scale)
     want = ie.int8_experts_reference(x, q, scale)
-    assert y.shape == (8, r, n) and y.dtype == torch.bfloat16
+    assert y.shape == (e, r, n) and y.dtype == torch.bfloat16
     err = (y.float() - want.float()).abs().max()
     assert err <= 1e-2 * want.float().abs().max()
     assert torch.equal(ie.int8_experts(x, q, scale), y)   # deterministic
     assert ie.int8_experts.launches == before + 2
 
 
-@pytest.mark.parametrize("r", [4, 37])
-def test_int8_experts_graph_replay_equals_eager(r):
+@pytest.mark.parametrize("e", [8, 4, 3])
+@pytest.mark.parametrize("r", K15_ROWS)
+def test_int8_experts_graph_replay_equals_eager(e, r):
     from kubeflow_tpu_torch.ops import int8_experts as ie
 
-    x, q, scale = _experts(4, r, 256, 512, seed=3)
+    x, q, scale = _experts(e, r, 272, 528, seed=3)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
