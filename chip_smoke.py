@@ -159,9 +159,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    experts, capacity 4, width 4096, bf16) and a prefill group (4096 rows,
    capacity 1280), logits with a hot expert so that capacity drops
    choices: K12's integer outputs equal and its weights and aux bitwise,
-   K13 and K14 bitwise, two calls bitwise equal; each timed (CUDA-graph
-   replays, cold over sets past twice the L2 where a call is smaller)
-   beside its plain version and its byte bound; no library call;
+   K13 and K14 bitwise, two calls bitwise equal; K12 also in a graph
+   replay, in its warp form (the decode step) and its group form (the
+   prefill group, a cluster of 8 blocks), and at its edges (K12_EDGES: T
+   1, 32, 33, 300, 1000, 2000, 8 groups of 8, 2 and 64 experts: the warp
+   form and the group form at 1, 2 and 4 blocks a group); each timed
+   (CUDA-graph replays, cold over sets past twice the L2 where a call is
+   smaller) beside its plain version and its byte bound; no library
+   call. Then K10's combine mode (combine_add_rms_norm on a deferred MoE
+   combine) at 1, 8, 48, 128, 1024, 2048 and 4096 rows with dropped
+   choices: bitwise K14 then K10's rows kernel, twice, the sum bitwise
+   and y within one bf16 ulp of the plain versions; timed beside K14 then
+   K10 as the served path runs them (the rows kernel up to ROWS_MAX, the
+   other above) in the same call;
 7d. kernel (K15, the int8 expert product) — at mixtral-8x7b's expert
    shapes (K15_CASES: 4 rows an expert at a decode step, 1280 at a
    4096-token prefill group, an odd 37, an extend chunk's 128; gate/up
@@ -252,16 +262,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    through the engine (8 slots, max_len 1024, chunk 8, staged decode,
    CUDA graphs, bf16 KV cache), warmed with a 700-token length: a greedy
    burst of 9 requests (20-700 tokens, one through the chunked extend),
-   32 new tokens each. Checks the token counts, K1, K3, K6, K7, K9 and
-   K10 as the Llama bursts and K12-K14 once a layer a decode step,
-   prefill group and extend chunk (graph replays counted); replays one
-   served decode step eagerly from a copy of its inputs, cache and
-   staging rows: each layer's MoE output bitwise with K12-K14 swapped for
-   their plain versions on the same layer input, the swapped replay's
-   greedy tokens equal to the served ones; prints decode ms a step
+   32 new tokens each, then 4 prompts of one 512-token bucket (a
+   2048-row prefill, past ROWS_MAX). Checks the token counts, K1, K3, K6,
+   K7, K9 and K10 as the Llama bursts, K12 and K13 once a layer a decode
+   step, prefill group and extend chunk, and the combine once a layer: as
+   K14 on the passes past ROWS_MAX rows (at least one), as K10's combine
+   mode on the others (graph replays counted); replays one served decode
+   step eagerly from a copy of its inputs, cache and staging rows: each
+   layer's combine-mode add + norm bitwise K14 then K10 on its inputs,
+   its MoE output bitwise with K12-K14 swapped for their plain versions
+   on the same layer input, the swapped replay's greedy tokens (plain
+   combine, then K10) equal to the served ones; prints decode ms a step
    beside the byte bound of its weights (13.94 ms), tok/s, peak memory,
-   weight bytes, a profiled decode chunk (K12-K14 by kernel name, once a
-   layer a step) and the phase's seconds;
+   weight bytes, a profiled decode chunk (K12's warp form, K13 and K10's
+   combine mode by kernel name once a layer a step, no K14) and the
+   phase's seconds;
 11. train — runs the training runner in-process (the KFTPU_* env) on the
    ~700M-parameter Llama of ``bench.py train`` at full width and depth
    (vocab 32000, embed 2048, 12 layers, 16/8 heads, head_dim 128, MLP
@@ -328,8 +343,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    <case>_fused_; K11 over the 700M model's tensors with its launches
    over the adafactor run and its ms in that run's profiled step; K12,
    K13 and K14 at the decode step's shape with the prefill group's under
-   prefill_, their launches over the mixtral burst and their kernels and
-   ms in its profiled chunk), then the result line.
+   prefill_, K10's combine mode (add_rms_norm_combine) at 8 rows with K14
+   then K10 beside it and its other rows under rows<n>_, their launches over the mixtral
+   burst and its wide prefill and their kernels and ms in its profiled
+   chunk), then the result line.
 """
 
 from __future__ import annotations
@@ -1800,18 +1817,78 @@ def adafactor_phase():
 # 8 x 512 tokens (capacity 1280; group_size 8192 keeps it one group).
 MOE_E, MOE_M = 8, 4096
 MOE_CASES = (("decode", 8), ("prefill", 4096))
+# K12 as it was before its two forms, one 1024-thread block a group (us;
+# PERF.md's kernel table).
+K12_ONE_BLOCK_US = {"decode": 17.01, "prefill": 86.30}
+# K12's edges, each bitwise the plain version, twice and in a graph:
+# (name, T, E, G, C). The warp form (g <= 32) at one token, a full warp,
+# eight groups of 8, two experts and 64; the group form just past a warp
+# and at 300, 1000 (not powers of two) and 2000 tokens: one block, and
+# clusters of 2 and 4 (the prefill group of MOE_CASES takes 8).
+K12_EDGES = (("T=1", 1, 8, 1, 4), ("T=32", 32, 8, 1, 8),
+             ("T=33", 33, 8, 1, 12), ("T=300", 300, 8, 1, 76),
+             ("T=1000", 1000, 8, 1, 252), ("T=2000", 2000, 8, 1, 500),
+             ("G=8x8", 64, 8, 8, 4), ("E=2", 16, 2, 1, 4),
+             ("E=64", 32, 64, 1, 4))
+# K10's combine mode: rows (a decode step's 1 and 8 slots, the paged
+# step's 48, an extend chunk's 128, ROWS_MAX; past it, where the served
+# path runs K14 then K10, 2048 and a prefill group's 4096).
+COMBINE_ROWS = (1, 8, 48, 128, 1024, 2048, 4096)
+
+
+def _moe_logits(gen, T, E):
+    """bf16 router logits N(0, 1), expert 1 raised by 3 so that capacity
+    drops choices, as the router's product reaches K12 on the served
+    path."""
+    logits = torch.randn(T, E, generator=gen, device="cuda")
+    logits[:, 1] += 3.0
+    return logits.bfloat16()
+
+
+def route_checked(name, logits, G, C):
+    """K12 on ``logits`` bitwise its plain version, twice, and in a CUDA
+    graph replayed on new logits of the same shape."""
+    from kubeflow_tpu_torch.ops import moe
+
+    def call():
+        return moe.route(logits, G, C, torch.bfloat16)
+
+    def want():
+        return moe.route_reference(logits, G, C, torch.bfloat16)
+
+    r = call()
+    _bitwise(f"K12 {name}", zip(r, want()))
+    _bitwise(f"K12 {name} twice", zip(r, call()))
+    saved = logits.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = call()
+    logits.copy_(torch.roll(saved, 1, 0) * 0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    _bitwise(f"K12 {name} in a graph", zip(out, want()))
+    logits.copy_(saved)
+    return r
 
 
 def moe_phase():
     """K12-K14 against their plain versions (ops/moe.py) at MOE_CASES'
     shapes, bf16 router logits N(0, 1) with expert 1 raised by 3 so that
     capacity drops choices: K12's integer outputs equal and its weights,
-    slot flags and aux loss bitwise, K13 and K14 bitwise, each twice
-    bitwise equal. Times each (CUDA-graph replays; cold over sets past
-    twice the L2 where a call is smaller) and its plain version beside
-    its byte bound (K12: logits read, maps written; K13: x read once,
-    the buffers written; K14: the kept choices' rows of y read, the
-    tokens written); no library call computes any of them."""
+    slot flags and aux loss bitwise, twice and in a graph replay (the
+    decode step's warp form, the prefill group's group form), and at
+    K12_EDGES; K13 and
+    K14 bitwise, each twice bitwise equal. Times each (CUDA-graph
+    replays; cold over sets past twice the L2 where a call is smaller)
+    and its plain version beside its byte bound (K12: logits read, maps
+    written; K13: x read once, the buffers written; K14: the kept
+    choices' rows of y read, the tokens written); no library call
+    computes any of them. Then K10's combine mode (combine_norm_rows)."""
     from kubeflow_tpu_torch.ops import moe
     from kubeflow_tpu_torch.parallel.moe import Top2GateConfig
 
@@ -1822,21 +1899,15 @@ def moe_phase():
         C = cfg.capacity(T)
         S = MOE_E * C
         big = T > 8
-        # bf16, as the router's product reaches K12 on the served path.
-        logits = torch.randn(T, MOE_E, generator=gen, device="cuda")
-        logits[:, 1] += 3.0
-        logits = logits.bfloat16()
-        r = moe.route(logits, 1, C, torch.bfloat16)
-        _bitwise(f"K12 {case}", zip(r, moe.route_reference(
-            logits, 1, C, torch.bfloat16)))
-        _bitwise(f"K12 {case} twice", zip(r, moe.route(
-            logits, 1, C, torch.bfloat16)))
+        logits = _moe_logits(gen, T, MOE_E)
+        r = route_checked(case, logits, 1, C)
         kept = int((r.dest1 < S).sum() + (r.dest2 < S).sum())
         if kept >= 2 * T:
             raise AssertionError(f"K12 {case}: no choice dropped")
         route_bytes = T * MOE_E * 2 + 16 * T + 6 * S + 4
         row = dict(max_abs_err=0.0, library_ms=None, bound_by="bytes",
-                   bound_ms=bytes_ms(route_bytes), kept=kept, slots=S)
+                   bound_ms=bytes_ms(route_bytes), kept=kept, slots=S,
+                   form="warp" if T <= 32 else "group")
         row["ms"] = device_ms(lambda: moe.route(logits, 1, C,
                                                 torch.bfloat16))
         row["plain_ms"] = device_ms(
@@ -1886,12 +1957,120 @@ def moe_phase():
         for tag in ("K12", "K13", "K14"):
             x = rows[tag][case]
             log(f"{tag} {case} (T={T}, E={MOE_E}, C={C}, M={MOE_M}, "
-                f"{kept} of {2 * T} choices kept): bitwise, kernel "
-                f"{x['ms']:.5f} ms, plain {x['plain_ms']:.5f}, bound "
+                f"{kept} of {2 * T} choices kept): bitwise"
+                + (" (twice and in a graph)" if tag == "K12" else "")
+                + f", kernel {x['ms']:.5f} ms"
+                + (f" ({x['form']} form; the earlier one-block kernel "
+                   f"{K12_ONE_BLOCK_US[case] / 1e3:.5f})" if tag == "K12"
+                   else "")
+                + f", plain {x['plain_ms']:.5f}, bound "
                 f"{x['bound_ms']:.6f} (bytes); library n/a (no single call)")
         del xs, ys, ein, out
         torch.cuda.empty_cache()
+    for name, T, E, G, C in K12_EDGES:
+        logits = _moe_logits(gen, T, E)
+        r = route_checked(name, logits, G, C)
+        S = E * G * C
+        log(f"K12 {name} (T={T}, E={E}, G={G}, C={C}, "
+            f"{'warp' if T // G <= 32 else 'group'} form): bitwise twice and "
+            f"in a graph, {int((r.dest1 < S).sum() + (r.dest2 < S).sum())} "
+            f"of {2 * T} choices kept")
+    rows["K10 combine"] = combine_norm_rows(gen)
     return rows
+
+
+def combine_norm_rows(gen) -> dict:
+    """K10's combine mode (``norms.add_rms_norm_combine``) at COMBINE_ROWS
+    rows of 4096 (E = 8 experts, capacity rows / 4: drops, whose trash
+    row reads as 0): r and y bitwise K14 then K10's rows kernel, twice
+    bitwise equal, r bitwise and y within one bf16 ulp of the plain
+    versions (combine_rows_reference, add_rms_norm_reference); the served
+    path's ``moe.combine_add_rms_norm`` launches it alone up to ROWS_MAX
+    rows, else K14 then K10, bitwise either way. Timed (a launch, cold
+    over sets past twice the L2) beside K14 then K10 as the served path
+    would run them (K10's rows kernel up to ROWS_MAX, its other kernel
+    above) on the same sets in the same call, and beside its byte bound:
+    x, w and the kept choices' expert rows read, 16 bytes a row, r and y
+    written."""
+    from kubeflow_tpu_torch.ops import moe, norms
+
+    out = {}
+    M, eps = MOE_M, 1e-6
+    w = (1 + 0.1 * torch.randn(M, generator=gen, device="cuda")).bfloat16()
+    for rows_ in COMBINE_ROWS:
+        C = max(1, rows_ // 4)
+        S = MOE_E * C
+        r = moe.route(_moe_logits(gen, rows_, MOE_E), 1, C, torch.bfloat16)
+        kept = int((r.dest1 < S).sum() + (r.dest2 < S).sum())
+        if rows_ > 1 and kept >= 2 * rows_:
+            raise AssertionError(f"K10 combine {rows_} rows: no choice "
+                                 "dropped")
+        call = (3 * rows_ + kept) * M * 2 + 2 * M + 16 * rows_
+        n = sets_for(call)
+        sets = [(torch.randn(rows_, M, generator=gen,
+                             device="cuda").bfloat16(),
+                 moe.Combine(torch.randn(S, M, generator=gen,
+                                         device="cuda").bfloat16(),
+                             r.g1, r.g2, r.dest1, r.dest2))
+                for _ in range(n)]
+        x, c = sets[0]
+
+        def fused(i):
+            return norms.add_rms_norm_combine(sets[i][0], *sets[i][1], w,
+                                              eps=eps)
+
+        def pair(i, by_rows=None):
+            return norms._add_fwd_kernel(sets[i][0],
+                                         moe.combine_rows(*sets[i][1]), w,
+                                         eps, by_rows=by_rows)
+
+        with torch.no_grad():
+            before = (norms.add_rms_norm.combine_launches,
+                      moe.combine_rows.launches)
+            served = moe.combine_add_rms_norm(x, c, w, eps=eps)
+            launched = (norms.add_rms_norm.combine_launches - before[0],
+                        moe.combine_rows.launches - before[1])
+        if launched != ((1, 0) if rows_ <= norms.ROWS_MAX else (0, 1)):
+            raise AssertionError(f"K10 combine {rows_} rows: combine-mode "
+                                 f"and K14 launches {launched}")
+        _bitwise(f"K10 combine {rows_} rows: the served path's add + norm",
+                 zip(served, pair(0)))
+        got, want = fused(0), pair(0, by_rows=True)
+        _bitwise(f"K10 combine {rows_} rows (against K14 then K10)",
+                 [(got[0], want[0]), (got[1], want[1])])
+        _bitwise(f"K10 combine {rows_} rows twice", zip(got, fused(0)))
+        pr, py, _ = norms.add_rms_norm_reference(
+            x, moe.combine_rows_reference(*c), w, eps=eps)
+        _bitwise(f"K10 combine {rows_} rows: the sum", [(got[0], pr)])
+        err = ulps(got[1], py)
+        if err > 1:
+            raise AssertionError(f"K10 combine {rows_} rows: y {err:.2f} "
+                                 "ulp from the plain version")
+        row = dict(max_abs_err=float((got[1].float() - py.float()).abs()
+                                     .max()), ulps=err, rows=rows_,
+                   kept=kept, library_ms=None, bound_by="bytes",
+                   bound_ms=bytes_ms(call))
+        big = call > L2_BYTES
+        row["ms"] = timed(fused, call, big)
+        row["pair_ms"] = timed(pair, call, big)
+        row["ms_again"] = timed(fused, call, big)
+        row["pair_ms_again"] = timed(pair, call, big)
+        row["plain_ms"] = device_ms(
+            lambda: norms.add_rms_norm_reference(
+                x, moe.combine_rows_reference(*c), w, eps=eps),
+            calls=2, replays=3)
+        out[rows_] = row
+        log(f"K10 combine [{rows_}, {M}] bf16 ({kept} of {2 * rows_} "
+            f"choices kept): bitwise K14 then K10, sum bitwise and y "
+            f"{err:.2f} ulp of the plain versions; kernel {row['ms']:.5f} "
+            f"ms (again {row['ms_again']:.5f}) against K14 then K10 "
+            f"{row['pair_ms']:.5f} (again {row['pair_ms_again']:.5f}; "
+            f"K10's {'rows' if rows_ <= norms.ROWS_MAX else 'other'} "
+            f"kernel), plain {row['plain_ms']:.5f}, bound "
+            f"{row['bound_ms']:.6f} (bytes); library n/a (no single call)")
+        del sets, x, c, got, want, served
+        torch.cuda.empty_cache()
+    return out
 
 
 # K15, the int8 expert product, at mixtral-8x7b's expert shapes: E = 8
@@ -3852,20 +4031,34 @@ def serve_fused_phase():
 # The serve mixtral phase: mixtral-8x7b at its published width, cut to 16
 # of its 32 layers so that its bf16 weights (46.97 GB) fit one card.
 MIXTRAL_LAYERS = 16
-MOE_COUNTERS = ("K12", "K13", "K14")
+MOE_COUNTERS = ("K12", "K13", "K14", "K10 combine")
 
 
 def moe_counters():
     from kubeflow_tpu_torch.ops import moe
+    from kubeflow_tpu_torch.ops.norms import add_rms_norm
 
     return ((moe.route, "launches"), (moe.gather_rows, "launches"),
-            (moe.combine_rows, "launches"))
+            (moe.combine_rows, "launches"),
+            (add_rms_norm, "combine_launches"))
+
+
+def plain_combine_add(x, c, weight, *, eps):
+    """The closing add + norm of a Mixtral layer with the MoE combine's
+    plain version: combine_rows_reference, then K10."""
+    from kubeflow_tpu_torch.ops import moe
+    from kubeflow_tpu_torch.ops.norms import add_rms_norm
+
+    return add_rms_norm(x, moe.combine_rows_reference(*c).view(x.shape),
+                        weight, eps=eps)
 
 
 class plain_moe:
     """Within the block, the MoE layer runs K12-K15's plain versions
-    (ops/moe.py, ops/int8_experts.py) in place of the kernels: the check's
-    swap, never the served path's."""
+    (ops/moe.py, ops/int8_experts.py) in place of the kernels, its
+    closing add + norm the plain combine then K10 (plain_combine_add) in
+    place of K10's combine mode: the check's swap, never the served
+    path's."""
 
     def __enter__(self):
         from kubeflow_tpu_torch.models import mixtral
@@ -3874,10 +4067,12 @@ class plain_moe:
         from kubeflow_tpu_torch.parallel import moe as dispatch
 
         self.saved = (dispatch.route, dispatch.gather_rows,
-                      dispatch.combine_rows, mixtral.int8_experts)
+                      dispatch.combine_rows, mixtral.combine_add_rms_norm,
+                      mixtral.int8_experts)
         dispatch.route, dispatch.gather_rows, dispatch.combine_rows = (
             moe.route_reference, moe.gather_rows_reference,
             moe.combine_rows_reference)
+        mixtral.combine_add_rms_norm = plain_combine_add
         mixtral.int8_experts = ie.int8_experts_reference
         return self
 
@@ -3886,7 +4081,7 @@ class plain_moe:
         from kubeflow_tpu_torch.parallel import moe as dispatch
 
         (dispatch.route, dispatch.gather_rows, dispatch.combine_rows,
-         mixtral.int8_experts) = self.saved
+         mixtral.combine_add_rms_norm, mixtral.int8_experts) = self.saved
 
 
 def replay_step(model, snap, plain: bool):
@@ -3894,13 +4089,40 @@ def replay_step(model, snap, plain: bool):
     (the dispatch's tokens, positions and a copy of every cache tensor,
     staging rows included; a staged step at column 0, as the chunk's
     first step runs): (greedy tokens [B], [(MoE input, MoE output)] a
-    layer)."""
+    layer, the output of a deferred combine made by its plain version).
+    With the kernels, every closing add + norm of a Mixtral layer must be
+    one launch of K10's combine mode, and is held bitwise against K14
+    then K10's rows kernel on the same inputs; returns how many were."""
+    from kubeflow_tpu_torch.models import mixtral
+    from kubeflow_tpu_torch.ops import moe, norms
+
     cache = [{k: v.clone() for k, v in layer.items()}
              for layer in snap["cache"]]
-    records = []
-    hooks = [layer.mlp.register_forward_hook(
-        lambda m, i, o: records.append((i[0].clone(), o.clone())))
-        for layer in model.layers]
+    records, fused = [], []
+
+    def record(m, i, o):
+        if isinstance(o, moe.Combine):
+            o = moe.combine_rows_reference(*o).view(i[0].shape)
+        records.append((i[0].clone(), o.clone()))
+
+    hooks = [layer.mlp.register_forward_hook(record)
+             for layer in model.layers]
+    combine = mixtral.combine_add_rms_norm
+
+    def checked(x, c, weight, *, eps):
+        before = norms.add_rms_norm.combine_launches
+        r, y = combine(x, c, weight, eps=eps)
+        if norms.add_rms_norm.combine_launches != before + 1:
+            raise AssertionError(f"the replay's add + norm {len(fused)}: "
+                                 "not one launch of K10's combine mode")
+        want = norms._add_fwd_kernel(x, moe.combine_rows(*c).view(x.shape),
+                                     weight, eps, by_rows=True)
+        _bitwise(f"K10 combine in the replay's add {len(fused)}",
+                 [(r, want[0]), (y, want[1])])
+        fused.append(1)
+        return r, y
+
+    mixtral.combine_add_rms_norm = checked
     try:
         with torch.no_grad():
             if plain:
@@ -3912,9 +4134,10 @@ def replay_step(model, snap, plain: bool):
                 logits, _ = model(snap["tokens"], positions=snap["positions"],
                                   cache=cache, decode=True, stage_step=0)
     finally:
+        mixtral.combine_add_rms_norm = combine
         for h in hooks:
             h.remove()
-    return torch.argmax(logits[:, 0].float(), dim=-1), records
+    return torch.argmax(logits[:, 0].float(), dim=-1), records, len(fused)
 
 
 def serve_mixtral_phase(int8: bool = False):
@@ -3952,6 +4175,7 @@ def serve_mixtral_phase(int8: bool = False):
         expert_launches_per_pass,
     )
     from kubeflow_tpu_torch.ops.int8_experts import int8_experts
+    from kubeflow_tpu_torch.ops.norms import ROWS_MAX
     from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
     from kubeflow_tpu_torch.serving.server import build_server, env_config
     from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
@@ -4032,21 +4256,53 @@ def serve_mixtral_phase(int8: bool = False):
     for fn, name in moe_counters():
         setattr(fn, name, 0)
     int8_experts.launches = 0
+    # Rows a prefill or extend pass feeds the layers (a decode step's are
+    # the slots): above ROWS_MAX the MoE combine is K14's own launch,
+    # else K10's combine mode.
+    pass_rows = []
+    run_prefill, run_extend = engine._run_prefill, engine._run_extend
+
+    def prefill_rows(tokens, *args, **kw):
+        pass_rows.append(tokens.size)
+        return run_prefill(tokens, *args, **kw)
+
+    def extend_rows(tokens, *args, **kw):
+        pass_rows.append(tokens.size)
+        return run_extend(tokens, *args, **kw)
+
     engine._run_decode = spy
+    engine._run_prefill, engine._run_extend = prefill_rows, extend_rows
     torch.cuda.reset_peak_memory_stats()
     try:
         _, tok_s, ttft = engine_burst(engine, prompts, 32, tag)
-    finally:
         del engine._run_decode
+        # Then 4 prompts of one 512-token bucket: a 2048-row prefill, past
+        # ROWS_MAX, whose MoE combine K14 launches.
+        wide = [rs.randint(0, cfg.vocab_size, n).tolist()
+                for n in (300, 350, 400, 450)]
+        rids = [engine.submit(p, max_new_tokens=2) for p in wide]
+        engine.run()
+        if any(len(engine.result(r).tokens) != 2 for r in rids):
+            raise AssertionError(f"{tag}: a wide prefill's request lacks "
+                                 "its 2 tokens")
+    finally:
+        engine.__dict__.pop("_run_decode", None)
+        del engine._run_prefill, engine._run_extend
     peak = torch.cuda.max_memory_allocated()
     passes = (engine.cfg.decode_chunk * engine.decode_dispatches
               + engine.prefill_dispatches + engine.extend_dispatches)
+    wide_passes = sum(n > ROWS_MAX for n in pass_rows)
     moe_launches = [getattr(fn, name) for fn, name in moe_counters()]
     k15 = int8_experts.launches
-    if moe_launches != [layers * passes] * 3:
-        raise AssertionError(f"{tag}: K12/K13/K14 launches {moe_launches}, "
-                             f"want {layers} a layer for each of {passes} "
-                             "forward passes")
+    want = [layers * passes] * 2 + [layers * wide_passes,
+                                    layers * (passes - wide_passes)]
+    if moe_launches != want or not wide_passes:
+        raise AssertionError(
+            f"{tag}: {'/'.join(MOE_COUNTERS)} launches {moe_launches}, want "
+            f"{want}: {layers} a layer for each of {passes} forward passes, "
+            f"the combine as K14 at the {wide_passes} of them past "
+            f"{ROWS_MAX} rows (at least one) and as K10's combine mode at "
+            "the others")
     if k15 != expert_launches_per_pass(model) * passes or \
             expert_launches_per_pass(model) != (3 * layers if int8 else 0):
         raise AssertionError(f"{tag}: K15 launches {k15}, want "
@@ -4059,9 +4315,13 @@ def serve_mixtral_phase(int8: bool = False):
         raise AssertionError(f"{tag}: the burst made fewer than 3 decode "
                              "dispatches")
 
-    # The replay: the kernels eagerly, then K12-K15's plain versions on
+    # The replay: the kernels eagerly (each deferred combine's add + norm
+    # held bitwise against K14 then K10), then K12-K15's plain versions on
     # each layer's input and through the whole step (tokens).
-    kernel_tokens, kernel_moe = replay_step(model, snap, plain=False)
+    kernel_tokens, kernel_moe, fused = replay_step(model, snap, plain=False)
+    if fused != layers:
+        raise AssertionError(f"{tag}: the replayed step took K10's combine "
+                             f"mode {fused} times, want {layers}")
     moe_err = []
     with plain_moe(), torch.no_grad():
         for i, (layer, (x, y)) in enumerate(zip(model.layers, kernel_moe)):
@@ -4076,15 +4336,16 @@ def serve_mixtral_phase(int8: bool = False):
                 raise AssertionError(f"{tag}: layer {i}'s MoE output differs "
                                      f"from the plain versions' by {err} > "
                                      f"{K15_TOL} x {top}")
-    plain_tokens, _ = replay_step(model, snap, plain=True)
+    plain_tokens, _, _ = replay_step(model, snap, plain=True)
     same = int((plain_tokens == snap["served"]).sum())
     if not int8 and same != len(plain_tokens):
         raise AssertionError(
             f"{tag}: the plain versions' replay gives "
             f"{plain_tokens.tolist()}, the served step "
             f"{snap['served'].tolist()}")
-    log(f"{tag}: decode dispatch 3 replayed eagerly: each of {layers} layers'"
-        " MoE output with K12-K15's plain versions on its input "
+    log(f"{tag}: decode dispatch 3 replayed eagerly: each of {layers} "
+        "layers' K10 combine mode bitwise K14 then K10 on its inputs, its "
+        "MoE output with K12-K15's plain versions on its input "
         + (f"within {K15_TOL} x its max (worst {max(moe_err):.2e})" if int8
            else "bitwise")
         + f"; greedy tokens {plain_tokens.tolist()}, the served ones "
@@ -4094,15 +4355,18 @@ def serve_mixtral_phase(int8: bool = False):
            else f"differ: {kernel_tokens.tolist()})"))
     del snap, kernel_moe
 
-    names = ("moe_route", "moe_gather", "moe_combine", "int8_experts_decode")
+    # A decode step's slots take K12's warp form and K10's combine mode
+    # once a layer, and no K14.
+    names = ("moe_route_warp", "moe_gather", "moe_combine",
+             "add_rmsnorm_fwd_rows_combine", "int8_experts_decode")
+    per_layer = (1, 1, 0, 1, 3 if int8 else 0)
     bd = decode_breakdown(engine, rs, names)
     tags = MOE_COUNTERS + ("K15",)
     kernels_ms = {t: bd["named"][name] for t, name in zip(tags, names)}
     steps = engine.cfg.decode_chunk
     if bd["chunk_busy_ms"] > 0:
-        for t, (n, _) in kernels_ms.items():
-            per_layer = (3 if int8 else 0) if t == "K15" else 1
-            kernels_per_call(t, n, per_layer * layers * steps)
+        for (t, (n, _)), k in zip(kernels_ms.items(), per_layer):
+            kernels_per_call(t, n, k * layers * steps)
     bound = bytes_ms(step_bytes)
     seconds = time.time() - t_phase
     log(f"{tag} summary: decode {bd['step_ms']:.3f} ms a step against its "
@@ -4120,7 +4384,8 @@ def serve_mixtral_phase(int8: bool = False):
     return dict(step_ms=bd["step_ms"], bound_ms=bound, tok_s=tok_s,
                 ttft_p50=ttft, peak=peak, build_peak=build_peak,
                 build_s=build_s, weight_bytes=weight_bytes, idle=bd["idle"],
-                launches=moe_launches, k15=k15, layers=layers,
+                launches=dict(zip(MOE_COUNTERS, moe_launches)), k15=k15,
+                layers=layers, wide_passes=wide_passes,
                 chunk_kernels=kernels_ms, seconds=seconds)
 
 
@@ -4684,17 +4949,19 @@ def main() -> int:
            "step_kernels": ada_k[1]}
     k11.update({key: v for key, v in k11_row.items() if key not in k11})
     # K12-K14 at the served decode step's shape (8 rows), the prefill
-    # group's (4096) under prefill_; launches over the mixtral burst, and
-    # the kernels and device ms in its profiled decode chunk.
+    # group's (4096) under prefill_; K10's combine mode at 8 rows, its other
+    # rows under rows<n>_; launches over the mixtral burst and its wide
+    # prefill, and the kernels and device ms in its profiled decode chunk
+    # (K14 none there: a decode step's combine is K10's).
     moe_entries = []
-    for (tag, name, line), launches in zip(
-            (("K12", "moe_route", 57), ("K13", "moe_gather", 159),
-             ("K14", "moe_combine", 187)), serve_moe["launches"]):
+    for tag, name, line in (("K12", "moe_route", 57), ("K13", "moe_gather", 159),
+                            ("K14", "moe_combine", 187)):
         row = moe_rows[tag]["decode"]
         e = {"name": name, "route": "cuda",
              "source": "kubeflow_tpu_torch/ops/csrc/moe.cu",
              "replaces": f"kubeflow_tpu/parallel/moe.py:{line}",
-             "launches": launches, "max_abs_err": row["max_abs_err"],
+             "launches": serve_moe["launches"][tag],
+             "max_abs_err": row["max_abs_err"],
              "ms": row["ms"], "plain_ms": row["plain_ms"],
              "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
              "library_ms": row["library_ms"]}
@@ -4702,6 +4969,23 @@ def main() -> int:
                   for key, v in moe_rows[tag]["prefill"].items()})
         e["chunk_kernels"], e["chunk_ms"] = serve_moe["chunk_kernels"][tag]
         moe_entries.append(e)
+    combine_rows_ = moe_rows["K10 combine"]
+    row = combine_rows_[8]
+    k10c = {"name": "add_rms_norm_combine", "route": "cuda",
+            "source": "kubeflow_tpu_torch/ops/csrc/rms_norm.cu",
+            "replaces": "kubeflow_tpu/parallel/moe.py:187",
+            "launches": serve_moe["launches"]["K10 combine"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "k14_then_k10_ms": row["pair_ms"]}
+    for n, r in combine_rows_.items():
+        if n != 8:
+            k10c.update({f"rows{n}_{key}": r[key] for key in (
+                "ms", "pair_ms", "plain_ms", "bound_ms", "max_abs_err")})
+    k10c["chunk_kernels"], k10c["chunk_ms"] = \
+        serve_moe["chunk_kernels"]["K10 combine"]
+    moe_entries.append(k10c)
     # K15 at the served decode step's shape (gate/up, 4 rows an expert);
     # its other shapes under their case names; launches over the int8
     # mixtral burst, its kernels and device ms in that phase's profiled

@@ -1,7 +1,8 @@
 """A/B device timing of builds of one kernel on one NVIDIA GPU: the
 flash-attention backward (K2, the default), the decode attention (K3),
-the int8-weight product (K4) or the int8 expert product (K15):
-``python3 kernel_ab.py DIR [DIR ...] [--kernel bwd|decode|int8|experts]
+the int8-weight product (K4), the int8 expert product (K15) or the MoE
+routing and combine (K12, K14 and K10's combine mode):
+``python3 kernel_ab.py DIR [DIR ...] [--kernel bwd|decode|int8|experts|moe]
 [--shapes ...] [--variants ...]``.
 
 Each DIR is the root of a checkout, or of a copy of its
@@ -71,6 +72,21 @@ beforehand. ``--variants`` times the tiled kernel's launch plans apart
 ``kftpu_int8_experts_config``: ``bm64``/``bm128``/``bm256`` tokens a
 tile, ``o1``/``o2`` the grid's order (token tiles or experts fastest),
 combined as in ``bm256o1``.
+
+``--kernel moe`` builds each DIR's ``moe.cu`` and ``rms_norm.cu`` and
+times, in turns, K12 at ``chip_smoke.py``'s MOE_CASES (``decode``: T 8,
+capacity 4; ``prefill``: T 4096, capacity 1280; E 8, bf16 logits with a
+hot expert), each build held bitwise against ``route_reference`` (a
+build whose source still takes the gates and positions scratch is called
+with it), and the MoE combine
+in front of the residual add + RMSNorm at ``c8``, ``c48``, ``c1024``
+rows of 4096 (cold over sets past twice the L2): K14 then K10's rows
+kernel of every build, and K10's combine mode where the build has it,
+bitwise the pair. ``--variants nb1,nb2,nb4,nb8`` also builds copies of
+each DIR's ``moe.cu`` whose group form takes that many blocks a group
+whatever g (``MOE_PLAN`` replaced; a source without that line is
+skipped), timed at ``prefill`` under ``DIR:nb<n>``: the A/B of one
+1024-thread block against a cluster, kept out of the program.
 """
 
 from __future__ import annotations
@@ -105,7 +121,8 @@ CSRC = os.path.join("kubeflow_tpu_torch", "ops", "csrc")
 KERNELS = {"bwd": ("flash_attention_bwd.cu", "flash_bwd", "bf16"),
            "decode": ("decode_attention.cu", "decode_attn", "decode_attn"),
            "int8": ("int8_linear.cu", "int8_linear", "int8_linear"),
-           "experts": ("int8_experts.cu", "int8_experts", "int8_experts")}
+           "experts": ("int8_experts.cu", "int8_experts", "int8_experts"),
+           "moe": ("moe.cu", "moe_", "moe_")}
 
 
 def kernel_name(name: str, stem: str = "flash_bwd") -> str:
@@ -116,13 +133,25 @@ def kernel_name(name: str, stem: str = "flash_bwd") -> str:
     return name.split("EEEEE")[0].split("(")[0].split("'")[0]
 
 
-def build(root: str, lib: str, kernel: str = "bwd") -> list:
-    """Compile ``root``'s source of ``kernel`` into ``lib``; returns
-    ptxas's report lines for the kernels it times."""
+def build(root: str, lib: str, kernel: str = "bwd",
+          path: str | None = None) -> list:
+    """Compile ``root``'s source of ``kernel`` (or ``path``, a variant of
+    it whose includes resolve in ``root``) into ``lib``; returns ptxas's
+    report lines for the kernels it times. ``moe`` also builds
+    ``rms_norm.cu`` into ``norm_lib(lib)``."""
     source, stem, keep = KERNELS[kernel]
+    if kernel == "moe":
+        proc = subprocess.run(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", norm_lib(lib),
+             os.path.join(root, CSRC, "rms_norm.cu")], capture_output=True,
+            text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {root}:\n{proc.stderr}")
     proc = subprocess.run(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib,
-         os.path.join(root, CSRC, source)], capture_output=True, text=True)
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I",
+         os.path.join(root, CSRC), "-o", lib,
+         path or os.path.join(root, CSRC, source)], capture_output=True,
+        text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {root}:\n{proc.stderr}")
     report, bf16 = [], False
@@ -631,6 +660,200 @@ PAGED_B, PAGED_L, PAGED_BS, PAGED_C = 48, 512, 16, 32
 PAGED_LENGTHS = [128 + (37 * i) % 128 for i in range(PAGED_B)]
 
 
+def norm_lib(lib: str) -> str:
+    return lib[:-3] + "_norm.so"
+
+
+COMBINE_SHAPES = {"c8": 8, "c48": 48, "c1024": 1024}
+#: K12's group-form plan in moe.cu: the blocks a group by g.
+MOE_PLAN = ("  while (nb < kMaxCluster && nb * 512 < g && 2 * nb <= P / 32) "
+            "nb *= 2;")
+
+
+def moe_variant(root: str, out_dir: str, v: str, index: int):
+    """A copy of ``root``'s moe.cu in ``out_dir`` whose group form takes
+    ``v`` = ``nb<n>`` blocks a group whatever g, or None where its source
+    has no MOE_PLAN line."""
+    if not v.startswith("nb") or int(v[2:]) not in (1, 2, 4, 8):
+        raise ValueError(f"unknown moe variant {v!r} (nb1, nb2, nb4, nb8)")
+    with open(os.path.join(root, CSRC, "moe.cu")) as f:
+        src = f.read()
+    if MOE_PLAN not in src:
+        return None
+    path = os.path.join(out_dir, f"moe_variant_{index}.cu")
+    with open(path, "w") as f:
+        f.write(src.replace(MOE_PLAN, f"  nb = {int(v[2:])};"))
+    return path
+
+
+def moe_callers(root: str, lib: str, label: str) -> dict:
+    """The build's K12 as ``{label: route(logits, C) -> Routing}``, and
+    unless it is a variant (``label`` not ``root``) its K14 and K10 rows
+    forward and K10's combine mode where it has one; the K12 interface
+    read from the build's source."""
+    from kubeflow_tpu_torch.ops import moe, norms
+
+    so, nso = ctypes.CDLL(lib), ctypes.CDLL(norm_lib(lib))
+    with open(os.path.join(root, CSRC, "moe.cu")) as f:
+        scratch = "void* gates, void* pos" in f.read()
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = so.kftpu_moe_route
+    fn.restype = i
+    fn.argtypes = [p, i, ll, i, i, i, i] + [p] * (10 if scratch else 8)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def route():
+        def call(logits, C):
+            T, E = logits.shape
+            dev = logits.device
+            out = moe.Routing(*(torch.empty(n, dtype=d, device=dev) for n, d in (
+                (T, torch.int32), (T, torch.int32), (T, torch.float32),
+                (T, torch.float32), (E * C, torch.int32),
+                (E * C, torch.bfloat16), (1, torch.float32))))
+            # The earlier interface's scratch: the gates and positions,
+            # alive until the launch is queued.
+            gates = torch.empty(T * E, device=dev) if scratch else None
+            pos = torch.empty(2 * T, dtype=torch.int32, device=dev) \
+                if scratch else None
+            tail = [gates.data_ptr(), pos.data_ptr()] if scratch else []
+            rc = fn(logits.data_ptr(), 1, T, E, 1, C, 1,
+                    *(t.data_ptr() for t in out), *tail, stream())
+            if rc != 0:
+                raise RuntimeError(f"route launch failed: CUDA error {rc}")
+            return out
+        return call
+
+    combine_fn = so.kftpu_moe_combine     # K14's entry is unchanged
+    combine_fn.restype = i
+    combine_fn.argtypes = [i, p, p, p, p, p, p, ll, ll, i, p]
+    rows_fn = norms.bind_add(nso)[2]
+    fused_fn = (norms.bind_combine(nso)
+                if hasattr(nso, "kftpu_add_rms_norm_fwd_combine") else None)
+
+    def pair(x, c, w):
+        T, M = x.shape
+        h = torch.empty_like(x)
+        rc = combine_fn(1, c.y.data_ptr(), c.g1.data_ptr(), c.g2.data_ptr(),
+                        c.dest1.data_ptr(), c.dest2.data_ptr(), h.data_ptr(),
+                        T, c.y.shape[0], M, stream())
+        r, y = torch.empty_like(x), torch.empty_like(x)
+        rstd = torch.empty(T, device=x.device)
+        rc |= rows_fn(1, 1, x.data_ptr(), h.data_ptr(), w.data_ptr(),
+                      r.data_ptr(), y.data_ptr(), rstd.data_ptr(), T, M,
+                      1e-6, stream())
+        if rc != 0:
+            raise RuntimeError("K14 or K10 launch failed")
+        return r, y
+
+    def fused(x, c, w):
+        T, M = x.shape
+        r, y = torch.empty_like(x), torch.empty_like(x)
+        rstd = torch.empty(T, device=x.device)
+        rc = fused_fn(1, 1, x.data_ptr(), c.y.data_ptr(), c.g1.data_ptr(),
+                      c.g2.data_ptr(), c.dest1.data_ptr(),
+                      c.dest2.data_ptr(), c.y.shape[0], w.data_ptr(),
+                      r.data_ptr(), y.data_ptr(), rstd.data_ptr(), T, M,
+                      1e-6, stream())
+        if rc != 0:
+            raise RuntimeError(f"combine launch failed: CUDA error {rc}")
+        return r, y
+
+    if label != root:
+        return {"route": {label: route()}, "combine": {}}
+    calls = {"route": {root: route()}, "combine": {f"{root} K14+K10": pair}}
+    if fused_fn is not None:
+        calls["combine"][f"{root} combine mode"] = fused
+    return calls
+
+
+def run_moe(name: str, calls: dict) -> bool:
+    """K12 at a MOE_CASES case, or the combine path at a COMBINE_SHAPES
+    row count: every build's check, then device ms in turns."""
+    from chip_smoke import MOE_CASES, MOE_E, MOE_M
+    from kubeflow_tpu_torch.ops import moe
+    from kubeflow_tpu_torch.parallel.moe import Top2GateConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def logits_for(T):
+        lg = torch.randn(T, MOE_E, generator=gen, device="cuda")
+        lg[:, 1] += 3.0
+        return lg.bfloat16()
+
+    ok = True
+    if name in dict(MOE_CASES):
+        T = dict(MOE_CASES)[name]
+        C = Top2GateConfig(num_experts=MOE_E).capacity(T)
+        logits = logits_for(T)
+        want = moe.route_reference(logits, 1, C, torch.bfloat16)
+        fns = {}
+        for label, call in calls["route"].items():
+            if label.rsplit(":", 1)[-1].startswith("nb") and T <= 32:
+                continue              # the warp form: no blocks a group
+            got = call(logits, C)
+            same = all(torch.equal(a, b) for a, b in zip(got, want)) and \
+                all(torch.equal(a, b) for a, b in zip(got, call(logits, C)))
+            ok &= same
+            print(f"K12 {name} {label}: bitwise the plain version and two "
+                  f"calls equal: {same}{'' if same else '  FAIL'}",
+                  flush=True)
+            fns[label] = call
+        graphs = {label: capture(lambda c=c: c(logits, C), 10)
+                  for label, c in fns.items()}
+        times = turns(graphs, 10)
+        print(f"K12 {name} (T {T}, E {MOE_E}, C {C}) device ms per call "
+              f"(median / least of 6 turns): " + "; ".join(
+                  f"{label} {statistics.median(t):.5f} / {min(t):.5f}"
+                  for label, t in times.items()), flush=True)
+        return ok
+    rows = COMBINE_SHAPES[name]
+    M, C = MOE_M, max(1, rows // 4)
+    S = MOE_E * C
+    r = moe.route_reference(logits_for(rows), 1, C, torch.bfloat16)
+    kept = int((r.dest1 < S).sum() + (r.dest2 < S).sum())
+    call_bytes = (3 * rows + kept) * M * 2
+    n = max(1, -(-int(2 * L2_BYTES) // call_bytes))
+    w = (1 + 0.1 * torch.randn(M, generator=gen, device="cuda")).bfloat16()
+    sets = [(torch.randn(rows, M, generator=gen, device="cuda").bfloat16(),
+             moe.Combine(torch.randn(S, M, generator=gen,
+                                     device="cuda").bfloat16(),
+                         r.g1, r.g2, r.dest1, r.dest2)) for _ in range(n)]
+    want = moe.combine_rows_reference(*sets[0][1])
+    want_r = sets[0][0] + want
+    first = None
+    for label, call in calls["combine"].items():
+        got = call(sets[0][0], sets[0][1], w)
+        first = first or got
+        same = torch.equal(got[0], want_r) and torch.equal(got[1], first[1])
+        ok &= same
+        print(f"combine {name} {label}: the sum bitwise the plain version, "
+              f"y bitwise the first build's: {same}{'' if same else '  FAIL'}",
+              flush=True)
+    order = list(range(n)) * max(1, -(-10 // n))
+
+    def rotating(call):
+        turn = itertools.cycle(order)
+
+        def run():
+            x, c = sets[next(turn)]
+            return call(x, c, w)
+        return run
+
+    graphs = {label: capture(rotating(call), len(order))
+              for label, call in calls["combine"].items()}
+    times = turns(graphs, len(order))
+    nbytes = call_bytes + 2 * M + 16 * rows
+    print(f"combine {name} ([{rows}, {M}] bf16, {kept} of {2 * rows} choices "
+          f"kept; cold, {n} sets) device ms per call (median / least of 6 "
+          f"turns): " + "; ".join(
+              f"{label} {statistics.median(t):.5f} / {min(t):.5f}"
+              for label, t in times.items())
+          + f"; bound {1e3 * nbytes / PEAK_BYTES_PER_S:.6f} (bytes)",
+          flush=True)
+    del graphs, sets
+    return ok
+
+
 # name -> (rows an expert, N, K): chip_smoke.py's K15 cases, E = K15_E.
 EXPERT_SHAPES = {case: (r, n, k) for case, r, n, k in K15_CASES}
 
@@ -823,16 +1046,20 @@ def main() -> int:
                     "int8: q,kv,o,gate,down,lm_head,qkv,gateup,m64,m512,"
                     "m1024,m4096,step (default the first eight); "
                     "experts: " + ",".join(EXPERT_SHAPES) + " (default "
-                    "all)")
+                    "all); moe: decode,prefill," + ",".join(COMBINE_SHAPES)
+                    + " (default all)")
     ap.add_argument("--variants", default="",
                     help="experts: tiled launch plans of a build that has "
-                    "kftpu_int8_experts_config, e.g. bm128,o1,bm256o2")
+                    "kftpu_int8_experts_config, e.g. bm128,o1,bm256o2; "
+                    "moe: K12's group form at a fixed number of blocks a "
+                    "group, e.g. nb1,nb8")
     args = ap.parse_args()
     decode = args.kernel == "decode"
     shapes = args.shapes or {
         "decode": "served,long", "bwd": "train,s512",
         "int8": "q,kv,o,gate,down,lm_head,qkv,gateup",
-        "experts": ",".join(EXPERT_SHAPES)}[args.kernel]
+        "experts": ",".join(EXPERT_SHAPES),
+        "moe": ",".join(["decode", "prefill", *COMBINE_SHAPES])}[args.kernel]
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
@@ -840,22 +1067,43 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip(), flush=True)
+    variants = [v for v in args.variants.split(",") if v]
     with tempfile.TemporaryDirectory(prefix="kernel_ab-") as out_dir:
         libs = [os.path.join(out_dir, f"{args.kernel}_{i}.so")
                 for i in range(len(args.dirs))]
-        with ThreadPoolExecutor(len(args.dirs)) as pool:   # one nvcc each
-            reports = list(pool.map(build, args.dirs, libs,
-                                    [args.kernel] * len(libs)))
-        for root, report in zip(args.dirs, reports):
-            print(f"build {root}:\n" + "\n".join(report), flush=True)
+        # (root, lib, label, variant source or None)
+        builds = [(root, lib, root, None)
+                  for root, lib in zip(args.dirs, libs)]
+        if args.kernel == "moe":
+            for root in args.dirs:
+                for v in variants:
+                    path = moe_variant(root, out_dir, v, len(builds))
+                    if path is None:
+                        print(f"{root}: no K12 plan line, no {v}",
+                              flush=True)
+                        continue
+                    builds.append((root, os.path.join(
+                        out_dir, f"moe_{len(builds)}.so"), f"{root}:{v}",
+                        path))
+        with ThreadPoolExecutor(len(builds)) as pool:      # one nvcc each
+            reports = list(pool.map(build, [b[0] for b in builds],
+                                    [b[1] for b in builds],
+                                    [args.kernel] * len(builds),
+                                    [b[3] for b in builds]))
+        for (_, _, label, _), report in zip(builds, reports):
+            print(f"build {label}:\n" + "\n".join(report), flush=True)
         if decode:
             fns = {root: decode_caller(root, lib)
                    for root, lib in zip(args.dirs, libs)}
         elif args.kernel == "int8":
             fns = {root: int8_caller(lib)
                    for root, lib in zip(args.dirs, libs)}
+        elif args.kernel == "moe":
+            fns = {"route": {}, "combine": {}}
+            for root, lib, label, _ in builds:
+                for key, part in moe_callers(root, lib, label).items():
+                    fns[key].update(part)
         elif args.kernel == "experts":
-            variants = [v for v in args.variants.split(",") if v]
             fns = {label: call for root, lib in zip(args.dirs, libs)
                    for label, call in experts_callers(
                        root, lib, variants).items()}
@@ -870,6 +1118,8 @@ def main() -> int:
             ok &= run_int8(name, fns, step)
         elif args.kernel == "experts":
             ok &= run_experts(name, fns)
+        elif args.kernel == "moe":
+            ok &= run_moe(name, fns)
         else:
             ok &= (run_decode_paged(fns) if name == "paged" else
                    run_decode(name, fns)) if decode else run_shape(name, fns)

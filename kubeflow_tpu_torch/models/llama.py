@@ -689,22 +689,26 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, positions, cos, sin, *, attn_impl="flash"):
         """The layer on its input x: x + attention + MLP."""
-        r, d = self.residuals(x, self.input_norm(x), positions, cos, sin,
-                              attn_impl=attn_impl)
-        return r + d
+        r, n = self.attend(x, self.input_norm(x), positions, cos, sin,
+                           attn_impl=attn_impl)
+        return r + self.mlp(n)
 
-    def residuals(self, x, normed, positions, cos, sin, *, cache=None,
-                  decode=False, attn_impl="flash", stage_step=None,
-                  paging=None):
-        """(r, d) of the input x and its norm: r = x + attention (the add
-        fused with the post-attention norm, K10) and d the MLP's output.
-        The layer's output is r + d, which the caller fuses with the norm
-        that reads it (the next layer's input norm, or the final one)."""
+    def attend(self, x, normed, positions, cos, sin, *, cache=None,
+               decode=False, attn_impl="flash", stage_step=None,
+               paging=None):
+        """(r, n) of the input x and its norm: r = x + attention and n its
+        post-attention norm, the MLP's input (the add and the norm fused,
+        K10). The layer's output is r + MLP(n) (:meth:`close`)."""
         h = self.attn(normed, positions, cos, sin, cache=cache,
                       decode=decode, attn_impl=attn_impl,
                       stage_step=stage_step, paging=paging)
-        r, n = self.post_attn_norm.add(x, h)
-        return r, self.mlp(n)
+        return self.post_attn_norm.add(x, h)
+
+    def close(self, r: torch.Tensor, n: torch.Tensor, norm: RMSNorm):
+        """(r + MLP(n), its RMSNorm by ``norm``): the layer's closing add
+        fused with the norm that reads it (K10), the next layer's input
+        norm or the final one."""
+        return norm.add(r, self.mlp(n))
 
     # The segments of the remat policies (forward_remat).
 
@@ -914,12 +918,12 @@ class Llama(nn.Module):
                       else self.final_norm)(x)
             for i, (layer, norm) in enumerate(zip(
                     self.layers, norms + [self.final_norm])):
-                r, d = layer.residuals(
+                r, n = layer.attend(
                     x, normed, positions, cos, sin,
                     cache=cache[i] if decode else None, decode=decode,
                     attn_impl=attn_impl, stage_step=stage_step,
                     paging=paging)
-                x, normed = norm.add(r, d)
+                x, normed = layer.close(r, n, norm)
             x = normed
         out = x if return_hidden else self.head_logits(x)
         return (out, cache) if decode else out

@@ -8,7 +8,10 @@ first (``w_gate``, ``w_up`` [E, M, F], ``w_down`` [E, F, M], the JAX
 layout), and run as batched products over the expert buffers with f32
 accumulation rounded to the activation dtype (``torch.bmm``, as the JAX
 package leaves its einsums to XLA), ``silu(gate) * up`` through K9. The
-dispatch is the index dispatch of ``ops/moe.py`` (K12-K14 on the card).
+dispatch is the index dispatch of ``ops/moe.py`` (K12-K14 on the card;
+the layer's closing add + RMSNorm takes the combine's inputs instead,
+``ops/moe.py::combine_add_rms_norm``: K10's combine mode up to ROWS_MAX
+rows, in K14's place).
 
 With the serving engine's int8 weights (``ServingConfig.quantize="int8"``)
 each expert leaf becomes an :class:`Int8Experts` (one bf16 scale an
@@ -38,6 +41,7 @@ from kubeflow_tpu_torch.models.llama import (
     LlamaConfig,
 )
 from kubeflow_tpu_torch.ops.int8_experts import int8_experts
+from kubeflow_tpu_torch.ops.moe import combine_add_rms_norm
 from kubeflow_tpu_torch.ops.swiglu import swiglu
 from kubeflow_tpu_torch.parallel.moe import Top2GateConfig, moe_dispatch
 
@@ -135,20 +139,27 @@ class MoeMlp(nn.Module):
         up = _expert_product(e_in, self.w_up)
         return _expert_product(swiglu(gate, up), self.w_down)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, defer: bool = False):
+        """[..., M] -> [..., M]; ``defer``: a :class:`~kubeflow_tpu_torch.
+        ops.moe.Combine` of the tokens' rows instead (K14's inputs)."""
         M = x.shape[-1]
         logits = self.router(x)          # routed in f32 (K12 widens it)
         out, _ = moe_dispatch(x.reshape(-1, M),
                               logits.reshape(-1, logits.shape[-1]),
-                              self.experts, self.gate)
-        return out.view(x.shape)
+                              self.experts, self.gate, defer=defer)
+        return out if defer else out.view(x.shape)
 
 
 class MixtralLayer(DecoderLayer):
     """The Llama decoder layer with :class:`MoeMlp` as its MLP (the residual
-    adds stay fused with the norms, K10)."""
+    adds stay fused with the norms, K10; the closing one takes the MoE
+    combine's inputs, ``ops/moe.py::combine_add_rms_norm``)."""
 
     MLP_CLS = MoeMlp
+
+    def close(self, r, n, norm):
+        return combine_add_rms_norm(r, self.mlp(n, defer=True), norm.weight,
+                                    eps=norm.eps)
 
     def forward_remat(self, *args, **kwargs):
         raise NotImplementedError(

@@ -42,6 +42,16 @@
 // x's and h's instead of after the row sum, and one barrier in the row
 // sum (every warp sums the warps' totals itself). The wrapper takes it up
 // to ops/norms.py's ROWS_MAX rows.
+//
+// K10's combine mode (add_rmsnorm_fwd_rows_combine) also takes the place of
+// moe.cu's K14 in front of the add: h is g1 ye[dest1] + g2 ye[dest2], the
+// MoE layer's two expert rows weighted, rounded once. Its extra bytes are
+// the two rows' chunks and 16 bytes a row; what it saves is K14's launch
+// and its [rows, E] round trip through device memory. The row's choices
+// and weights load with x and w, then the expert rows: one more dependent
+// load than the rows kernel.
+
+#include <type_traits>
 
 #include "fused_common.cuh"
 
@@ -99,32 +109,20 @@ __device__ __forceinline__ void fwd_row(const T* __restrict__ x, const T* __rest
 // whole warps. kAdd: x is x + h, rounded to T, and written to res (K10).
 constexpr int kRowsThreads = 1024;
 
-template <typename T, typename W, bool kAdd>
-__device__ __forceinline__ void fwd_one_chunk(const T* __restrict__ x, const T* __restrict__ h,
-                                              const W* __restrict__ w, T* __restrict__ res,
-                                              T* __restrict__ y, float* __restrict__ rstd,
-                                              int E, float eps) {
+// The rows forward's row sum and output from this thread's chunk v (x, or
+// the residual) and w's chunk wv: each warp's butterfly, then every warp
+// sums the warps' totals in warp order (a fixed order for a fixed block
+// size).
+template <typename T>
+__device__ __forceinline__ void norm_one_chunk(const float (&v)[8], const float (&wv)[8],
+                                               bool live, size_t at, T* __restrict__ y,
+                                               float* __restrict__ rstd, int E, float eps) {
   __shared__ float red[kRowsThreads / 32];
-  const size_t at = static_cast<size_t>(blockIdx.x) * E + threadIdx.x * 8;
-  const bool live = static_cast<int>(threadIdx.x) < E / 8;
-  float v[8] = {}, hv[8], wv[8];
-  if (live) {                           // x, h and w in flight together
-    load8(x + at, v);
-    if (kAdd) load8(h + at, hv);
-    load8(w + threadIdx.x * 8, wv);
-  }
   float ss = 0.f;
   if (live) {
-    if (kAdd) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = rnd<T>(__fadd_rn(v[j], hv[j]));
-      store8(res + at, v);
-    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) ss += v[j] * v[j];
   }
-  // The row sum: each warp's butterfly, then every warp sums the warps'
-  // totals in warp order (a fixed order for a fixed block size).
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
   const int lane = threadIdx.x % 32;
@@ -143,6 +141,27 @@ __device__ __forceinline__ void fwd_one_chunk(const T* __restrict__ x, const T* 
   if (threadIdx.x == 0) rstd[blockIdx.x] = r;
 }
 
+template <typename T, typename W, bool kAdd>
+__device__ __forceinline__ void fwd_one_chunk(const T* __restrict__ x, const T* __restrict__ h,
+                                              const W* __restrict__ w, T* __restrict__ res,
+                                              T* __restrict__ y, float* __restrict__ rstd,
+                                              int E, float eps) {
+  const size_t at = static_cast<size_t>(blockIdx.x) * E + threadIdx.x * 8;
+  const bool live = static_cast<int>(threadIdx.x) < E / 8;
+  float v[8] = {}, hv[8], wv[8];
+  if (live) {                           // x, h and w in flight together
+    load8(x + at, v);
+    if (kAdd) load8(h + at, hv);
+    load8(w + threadIdx.x * 8, wv);
+  }
+  if (live && kAdd) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = rnd<T>(__fadd_rn(v[j], hv[j]));
+    store8(res + at, v);
+  }
+  norm_one_chunk<T>(v, wv, live, at, y, rstd, E, eps);
+}
+
 template <typename T, typename W>
 __global__ void __launch_bounds__(kRowsThreads)
     rmsnorm_fwd_rows(const T* __restrict__ x, const T* __restrict__ h, const W* __restrict__ w,
@@ -157,6 +176,40 @@ __global__ void __launch_bounds__(kRowsThreads)
                          const W* __restrict__ w, T* __restrict__ res, T* __restrict__ y,
                          float* __restrict__ rstd, int E, float eps) {
   fwd_one_chunk<T, W, true>(x, h, w, res, y, rstd, E, eps);
+}
+
+// K10's combine mode: h is K14's row (moe.cu's moe_combine), g1 ye[dest1] +
+// g2 ye[dest2] in f32 rounded once to T, the expert outputs' row S read as
+// 0; then the add and the norm as add_rmsnorm_fwd_rows. The row's choices
+// and weights, x's and w's chunks are all loaded before any is used, then
+// the two expert rows' chunks. Bitwise moe_combine then add_rmsnorm_fwd_rows.
+template <typename T, typename W>
+__global__ void __launch_bounds__(kRowsThreads)
+    add_rmsnorm_fwd_rows_combine(const T* __restrict__ x, const T* __restrict__ ye,
+                                 const float* __restrict__ g1, const float* __restrict__ g2,
+                                 const int* __restrict__ dest1, const int* __restrict__ dest2,
+                                 long long S, const W* __restrict__ w, T* __restrict__ res,
+                                 T* __restrict__ y, float* __restrict__ rstd, int E, float eps) {
+  const size_t row = blockIdx.x;
+  const int col = threadIdx.x * 8;
+  const size_t at = row * E + col;
+  const bool live = static_cast<int>(threadIdx.x) < E / 8;
+  const long long d1 = dest1[row], d2 = dest2[row];
+  const float wa = g1[row], wb = g2[row];
+  float v[8] = {}, wv[8], a[8] = {}, b[8] = {};
+  if (live) {
+    load8(x + at, v);
+    load8(w + col, wv);
+    if (d1 < S) load8(ye + d1 * E + col, a);
+    if (d2 < S) load8(ye + d2 * E + col, b);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float hj = rnd<T>(__fadd_rn(__fmul_rn(wa, a[j]), __fmul_rn(wb, b[j])));
+      v[j] = rnd<T>(__fadd_rn(v[j], hj));
+    }
+    store8(res + at, v);
+  }
+  norm_one_chunk<T>(v, wv, live, at, y, rstd, E, eps);
 }
 
 template <typename T, typename W, int kChunks>
@@ -371,6 +424,35 @@ int fwd_entry(bool by_rows, int x_dtype, int w_dtype, const void* x, const void*
                           : fwd<float, float>(by_rows, x, h, w, res, y, r, rows, E, eps, st);
 }
 
+// K10's combine mode through the rows kernel (any rows).
+int combine_entry(int x_dtype, int w_dtype, const void* x, const void* ye, const void* g1,
+                  const void* g2, const void* dest1, const void* dest2, long long S,
+                  const void* w, void* res, void* y, void* rstd, long long rows, int E, float eps,
+                  void* stream) {
+  if (!valid(x_dtype, w_dtype, rows, E) || S < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(rows));
+  const int threads = (E / 8 + 31) / 32 * 32;
+  const float *a = static_cast<const float*>(g1), *b = static_cast<const float*>(g2);
+  const int *d1 = static_cast<const int*>(dest1), *d2 = static_cast<const int*>(dest2);
+  float* r = static_cast<float*>(rstd);
+  auto launch = [&](auto* xt, auto* wt) {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(xt)>>;
+    using Wt = std::remove_const_t<std::remove_pointer_t<decltype(wt)>>;
+    add_rmsnorm_fwd_rows_combine<T, Wt><<<grid, threads, 0, st>>>(
+        xt, static_cast<const T*>(ye), a, b, d1, d2, S, wt, static_cast<T*>(res),
+        static_cast<T*>(y), r, E, eps);
+    return cudaGetLastError();
+  };
+  using B = __nv_bfloat16;
+  if (x_dtype == kBF16) {
+    return w_dtype == kBF16 ? launch(static_cast<const B*>(x), static_cast<const B*>(w))
+                            : launch(static_cast<const B*>(x), static_cast<const float*>(w));
+  }
+  return w_dtype == kBF16 ? launch(static_cast<const float*>(x), static_cast<const B*>(w))
+                          : launch(static_cast<const float*>(x), static_cast<const float*>(w));
+}
+
 // The backward of either entry (add: K10's).
 int bwd_entry(bool add, int x_dtype, int w_dtype, const void* x, const void* w, const void* dy,
               const void* dres, const void* rstd, void* dx, void* dw, void* partial,
@@ -439,6 +521,21 @@ extern "C" int kftpu_add_rms_norm_fwd_rows(int x_dtype, int w_dtype, const void*
                                            void* stream) {
   if (h == nullptr || res == nullptr) return cudaErrorInvalidValue;
   return fwd_entry(true, x_dtype, w_dtype, x, h, w, res, y, rstd, rows, E, eps, stream);
+}
+
+// K10's combine mode: res = x + h rounded to x's dtype, y = rms_norm(res,
+// w), rstd [rows] f32, where h [rows, E] = g1 ye[dest1] + g2 ye[dest2] in f32
+// rounded to x's dtype (K14's rows; ye [S, E] in x's dtype, row S read as
+// 0; g1, g2 f32 and dest1, dest2 int32 [rows]). Returns the CUDA error code
+// of the launch.
+extern "C" int kftpu_add_rms_norm_fwd_combine(int x_dtype, int w_dtype, const void* x,
+                                              const void* ye, const void* g1, const void* g2,
+                                              const void* dest1, const void* dest2,
+                                              long long S, const void* w, void* res, void* y,
+                                              void* rstd, long long rows, int E, float eps,
+                                              void* stream) {
+  return combine_entry(x_dtype, w_dtype, x, ye, g1, g2, dest1, dest2, S, w, res, y, rstd, rows,
+                       E, eps, stream);
 }
 
 // K10's backward: dx = dres + rms_norm's dx of res (each rounded to the

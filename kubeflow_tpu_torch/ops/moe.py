@@ -17,10 +17,19 @@ the combine reads as 0.
   (``dest1``, ``dest2``) and renormalised weight (``g1``, ``g2``, 0 for a
   dropped choice), per slot the token it holds (``slot_tok``) and whether
   a choice holds it (``slot_valid``, in the activations' dtype), and each
-  group's load-balancing loss (``aux``).
+  group's load-balancing loss (``aux``). On the card it is one launch of
+  one of two forms, chosen by g: a warp a group (g <= 32, a decode step)
+  or a block or thread-block cluster a group (g > 32, at most
+  :data:`MAX_GROUP_TOKENS`).
 - :func:`gather_rows` (K13): ``expert_in[s] = x[slot_tok[s]] * slot_valid[s]``.
 - :func:`combine_rows` (K14): ``out[t] = g1[t] y[dest1[t]] + g2[t]
-  y[dest2[t]]`` in f32, rounded once to the output dtype.
+  y[dest2[t]]`` in f32, rounded once to the output dtype. A
+  :class:`Combine` holds its inputs instead, for a layer whose output
+  goes straight into the residual add + RMSNorm:
+  :func:`combine_add_rms_norm` makes both, up to ``ops/norms.py``'s
+  ROWS_MAX rows in one launch of K10's combine mode (the same rows in
+  front of the add, bitwise, without K14's launch), above it K14 then
+  K10.
 
 The plain versions (:func:`route_reference`, :func:`gather_rows_reference`,
 :func:`combine_rows_reference`) fix the order of every sum: the softmax's
@@ -29,14 +38,17 @@ mean of the gates over a group's tokens by folding halves (the tokens
 padded with zeros to a power of two, then ``x[:h] + x[h:]`` until one is
 left). The kernels keep that order with one rounded f32 operation per
 tensor operation, so they agree bitwise: integer outputs equal, the
-floating ones bitwise.
+floating ones bitwise. The group form splits the fold over its blocks in
+the order :func:`aux_fold_reference` states, which is the same sum.
 
 CUDA tensors launch ``ops/csrc/moe.cu`` (built at first use by
 ``ops/_build.py``) or raise; CPU tensors take the plain versions. Each
 launch adds one to ``route.launches``, ``gather_rows.launches`` or
-``combine_rows.launches``. No kernel reads a device value on the host,
-so a CUDA graph captures them. They have no backward yet (the training
-slice): on the card an input that requires grad raises.
+``combine_rows.launches`` (K10's combine mode counts in
+``ops/norms.py``'s ``add_rms_norm.combine_launches``). No kernel reads a
+device value on the host, so a CUDA graph captures them. They have no
+backward yet (the training slice): on the card an input that requires
+grad raises.
 """
 
 from __future__ import annotations
@@ -47,10 +59,19 @@ from typing import NamedTuple
 
 import torch
 
+from kubeflow_tpu_torch.ops.norms import (
+    ROWS_MAX,
+    add_rms_norm,
+    add_rms_norm_combine,
+)
+
 _SOURCE = "moe.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: K12 holds a token's choice among at most this many experts.
 MAX_EXPERTS = 64
+#: The most tokens a group K12's group form routes (its aux fold keeps a
+#: stack of 11 partial sums a warp).
+MAX_GROUP_TOKENS = 1 << 18
 
 
 class Routing(NamedTuple):
@@ -61,6 +82,22 @@ class Routing(NamedTuple):
     slot_tok: torch.Tensor    # [S] int32 token a slot holds (0 if empty)
     slot_valid: torch.Tensor  # [S] 1 where a choice holds the slot, else 0
     aux: torch.Tensor         # [G] f32 load-balancing loss of each group
+
+
+class Combine(NamedTuple):
+    """K14's inputs with its launch left to the caller: the expert outputs
+    ``y`` [S, M] and the routing's ``g1``, ``g2``, ``dest1``, ``dest2``
+    [T]. :func:`combine_add_rms_norm` adds its rows to the residual
+    stream; :meth:`materialize` gives them as [T, M] (K14)."""
+
+    y: torch.Tensor
+    g1: torch.Tensor
+    g2: torch.Tensor
+    dest1: torch.Tensor
+    dest2: torch.Tensor
+
+    def materialize(self) -> torch.Tensor:
+        return combine_rows(*self)
 
 
 # ------------------------------------------------------------ plain versions
@@ -89,6 +126,28 @@ def _fold_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
         p //= 2
         x = x.narrow(dim, 0, p) + x.narrow(dim, p, p)
     return x.squeeze(dim)
+
+
+def aux_fold_reference(x: torch.Tensor, blocks: int) -> torch.Tensor:
+    """:func:`_fold_sum` over dim 0 of x [n, ...] in the order K12's group
+    form takes it over ``blocks`` blocks (a power of two up to P, the
+    padded length): block b folds by halves the rows b, b + blocks, ..
+    (zeros past n, up to P / blocks of them), then the blocks' partials
+    fold by halves in block order. Folding halves pairs rows i and i + h,
+    so its first levels pair rows of one residue mod ``blocks``, and the
+    two orders are one tree: bitwise equal. The kernel applies the same
+    split again within a block (lanes, rounds, warps)."""
+    n = x.shape[0]
+    p = 1
+    while p < n:
+        p *= 2
+    if blocks < 1 or blocks & (blocks - 1) or blocks > p:
+        raise ValueError(f"blocks ({blocks}) must be a power of two up to "
+                         f"{p}")
+    if p > n:
+        x = torch.cat([x, x.new_zeros((p - n,) + tuple(x.shape[1:]))])
+    parts = [_fold_sum(x[b::blocks], 0) for b in range(blocks)]
+    return _fold_sum(torch.stack(parts), 0)
 
 
 def _first_argmax(v: torch.Tensor) -> torch.Tensor:
@@ -203,7 +262,7 @@ def bind(lib: ctypes.CDLL):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     route_fn = lib.kftpu_moe_route
     route_fn.restype = i
-    route_fn.argtypes = ([p, i, ll, i, i, i, i] + [p] * 9 + [p])
+    route_fn.argtypes = [p, i, ll, i, i, i, i] + [p] * 8
     gather_fn = lib.kftpu_moe_gather
     gather_fn.restype = i
     gather_fn.argtypes = [i, p, p, p, p, ll, i, p]
@@ -248,7 +307,8 @@ def route(logits: torch.Tensor, groups: int, capacity: int,
           slot_dtype: torch.dtype) -> Routing:
     """Top-2 routing of logits [T, E] (f32 or bf16; the routing is f32)
     in ``groups`` groups of ``capacity`` slots an expert (K12 on the card:
-    one launch, a block a group)."""
+    one launch, a warp a group of up to 32 tokens, else a block or a
+    cluster of blocks a group, about 512 tokens a block)."""
     T, E = logits.shape
     if groups < 1 or T % groups or capacity < 1 or E < 2:
         raise ValueError(f"route takes T ({T}) a multiple of groups "
@@ -259,13 +319,15 @@ def route(logits: torch.Tensor, groups: int, capacity: int,
     S = E * groups * capacity
     if logits.dtype not in _DTYPES or not logits.is_contiguous() \
             or E > MAX_EXPERTS or slot_dtype not in _DTYPES \
-            or S >= 2 ** 31 or T >= 2 ** 31:
+            or S >= 2 ** 31 or T >= 2 ** 31 \
+            or T // groups > MAX_GROUP_TOKENS:
         raise ValueError(f"route kernel takes contiguous f32 or bf16 logits "
-                         f"[T, E] with E <= {MAX_EXPERTS}, fewer than 2^31 "
+                         f"[T, E] with E <= {MAX_EXPERTS}, groups of at most "
+                         f"{MAX_GROUP_TOKENS} tokens, fewer than 2^31 "
                          f"slots and a bf16 or f32 slot dtype; got "
                          f"{logits.dtype} "
                          f"{tuple(logits.shape)} stride {logits.stride()}, "
-                         f"{S} slots, {slot_dtype}")
+                         f"{groups} groups, {S} slots, {slot_dtype}")
     dev = logits.device
 
     def empty(n, dtype):
@@ -275,13 +337,10 @@ def route(logits: torch.Tensor, groups: int, capacity: int,
                   empty(T, torch.float32), empty(T, torch.float32),
                   empty(S, torch.int32), empty(S, slot_dtype),
                   empty(groups, torch.float32))
-    # Scratch: the gates [T, E] and the two choices' positions [2, T].
-    gates, pos = empty(T * E, torch.float32), empty(2 * T, torch.int32)
     with torch.cuda.device(dev):
         rc = _kernel_fns()[0](
             logits.data_ptr(), _DTYPES[logits.dtype], T, E, groups, capacity,
-            _DTYPES[slot_dtype],
-            *(t.data_ptr() for t in out), gates.data_ptr(), pos.data_ptr(),
+            _DTYPES[slot_dtype], *(t.data_ptr() for t in out),
             _stream(logits))
     _launched(rc, "route", logits.shape)
     route.launches += 1
@@ -349,3 +408,17 @@ def combine_rows(y: torch.Tensor, g1: torch.Tensor, g2: torch.Tensor,
 route.launches = 0
 gather_rows.launches = 0
 combine_rows.launches = 0
+
+
+def combine_add_rms_norm(x: torch.Tensor, c: Combine, weight: torch.Tensor,
+                         *, eps: float = 1e-6):
+    """(r, y) of ``add_rms_norm(x, c.materialize(), weight)``: a MoE
+    layer's output added to the residual stream x, whose rows are its
+    tokens, and the sum's RMSNorm. On the card up to ROWS_MAX rows, one
+    launch of K10's combine mode (``ops/norms.py::add_rms_norm_combine``),
+    bitwise K14 then K10; above it K14 then K10. CPU tensors: the plain
+    combine, then the add + norm."""
+    if x.device.type == "cuda" and x.numel() // x.shape[-1] <= ROWS_MAX:
+        r, y, _ = add_rms_norm_combine(x, *c, weight, eps=eps)
+        return r, y
+    return add_rms_norm(x, c.materialize().view(x.shape), weight, eps=eps)

@@ -35,6 +35,17 @@ same rules and dispatch (``add_rmsnorm_fwd_rows`` up to :data:`ROWS_MAX`
 rows); its counters are ``add_rms_norm.fwd_launches`` (every forward),
 ``add_rms_norm.rows_launches`` (those through the rows kernel) and
 ``add_rms_norm.bwd_launches``.
+
+K10's combine mode (:func:`add_rms_norm_combine`,
+``add_rmsnorm_fwd_rows_combine``) takes a MoE layer's expert outputs and
+its routing's two choices and weights in h's place: the rows kernel with
+the MoE combine's weighted two-row sum (``ops/moe.py``'s K14) in front of
+the add, bitwise K14 then K10, one launch, counted in
+``add_rms_norm.combine_launches`` as well as in the two forward counters.
+It takes CUDA tensors only: its wrapper, which also gives CPU tensors
+their plain versions, is ``ops/moe.py::combine_add_rms_norm``. It has no
+backward (the MoE kernels have none yet): an input that requires grad
+raises.
 """
 
 from __future__ import annotations
@@ -149,6 +160,22 @@ def _add_kernel_fns():
     return bind_add(load_library(_SOURCE))
 
 
+def bind_combine(lib: ctypes.CDLL):
+    """K10's combine-mode C entry with its signature."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.kftpu_add_rms_norm_fwd_combine
+    fn.restype = i
+    fn.argtypes = [i, i] + [p] * 6 + [ctypes.c_longlong] + [p] * 4 + _FWD_TAIL
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _combine_kernel_fn():
+    from kubeflow_tpu_torch.ops._build import load_library
+
+    return bind_combine(load_library(_SOURCE))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -260,6 +287,58 @@ def _add_fwd_kernel(x, h, weight, eps, by_rows: Optional[bool] = None):
     return r, y, rstd
 
 
+def add_rms_norm_combine(x: torch.Tensor, ye: torch.Tensor, g1: torch.Tensor,
+                         g2: torch.Tensor, dest1: torch.Tensor,
+                         dest2: torch.Tensor, weight: torch.Tensor, *,
+                         eps: float = 1e-6):
+    """K10's combine mode, one launch on CUDA tensors: (r, y, rstd) of
+    ``add_rms_norm(x, h, weight)`` where h [rows] = g1 ye[dest1] + g2
+    ye[dest2] in f32 rounded to x's dtype, ye [S, E] in x's dtype with row
+    S read as 0 (x's rows, flattened, are the routed tokens; g1, g2 f32,
+    dest1, dest2 int32 [rows])."""
+    if x.device.type != "cuda":
+        raise ValueError("K10's combine mode takes CUDA tensors (CPU "
+                         "tensors: ops/moe.py::combine_add_rms_norm)")
+    _check(x, weight)
+    E = x.shape[-1]
+    rows = x.numel() // E
+    if ye.dim() != 2 or ye.shape[1] != E or ye.dtype != x.dtype \
+            or ye.device != x.device or not ye.is_contiguous() \
+            or ye.data_ptr() % 16:
+        raise ValueError(f"add_rms_norm's combine takes expert rows [S, "
+                         f"{E}] {x.dtype}, contiguous and 16-byte aligned, "
+                         f"got {ye.dtype} {tuple(ye.shape)}")
+    for name, t, dtype in (("g1", g1, torch.float32),
+                           ("g2", g2, torch.float32),
+                           ("dest1", dest1, torch.int32),
+                           ("dest2", dest2, torch.int32)):
+        if t.shape != (rows,) or t.dtype != dtype or not t.is_contiguous() \
+                or t.device != x.device:
+            raise ValueError(f"add_rms_norm's combine takes {name} [{rows}] "
+                             f"{dtype}, got {t.dtype} {tuple(t.shape)}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, weight, ye, g1, g2)):
+        raise NotImplementedError(
+            "K10's combine mode has no backward (the MoE kernels have none "
+            "yet: the training slice, ROADMAP Queue 1 item 6c)")
+    r, y = torch.empty_like(x), torch.empty_like(x)
+    rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _combine_kernel_fn()(
+            _DTYPES[x.dtype], _DTYPES[weight.dtype], x.data_ptr(),
+            ye.data_ptr(), g1.data_ptr(), g2.data_ptr(), dest1.data_ptr(),
+            dest2.data_ptr(), ye.shape[0], weight.data_ptr(), r.data_ptr(),
+            y.data_ptr(), rstd.data_ptr(), rows, E, float(eps), stream)
+    if rc != 0:
+        raise RuntimeError(f"add_rms_norm combine launch failed: CUDA error "
+                           f"{rc} (x {tuple(x.shape)} {x.dtype})")
+    add_rms_norm.fwd_launches += 1
+    add_rms_norm.rows_launches += 1
+    add_rms_norm.combine_launches += 1
+    return r, y, rstd
+
+
 def _add_bwd_kernel(r, weight, dy, rstd, dr):
     _check(r, weight)
     for name, g in (("dy", dy), ("dr", dr)):
@@ -356,4 +435,5 @@ def add_rms_norm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, *,
 
 add_rms_norm.fwd_launches = 0
 add_rms_norm.rows_launches = 0
+add_rms_norm.combine_launches = 0
 add_rms_norm.bwd_launches = 0

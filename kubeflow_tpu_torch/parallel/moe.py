@@ -6,7 +6,11 @@ first choice, and a token's surviving weights are renormalised. Dispatch
 is by index (``_moe_dispatch_gather`` of the JAX package): the routing
 (K12), one row gather into the expert buffers [E, G * C, M] (K13) and
 one weighted two-row combine (K14), the three kernels of
-``ops/moe.py``; the expert function runs on the buffers in between.
+``ops/moe.py``; the expert function runs on the buffers in between. A
+caller that adds the layer's output to the residual stream may ask for
+the combine deferred (``defer=True``): the dispatch then returns a
+:class:`~kubeflow_tpu_torch.ops.moe.Combine`, K14's inputs, for
+``ops/moe.py::combine_add_rms_norm``.
 
 Routing depends on the whole batch: every row fed to the layer takes
 capacity, so two callers agree on a token's output only when they feed
@@ -22,11 +26,12 @@ has no mesh, so ``dispatch="auto"`` means gather.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Tuple, Union
 
 import torch
 
 from kubeflow_tpu_torch.ops.moe import (
+    Combine,
     combine_rows,
     gather_rows,
     route,
@@ -100,10 +105,12 @@ def _moe_dispatch_gather(
     expert_fn: Callable[[torch.Tensor], torch.Tensor],
     cfg: Top2GateConfig,
     group: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    defer: bool = False,
+) -> Tuple[Union[torch.Tensor, Combine], torch.Tensor]:
     """Index dispatch in groups of ``group`` tokens (0 or >= T: one
     group), each with its own capacity; the expert buffers are laid out
-    [E, G * C, M]."""
+    [E, G * C, M]. ``defer``: the combine's inputs in place of its
+    output."""
     T, M = x.shape
     E = router_logits.shape[-1]
     g = group if 0 < group < T else T
@@ -112,7 +119,8 @@ def _moe_dispatch_gather(
     r = route(router_logits.contiguous(), G, C, x.dtype)
     expert_in = gather_rows(x, r.slot_tok, r.slot_valid)
     expert_out = expert_fn(expert_in.view(E, G * C, M)).reshape(E * G * C, M)
-    out = combine_rows(expert_out, r.g1, r.g2, r.dest1, r.dest2)
+    combine = Combine(expert_out, r.g1, r.g2, r.dest1, r.dest2)
+    out = combine if defer else combine_rows(*combine)
     return out, (r.aux.mean() if G > 1 else r.aux[0])
 
 
@@ -123,12 +131,14 @@ def moe_dispatch(
     cfg: Top2GateConfig,
     *,
     rng=None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    defer: bool = False,
+) -> Tuple[Union[torch.Tensor, Combine], torch.Tensor]:
     """Route tokens x [T, M] through the experts by ``router_logits`` [T,
     E] (routed in f32); ``expert_fn`` maps [E, C, M] -> [E, C, M] in x's
     dtype. Returns ([T, M] outputs in x's dtype, aux loss: the groups'
     mean). Groups as the JAX
-    package forms them (:func:`group_tokens`)."""
+    package forms them (:func:`group_tokens`). ``defer``: a
+    :class:`Combine` in place of the outputs."""
     T, _ = x.shape
     if cfg.dispatch == "einsum":
         raise NotImplementedError(
@@ -139,7 +149,7 @@ def moe_dispatch(
                          "gather or einsum)")
     _no_jitter(cfg, rng)
     return _moe_dispatch_gather(x, router_logits, expert_fn, cfg,
-                                group_tokens(T, cfg))
+                                group_tokens(T, cfg), defer)
 
 
 def group_tokens(num_tokens: int, cfg: Top2GateConfig) -> int:

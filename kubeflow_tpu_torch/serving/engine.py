@@ -221,9 +221,9 @@ class _Slot:
 #: The Python launch counters of the kernels a captured step holds
 #: (K1's forward, K3, K4 and its SwiGLU epilogue, and the forwards of K6,
 #: K7 and its staged mode, K9 and K10, with those of K6 and K10 through
-#: their rows kernels; a MoE model's K12-K14): a replay launches without
-#: running Python, so each graph counts its captured launches once and
-#: adds them per replay.
+#: their rows kernels and K10's combine mode; a MoE model's K12-K14): a
+#: replay launches without running Python, so each graph counts its
+#: captured launches once and adds them per replay.
 _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
                     (decode_attention, "launches"),
                     (int8_linear, "launches"),
@@ -235,6 +235,7 @@ _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
                     (add_rms_norm, "fwd_launches"),
                     (rms_norm, "rows_launches"),
                     (add_rms_norm, "rows_launches"),
+                    (add_rms_norm, "combine_launches"),
                     (route, "launches"),
                     (gather_rows, "launches"),
                     (combine_rows, "launches"),

@@ -41,7 +41,9 @@ whole); K4's SwiGLU epilogue bitwise K4's grouped gate/up launch followed
 by K9 at the same K split, and within K4's tolerance of its plain
 composition. The MoE dispatch (K12-K14) bitwise its plain versions: the
 routing's integer outputs equal and its weights, slot flags and aux loss
-bitwise, the gather and the combine bitwise; a small Mixtral engine's
+bitwise (both forms, the group form at each block count of its plan), the gather
+and the combine bitwise, K10's combine mode bitwise K14 then K10's rows
+kernel; a small Mixtral engine's
 graphs give its eager path's greedy tokens, with bf16 and with int8
 weights. The int8 expert product (K15) against its plain version (the
 leaf dequantized to bf16, then ``torch.bmm``): max |got - plain| <= 1e-2 *
@@ -2269,9 +2271,13 @@ def test_mlp_decode_rows_take_the_swiglu_epilogue(monkeypatch):
 
 # (T tokens, E experts, G groups, C capacity): mixtral-8x7b's decode step
 # and prefill group, two groups, a group that is not a power of two, and
-# the most experts K12 takes.
+# the most experts K12 takes; then the edges of K12's two forms: the warp
+# form (g <= 32) at one token, a full warp, eight groups of 8, two experts
+# and 64; the group form just past a warp and at 1000 tokens.
 MOE_CASES = [(8, 8, 1, 4), (4096, 8, 1, 1280), (512, 8, 2, 64),
-             (96, 8, 2, 12), (256, 64, 1, 8)]
+             (96, 8, 2, 12), (256, 64, 1, 8), (1, 8, 1, 4), (32, 8, 1, 8),
+             (64, 8, 8, 4), (16, 2, 1, 4), (32, 64, 1, 4), (33, 8, 1, 12),
+             (1000, 8, 1, 252)]
 
 
 def _moe_logits(T, E, seed, hot=3.0):
@@ -2296,9 +2302,27 @@ def test_moe_route_matches_plain_bitwise(T, E, G, C, dtype):
         for name, a, b in zip(moe.Routing._fields, got, want):
             assert a.dtype == b.dtype and torch.equal(a, b), name
         S = E * G * C
-        assert int((got.dest1 == S).sum()) > 0          # drops happened
+        if T > 1:
+            assert int((got.dest1 == S).sum()) > 0      # drops happened
         for a, b in zip(got, moe.route(logits, G, C, dtype)):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T,C", [(64, 12), (300, 76), (1000, 252),
+                                 (2000, 500), (4096, 1280)])
+def test_moe_route_group_form_at_every_cluster_size(T, C):
+    """The group form at each number of blocks its plan gives a group (1
+    up to 512 tokens, a cluster of 2 up to 1024, 4 up to 2048, 8 above),
+    each bitwise the plain version, twice: the split of the positions and
+    of the aux fold over the blocks is exact."""
+    from kubeflow_tpu_torch.ops import moe
+
+    logits = _moe_logits(T, 8, 31).bfloat16()
+    want = moe.route_reference(logits, 1, C, torch.bfloat16)
+    for _ in range(2):
+        got = moe.route(logits, 1, C, torch.bfloat16)
+        for name, a, b in zip(moe.Routing._fields, got, want):
+            assert torch.equal(a, b), (T, name)
 
 
 def test_moe_route_ties_and_a_lone_token_group():
@@ -2336,13 +2360,17 @@ def test_moe_gather_and_combine_match_plain_bitwise(T, E, G, C, dtype):
 def test_moe_kernels_replay_in_a_graph_and_refuse():
     from kubeflow_tpu_torch.ops import moe
 
+    # Both K12 forms in one graph: the decode step's warp form and a
+    # 1000-token group's cluster of 2 blocks.
     logits = _moe_logits(8, 8, 9)
+    big = _moe_logits(1000, 8, 11).bfloat16()
     x = torch.randn(8, 4096, device="cuda").bfloat16()
 
     def dispatch():
         r = moe.route(logits, 1, 4, torch.bfloat16)
         y = moe.gather_rows(x, r.slot_tok, r.slot_valid) * 2
-        return moe.combine_rows(y, r.g1, r.g2, r.dest1, r.dest2)
+        return (moe.combine_rows(y, r.g1, r.g2, r.dest1, r.dest2),
+                moe.route(big, 1, 252, torch.bfloat16))
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -2351,11 +2379,16 @@ def test_moe_kernels_replay_in_a_graph_and_refuse():
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = dispatch()
+        out, routed = dispatch()
     logits.copy_(_moe_logits(8, 8, 10))
+    big.copy_(_moe_logits(1000, 8, 12).bfloat16())
     x.copy_(torch.randn_like(x.float()).bfloat16())
     graph.replay()
-    assert torch.equal(out, dispatch())
+    again, again_routed = dispatch()
+    assert torch.equal(out, again)
+    for a, b, c in zip(routed, again_routed,
+                       moe.route_reference(big, 1, 252, torch.bfloat16)):
+        assert torch.equal(a, b) and torch.equal(a, c)
     before = (moe.route.launches, moe.gather_rows.launches,
               moe.combine_rows.launches)
     with pytest.raises(ValueError, match="E <= 64"):
@@ -2364,6 +2397,9 @@ def test_moe_kernels_replay_in_a_graph_and_refuse():
         moe.route(logits.half(), 1, 4, torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of groups"):
         moe.route(logits, 3, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="groups of at most"):
+        moe.route(torch.zeros(moe.MAX_GROUP_TOKENS + 1, 8, device="cuda"),
+                  1, 4, torch.bfloat16)
     r = moe.route_reference(logits, 1, 4, torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8"):
         moe.gather_rows(x[:, :100], r.slot_tok, r.slot_valid)
@@ -2376,6 +2412,65 @@ def test_moe_kernels_replay_in_a_graph_and_refuse():
             moe.combine_rows.launches) == before
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [1, 8, 48, 128, 1024, 2048])
+def test_add_rms_norm_combine_mode_is_k14_then_k10(rows, dtype):
+    """combine_add_rms_norm on a deferred MoE combine: up to ROWS_MAX rows
+    K10's combine mode, bitwise K14 then K10's rows kernel, with dropped
+    choices (the trash row read as 0), one launch counted as K10's and
+    none as K14's; above it K14 then K10, the combine mode itself still
+    bitwise K14 then the rows kernel; the same in a graph replay on new
+    inputs."""
+    from kubeflow_tpu_torch.ops import moe, norms
+
+    E, M = 8, 4096
+    C = max(1, rows // 4)                 # capacity drops choices
+    logits = _moe_logits(rows, E, 40 + rows)
+    r = moe.route(logits, 1, C, dtype)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    y = torch.randn(E * C, M, generator=g, device="cuda").to(dtype)
+    x = torch.randn(rows, M, generator=g, device="cuda").to(dtype)
+    w = (1 + 0.1 * torch.randn(M, generator=g, device="cuda")).to(dtype)
+    c = moe.Combine(y, r.g1, r.g2, r.dest1, r.dest2)
+    if rows > 1:
+        assert int((r.dest2 == E * C).sum()) > 0          # drops happened
+
+    def counters():
+        return (norms.add_rms_norm.combine_launches,
+                norms.add_rms_norm.fwd_launches,
+                norms.add_rms_norm.rows_launches, moe.combine_rows.launches)
+
+    def want(by_rows=None):
+        h = moe.combine_rows(*c)
+        return norms._add_fwd_kernel(x, h, w, 1e-6, by_rows=by_rows)[:2]
+
+    fused = rows <= norms.ROWS_MAX
+    before = counters()
+    with torch.no_grad():
+        got = moe.combine_add_rms_norm(x, c, w, eps=1e-6)
+    assert counters() == tuple(b + d for b, d in zip(
+        before, (1, 1, 1, 0) if fused else (0, 1, 0, 1)))
+    assert all(torch.equal(a, b) for a, b in zip(got, want()))
+    with torch.no_grad():
+        mode = norms.add_rms_norm_combine(x, *c, w, eps=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(mode, want(True)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        moe.combine_add_rms_norm(x, c, w, eps=1e-6)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph), torch.no_grad():
+        out = moe.combine_add_rms_norm(x, c, w, eps=1e-6)
+    x.copy_(torch.randn(rows, M, generator=g, device="cuda").to(dtype))
+    y.copy_(torch.randn(E * C, M, generator=g, device="cuda").to(dtype))
+    graph.replay()
+    assert all(torch.equal(a, b) for a, b in zip(out, want()))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        norms.add_rms_norm_combine(x, *c, w.clone().requires_grad_(),
+                                   eps=1e-6)
+
+
 # ENGINE_PROMPTS reordered: the first admission prefills three prompts of
 # one bucket, padded to four rows (k-padding), beside one of the other.
 MOE_PROMPTS = [ENGINE_PROMPTS[i] for i in (0, 2, 4, 1, 3, 5)]
@@ -2385,9 +2480,10 @@ def _mixtral_graphs_against_eager(paged, quantize=""):
     """A small Mixtral of K1/K3's head_dim on the card, staged, dense or
     paged, its graphs against its eager path with a k-padded prefill (the
     pad rows route apart from row 0, and only the last row naming a slot
-    may write it): greedy tokens equal, and K12-K14 once a layer a
-    forward pass, K15 three times with int8 weights (graph replays
-    counted)."""
+    may write it): greedy tokens equal, and K12-K13 once a layer a
+    forward pass, the combine as K10's combine mode once a layer (every
+    pass is under ROWS_MAX rows: no K14 launch), K15 three times with int8
+    weights (graph replays counted)."""
     from kubeflow_tpu_torch.models.mixtral import (
         Mixtral,
         MixtralConfig,
@@ -2395,6 +2491,7 @@ def _mixtral_graphs_against_eager(paged, quantize=""):
     )
     from kubeflow_tpu_torch.ops import moe
     from kubeflow_tpu_torch.ops.int8_experts import int8_experts
+    from kubeflow_tpu_torch.ops.norms import add_rms_norm
     from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
     from kubeflow_tpu_torch.utils.monitoring import MetricsRegistry
 
@@ -2426,12 +2523,14 @@ def _mixtral_graphs_against_eager(paged, quantize=""):
             eng.decode_dispatches = 0
             moe.route.launches = moe.gather_rows.launches = 0
             moe.combine_rows.launches = int8_experts.launches = 0
+            add_rms_norm.combine_launches = 0
             out[eager] = _serve(eng, MOE_PROMPTS)
             assert 3 in groups                    # one pad row
             passes = (4 * eng.decode_dispatches + eng.prefill_dispatches
                       + eng.extend_dispatches)
             assert (moe.route.launches, moe.gather_rows.launches,
-                    moe.combine_rows.launches) == (2 * passes,) * 3
+                    add_rms_norm.combine_launches,
+                    moe.combine_rows.launches) == (2 * passes,) * 3 + (0,)
             per_pass = expert_launches_per_pass(model)
             assert per_pass == (6 if quantize else 0)
             assert int8_experts.launches == per_pass * passes
