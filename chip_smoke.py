@@ -21,9 +21,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    ones (8 or 16 tokens; per-row or per-column scales, and the SwiGLU
    epilogue's two) mma.sync and cp.async (LDGSTS),
    every one of its 6 prefill ones (64, 128 or 256 tokens a tile; per-row
-   or per-column scales) wgmma and TMA loads, K15's 2 decode ones (8 or 16
-   tokens) TMA loads and mma.sync and its 3 tiled ones (64, 128 or 256
-   tokens a tile) wgmma and TMA loads, none of them a cp.async copy
+   or per-column scales) wgmma and TMA loads, K15's 2 decode ones and 2
+   fused gate/up ones (8 or 16 tokens) TMA loads and mma.sync and its 3
+   tiled ones (64, 128 or 256 tokens a tile) wgmma and TMA loads, none of
+   them a cp.async copy
    (LDGSTS), and ptxas reports no spills in any of the libraries;
 3. kernel (K1, forward) — holds the kernel against its plain PyTorch
    version at the serving shapes (bf16, H=32, Hkv=8, D=128; causal B=8 at
@@ -177,7 +178,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    4096-token prefill group, an odd 37, an extend chunk's 128; gate/up
    and down) against its plain version within K15_TOL x max|plain|, two
    calls and a graph replay bitwise; timed beside its bound and
-   torch.bmm on experts dequantized beforehand;
+   torch.bmm on experts dequantized beforehand; then its fused gate/up
+   launch (K15_FUSED_CASES: the decode step's 4 rows an expert, and 1,
+   13 and 16 rows with dropped choices and empty slots) bitwise K13, K15's
+   gate and up products and K9 one after the other, twice and in a graph
+   replay, within K15_TOL x max|plain| of their plain chain, timed in
+   turns with that chain beside its bound;
 8. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card; staged decode and
    CUDA graphs, as the server runs by default) and sends 9 concurrent
@@ -277,6 +283,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    weight bytes, a profiled decode chunk (K12's warp form, K13 and K10's
    combine mode by kernel name once a layer a step, no K14) and the
    phase's seconds;
+10c. serve mixtral int8 — the same at all 32 layers with int8 weights,
+   the server built as a user starts it (build_server from
+   KFTPU_SERVING_MODEL=mixtral-8x7b, KFTPU_SERVING_QUANTIZE=int8: the
+   streaming build), one HTTP request, then the burst and the wide
+   prefill on its engine; the same checks, with the experts through K15:
+   at every decode step (and a prefill of at most 16 rows an expert)
+   gate and up as K15's fused launch once a layer, no K13 and no K9, and
+   K15 twice a layer (the fused launch, down); three times a layer and
+   K13 and K9 once at the other passes (graph replays counted); the
+   replay's MoE outputs within K15_TOL x max of the plain versions' (the
+   fused launch swapped for its plain chain); the profiled chunk's
+   busy time and its K15 kernels by name (the fused one and the decode
+   one once a layer a step, no moe_gather, no swiglu_fwd);
 11. train — runs the training runner in-process (the KFTPU_* env) on the
    ~700M-parameter Llama of ``bench.py train`` at full width and depth
    (vocab 32000, embed 2048, 12 layers, 16/8 heads, head_dim 128, MLP
@@ -346,7 +365,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    prefill_, K10's combine mode (add_rms_norm_combine) at 8 rows with K14
    then K10 beside it and its other rows under rows<n>_, their launches over the mixtral
    burst and its wide prefill and their kernels and ms in its profiled
-   chunk), then the result line.
+   chunk, K13's also in the int8 phase: none at its decode steps); K15's
+   at the decode gate shape with its other cases under their names, the
+   fused gate/up launch under fused_<case>_ with its chain's time
+   (chain_ms), its launches over the int8 burst, the profiled chunk's K15
+   kernels (down, fused) and busy time), then the result line.
 """
 
 from __future__ import annotations
@@ -2160,6 +2183,110 @@ def int8_experts_phase():
             f"once), torch.bmm on bf16 experts {row['library_ms']:.4f} ms")
         del x, y, plain, yg, graph, wt
         torch.cuda.empty_cache()
+    leaves.clear()
+    torch.cuda.empty_cache()
+    rows.update(int8_experts_fused_phase(gen))
+    return rows
+
+
+# K15's fused gate/up launch (the rows gathered by slot_tok, SwiGLU its
+# epilogue) at mixtral-8x7b's gate/up shape (E = 8, F = 14336, K = 4096):
+# (case, rows an expert R = G C, groups G, capacity C, tokens T): the
+# decode step's 8 slots (R = 4), and R = 1, 13 and 16 (G = 2) with a hot
+# expert dropping choices and leaving slots empty.
+K15_FUSED_CASES = (("fused_decode", 4, 1, 4, 8), ("fused_r1", 1, 1, 1, 8),
+                   ("fused_r13", 13, 1, 13, 32), ("fused_r16", 16, 2, 8, 32))
+
+
+def int8_experts_fused_phase(gen) -> dict:
+    """K15's fused gate/up launch at K15_FUSED_CASES: bitwise the launches
+    it replaces (K13's gather, K15's gate and up products, K9), twice and
+    in a graph replay on new inputs, within K15_TOL x max|plain| of their
+    plain chain (``int8_experts_swiglu_reference``); timed in turns with
+    that chain as CUDA-graph replays (every replay reads the 1.17 GB of
+    weights from device memory), beside its bound (both products' bytes:
+    the int8 weights and scales read once, x, slot_tok and slot_valid read,
+    h written) and the plain chain. No single library call computes it."""
+    from kubeflow_tpu_torch.ops import int8_experts as ie
+    from kubeflow_tpu_torch.ops import moe
+    from kubeflow_tpu_torch.ops.swiglu import swiglu
+    from kubeflow_tpu_torch.serving.engine import _quantize_expert_leaf
+
+    E, F, K = K15_E, 14336, 4096
+    weights = []
+    for _ in range(2):                   # gate, then up
+        w = torch.randn(E, K, F, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * 0.02
+        weights += _quantize_expert_leaf(w)
+        del w
+    rows = {}
+    for case, R, G, C, T in K15_FUSED_CASES:
+        logits = _moe_logits(gen, T, E)
+        r = moe.route(logits, G, C, torch.bfloat16)
+        x = torch.randn(T, K, generator=gen, device="cuda").bfloat16()
+        S = E * R
+        drops = int((r.dest1 == S).sum() + (r.dest2 == S).sum())
+        empty = int((r.slot_valid == 0).sum())
+
+        def fused():
+            return ie.int8_experts_swiglu(x, r.slot_tok, r.slot_valid,
+                                          *weights, R)
+
+        def chain():
+            x_e = moe.gather_rows(x, r.slot_tok, r.slot_valid).view(E, R, K)
+            return swiglu(ie.int8_experts(x_e, *weights[:2]),
+                          ie.int8_experts(x_e, *weights[2:]))
+
+        def plain():
+            return ie.int8_experts_swiglu_reference(
+                x, r.slot_tok, r.slot_valid, *weights, R)
+
+        h = fused()
+        _bitwise(f"K15 {case} against K13, K15 gate, K15 up, K9",
+                 [(h, chain())])
+        _bitwise(f"K15 {case} twice", [(h, fused())])
+        want = plain().float()
+        err = float((h.float() - want).abs().max())
+        peak = float(want.abs().max())
+        if not err <= K15_TOL * peak:
+            raise AssertionError(f"K15 {case}: max |kernel - plain| {err} > "
+                                 f"{K15_TOL} x {peak}")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            hg = fused()
+        x.copy_(torch.randn(T, K, generator=gen, device="cuda").bfloat16())
+        graph.replay()
+        _bitwise(f"K15 {case} graph replay", [(hg, chain())])
+        nbytes = (2 * (E * F * K + 2 * F * K) + 2 * T * K + 6 * S
+                  + 2 * E * R * F)
+        t_ops = 2 * 2.0 * E * R * F * K / PEAK_BF16_FLOPS
+        bound = 1e3 * max(t_ops, nbytes / PEAK_BYTES_PER_S)
+        by = "operations" if t_ops * 1e3 > bytes_ms(nbytes) else "bytes"
+        ms = {chain: [], fused: []}
+        for fn in (chain, fused, fused, chain, chain, fused):   # in turns
+            ms[fn].append(device_ms(fn, calls=10, replays=3))
+        row = dict(ms=float(np.median(ms[fused])),
+                   chain_ms=float(np.median(ms[chain])), max_abs_err=err,
+                   max_abs_plain=peak, bound_ms=bound, bound_by=by,
+                   bytes=nbytes, rows=R, groups=G, tokens=T, drops=drops,
+                   empty_slots=empty, library_ms=None)
+        row["plain_ms"] = device_ms(plain, calls=2, replays=2)
+        rows[case] = row
+        log(f"K15 {case} (E={E}, R={R} = {G} x {C}, T={T}, F={F}, K={K}; "
+            f"{drops} choices dropped, {empty} slots empty): bitwise K13 -> "
+            f"K15 gate -> K15 up -> K9, twice and in a graph replay; max err "
+            f"{err:.4g} of max|plain| {peak:.4g}; fused {row['ms']:.5f} ms "
+            f"against the chain {row['chain_ms']:.5f} (in turns), plain "
+            f"{row['plain_ms']:.4f}, bound {bound:.5f} ({by}; "
+            f"{nbytes / 1e6:.1f} MB); no single library call")
+        del x, h, want, hg, graph
+    del weights
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2518,12 +2645,14 @@ def add_norm_rows(gen) -> dict:
 
 #: The served path's element-wise launch counters, in check_elementwise's
 #: order: K6, K7 (its staged mode included), K7's staged mode, K9, K4's
-#: SwiGLU epilogue, K10.
-SERVING_COUNTERS = ("K6", "K7", "K7 staged", "K9", "K4 epilogue", "K10")
+#: SwiGLU epilogue, K15's fused gate/up launch (SwiGLU its epilogue), K10.
+SERVING_COUNTERS = ("K6", "K7", "K7 staged", "K9", "K4 epilogue",
+                    "K15 epilogue", "K10")
 
 
 def serving_counters():
     """(function, counter name) of SERVING_COUNTERS, in that order."""
+    from kubeflow_tpu_torch.ops.int8_experts import int8_experts
     from kubeflow_tpu_torch.ops.int8_linear import int8_linear
     from kubeflow_tpu_torch.ops.norms import add_rms_norm, rms_norm
     from kubeflow_tpu_torch.ops.rope import apply_rope
@@ -2531,7 +2660,8 @@ def serving_counters():
 
     return ((rms_norm, "fwd_launches"), (apply_rope, "fwd_launches"),
             (apply_rope, "stage_launches"), (swiglu, "fwd_launches"),
-            (int8_linear, "swiglu_launches"), (add_rms_norm, "fwd_launches"))
+            (int8_linear, "swiglu_launches"),
+            (int8_experts, "swiglu_launches"), (add_rms_norm, "fwd_launches"))
 
 
 def zero_serving_counters() -> None:
@@ -2555,25 +2685,68 @@ def epilogue_engine(engine) -> bool:
             and isinstance(engine.model.layers[0].mlp, Mlp))
 
 
+def epilogue_launches(engine, decode_steps: int, pass_rows=()) -> tuple:
+    """(K4's, K15's) SwiGLU epilogue launches in ``decode_steps`` decode
+    steps and prefill or extend passes of ``pass_rows`` rows each: K4's
+    once a layer at each decode step of an ``epilogue_engine``; K15's
+    fused gate/up launch in each MoE layer whose pass takes it
+    (``models/mixtral.py::fused_layers``: a decode step's slots, and a
+    pass of at most 16 rows an expert)."""
+    from kubeflow_tpu_torch.models.mixtral import fused_layers
+
+    k4 = (engine.model.cfg.num_layers * decode_steps
+          if epilogue_engine(engine) else 0)
+    rows = [engine.cfg.max_batch] * decode_steps + list(pass_rows)
+    return k4, sum(fused_layers(engine.model, n) for n in rows)
+
+
+class recorded_rows:
+    """Within the block, the rows (tokens) of every prefill and extend
+    pass ``engine`` runs, appended to ``self.rows`` (the engine's own
+    methods are wrapped, then put back)."""
+
+    NAMES = ("_run_prefill", "_run_extend")
+
+    def __init__(self, engine):
+        self.engine, self.rows = engine, []
+
+    def __enter__(self):
+        self.saved = {n: self.engine.__dict__.get(n) for n in self.NAMES}
+        for n in self.NAMES:
+            def run(tokens, *args, _run=getattr(self.engine, n), **kw):
+                self.rows.append(tokens.size)
+                return _run(tokens, *args, **kw)
+            setattr(self.engine, n, run)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            if fn is None:
+                del self.engine.__dict__[n]
+            else:
+                setattr(self.engine, n, fn)
+
+
 def check_elementwise(counts, layers: int, passes: int, decode_steps: int,
-                      epilogue: bool) -> None:
+                      epilogues: tuple) -> None:
     """K6, K7, K9 and K10 in the served path: every forward pass of the
     model (a decode step, a prefill, an extend chunk; graph replays
     counted) runs the first layer's input norm (K6) and RoPE (K7) once a
     layer, and the add + norm (K10) twice a layer: after the attention,
     and from each layer into the next one's input norm or the final norm.
     Every decode step (all staged) runs K7's staged mode, which writes the
-    staging rows, once a layer. SwiGLU runs once a layer: as K4's
-    epilogue at ``epilogue`` engines' decode steps, else as K9."""
-    ep = layers * decode_steps if epilogue else 0
+    staging rows, once a layer. SwiGLU runs once a layer: as K4's epilogue
+    or K15's fused gate/up launch where they take it (``epilogues``, their
+    launches: ``epilogue_launches``), else as K9."""
+    k4, k15 = epilogues
     want = [passes, layers * passes, layers * decode_steps,
-            layers * passes - ep, ep, 2 * layers * passes]
+            layers * passes - k4 - k15, k4, k15, 2 * layers * passes]
     if list(counts) != want:
         raise AssertionError(
             f"{', '.join(SERVING_COUNTERS)} launches {list(counts)}: want "
             f"{want} ({passes} forward passes of {layers} layers, "
-            f"{decode_steps} of them decode steps"
-            + (", K4's epilogue at each" if epilogue else "") + ")")
+            f"{decode_steps} of them decode steps; SwiGLU {k4} times K4's "
+            f"epilogue, {k15} times K15's)")
 
 
 def post(base: str, body: dict):
@@ -2801,7 +2974,7 @@ def serve_phase(quantize_kv: str = "", quantize: str = "",
         k1, k3 = flash_attention.fwd_launches, decode_attention.launches
         k4 = int8_linear.launches
         counts = read_serving_counters()
-        k6, k7, k7s, k9, k4e, k10 = counts
+        k6, k7, k7s, k9, k4e, _, k10 = counts
         prefills, extends, decodes = (engine.prefill_dispatches,
                                       engine.extend_dispatches,
                                       engine.decode_dispatches)
@@ -2827,7 +3000,8 @@ def serve_phase(quantize_kv: str = "", quantize: str = "",
                 f"{decodes} decode + {prefills} prefill + {extends} extend "
                 "dispatches)")
         check_elementwise(counts, layers, chunk * decodes + prefills + extends,
-                          chunk * decodes, epilogue_engine(engine))
+                          chunk * decodes,
+                          epilogue_launches(engine, chunk * decodes))
         if extends and ("extend", 512, "greedy") not in engine._graphs:
             raise AssertionError("the chunked prefill ran without its graph")
         generated = sum(len(o["tokens"]) for o in outs)
@@ -2978,7 +3152,7 @@ def paged_burst(engine, name, prompts, sharers=None, new=SP_GEN):
     k1, k3 = flash_attention.fwd_launches, decode_attention.launches
     k4 = int8_linear.launches
     counts = read_serving_counters()
-    k6, k7, k7s, k9, _, k10 = counts
+    k6, k7, k7s, k9, _, _, k10 = counts
     peak = torch.cuda.max_memory_allocated()
     res = [engine.result(r) for r in rids]
     V = engine.model.cfg.vocab_size
@@ -3000,7 +3174,8 @@ def paged_burst(engine, name, prompts, sharers=None, new=SP_GEN):
                              f"({SP_CHUNK} x {decodes} + {prefills} + "
                              f"{extends})")
     check_elementwise(counts, layers, SP_CHUNK * decodes + prefills + extends,
-                      SP_CHUNK * decodes, epilogue_engine(engine))
+                      SP_CHUNK * decodes,
+                      epilogue_launches(engine, SP_CHUNK * decodes))
     if extends and ("extend", SP_PROMPT, "greedy") not in engine._graphs:
         raise AssertionError(f"{name}: the chunked prefill ran without its "
                              "graph")
@@ -3273,16 +3448,16 @@ def decode_breakdown(engine, rs, named=()):
         raise AssertionError(f"K6, K10 rows kernel launches {rows_counts} "
                              f"in the decode chunk, want {want_rows}")
     # The chunk's counters: every step K7's staged mode once a layer (it
-    # writes the staging rows); SwiGLU once a layer, as K4's epilogue where
-    # the engine takes it, else as K9.
-    epilogue = epilogue_engine(engine)
-    check_elementwise(chunk_counts, layers, steps, steps, epilogue)
+    # writes the staging rows); SwiGLU once a layer, as K4's epilogue or
+    # K15's fused launch where the engine takes them, else as K9.
+    epilogues = epilogue_launches(engine, steps)
+    check_elementwise(chunk_counts, layers, steps, steps, epilogues)
+    k9_per_step = layers - sum(epilogues) // steps
     per_launch, chunk_kernels = {}, {}
     for tag, name, per_step in (("K6", "::rmsnorm_fwd_rows", 1),
                                 ("K7", "::rope_kernel", 0),
                                 ("K7 staged", "::rope_stage_kernel", layers),
-                                ("K9", "::swiglu_fwd",
-                                 0 if epilogue else layers),
+                                ("K9", "::swiglu_fwd", k9_per_step),
                                 ("K10", "::add_rmsnorm_fwd_rows",
                                  2 * layers)):
         own = [e for e in kernels if name in e.key]
@@ -3907,8 +4082,9 @@ def engine_burst(engine, prompts, new: int, tag: str):
     engine.decode_dispatches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
-    engine.run()
+    with recorded_rows(engine) as rec:
+        rids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+        engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     res = [engine.result(r) for r in rids]
@@ -3929,7 +4105,7 @@ def engine_burst(engine, prompts, new: int, tag: str):
                              f"{decodes} decode dispatches")
     counts = read_serving_counters()
     check_elementwise(counts, layers, passes, chunk * decodes,
-                      epilogue_engine(engine))
+                      epilogue_launches(engine, chunk * decodes, rec.rows))
     generated = new * len(res)
     ttft = float(np.median([r.ttft_s for r in res]))
     log(f"{tag} burst: {len(res)} requests, {generated} tokens in "
@@ -4055,33 +4231,37 @@ def plain_combine_add(x, c, weight, *, eps):
 
 class plain_moe:
     """Within the block, the MoE layer runs K12-K15's plain versions
-    (ops/moe.py, ops/int8_experts.py) in place of the kernels, its
-    closing add + norm the plain combine then K10 (plain_combine_add) in
-    place of K10's combine mode: the check's swap, never the served
-    path's."""
+    (ops/moe.py, ops/int8_experts.py) in place of the kernels (K13 where
+    the dispatch and a deferred gather's ``materialize`` call it, K15's
+    fused gate/up launch as the plain chain), its closing add + norm the
+    plain combine then K10 (plain_combine_add) in place of K10's combine
+    mode: the check's swap, never the served path's."""
 
-    def __enter__(self):
+    def swaps(self):
         from kubeflow_tpu_torch.models import mixtral
         from kubeflow_tpu_torch.ops import int8_experts as ie
         from kubeflow_tpu_torch.ops import moe
         from kubeflow_tpu_torch.parallel import moe as dispatch
 
-        self.saved = (dispatch.route, dispatch.gather_rows,
-                      dispatch.combine_rows, mixtral.combine_add_rms_norm,
-                      mixtral.int8_experts)
-        dispatch.route, dispatch.gather_rows, dispatch.combine_rows = (
-            moe.route_reference, moe.gather_rows_reference,
-            moe.combine_rows_reference)
-        mixtral.combine_add_rms_norm = plain_combine_add
-        mixtral.int8_experts = ie.int8_experts_reference
+        return ((dispatch, "route", moe.route_reference),
+                (dispatch, "gather_rows", moe.gather_rows_reference),
+                (moe, "gather_rows", moe.gather_rows_reference),
+                (dispatch, "combine_rows", moe.combine_rows_reference),
+                (mixtral, "combine_add_rms_norm", plain_combine_add),
+                (mixtral, "int8_experts", ie.int8_experts_reference),
+                (mixtral, "int8_experts_swiglu",
+                 ie.int8_experts_swiglu_reference))
+
+    def __enter__(self):
+        self.saved = [(m, name, getattr(m, name))
+                      for m, name, _ in self.swaps()]
+        for m, name, plain in self.swaps():
+            setattr(m, name, plain)
         return self
 
     def __exit__(self, *exc):
-        from kubeflow_tpu_torch.models import mixtral
-        from kubeflow_tpu_torch.parallel import moe as dispatch
-
-        (dispatch.route, dispatch.gather_rows, dispatch.combine_rows,
-         mixtral.combine_add_rms_norm, mixtral.int8_experts) = self.saved
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
 
 
 def replay_step(model, snap, plain: bool):
@@ -4156,25 +4336,32 @@ def serve_mixtral_phase(int8: bool = False):
     attention projections and the lm_head through K4.
 
     Checks the token counts; K1, K3, K4, K6, K7, K9 and K10 as the Llama
-    bursts (``engine_burst``), K12, K13 and K14 once a layer a forward pass
-    and K15 three times (decode step, prefill group, extend chunk; graph
-    replays counted). Then one decode dispatch of the burst (its first
-    step, whose inputs, cache and staging rows were copied before it was
-    queued) is replayed eagerly with the kernels and with K12-K15 swapped
-    for their plain versions: each layer's MoE output, on the kernels' layer
-    input, bitwise the kernels' (bf16) or within K15_TOL x its max (int8:
-    K15's plain version sums in another order), and the replay's greedy
+    bursts (``engine_burst``), K12 and K14 once a layer a forward pass and
+    K15 three times (graph replays counted); K13 and K9 once a layer a
+    pass too, but with int8 weights none where gate and up take K15's
+    fused launch (``models/mixtral.py::fused_route``: every decode step,
+    and a prefill of at most 16 rows an expert), K15 then twice a layer
+    (the fused launch and down). Then one decode dispatch of the burst
+    (its first step, whose inputs, cache and staging rows were copied
+    before it was queued) is replayed eagerly with the kernels and with
+    K12-K15 swapped for their plain versions: each layer's MoE output, on
+    the kernels' layer input, bitwise the kernels' (bf16) or within
+    K15_TOL x its max (int8: K15's plain version sums in another order),
+    and the replay's greedy
     tokens equal to the served ones (bf16) or printed beside them (int8).
     Prints decode ms a step beside its byte bound (every weight but the
     embedding table read once, at 3.35 TB/s), tok/s, p50 TTFT, peak memory
     (below 80 GB), weight bytes and the phase's seconds; a profiled decode
-    chunk with K12-K15's kernels by name."""
+    chunk with K12-K15's kernels by name (int8: K15's fused kernel once a
+    layer a step, no K13 or K9 kernel)."""
     from kubeflow_tpu_torch.models.mixtral import (
         Mixtral,
         MixtralConfig,
         expert_launches_per_pass,
+        fused_layers,
     )
     from kubeflow_tpu_torch.ops.int8_experts import int8_experts
+    from kubeflow_tpu_torch.ops.swiglu import swiglu
     from kubeflow_tpu_torch.ops.norms import ROWS_MAX
     from kubeflow_tpu_torch.serving import ServingConfig, ServingEngine
     from kubeflow_tpu_torch.serving.server import build_server, env_config
@@ -4255,59 +4442,67 @@ def serve_mixtral_phase(int8: bool = False):
     prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in lengths]
     for fn, name in moe_counters():
         setattr(fn, name, 0)
-    int8_experts.launches = 0
+    int8_experts.launches = int8_experts.swiglu_launches = 0
     # Rows a prefill or extend pass feeds the layers (a decode step's are
     # the slots): above ROWS_MAX the MoE combine is K14's own launch,
-    # else K10's combine mode.
-    pass_rows = []
-    run_prefill, run_extend = engine._run_prefill, engine._run_extend
-
-    def prefill_rows(tokens, *args, **kw):
-        pass_rows.append(tokens.size)
-        return run_prefill(tokens, *args, **kw)
-
-    def extend_rows(tokens, *args, **kw):
-        pass_rows.append(tokens.size)
-        return run_extend(tokens, *args, **kw)
-
+    # else K10's combine mode; at most 16 rows an expert take K15's fused
+    # launch with int8 weights.
     engine._run_decode = spy
-    engine._run_prefill, engine._run_extend = prefill_rows, extend_rows
+    rec = recorded_rows(engine)
     torch.cuda.reset_peak_memory_stats()
-    try:
-        _, tok_s, ttft = engine_burst(engine, prompts, 32, tag)
-        del engine._run_decode
-        # Then 4 prompts of one 512-token bucket: a 2048-row prefill, past
-        # ROWS_MAX, whose MoE combine K14 launches.
-        wide = [rs.randint(0, cfg.vocab_size, n).tolist()
-                for n in (300, 350, 400, 450)]
-        rids = [engine.submit(p, max_new_tokens=2) for p in wide]
-        engine.run()
-        if any(len(engine.result(r).tokens) != 2 for r in rids):
-            raise AssertionError(f"{tag}: a wide prefill's request lacks "
-                                 "its 2 tokens")
-    finally:
-        engine.__dict__.pop("_run_decode", None)
-        del engine._run_prefill, engine._run_extend
+    with rec:
+        try:
+            _, tok_s, ttft = engine_burst(engine, prompts, 32, tag)
+            del engine._run_decode
+            # Then 4 prompts of one 512-token bucket: a 2048-row prefill, past
+            # ROWS_MAX, whose MoE combine K14 launches.
+            wide = [rs.randint(0, cfg.vocab_size, n).tolist()
+                    for n in (300, 350, 400, 450)]
+            rids = [engine.submit(p, max_new_tokens=2) for p in wide]
+            engine.run()
+            if any(len(engine.result(r).tokens) != 2 for r in rids):
+                raise AssertionError(f"{tag}: a wide prefill's request lacks "
+                                     "its 2 tokens")
+        finally:
+            engine.__dict__.pop("_run_decode", None)
     peak = torch.cuda.max_memory_allocated()
-    passes = (engine.cfg.decode_chunk * engine.decode_dispatches
-              + engine.prefill_dispatches + engine.extend_dispatches)
-    wide_passes = sum(n > ROWS_MAX for n in pass_rows)
+    decode_steps = engine.cfg.decode_chunk * engine.decode_dispatches
+    # Rows a forward pass: a decode step's are the slots.
+    rows = [engine.cfg.max_batch] * decode_steps + rec.rows
+    passes = len(rows)
+    wide_passes = sum(n > ROWS_MAX for n in rec.rows)
+    # MoE layers whose gate and up took K15's fused launch: all of every
+    # decode step's with int8 weights, none of a pass past 16 rows an
+    # expert.
+    fused_n = sum(fused_layers(model, n) for n in rows)
+    if fused_layers(model, engine.cfg.max_batch) != (layers if int8 else 0) \
+            or any(fused_layers(model, n) for n in rec.rows if n > 64):
+        raise AssertionError(f"{tag}: the fused route at {rows} rows")
     moe_launches = [getattr(fn, name) for fn, name in moe_counters()]
-    k15 = int8_experts.launches
-    want = [layers * passes] * 2 + [layers * wide_passes,
-                                    layers * (passes - wide_passes)]
+    k15, k15_fused = int8_experts.launches, int8_experts.swiglu_launches
+    want = [layers * passes, layers * passes - fused_n,
+            layers * wide_passes, layers * (passes - wide_passes)]
     if moe_launches != want or not wide_passes:
         raise AssertionError(
             f"{tag}: {'/'.join(MOE_COUNTERS)} launches {moe_launches}, want "
-            f"{want}: {layers} a layer for each of {passes} forward passes, "
-            f"the combine as K14 at the {wide_passes} of them past "
+            f"{want}: {layers} a layer for each of {passes} forward passes "
+            f"(K13 none in the {fused_n} layer passes of K15's fused "
+            f"launch), the combine as K14 at the {wide_passes} of them past "
             f"{ROWS_MAX} rows (at least one) and as K10's combine mode at "
             "the others")
-    if k15 != expert_launches_per_pass(model) * passes or \
+    want_k15 = sum(expert_launches_per_pass(model, n) for n in rows)
+    if k15 != want_k15 or k15_fused != fused_n or \
             expert_launches_per_pass(model) != (3 * layers if int8 else 0):
-        raise AssertionError(f"{tag}: K15 launches {k15}, want "
-                             f"{expert_launches_per_pass(model)} a pass for "
-                             f"{passes} forward passes")
+        raise AssertionError(f"{tag}: K15 launches {k15} ({k15_fused} "
+                             f"fused), want {want_k15} ({fused_n}): 3 a layer "
+                             f"a pass, 2 where fused, over {passes} forward "
+                             "passes")
+    k9 = swiglu.fwd_launches
+    log(f"{tag}: {passes} forward passes ({decode_steps} decode steps, "
+        "prefill and "
+        f"extend rows {rec.rows}); launches K12/K13/K14/K10 combine "
+        f"{'/'.join(map(str, moe_launches))}, K15 {k15} ({k15_fused} fused "
+        f"gate/up), K9 since the burst began {k9}")
     if peak >= 80e9 or build_peak >= 80e9:
         raise AssertionError(f"{tag}: peak device memory {peak / 1e9:.2f} GB"
                              f" (build {build_peak / 1e9:.2f} GB)")
@@ -4356,12 +4551,16 @@ def serve_mixtral_phase(int8: bool = False):
     del snap, kernel_moe
 
     # A decode step's slots take K12's warp form and K10's combine mode
-    # once a layer, and no K14.
+    # once a layer, and no K14; with int8 weights K15's fused gate/up
+    # kernel and its decode kernel (down) once a layer, and no K13 (nor
+    # K9: decode_breakdown counts it).
     names = ("moe_route_warp", "moe_gather", "moe_combine",
-             "add_rmsnorm_fwd_rows_combine", "int8_experts_decode")
-    per_layer = (1, 1, 0, 1, 3 if int8 else 0)
+             "add_rmsnorm_fwd_rows_combine", "int8_experts_decode",
+             "int8_experts_swiglu_decode")
+    per_layer = (1, 0 if int8 else 1, 0, 1, 1 if int8 else 0,
+                 1 if int8 else 0)
     bd = decode_breakdown(engine, rs, names)
-    tags = MOE_COUNTERS + ("K15",)
+    tags = MOE_COUNTERS + ("K15", "K15 fused")
     kernels_ms = {t: bd["named"][name] for t, name in zip(tags, names)}
     steps = engine.cfg.decode_chunk
     if bd["chunk_busy_ms"] > 0:
@@ -4375,7 +4574,8 @@ def serve_mixtral_phase(int8: bool = False):
         f"peak {peak / 1e9:.2f} GB (build {build_peak / 1e9:.2f}); weights "
         f"{weight_bytes / 1e9:.2f} GB; idle share "
         + ("not measured" if bd["idle"] is None else f"{bd['idle']:.3f}")
-        + "; in one profiled chunk " + ", ".join(
+        + f"; one profiled chunk busy {bd['chunk_busy_ms']:.2f} ms: "
+        + ", ".join(
             f"{t} {n} kernels {ms:.3f} ms" for t, (n, ms)
             in kernels_ms.items())
         + f", K4 {bd['k4_chunk_launches']} kernels {bd['k4_chunk_ms']:.3f} "
@@ -4385,6 +4585,7 @@ def serve_mixtral_phase(int8: bool = False):
                 ttft_p50=ttft, peak=peak, build_peak=build_peak,
                 build_s=build_s, weight_bytes=weight_bytes, idle=bd["idle"],
                 launches=dict(zip(MOE_COUNTERS, moe_launches)), k15=k15,
+                k15_fused=k15_fused, k9=k9, chunk_busy_ms=bd["chunk_busy_ms"],
                 layers=layers, wide_passes=wide_passes,
                 chunk_kernels=kernels_ms, seconds=seconds)
 
@@ -4674,12 +4875,14 @@ def main() -> int:
     check_build(libs["int8_linear.cu"], {"int8_linear_decode": 6},
                 required=("HMMA", "LDGSTS"))
     check_build(libs["int8_linear.cu"], {"int8_linear_prefill": 6})
-    # K15: the expert-group decode kernel at 8 or 16 tokens, mma.sync
-    # (HMMA) fed by TMA (UTMALDG); the tiled kernel at 64, 128 or 256 tokens
-    # a tile, wgmma (HGMMA) fed by TMA, the scale tile a TMA tile of each
-    # stage. Neither holds a cp.async copy (LDGSTS): a build of the earlier
-    # cp.async kernels fails here.
-    check_build(libs["int8_experts.cu"], {"int8_experts_decode": 2},
+    # K15: the expert-group decode kernel and the fused gate/up kernel
+    # (rows gathered by slot_tok, SwiGLU its epilogue) at 8 or 16 tokens,
+    # mma.sync (HMMA) fed by TMA (UTMALDG); the tiled kernel at 64, 128 or
+    # 256 tokens a tile, wgmma (HGMMA) fed by TMA, the scale tile a TMA
+    # tile of each stage. None holds a cp.async copy (LDGSTS): a build of
+    # the earlier cp.async kernels fails here.
+    check_build(libs["int8_experts.cu"], {"int8_experts_decode": 2,
+                                          "int8_experts_swiglu_decode": 2},
                 required=("UTMALDG", "HMMA"), forbidden=("LDGSTS",))
     check_build(libs["int8_experts.cu"], {"int8_experts_tiled": 3},
                 forbidden=("LDGSTS",))
@@ -4927,6 +5130,10 @@ def main() -> int:
                 k.update({f"{case}_{key}": v for key, v in row.items()})
         k["serve_launches"] = serve[tag.lower()]
     k9["int8_weights_launches"] = serve_w8["k9"]
+    # Mixtral: bf16 (K9 once a layer a pass), int8 (none where K15's fused
+    # launch takes SwiGLU: every decode step).
+    k9["mixtral_launches"] = serve_moe["k9"]
+    k9["mixtral_int8_launches"] = serve_moe8["k9"]
     k9["paged_launches"] = serve_paged[True]["a"]["k9"]
     # K10's rows kernel, K7's staged launch and K9 a launch in each serve
     # phase's profiled decode chunk (K9 none with the epilogue).
@@ -4968,6 +5175,9 @@ def main() -> int:
         e.update({f"prefill_{key}": v
                   for key, v in moe_rows[tag]["prefill"].items()})
         e["chunk_kernels"], e["chunk_ms"] = serve_moe["chunk_kernels"][tag]
+        # With int8 weights (all 32 layers): none at a decode step for K13.
+        e["int8_launches"] = serve_moe8["launches"][tag]
+        e["int8_chunk_kernels"] = serve_moe8["chunk_kernels"][tag][0]
         moe_entries.append(e)
     combine_rows_ = moe_rows["K10 combine"]
     row = combine_rows_[8]
@@ -5001,10 +5211,18 @@ def main() -> int:
     for case, r in k15_rows.items():
         if case != "decode_gate":
             k15.update({f"{case}_{key}": r[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "max_abs_err")})
+                "ms", "chain_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err") if key in r})
+    # The fused gate/up launch (fused_<case>_, its chain's time beside it):
+    # its launches over the int8 burst, and in the profiled chunk the
+    # decode kernel's (down) and the fused kernel's, and the chunk's busy
+    # time.
     k15["chunk_kernels"], k15["chunk_ms"] = \
         serve_moe8["chunk_kernels"]["K15"]
+    k15["chunk_fused_kernels"], k15["chunk_fused_ms"] = \
+        serve_moe8["chunk_kernels"]["K15 fused"]
+    k15["fused_launches"] = serve_moe8["k15_fused"]
+    k15["chunk_busy_ms"] = serve_moe8["chunk_busy_ms"]
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k7, k8, k9,
                                   k10, k11, *moe_entries, k15]}), flush=True)
     print(json.dumps({"ok": True, "device": {

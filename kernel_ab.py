@@ -71,7 +71,15 @@ beforehand. ``--variants`` times the tiled kernel's launch plans apart
 (rows an expert > 16), where the build's source has
 ``kftpu_int8_experts_config``: ``bm64``/``bm128``/``bm256`` tokens a
 tile, ``o1``/``o2`` the grid's order (token tiles or experts fastest),
-combined as in ``bm256o1``.
+combined as in ``bm256o1``. The ``fused_decode``, ``fused_r1``,
+``fused_r13`` and ``fused_r16`` shapes (``chip_smoke.py``'s
+K15_FUSED_CASES: gate/up at 4, 1, 13 and 16 rows an expert, the rows
+gathered from 8, 8, 32 and 32 tokens) also build each DIR's ``moe.cu``
+and ``swiglu.cu`` and time, in turns, every build's chain of four
+launches (K13's gather, K15's gate and up products, K9) against the
+fused gate/up launch where the build has ``kftpu_int8_experts_swiglu``:
+all bitwise equal, and within 1e-2 x max|plain| of
+``int8_experts_swiglu_reference``.
 
 ``--kernel moe`` builds each DIR's ``moe.cu`` and ``rms_norm.cu`` and
 times, in turns, K12 at ``chip_smoke.py``'s MOE_CASES (``decode``: T 8,
@@ -105,7 +113,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from chip_smoke import K15_CASES, K15_E, int8_experts_bound_ms
+from chip_smoke import (
+    K15_CASES,
+    K15_E,
+    K15_FUSED_CASES,
+    bytes_ms,
+    int8_experts_bound_ms,
+)
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops import decode_attention as da
 from kubeflow_tpu_torch.ops import flash_attention as fa
@@ -133,18 +147,28 @@ def kernel_name(name: str, stem: str = "flash_bwd") -> str:
     return name.split("EEEEE")[0].split("(")[0].split("'")[0]
 
 
+#: kernel -> the other sources of each DIR it builds, into side_lib(lib,
+#: source): K10 beside K12 and K14; K13 and K9 beside K15 (the chain that
+#: its fused gate/up launch replaces).
+SIDE_SOURCES = {"moe": ("rms_norm.cu",), "experts": ("moe.cu", "swiglu.cu")}
+
+
+def side_lib(lib: str, source: str) -> str:
+    return f"{lib[:-3]}_{os.path.splitext(source)[0]}.so"
+
+
 def build(root: str, lib: str, kernel: str = "bwd",
           path: str | None = None) -> list:
     """Compile ``root``'s source of ``kernel`` (or ``path``, a variant of
-    it whose includes resolve in ``root``) into ``lib``; returns ptxas's
-    report lines for the kernels it times. ``moe`` also builds
-    ``rms_norm.cu`` into ``norm_lib(lib)``."""
+    it whose includes resolve in ``root``) into ``lib``, and its
+    SIDE_SOURCES beside it; returns ptxas's report lines for the kernels
+    it times."""
     source, stem, keep = KERNELS[kernel]
-    if kernel == "moe":
+    for side in SIDE_SOURCES.get(kernel, ()):
         proc = subprocess.run(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", norm_lib(lib),
-             os.path.join(root, CSRC, "rms_norm.cu")], capture_output=True,
-            text=True)
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+             side_lib(lib, side), os.path.join(root, CSRC, side)],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {root}:\n{proc.stderr}")
     proc = subprocess.run(
@@ -660,10 +684,6 @@ PAGED_B, PAGED_L, PAGED_BS, PAGED_C = 48, 512, 16, 32
 PAGED_LENGTHS = [128 + (37 * i) % 128 for i in range(PAGED_B)]
 
 
-def norm_lib(lib: str) -> str:
-    return lib[:-3] + "_norm.so"
-
-
 COMBINE_SHAPES = {"c8": 8, "c48": 48, "c1024": 1024}
 #: K12's group-form plan in moe.cu: the blocks a group by g.
 MOE_PLAN = ("  while (nb < kMaxCluster && nb * 512 < g && 2 * nb <= P / 32) "
@@ -693,7 +713,7 @@ def moe_callers(root: str, lib: str, label: str) -> dict:
     read from the build's source."""
     from kubeflow_tpu_torch.ops import moe, norms
 
-    so, nso = ctypes.CDLL(lib), ctypes.CDLL(norm_lib(lib))
+    so, nso = ctypes.CDLL(lib), ctypes.CDLL(side_lib(lib, "rms_norm.cu"))
     with open(os.path.join(root, CSRC, "moe.cu")) as f:
         scratch = "void* gates, void* pos" in f.read()
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -854,8 +874,11 @@ def run_moe(name: str, calls: dict) -> bool:
     return ok
 
 
-# name -> (rows an expert, N, K): chip_smoke.py's K15 cases, E = K15_E.
+# name -> (rows an expert, N, K): chip_smoke.py's K15 cases, E = K15_E;
+# the fused gate/up launch's at F = 14336, K = 4096.
 EXPERT_SHAPES = {case: (r, n, k) for case, r, n, k in K15_CASES}
+EXPERT_SHAPES.update({case: (r, 14336, 4096)
+                      for case, r, _, _, _ in K15_FUSED_CASES})
 
 
 def parse_variant(v: str):
@@ -904,7 +927,122 @@ def experts_callers(root: str, lib: str, variants: list) -> dict:
     if config is not None:
         for v in variants:
             calls[f"{root}:{v}"] = caller(parse_variant(v))
+    calls[root].chain = chain_caller(lib, plain)
+    calls[root].fused = fused_caller(so)
     return calls
+
+
+def chain_caller(lib: str, product):
+    """The build's launches that K15's fused gate/up launch replaces, as
+    ``chain(x, slot_tok, slot_valid, (gate_q, gate_s, up_q, up_s), R) ->
+    h``: its K13 (moe.cu's gather), its K15 ``product`` for gate and for
+    up, its K9 (swiglu.cu's forward)."""
+    from kubeflow_tpu_torch.ops import moe, swiglu
+
+    gather = moe.bind(ctypes.CDLL(side_lib(lib, "moe.cu")))[1]
+    fwd = swiglu.bind(ctypes.CDLL(side_lib(lib, "swiglu.cu")))[0]
+
+    def chain(x, slot_tok, slot_valid, weights, R):
+        T, K = x.shape
+        S = slot_tok.numel()
+        E, F = S // R, weights[0].shape[1]
+        stream = torch.cuda.current_stream().cuda_stream
+        x_e = torch.empty(S, K, dtype=torch.bfloat16, device=x.device)
+        g, u, h = (torch.empty(E, R, F, dtype=torch.bfloat16,
+                               device=x.device) for _ in range(3))
+        rcs = [gather(1, x.data_ptr(), slot_tok.data_ptr(),
+                      slot_valid.data_ptr(), x_e.data_ptr(), S, K, stream)]
+        for q, s, y in ((*weights[:2], g), (*weights[2:], u)):
+            rcs.append(product(x_e.data_ptr(), q.data_ptr(), s.data_ptr(),
+                               y.data_ptr(), E, R, F, K, stream))
+        rcs.append(fwd(1, g.data_ptr(), u.data_ptr(), h.data_ptr(), S, F, F,
+                       F, stream))
+        if any(rcs):
+            raise RuntimeError(f"chain launch failed: CUDA errors {rcs}")
+        return h
+    return chain
+
+
+def fused_caller(so):
+    """The build's fused gate/up launch as ``fused(x, slot_tok, slot_valid,
+    weights, R) -> h``, or None where its source has none."""
+    fn = getattr(so, "kftpu_int8_experts_swiglu", None)
+    if fn is None:
+        return None
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+
+    def fused(x, slot_tok, slot_valid, weights, R):
+        T, K = x.shape
+        E, F = slot_tok.numel() // R, weights[0].shape[1]
+        h = torch.empty(E, R, F, dtype=torch.bfloat16, device=x.device)
+        rc = fn(*(t.data_ptr() for t in (x, slot_tok, slot_valid, *weights,
+                                         h)), T, E, R, F, K,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fused launch failed: CUDA error {rc}")
+        return h
+    return fused
+
+
+def run_experts_fused(name: str, calls: dict) -> bool:
+    """Every build's chain of four launches and, where it has one, its
+    fused gate/up launch at a K15_FUSED_CASES case: all bitwise equal and
+    within 1e-2 x max|plain| of the plain chain, then device ms per call
+    in turns beside the bound."""
+    from kubeflow_tpu_torch.ops import int8_experts as ie
+    from kubeflow_tpu_torch.ops import moe
+    from kubeflow_tpu_torch.serving.engine import _quantize_expert_leaf
+
+    R, G, C, T = next(c[1:] for c in K15_FUSED_CASES if c[0] == name)
+    _, F, K = EXPERT_SHAPES[name]
+    E = K15_E
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    weights = []
+    for _ in range(2):
+        w = torch.randn(E, K, F, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * 0.02
+        weights += _quantize_expert_leaf(w)
+        del w
+    logits = torch.randn(T, E, generator=gen, device="cuda")
+    logits[:, 1] += 3.0                          # a hot expert: drops
+    r = moe.route(logits.bfloat16(), G, C, torch.bfloat16)
+    x = torch.randn(T, K, generator=gen, device="cuda").bfloat16()
+    args = (x, r.slot_tok, r.slot_valid, weights, R)
+    want = ie.int8_experts_swiglu_reference(x, r.slot_tok, r.slot_valid,
+                                            *weights, R).float()
+    top = want.abs().max().item()
+    fns, ok, first = {}, True, None
+    for label, call in calls.items():
+        if call.cfg is not None:
+            continue
+        for kind, fn in (("chain", call.chain), ("fused", call.fused)):
+            if fn is None:
+                continue
+            got = fn(*args)
+            first = got if first is None else first
+            err = (got.float() - want).abs().max().item()
+            same = torch.equal(got, first) and torch.equal(got, fn(*args))
+            good = err <= 1e-2 * top and same
+            ok &= good
+            print(f"{name} {label} {kind}: max err / max|plain| "
+                  f"{err / top:.3e}; bitwise the first build's chain and "
+                  f"twice: {same}{'' if good else '  FAIL'}", flush=True)
+            fns[f"{label} {kind}"] = lambda fn=fn: fn(*args)
+    del want
+    graphs = {label: capture(fn, 10) for label, fn in fns.items()}
+    times = turns(graphs, 10)
+    nbytes = (2 * (E * F * K + 2 * F * K) + 2 * T * K + 6 * E * R
+              + 2 * E * R * F)
+    print(f"{name} (E {E}, R {R} = {G} x {C}, T {T}, F {F}, K {K}) device "
+          f"ms per call (median / least of 6 turns): " + "; ".join(
+              f"{label} {statistics.median(t):.5f} / {min(t):.5f}"
+              for label, t in times.items())
+          + f"; bound {bytes_ms(nbytes):.5f} (bytes)", flush=True)
+    del graphs, weights, x
+    torch.cuda.empty_cache()
+    return ok
 
 
 def run_experts(name: str, calls: dict) -> bool:
@@ -1117,7 +1255,8 @@ def main() -> int:
         elif args.kernel == "int8":
             ok &= run_int8(name, fns, step)
         elif args.kernel == "experts":
-            ok &= run_experts(name, fns)
+            ok &= (run_experts_fused(name, fns) if name.startswith("fused")
+                   else run_experts(name, fns))
         elif args.kernel == "moe":
             ok &= run_moe(name, fns)
         else:

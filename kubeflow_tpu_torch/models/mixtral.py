@@ -11,7 +11,10 @@ package leaves its einsums to XLA), ``silu(gate) * up`` through K9. The
 dispatch is the index dispatch of ``ops/moe.py`` (K12-K14 on the card;
 the layer's closing add + RMSNorm takes the combine's inputs instead,
 ``ops/moe.py::combine_add_rms_norm``: K10's combine mode up to ROWS_MAX
-rows, in K14's place).
+rows, in K14's place). The experts take the gather's inputs too
+(``moe_dispatch(defer_gather=True)``): :func:`gate_up_swiglu` alone
+decides whether the rows are gathered (K13) or read by the fused int8
+launch.
 
 With the serving engine's int8 weights (``ServingConfig.quantize="int8"``)
 each expert leaf becomes an :class:`Int8Experts` (one bf16 scale an
@@ -19,7 +22,11 @@ element, shared by the experts, as the JAX engine quantizes the leaf over
 its expert axis) whose product runs through
 :func:`~kubeflow_tpu_torch.ops.int8_experts.int8_experts` (K15 on the
 card); the attention projections and the lm_head become ``Int8Dense`` (K4),
-as on Llama; the router [E, M] stays bf16 below ``quantize_min_size``.
+as on Llama; the router [E, M] stays bf16 below ``quantize_min_size``. On
+the card, at most ``DECODE_MAX_ROWS`` rows an expert (a decode step's),
+int8 gate and up run as one launch that gathers the token rows and ends
+in SwiGLU (:func:`~kubeflow_tpu_torch.ops.int8_experts.
+int8_experts_swiglu`), in place of K13, two K15 launches and K9.
 
 Serving only, in this slice: the remat policies and the trainer raise
 NotImplementedError on a Mixtral model (their aux-loss term, jitter and
@@ -30,6 +37,7 @@ item 6c).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
@@ -40,10 +48,19 @@ from kubeflow_tpu_torch.models.llama import (
     Llama,
     LlamaConfig,
 )
-from kubeflow_tpu_torch.ops.int8_experts import int8_experts
-from kubeflow_tpu_torch.ops.moe import combine_add_rms_norm
+from kubeflow_tpu_torch.ops.int8_experts import (
+    DECODE_MAX_ROWS,
+    SWIGLU_MAX_TOKENS,
+    int8_experts,
+    int8_experts_swiglu,
+)
+from kubeflow_tpu_torch.ops.moe import Gather, combine_add_rms_norm
 from kubeflow_tpu_torch.ops.swiglu import swiglu
-from kubeflow_tpu_torch.parallel.moe import Top2GateConfig, moe_dispatch
+from kubeflow_tpu_torch.parallel.moe import (
+    Top2GateConfig,
+    expert_rows,
+    moe_dispatch,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,10 +129,46 @@ def _expert_product(x: torch.Tensor, w) -> torch.Tensor:
     return torch.bmm(x, w.to(x.dtype))
 
 
-def expert_launches_per_pass(model: nn.Module) -> int:
-    """K15 launches in one forward pass of ``model``: one an
-    :class:`Int8Experts` leaf (3 a layer with every expert leaf int8)."""
-    return sum(isinstance(m, Int8Experts) for m in model.modules())
+def fused_route(w_gate, w_up, rows: int, tokens: int) -> bool:
+    """Whether gate and up take the fused launch: int8 leaves on the card,
+    at most ``DECODE_MAX_ROWS`` rows an expert of at most
+    ``SWIGLU_MAX_TOKENS`` tokens."""
+    return (isinstance(w_gate, Int8Experts) and isinstance(w_up, Int8Experts)
+            and w_gate.weight.is_cuda and rows <= DECODE_MAX_ROWS
+            and tokens <= SWIGLU_MAX_TOKENS)
+
+
+def gate_up_swiglu(g: Gather, shape, w_gate, w_up) -> torch.Tensor:
+    """``silu(gate) * up`` [E, R, F] of the expert buffers [E, R, M] =
+    ``shape`` that ``g`` gathers. The one place that picks the route
+    (:func:`fused_route`, by the leaves' types and the shapes): one fused
+    launch that reads the rows by ``slot_tok``, or the gather (K13), the
+    two products (K15 or ``torch.bmm``) and K9."""
+    if fused_route(w_gate, w_up, shape[1], g.x.shape[0]):
+        dt = w_gate.dtype
+        return int8_experts_swiglu(
+            g.x.to(dt), g.slot_tok, g.slot_valid.to(dt), w_gate.weight,
+            w_gate.scale, w_up.weight, w_up.scale, shape[1])
+    e_in = g.materialize().view(shape)
+    return swiglu(_expert_product(e_in, w_gate), _expert_product(e_in, w_up))
+
+
+def fused_layers(model: nn.Module, tokens: int) -> int:
+    """MoE layers of ``model`` whose gate and up take the fused launch in
+    a forward pass over ``tokens`` rows."""
+    return sum(fused_route(m.w_gate, m.w_up, expert_rows(tokens, m.gate),
+                           tokens)
+               for m in model.modules() if isinstance(m, MoeMlp))
+
+
+def expert_launches_per_pass(model: nn.Module,
+                             tokens: Optional[int] = None) -> int:
+    """K15 launches in one forward pass of ``model`` over ``tokens`` rows:
+    one an :class:`Int8Experts` leaf (3 a layer with every expert leaf
+    int8), but one for gate and up where they take the fused launch (2 a
+    layer: a decode step's). ``tokens`` None: a pass without it."""
+    return (sum(isinstance(m, Int8Experts) for m in model.modules())
+            - (fused_layers(model, tokens) if tokens else 0))
 
 
 class MoeMlp(nn.Module):
@@ -133,11 +186,11 @@ class MoeMlp(nn.Module):
             num_experts=E, capacity_factor=cfg.capacity_factor,
             jitter_eps=cfg.router_jitter, dispatch=cfg.moe_dispatch)
 
-    def experts(self, e_in: torch.Tensor) -> torch.Tensor:
-        """The expert MLPs on their buffers [E, C, M] -> [E, C, M]."""
-        gate = _expert_product(e_in, self.w_gate)
-        up = _expert_product(e_in, self.w_up)
-        return _expert_product(swiglu(gate, up), self.w_down)
+    def experts(self, g: Gather, shape) -> torch.Tensor:
+        """The expert MLPs on the buffers [E, C, M] = ``shape`` that ``g``
+        gathers -> [E, C, M]."""
+        return _expert_product(gate_up_swiglu(g, shape, self.w_gate,
+                                              self.w_up), self.w_down)
 
     def forward(self, x: torch.Tensor, *, defer: bool = False):
         """[..., M] -> [..., M]; ``defer``: a :class:`~kubeflow_tpu_torch.
@@ -146,7 +199,8 @@ class MoeMlp(nn.Module):
         logits = self.router(x)          # routed in f32 (K12 widens it)
         out, _ = moe_dispatch(x.reshape(-1, M),
                               logits.reshape(-1, logits.shape[-1]),
-                              self.experts, self.gate, defer=defer)
+                              self.experts, self.gate, defer=defer,
+                              defer_gather=True)
         return out if defer else out.view(x.shape)
 
 

@@ -3,7 +3,8 @@
 // shared loads, the wgmma of a register A tile at 64, 128 or 256 tokens,
 // the mma.sync bf16 product, the exact int8 -> bf16 widening and
 // the once-rounded bf16 product with a scale (_materialize's bf16(q s)),
-// and the swizzle of a lane's two 16-byte chunks of a 128-byte row.
+// the swizzle of a lane's two 16-byte chunks of a 128-byte row, and
+// SwiGLU of a gate and an up sum (both kernels' epilogue).
 // ops/_build.py hashes this header into every kernel library's name.
 
 #pragma once
@@ -13,6 +14,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "fused_common.cuh"
 #include "hopper_common.cuh"
 
 namespace int8w {
@@ -119,6 +121,18 @@ __device__ __forceinline__ void dequant16(const uint4& w, const uint32_t (&sc)[8
 // quarter warp (rows r, r + 1; t = 0..3) then hit distinct banks.
 __device__ __forceinline__ int x_pos(int c, int r) {
   return (((c & 1) << 2) | (c >> 1)) ^ ((r & 1) << 2);
+}
+
+// silu(g) * u of a product's unrounded sums g and u, as the product then K9
+// compute it: g and u rounded to bf16 (the product's outputs), then
+// swiglu.cu's forward operation by operation, rounded once more where it
+// rounds. K4's and K15's SwiGLU epilogues.
+__device__ __forceinline__ uint16_t swiglu_of_sums(float g, float u) {
+  const float gb = __bfloat162float(__float2bfloat16_rn(g));
+  const float ub = __bfloat162float(__float2bfloat16_rn(u));
+  const float den = __fadd_rn(1.f, expf(-gb));
+  const float a = kftpu_fused::rnd<__nv_bfloat16>(__fdiv_rn(gb, den));
+  return static_cast<uint16_t>(kftpu_fused::bf16_bits(__fmul_rn(a, ub)));
 }
 
 }  // namespace int8w

@@ -71,6 +71,30 @@
 //   17-128 rows do not run in 256-token tiles of zeros. The epilogue
 //   stages y^T in the drained ring with transposing stmatrix stores and
 //   writes it with one TMA store, as K4's does.
+// - Gate and up at decode rows with SwiGLU, int8_experts_swiglu_decode
+//   (C entry kftpu_int8_experts_swiglu): the gather of the expert rows
+//   (K13), the gate and up products and K9 in one launch, bitwise that
+//   chain. It replaces the XLA fusions of
+//   kubeflow_tpu/parallel/moe.py::_gather_in (:158-165) and of
+//   kubeflow_tpu/models/mixtral.py:111 (nn.silu(gate) * up) at a decode
+//   step's rows. The decode kernel's design, a block 8 gate rows and the
+//   8 up rows of the same columns for a group of 8 experts (the
+//   m16n8k16 A tile's rows 0-7 gate, 8-15 up; 1792 blocks at F = 14336,
+//   two an SM, each a ring of half the shared memory, so one block's
+//   loads run while the other starts or drains): a stage is both scale
+//   boxes, both int8 boxes and the 64-k span of all T token rows of x
+//   [T, K] (T <= 256, one box), five TMA loads; each consumer reads its
+//   expert's rows from that tile by slot_tok and multiplies its B
+//   fragment by the slot's slot_valid (0 or 1, exact, as K13 does), so a
+//   sum runs over the same products in the same k order as a separate
+//   launch's. (A TMA load a gathered row, 8 R a stage, left the launch
+//   bound by the rate the TMA unit takes loads: 1.19 ms at R = 4, 3.7 at
+//   R = 16, against 0.40 for the four launches it replaces; one block an
+//   SM 0.400, persistent blocks 0.389, two blocks an SM 0.387 at R = 4:
+//   kernel_ab.py.) A lane holds gate and up of one column and two tokens
+//   (acc[mt][0..1] and acc[mt][2..3]) and writes swiglu_of_sums of them:
+//   no exchange through shared memory. Bound: both products' bytes,
+//   1174.4 MB at Mixtral-8x7b's decode step (0.3506 ms).
 // Capture-safe: nothing is allocated, nothing synchronises, the launch goes
 // on the caller's stream (the tensor maps are kernel parameters).
 // Deterministic: no atomics, a fixed order of sums.
@@ -230,6 +254,164 @@ __global__ void __launch_bounds__(Decode<MT>::kThreads, 1)
       const int n = n0 + lr + 8 * (i >> 1);
       const int m = mt * 8 + 2 * t + (i & 1);
       if (n < p.N && m < p.R) y[(long long)m * p.N + n] = __float2bfloat16_rn(acc[mt][i]);
+    }
+}
+
+// ---- decode rows, gate and up with SwiGLU: the rows gathered by slot_tok ------
+
+// The fused launch's operands: tensor maps over the tokens x [T, K] (a
+// {64, T8} box: every token's 64-k span, T8 = T rounded up to 8), gate's
+// and up's int8 [E, F, K] ({64, 8, 8} boxes) and their scales [F, K]
+// ({64, 8}); the dispatch's slot_tok and slot_valid [E R] (slot e R + r:
+// expert e's row r); h [E, R, F]; the ring's stages and their bytes.
+struct SwigluParams {
+  CUtensorMap tm_x, tm_qg, tm_qu, tm_sg, tm_su;
+  const int* slot_tok;
+  const __nv_bfloat16* slot_valid;
+  __nv_bfloat16* h;
+  int E, R, F, K, T;
+  int stages, stage_bytes;
+};
+
+// The most tokens the fused launch reads (a TMA box's rows).
+constexpr int kSwigluMaxTokens = 256;
+
+// A stage: the [16 x 64] scale tile (gate's 8 rows, then up's), the int8
+// tiles ([8 experts][8 rows][64] of gate, then of up), then the T8 token
+// rows [T8][64 bf16] (128-byte swizzle), which the consumers read by
+// slot_tok; 5 TMA loads a stage, from one producer thread.
+constexpr int kSwigluSBytes = 16 * 128;
+constexpr int kSwigluQHalf = G * 8 * kSpan;
+constexpr int kSwigluXOffset = kSwigluSBytes + 2 * kSwigluQHalf;
+static_assert(kSwigluXOffset % 1024 == 0, "the x tile must stay 1024-byte aligned");
+
+template <int MT>
+__global__ void __launch_bounds__(32 * G + 32, 2)
+    int8_experts_swiglu_decode(const __grid_constant__ SwigluParams p) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  const int S = p.stages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * p.stage_bytes);
+  uint64_t* empty = full + S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * 8, e0 = blockIdx.y * G;
+  const int nk = (p.K + kSpan - 1) / kSpan;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], G);   // one arrival a compute warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == G) {
+    // Producer: a stage is both scale boxes, both int8 boxes (experts past
+    // E and token rows past T arrive as zeros) and the token rows.
+    if (lane == 0) {
+      prefetch_tensor_map(&p.tm_sg);
+      prefetch_tensor_map(&p.tm_su);
+      prefetch_tensor_map(&p.tm_qg);
+      prefetch_tensor_map(&p.tm_qu);
+      prefetch_tensor_map(&p.tm_x);
+      for (int i = 0, s = 0, phase = 1; i < nk; ++i) {
+        const int k = i * kSpan;
+        uint8_t* st = ring + s * p.stage_bytes;
+        mbar_wait(&empty[s], phase);   // the first S pass at once
+        mbar_arrive_expect_tx(&full[s], p.stage_bytes);
+        tma_load_2d(st, &p.tm_sg, &full[s], k, n0);
+        tma_load_2d(st + kSwigluSBytes / 2, &p.tm_su, &full[s], k, n0);
+        tma_load_3d(st + kSwigluSBytes, &p.tm_qg, &full[s], k, n0, e0);
+        tma_load_3d(st + kSwigluSBytes + kSwigluQHalf, &p.tm_qu, &full[s], k, n0, e0);
+        tma_load_2d(st + kSwigluXOffset, &p.tm_x, &full[s], k, 0);
+        if (++s == S) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // Compute warp: expert e = e0 + warp; a lane holds gate's row lr and up's
+  // row lr (A rows lr and lr + 8) of column n0 + lr, and the B fragments of
+  // the expert's rows 8 mt + lr: token tok[mt]'s row of the x tile times
+  // the slot's slot_valid (bf16 0 or 1: exact, K13's signed zeros and NaNs
+  // included). Rows past R read token 0 times 0.
+  const int e = e0 + warp;
+  const int lr = lane >> 2, t = lane & 3;
+  int tok[MT];
+  uint32_t valid[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = mt * 8 + lr;
+    const bool live = e < p.E && r < p.R;
+    tok[mt] = live ? p.slot_tok[e * p.R + r] : 0;
+    const uint32_t v =
+        live ? *reinterpret_cast<const uint16_t*>(p.slot_valid + e * p.R + r) : 0u;
+    valid[mt] = v | (v << 16);
+  }
+  float acc[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[mt][i] = 0.f;
+
+  for (int i = 0, s = 0, phase = 0; i < nk; ++i) {
+    mbar_wait(&full[s], phase);
+    const uint32_t ss = smem_u32(ring + s * p.stage_bytes);
+    const uint32_t qs = ss + kSwigluSBytes + warp * 8 * kSpan;
+    const uint32_t xs = ss + kSwigluXOffset;
+    uint32_t b[MT][8];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r = tok[mt];
+      const uint4 lo = lds128(xs + r * 128 + (((2 * t) ^ (r & 7)) << 4));
+      const uint4 hi = lds128(xs + r * 128 + (((2 * t + 1) ^ (r & 7)) << 4));
+      const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[mt][j] = bf16x2_mul(w[j], valid[mt]);
+    }
+    uint32_t a[4][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // h = 0: gate's row lr (scale tile row lr); h = 1: up's (row 8 + lr).
+      const int r = lr + 8 * h;
+      const uint4 w = lds128(qs + h * kSwigluQHalf + lr * kSpan + t * 16);
+      const uint4 s0 = lds128(ss + r * 128 + (((2 * t) ^ (r & 7)) << 4));
+      const uint4 s1 = lds128(ss + r * 128 + (((2 * t + 1) ^ (r & 7)) << 4));
+      const uint32_t sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+      uint32_t d[8];
+      dequant16(w, sc, d);
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4) {
+        a[k4][h] = d[2 * k4];
+        a[k4][2 + h] = d[2 * k4 + 1];
+      }
+    }
+#pragma unroll
+    for (int k4 = 0; k4 < 4; ++k4)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_16816(acc[mt], a[k4], b[mt][2 * k4], b[mt][2 * k4 + 1]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (++s == S) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  if (e >= p.E) return;   // a warp of a missing expert (E not a multiple of 8)
+
+  // acc[mt][c] is gate and acc[mt][2 + c] up of (column n0 + lr, the
+  // expert's row 8 mt + 2 t + c).
+  uint16_t* h = reinterpret_cast<uint16_t*>(p.h) + (long long)e * p.R * p.F + n0 + lr;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int m = mt * 8 + 2 * t + c;
+      if (m < p.R) h[(long long)m * p.F] = swiglu_of_sums(acc[mt][c], acc[mt][2 + c]);
     }
 }
 
@@ -454,6 +636,39 @@ cudaError_t launch_tiled(Params& kp, const void* x, const void* q, const void* s
   return cudaGetLastError();
 }
 
+template <int MT>
+cudaError_t launch_swiglu(SwigluParams& kp, const void* x, const void* gate_q,
+                          const void* gate_s, const void* up_q, const void* up_s,
+                          cudaStream_t stream) {
+  constexpr auto fn = &int8_experts_swiglu_decode<MT>;
+  static bool opted = false;
+  cudaError_t err = flash::allow_smem(fn, kMaxSmem, opted);
+  if (err != cudaSuccess) return err;
+  const int E = kp.E, F = kp.F, K = kp.K, T8 = (kp.T + 7) / 8 * 8;
+  // As many stages as fit in half an SM's shared memory (two blocks an
+  // SM, each with 1 KB the runtime reserves), up to 12: 10 at T = 8.
+  kp.stage_bytes = kSwigluXOffset + T8 * 128;
+  kp.stages = cmin(12, (kMaxSmem / 2 - 2048) / (kp.stage_bytes + 16));
+  auto q_map = [&](CUtensorMap* m, const void* q) {
+    return encode_3d(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, K, F, E, 1ull * K, 1ull * K * F, 64, 8,
+                     G, CU_TENSOR_MAP_SWIZZLE_NONE);
+  };
+  auto s_map = [&](CUtensorMap* m, const void* s) {
+    return encode_2d(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s, K, F, 2ull * K, 64, 8,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  if (!encode_2d(&kp.tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, kp.T, 2ull * K, 64, T8,
+                 CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !q_map(&kp.tm_qg, gate_q) || !q_map(&kp.tm_qu, up_q) || !s_map(&kp.tm_sg, gate_s) ||
+      !s_map(&kp.tm_su, up_s)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(F / 8, (E + G - 1) / G);
+  const int smem = 1024 + kp.stages * (kp.stage_bytes + 16);
+  fn<<<grid, 32 * G + 32, smem, stream>>>(kp);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // y[e] = x[e] . dequant(q[e], scale)^T for every expert e (see the header):
@@ -499,4 +714,38 @@ extern "C" int kftpu_int8_experts_config(const void* x, const void* q, const voi
 extern "C" int kftpu_int8_experts(const void* x, const void* q, const void* scale, void* y, int E,
                                   int R, int N, int K, void* stream) {
   return kftpu_int8_experts_config(x, q, scale, y, E, R, N, K, 0, 0, stream);
+}
+
+// h[e, r] = silu(g) * u of expert e's row r, g = x_e . dequant(gate_q[e],
+// gate_s)^T and u the same of up, x_e = x[slot_tok[e R + r]] *
+// slot_valid[e R + r] (see the header): x bf16 [T, K], slot_tok int32 [E R],
+// slot_valid bf16 [E R], gate_q and up_q int8 [E, F, K], gate_s and up_s
+// bf16 [F, K], h bf16 [E, R, F], all contiguous and 16-byte aligned;
+// bitwise the gather (K13), this file's product of gate and of up, then
+// K9. The wrapper checks that the operands have these shapes. Refuses
+// (cudaErrorInvalidValue) R outside 1..16, T outside 1..256, F or K not a
+// multiple of 16, E below 1. Returns the CUDA error code of the launch (0
+// = launched).
+extern "C" int kftpu_int8_experts_swiglu(const void* x, const int* slot_tok,
+                                         const void* slot_valid, const void* gate_q,
+                                         const void* gate_s, const void* up_q, const void* up_s,
+                                         void* h, int T, int E, int R, int F, int K,
+                                         void* stream) {
+  if (T < 1 || T > kSwigluMaxTokens || E < 1 || R < 1 || R > 16 || F < 16 || F % 16 ||
+      K < 16 || K % 16) {
+    return cudaErrorInvalidValue;
+  }
+  SwigluParams p = {};
+  p.slot_tok = slot_tok;
+  p.slot_valid = static_cast<const __nv_bfloat16*>(slot_valid);
+  p.h = static_cast<__nv_bfloat16*>(h);
+  p.E = E;
+  p.R = R;
+  p.F = F;
+  p.K = K;
+  p.T = T;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = R <= 8 ? launch_swiglu<1>(p, x, gate_q, gate_s, up_q, up_s, st)
+                                 : launch_swiglu<2>(p, x, gate_q, gate_s, up_q, up_s, st);
+  return static_cast<int>(err);
 }

@@ -226,17 +226,6 @@ struct Shape {
   static constexpr int kMain = kRing > kPartial ? kRing : kPartial;
 };
 
-// silu(g) * u of K4's unrounded sums g and u, as K4 then K9 compute it:
-// g and u rounded to bf16 (K4's outputs), then swiglu.cu's forward
-// operation by operation, rounded once more where it rounds.
-__device__ __forceinline__ uint16_t swiglu_of_sums(float g, float u) {
-  const float gb = __bfloat162float(__float2bfloat16_rn(g));
-  const float ub = __bfloat162float(__float2bfloat16_rn(u));
-  const float den = __fadd_rn(1.f, expf(-gb));
-  const float a = kftpu_fused::rnd<__nv_bfloat16>(__fdiv_rn(gb, den));
-  return static_cast<uint16_t>(kftpu_fused::bf16_bits(__fmul_rn(a, ub)));
-}
-
 template <int NT, int MT, int WN, int WM, int STAGES, int SUB, bool ROW_SCALE, bool GLU>
 __global__ void __launch_bounds__(Shape<NT, MT, WN, WM, STAGES, SUB>::kThreads)
     int8_linear_decode(const Params p) {

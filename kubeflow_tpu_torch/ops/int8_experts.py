@@ -30,7 +30,18 @@ It dispatches on where x lives:
   leaf as ``_materialize`` does and calls ``torch.bmm``. It is also what
   ``chip_smoke.py`` holds the kernel against on the card.
 
-Each kernel launch adds one to ``int8_experts.launches``.
+At a decode step's rows, :func:`int8_experts_swiglu` takes gate and up
+together from the dispatch's token rows: ``h = silu(x_e Wg[e].T) * (x_e
+Wu[e].T)`` with ``x_e`` expert e's rows gathered by ``slot_tok`` and
+multiplied by ``slot_valid`` (``ops/moe.py``'s K13), [E, R, F]. On CUDA
+tensors it is one launch of ``int8_experts.cu``'s fused decode kernel (at
+most :data:`DECODE_MAX_ROWS` rows an expert of at most
+:data:`SWIGLU_MAX_TOKENS` tokens), bitwise K13, K15's gate and up products
+and K9 (``ops/swiglu.py``) one after the other; on CPU tensors
+:func:`int8_experts_swiglu_reference`, that chain's plain versions.
+
+Each kernel launch adds one to ``int8_experts.launches``; the fused one
+also to ``int8_experts.swiglu_launches``.
 """
 
 from __future__ import annotations
@@ -41,7 +52,14 @@ from typing import Optional
 
 import torch
 
+from kubeflow_tpu_torch.ops.moe import gather_rows_reference
+from kubeflow_tpu_torch.ops.swiglu import swiglu_reference
+
 _SOURCE = "int8_experts.cu"
+#: The most rows an expert :func:`int8_experts_swiglu`'s kernel takes.
+DECODE_MAX_ROWS = 16
+#: The most tokens x it reads them from (one TMA box a stage).
+SWIGLU_MAX_TOKENS = 256
 
 
 def dequantize_experts(q: torch.Tensor, scale: torch.Tensor,
@@ -62,15 +80,35 @@ def int8_experts_reference(x: torch.Tensor, q: torch.Tensor,
     return torch.bmm(x.to(dt), dequantize_experts(q, scale, dt).transpose(1, 2))
 
 
+def int8_experts_swiglu_reference(x: torch.Tensor, slot_tok: torch.Tensor,
+                                  slot_valid: torch.Tensor,
+                                  gate_q: torch.Tensor, gate_s: torch.Tensor,
+                                  up_q: torch.Tensor, up_s: torch.Tensor,
+                                  rows: int) -> torch.Tensor:
+    """h [E, R = ``rows``, F] in x's dtype: the token rows x [T, K] gathered
+    into the expert buffers (``gather_rows_reference``), gate's and up's
+    products (:func:`int8_experts_reference`), then ``swiglu_reference``."""
+    x_e = gather_rows_reference(x, slot_tok, slot_valid).view(
+        gate_q.shape[0], rows, x.shape[1])
+    return swiglu_reference(int8_experts_reference(x_e, gate_q, gate_s),
+                            int8_experts_reference(x_e, up_q, up_s))
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """K15's C entry point, built and loaded at first use."""
+def _kernel_fns():
+    """K15's C entry points (the product, the fused gate/up with SwiGLU),
+    built and loaded at first use."""
     from kubeflow_tpu_torch.ops._build import load_library
 
-    fn = load_library(_SOURCE).kftpu_int8_experts
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    return fn
+    lib = load_library(_SOURCE)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.kftpu_int8_experts
+    fn.restype = i
+    fn.argtypes = [p] * 4 + [i] * 4 + [p]
+    fused = lib.kftpu_int8_experts_swiglu
+    fused.restype = i
+    fused.argtypes = [p] * 8 + [i] * 5 + [p]
+    return fn, fused
 
 
 def _check(x, q, scale, out_dtype):
@@ -104,7 +142,7 @@ def _kernel(x, q, scale, out_dtype):
     y = torch.empty((E, R, N), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _kernel_fn()(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+        rc = _kernel_fns()[0](x.data_ptr(), q.data_ptr(), scale.data_ptr(),
                           y.data_ptr(), E, R, N, K, stream)
     if rc != 0:
         raise RuntimeError(f"int8_experts launch failed: CUDA error {rc} "
@@ -125,4 +163,79 @@ def int8_experts(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     return int8_experts_reference(x, q, scale, out_dtype=out_dtype)
 
 
+def _swiglu_kernel(x, slot_tok, slot_valid, gate_q, gate_s, up_q, up_s,
+                   rows):
+    E, F, K = gate_q.shape if gate_q.dim() == 3 else (0, 0, 0)
+    T = x.shape[0] if x.dim() == 2 else 0
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or x.shape[1] != K:
+        raise ValueError(f"int8_experts_swiglu kernel takes bf16 x [T, "
+                         f"{K}], got {x.dtype} {tuple(x.shape)}")
+    if not 1 <= rows <= DECODE_MAX_ROWS or not 1 <= T <= SWIGLU_MAX_TOKENS:
+        raise ValueError(f"int8_experts_swiglu kernel takes 1 to "
+                         f"{DECODE_MAX_ROWS} rows an expert of 1 to "
+                         f"{SWIGLU_MAX_TOKENS} tokens, got {rows} of {T}")
+    for name, q, s in (("gate", gate_q, gate_s), ("up", up_q, up_s)):
+        if q.dtype != torch.int8 or tuple(q.shape) != (E, F, K) \
+                or s.dtype != torch.bfloat16 or tuple(s.shape) != (1, F, K):
+            raise ValueError(f"int8_experts_swiglu kernel takes int8 gate "
+                             f"and up [E, F, K] of one shape with bf16 "
+                             f"scales [1, F, K]: gate {tuple(gate_q.shape)}, "
+                             f"{name} {q.dtype} {tuple(q.shape)}, scale "
+                             f"{s.dtype} {tuple(s.shape)}")
+    if F % 16 or K % 16:
+        raise ValueError(f"int8_experts_swiglu kernel takes F and K "
+                         f"multiples of 16, got F {F}, K {K}")
+    if slot_tok.dtype != torch.int32 or slot_valid.dtype != torch.bfloat16 \
+            or tuple(slot_tok.shape) != (E * rows,) \
+            or tuple(slot_valid.shape) != (E * rows,):
+        raise ValueError(f"int8_experts_swiglu kernel takes int32 slot_tok "
+                         f"and bf16 slot_valid [{E * rows}], got "
+                         f"{slot_tok.dtype} {tuple(slot_tok.shape)}, "
+                         f"{slot_valid.dtype} {tuple(slot_valid.shape)}")
+    ts = (("x", x), ("slot_tok", slot_tok), ("slot_valid", slot_valid),
+          ("gate_q", gate_q), ("gate_s", gate_s), ("up_q", up_q),
+          ("up_s", up_s))
+    for name, t in ts:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"int8_experts_swiglu kernel takes contiguous, "
+                             f"16-byte aligned operands ({name})")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("int8_experts_swiglu has no backward")
+    h = torch.empty((E, rows, F), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _kernel_fns()[1](*(t.data_ptr() for _, t in ts), h.data_ptr(),
+                              T, E, rows, F, K, stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_experts_swiglu launch failed: CUDA error "
+                           f"{rc} (x [{T}, {K}], {rows} rows an expert, "
+                           f"weights [{E}, {F}, {K}])")
+    int8_experts.launches += 1
+    int8_experts.swiglu_launches += 1
+    return h
+
+
+def int8_experts_swiglu(x: torch.Tensor, slot_tok: torch.Tensor,
+                        slot_valid: torch.Tensor, gate_q: torch.Tensor,
+                        gate_s: torch.Tensor, up_q: torch.Tensor,
+                        up_s: torch.Tensor, rows: int) -> torch.Tensor:
+    """h [E, ``rows``, F]; arguments as
+    :func:`int8_experts_swiglu_reference`. CUDA tensors: one fused launch
+    (bf16 x and slot_valid, int32 slot_tok, at most
+    :data:`DECODE_MAX_ROWS` rows an expert of at most
+    :data:`SWIGLU_MAX_TOKENS` tokens) or ValueError/RuntimeError; CPU
+    tensors: the plain chain."""
+    if x.device.type == "cuda":
+        return _swiglu_kernel(x, slot_tok, slot_valid, gate_q, gate_s, up_q,
+                              up_s, rows)
+    if x.device.type != "cpu":
+        raise ValueError(f"int8_experts_swiglu runs on cuda (kernel) or cpu "
+                         f"(plain version), not {x.device}")
+    return int8_experts_swiglu_reference(x, slot_tok, slot_valid, gate_q,
+                                         gate_s, up_q, up_s, rows)
+
+
 int8_experts.launches = 0
+int8_experts.swiglu_launches = 0

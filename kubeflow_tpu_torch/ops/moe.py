@@ -22,6 +22,9 @@ the combine reads as 0.
   or a block or thread-block cluster a group (g > 32, at most
   :data:`MAX_GROUP_TOKENS`).
 - :func:`gather_rows` (K13): ``expert_in[s] = x[slot_tok[s]] * slot_valid[s]``.
+  A :class:`Gather` holds its inputs instead, for an expert function that
+  reads the rows by ``slot_tok`` itself (``ops/int8_experts.py``'s fused
+  gate/up launch at a decode step's rows).
 - :func:`combine_rows` (K14): ``out[t] = g1[t] y[dest1[t]] + g2[t]
   y[dest2[t]]`` in f32, rounded once to the output dtype. A
   :class:`Combine` holds its inputs instead, for a layer whose output
@@ -82,6 +85,19 @@ class Routing(NamedTuple):
     slot_tok: torch.Tensor    # [S] int32 token a slot holds (0 if empty)
     slot_valid: torch.Tensor  # [S] 1 where a choice holds the slot, else 0
     aux: torch.Tensor         # [G] f32 load-balancing loss of each group
+
+
+class Gather(NamedTuple):
+    """K13's inputs with its launch left to the expert function: the
+    tokens ``x`` [T, M] and the routing's ``slot_tok``, ``slot_valid``
+    [S]; :meth:`materialize` gives the expert buffers [S, M] (K13)."""
+
+    x: torch.Tensor
+    slot_tok: torch.Tensor
+    slot_valid: torch.Tensor
+
+    def materialize(self) -> torch.Tensor:
+        return gather_rows(*self)
 
 
 class Combine(NamedTuple):

@@ -10,7 +10,10 @@ one weighted two-row combine (K14), the three kernels of
 caller that adds the layer's output to the residual stream may ask for
 the combine deferred (``defer=True``): the dispatch then returns a
 :class:`~kubeflow_tpu_torch.ops.moe.Combine`, K14's inputs, for
-``ops/moe.py::combine_add_rms_norm``.
+``ops/moe.py::combine_add_rms_norm``. An expert function that gathers
+its own rows may ask for the gather deferred (``defer_gather=True``): it
+then receives a :class:`~kubeflow_tpu_torch.ops.moe.Gather`, K13's inputs,
+and the buffers' shape.
 
 Routing depends on the whole batch: every row fed to the layer takes
 capacity, so two callers agree on a token's output only when they feed
@@ -32,6 +35,7 @@ import torch
 
 from kubeflow_tpu_torch.ops.moe import (
     Combine,
+    Gather,
     combine_rows,
     gather_rows,
     route,
@@ -106,19 +110,26 @@ def _moe_dispatch_gather(
     cfg: Top2GateConfig,
     group: int,
     defer: bool = False,
+    defer_gather: bool = False,
 ) -> Tuple[Union[torch.Tensor, Combine], torch.Tensor]:
     """Index dispatch in groups of ``group`` tokens (0 or >= T: one
     group), each with its own capacity; the expert buffers are laid out
     [E, G * C, M]. ``defer``: the combine's inputs in place of its
-    output."""
+    output; ``defer_gather``: ``expert_fn(Gather, (E, G * C, M))`` in
+    place of ``expert_fn`` on the gathered buffers."""
     T, M = x.shape
     E = router_logits.shape[-1]
     g = group if 0 < group < T else T
     G = T // g
     C = cfg.capacity(g)
     r = route(router_logits.contiguous(), G, C, x.dtype)
-    expert_in = gather_rows(x, r.slot_tok, r.slot_valid)
-    expert_out = expert_fn(expert_in.view(E, G * C, M)).reshape(E * G * C, M)
+    if defer_gather:
+        expert_out = expert_fn(Gather(x, r.slot_tok, r.slot_valid),
+                               (E, G * C, M))
+    else:
+        expert_out = expert_fn(
+            gather_rows(x, r.slot_tok, r.slot_valid).view(E, G * C, M))
+    expert_out = expert_out.reshape(E * G * C, M)
     combine = Combine(expert_out, r.g1, r.g2, r.dest1, r.dest2)
     out = combine if defer else combine_rows(*combine)
     return out, (r.aux.mean() if G > 1 else r.aux[0])
@@ -132,13 +143,16 @@ def moe_dispatch(
     *,
     rng=None,
     defer: bool = False,
+    defer_gather: bool = False,
 ) -> Tuple[Union[torch.Tensor, Combine], torch.Tensor]:
     """Route tokens x [T, M] through the experts by ``router_logits`` [T,
     E] (routed in f32); ``expert_fn`` maps [E, C, M] -> [E, C, M] in x's
     dtype. Returns ([T, M] outputs in x's dtype, aux loss: the groups'
     mean). Groups as the JAX
     package forms them (:func:`group_tokens`). ``defer``: a
-    :class:`Combine` in place of the outputs."""
+    :class:`Combine` in place of the outputs; ``defer_gather``:
+    ``expert_fn`` takes a :class:`Gather` and the buffers' shape (E, C,
+    M) in place of the buffers (K13's launch left to it)."""
     T, _ = x.shape
     if cfg.dispatch == "einsum":
         raise NotImplementedError(
@@ -149,7 +163,15 @@ def moe_dispatch(
                          "gather or einsum)")
     _no_jitter(cfg, rng)
     return _moe_dispatch_gather(x, router_logits, expert_fn, cfg,
-                                group_tokens(T, cfg), defer)
+                                group_tokens(T, cfg), defer, defer_gather)
+
+
+def expert_rows(num_tokens: int, cfg: Top2GateConfig) -> int:
+    """Rows an expert's buffer holds when :func:`moe_dispatch` routes
+    ``num_tokens`` tokens: G groups times the capacity C of each."""
+    g = group_tokens(num_tokens, cfg)
+    g = g if 0 < g < num_tokens else num_tokens
+    return num_tokens // g * cfg.capacity(g)
 
 
 def group_tokens(num_tokens: int, cfg: Top2GateConfig) -> int:

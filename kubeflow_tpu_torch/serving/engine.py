@@ -221,7 +221,8 @@ class _Slot:
 #: The Python launch counters of the kernels a captured step holds
 #: (K1's forward, K3, K4 and its SwiGLU epilogue, and the forwards of K6,
 #: K7 and its staged mode, K9 and K10, with those of K6 and K10 through
-#: their rows kernels and K10's combine mode; a MoE model's K12-K14): a
+#: their rows kernels and K10's combine mode; a MoE model's K12-K15 and
+#: K15's fused gate/up launch): a
 #: replay launches without running Python, so each graph counts its
 #: captured launches once and adds them per replay.
 _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
@@ -239,7 +240,8 @@ _LAUNCH_COUNTERS = ((flash_attention, "fwd_launches"),
                     (route, "launches"),
                     (gather_rows, "launches"),
                     (combine_rows, "launches"),
-                    (int8_experts, "launches"))
+                    (int8_experts, "launches"),
+                    (int8_experts, "swiglu_launches"))
 
 
 def _launch_counts() -> List[int]:

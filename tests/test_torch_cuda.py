@@ -47,8 +47,13 @@ kernel; a small Mixtral engine's
 graphs give its eager path's greedy tokens, with bf16 and with int8
 weights. The int8 expert product (K15) against its plain version (the
 leaf dequantized to bf16, then ``torch.bmm``): max |got - plain| <= 1e-2 *
-max |plain|, K4's bound; two calls and a graph replay bitwise.
+max |plain|, K4's bound; two calls and a graph replay bitwise. K15's
+fused gate/up launch (the rows gathered by slot_tok, SwiGLU as its
+epilogue) bitwise K13, K15's gate and up launches and K9, within 1e-2 x
+max |plain| of that chain's plain version.
 """
+
+import functools
 
 import pytest
 import torch
@@ -2480,14 +2485,17 @@ def _mixtral_graphs_against_eager(paged, quantize=""):
     """A small Mixtral of K1/K3's head_dim on the card, staged, dense or
     paged, its graphs against its eager path with a k-padded prefill (the
     pad rows route apart from row 0, and only the last row naming a slot
-    may write it): greedy tokens equal, and K12-K13 once a layer a
-    forward pass, the combine as K10's combine mode once a layer (every
-    pass is under ROWS_MAX rows: no K14 launch), K15 three times with int8
-    weights (graph replays counted)."""
+    may write it): greedy tokens equal, and K12 once a layer a forward
+    pass, the combine as K10's combine mode once a layer (every pass is
+    under ROWS_MAX rows: no K14 launch); K13 once a layer a pass, but with
+    int8 weights none where gate and up take K15's fused launch (every
+    decode step, and a pass of at most 16 rows an expert), and K15 three
+    times a layer a pass, twice where fused (graph replays counted)."""
     from kubeflow_tpu_torch.models.mixtral import (
         Mixtral,
         MixtralConfig,
         expert_launches_per_pass,
+        fused_layers,
     )
     from kubeflow_tpu_torch.ops import moe
     from kubeflow_tpu_torch.ops.int8_experts import int8_experts
@@ -2516,24 +2524,40 @@ def _mixtral_graphs_against_eager(paged, quantize=""):
                 device="cuda", registry=MetricsRegistry(), _eager=eager)
             if not eager:
                 eng.warmup(16)
-            groups = []
+            groups, pass_rows = [], []
             k_pad = eng._k_pad
             eng._k_pad = lambda n: groups.append(n) or k_pad(n)
+            for name in ("_run_prefill", "_run_extend"):
+                def run(tokens, *args, _run=getattr(eng, name), **kw):
+                    pass_rows.append(tokens.size)
+                    return _run(tokens, *args, **kw)
+                setattr(eng, name, run)
             eng.prefill_dispatches = eng.extend_dispatches = 0
             eng.decode_dispatches = 0
             moe.route.launches = moe.gather_rows.launches = 0
             moe.combine_rows.launches = int8_experts.launches = 0
+            int8_experts.swiglu_launches = 0
             add_rms_norm.combine_launches = 0
             out[eager] = _serve(eng, MOE_PROMPTS)
             assert 3 in groups                    # one pad row
-            passes = (4 * eng.decode_dispatches + eng.prefill_dispatches
-                      + eng.extend_dispatches)
+            assert len(pass_rows) == (eng.prefill_dispatches
+                                      + eng.extend_dispatches)
+            # Rows a forward pass: each decode step's are the 4 slots.
+            rows = [4] * (4 * eng.decode_dispatches) + pass_rows
+            passes = len(rows)
+            fused = sum(fused_layers(model, n) for n in rows)
+            if quantize:                    # every decode step's layers
+                assert fused >= 2 * 4 * eng.decode_dispatches > 0
+            else:
+                assert fused == 0
             assert (moe.route.launches, moe.gather_rows.launches,
                     add_rms_norm.combine_launches,
-                    moe.combine_rows.launches) == (2 * passes,) * 3 + (0,)
-            per_pass = expert_launches_per_pass(model)
-            assert per_pass == (6 if quantize else 0)
-            assert int8_experts.launches == per_pass * passes
+                    moe.combine_rows.launches) == (
+                        2 * passes, 2 * passes - fused, 2 * passes, 0)
+            assert expert_launches_per_pass(model) == (6 if quantize else 0)
+            assert int8_experts.launches == sum(
+                expert_launches_per_pass(model, n) for n in rows)
+            assert int8_experts.swiglu_launches == fused
     assert out[False] == out[True]
     assert [len(t) for t in out[False]] == [n for _, n in MOE_PROMPTS]
 
@@ -2630,3 +2654,159 @@ def test_int8_experts_refusals():
         ie.int8_experts(x.transpose(0, 1).contiguous().transpose(0, 1), q,
                         scale)
     assert ie.int8_experts.launches == before
+
+
+# K15's fused gate/up launch (gather by slot_tok, SwiGLU epilogue) at rows
+# an expert R = G C: (R, G, C, tokens T); a hot expert drops choices and
+# leaves slots empty (slot_valid 0), G > 1 groups at R = 4 and 16, and T =
+# 256, the most tokens the kernel's x box holds.
+K15_FUSED_CASES = [(1, 1, 1, 8), (4, 1, 4, 8), (4, 2, 2, 8), (13, 1, 13, 32),
+                   (16, 2, 8, 32), (16, 4, 4, 64), (16, 4, 4, 256)]
+
+
+@functools.lru_cache(maxsize=1)
+def _gate_up(E, F, K):
+    """Gate and up leaves [E, K, F] of N(0, 0.02) quantized as the engine
+    quantizes them: (gate_q, gate_s, up_q, up_s)."""
+    from kubeflow_tpu_torch.serving.engine import _quantize_expert_leaf
+
+    g = torch.Generator(device="cuda").manual_seed(F + K + E)
+    out = []
+    for _ in range(2):
+        w = torch.randn(E, K, F, generator=g, device="cuda",
+                        dtype=torch.bfloat16) * 0.02
+        out += _quantize_expert_leaf(w)
+        del w
+    return tuple(out)
+
+
+def _fused_inputs(E, K, case, seed=0):
+    """x [T, K] bf16 and the routing of T tokens over E experts in G groups
+    of capacity C (R = G C rows an expert)."""
+    from kubeflow_tpu_torch.ops import moe
+
+    R, G, C, T = case
+    g = torch.Generator(device="cuda").manual_seed(seed + R)
+    x = torch.randn(T, K, generator=g, device="cuda").bfloat16()
+    r = moe.route(_moe_logits(T, E, seed + T), G, C, torch.bfloat16)
+    return x, r
+
+
+def _fused_chain(x, r, R, weights):
+    """K13, K15's gate and up launches, K9: the launches the fused one
+    replaces."""
+    from kubeflow_tpu_torch.ops import int8_experts as ie
+    from kubeflow_tpu_torch.ops import moe
+    from kubeflow_tpu_torch.ops.swiglu import swiglu
+
+    gq, gs, uq, us = weights
+    x_e = moe.gather_rows(x, r.slot_tok, r.slot_valid).view(
+        gq.shape[0], R, x.shape[1])
+    return swiglu(ie.int8_experts(x_e, gq, gs), ie.int8_experts(x_e, uq, us))
+
+
+@pytest.mark.parametrize("case", K15_FUSED_CASES)
+@pytest.mark.parametrize("e,f,k", [(8, 14336, 4096), (4, 14336, 4096),
+                                   (8, 272, 528), (4, 272, 528),
+                                   (3, 272, 528)])
+def test_int8_experts_swiglu_is_the_chain_bitwise(e, f, k, case):
+    """The fused launch bitwise K13 -> K15 gate -> K15 up -> K9 (dropped
+    and empty slots, G > 1 groups, E = 8, 4 and 3, Mixtral's F and K and
+    narrow ones not multiples of 64), within K15's bound of its plain
+    version, twice and in a graph replay on new inputs; one launch,
+    counted in int8_experts.launches and swiglu_launches."""
+    from kubeflow_tpu_torch.ops import int8_experts as ie
+
+    R = case[0]
+    weights = _gate_up(e, f, k)
+    x, r = _fused_inputs(e, k, case)
+    S, T = e * R, case[3]
+    if S > 2 * T:                         # more slots than choices
+        assert int((r.slot_valid == 0).sum()) > 0
+    if T > 8:                             # the hot expert drops choices
+        assert int((r.dest1 == S).sum() + (r.dest2 == S).sum()) > 0
+
+    def fused():
+        return ie.int8_experts_swiglu(x, r.slot_tok, r.slot_valid, *weights,
+                                      R)
+
+    before = ie.int8_experts.launches, ie.int8_experts.swiglu_launches
+    h = fused()
+    assert (ie.int8_experts.launches, ie.int8_experts.swiglu_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert h.shape == (e, R, f) and h.dtype == torch.bfloat16
+    want = _fused_chain(x, r, R, weights)
+    assert torch.equal(h, want)
+    assert torch.equal(fused(), h)
+    plain = ie.int8_experts_swiglu_reference(
+        x, r.slot_tok, r.slot_valid, *weights, R).float()
+    err = (h.float() - plain).abs().max()
+    assert err <= 1e-2 * plain.abs().max()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        hg = fused()
+    x.copy_(torch.randn_like(x.float()).bfloat16())
+    graph.replay()
+    assert torch.equal(hg, _fused_chain(x, r, R, weights))
+
+
+def test_int8_experts_swiglu_refusals():
+    from kubeflow_tpu_torch.ops import int8_experts as ie
+
+    E, F, K = 4, 272, 528
+    gq, gs, uq, us = _gate_up(E, F, K)
+    x, r = _fused_inputs(E, K, (4, 1, 4, 8))
+    args = (x, r.slot_tok, r.slot_valid, gq, gs, uq, us, 4)
+    before = ie.int8_experts.launches, ie.int8_experts.swiglu_launches
+
+    def call(*changed):
+        a = list(args)
+        for i, v in changed:
+            a[i] = v
+        return ie.int8_experts_swiglu(*a)
+
+    x17, r17 = _fused_inputs(E, K, (17, 1, 17, 64))
+    with pytest.raises(ValueError, match="1 to 16 rows"):
+        ie.int8_experts_swiglu(x17, r17.slot_tok, r17.slot_valid, gq, gs, uq,
+                               us, 17)
+    x257, r257 = _fused_inputs(E, K, (4, 1, 4, 257))
+    with pytest.raises(ValueError, match="1 to 256 tokens"):
+        ie.int8_experts_swiglu(x257, r257.slot_tok, r257.slot_valid, gq, gs,
+                               uq, us, 4)
+    with pytest.raises(ValueError, match="bf16 x"):
+        call((0, x.float()))
+    with pytest.raises(ValueError, match="int32 slot_tok"):
+        call((1, r.slot_tok.long()))
+    with pytest.raises(ValueError, match="slot_valid"):
+        call((2, r.slot_valid.float()))
+    with pytest.raises(ValueError, match="one shape"):
+        call((6, us[:, :256].contiguous()))                 # up's scale
+    with pytest.raises(ValueError, match="one shape"):
+        call((4, gs.float()))
+    with pytest.raises(ValueError, match="one shape"):
+        call((5, uq[:, :256].contiguous()), (6, us[:, :256].contiguous()))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ie.int8_experts_swiglu(x[:, :520].contiguous(), r.slot_tok,
+                               r.slot_valid, gq[..., :520].contiguous(),
+                               gs[..., :520].contiguous(),
+                               uq[..., :520].contiguous(),
+                               us[..., :520].contiguous(), 4)
+    with pytest.raises(ValueError, match="is on cpu"):
+        call((5, uq.cpu()))
+    assert (ie.int8_experts.launches,
+            ie.int8_experts.swiglu_launches) == before
+    # The C entry refuses what the wrapper would: R past 16, T past 256, F
+    # not a multiple of 16.
+    fn = ie._kernel_fns()[1]
+    h = torch.empty(E, 17, F, dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (x17, r17.slot_tok, r17.slot_valid, gq, gs,
+                                   uq, us, h)]
+    assert fn(*ptrs, 64, E, 17, F, K, stream) != 0
+    assert fn(*ptrs, 257, E, 4, F, K, stream) != 0
+    assert fn(*ptrs, 64, E, 4, F - 8, K, stream) != 0
