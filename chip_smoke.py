@@ -8,7 +8,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    attention (K3), the int8-weight product (K4), the optimizer (K5),
    RMSNorm and the residual add + RMSNorm (K6, K10: one source), RoPE
    (K7), the cross-entropy (K8), SwiGLU (K9), the adafactor update
-   (K11), the MoE routing, gather and combine (K12-K14: one source) and
+   (K11), the MoE routing, gather and combine and their backward
+   (K12-K14, K17, K18: one source; K16 is K14's kernel) and
    the int8 expert product (K15) from kubeflow_tpu_torch/ops/csrc with
    nvcc (sm_90a), one nvcc per source, and the native token loader
    (kubeflow_tpu_torch/train/csrc, g++, into
@@ -184,6 +185,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    gate and up products and K9 one after the other, twice and in a graph
    replay, within K15_TOL x max|plain| of their plain chain, timed in
    turns with that chain beside its bound;
+7e. kernel (K16-K18, the MoE dispatch's backward) — the gather's (K16,
+   K14's kernel with unit weights), the combine's (K17) and the
+   router's (K18) against their plain versions (ops/moe.py) on one
+   routing each at the Mixtral train step's shape (T 4096, E 8, C 1024,
+   M 4096, bf16; N(0, 1) logits) and an odd one (T 1000, C 252, a hot
+   expert: drops): bitwise, twice; each timed (CUDA-graph replays, cold
+   over sets past twice the L2 where a call is smaller) beside its plain
+   version and its byte bound; no library call;
 8. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card; staged decode and
    CUDA graphs, as the server runs by default) and sends 9 concurrent
@@ -335,6 +344,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    under the profiler with no synchronisation between them, each batch
    copied from pageable memory (the runner's copy before) or through the
    runner's pinned DeviceFeed, in turns: the idle share of each;
+12c. train mixtral — mixtral-8x7b at its published width (the registry's
+   entry: vocab 32000, 4096, 32/8 heads of 128, 8 experts of 14336)
+   cut to 4 of its 32 layers (6.07 B parameters), random bf16 weights
+   from seed 0, through the runner (KFTPU_MODEL=mixtral-8x7b,
+   KFTPU_MODEL_KW the cut, capacity 1.0, bf16 logits; KFTPU_HPARAMS
+   adamw with bf16 mu, aux weight 0.02, warmup 2: ``bench.py
+   mixtral``'s settings), batch 2 x 2048 (one 4096-token dispatch
+   group, capacity 1024), no checkpoint: one step under remat "full",
+   then 6 under "minimal". Every step's loss, aux and gradient norm
+   finite and its launches of K1, K2, K5-K10, K12-K14 and K16-K18 as
+   mixtral_train_launches_per_step derives them (no K10 combine mode);
+   step 1's loss and gradient norm under "minimal" bitwise "full"'s; the
+   loss falls; peak below 80 GB. Prints the median synchronised step,
+   tokens/s, MFU (train_flops_per_token(moe=True)), the peak, and one
+   profiled step by kernel (K12-K18 by name) with torch.bmm's device ms
+   (the expert products, cuBLAS);
 13. prints each phase's seconds and the total, the {"kernels": [...]}
    line (K1's entry at the serving prefill shape, with its training-shape
    ms, SDPA ms and bound under train_ keys and the extend's shapes and
@@ -369,7 +394,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    at the decode gate shape with its other cases under their names, the
    fused gate/up launch under fused_<case>_ with its chain's time
    (chain_ms), its launches over the int8 burst, the profiled chunk's K15
-   kernels (down, fused) and busy time), then the result line.
+   kernels (down, fused) and busy time); K16-K18 at the Mixtral train
+   shape (the odd case under odd_), their launches over the train
+   mixtral phase's 6 steps and their device ms in its profiled step (K16
+   shares moe_combine's kernel with K14 there), and K12-K14's launches
+   there under train_launches; then the result line.
 """
 
 from __future__ import annotations
@@ -2109,6 +2138,106 @@ K15_CASES = (("decode_gate", 4, 14336, 4096), ("decode_down", 4, 4096, 14336),
 K15_TOL = 1e-2      # of max|plain|, K4's
 
 
+# The MoE dispatch's backward (K16-K18) at the Mixtral train step's shape
+# (batch 2 x 2048: one 4096-token group, capacity 1.0, C = 1024, width
+# 4096; N(0, 1) logits, as a fresh router gives them) and at an odd one
+# whose hot expert drops choices: (case, T, C, hot).
+MOE_BWD_CASES = (("train", 4096, 1024, 0.0), ("odd", 1000, 252, 3.0))
+
+
+def moe_backward_phase():
+    """K16 (the gather's backward: K14's kernel, unit weights), K17 (the
+    combine's) and K18 (the router's) against their plain versions
+    (ops/moe.py) at MOE_BWD_CASES on one routing each: bitwise, twice.
+    Times each (CUDA-graph replays, cold over sets past twice the L2 where
+    a call is smaller) and its plain version beside its byte bound (K16:
+    the kept choices' rows of d read, dx written; K17: dout and the kept
+    rows of y read, dy written; K18: the logits and the per-token inputs
+    read, dl written); no single library call computes any of them."""
+    from kubeflow_tpu_torch.ops import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = {"K16": {}, "K17": {}, "K18": {}}
+    E, M = MOE_E, MOE_M
+    for case, T, C, hot in MOE_BWD_CASES:
+        S = E * C
+        logits = torch.randn(T, E, generator=gen, device="cuda")
+        logits[:, 1] += hot
+        logits = logits.bfloat16()
+        r = moe.route(logits, 1, C, torch.bfloat16)
+        kept = int((r.dest1 < S).sum() + (r.dest2 < S).sum())
+        if case == "odd" and kept >= 2 * T:
+            raise AssertionError("K16-K18 odd: no choice dropped")
+        idx = (r.dest1, r.dest2)
+
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen,
+                               device="cuda").bfloat16()
+
+        k16_bytes = kept * M * 2 + 8 * T + T * M * 2
+        ds = [rand(S, M) for _ in range(sets_for(k16_bytes))]
+        dx = moe.gather_rows_backward(ds[0], *idx)
+        _bitwise(f"K16 {case}", [
+            (dx, moe.gather_rows_backward_reference(ds[0], *idx)),
+            (dx, moe.gather_rows_backward(ds[0], *idx))])
+        rows["K16"][case] = dict(
+            bound_ms=bytes_ms(k16_bytes),
+            ms=timed(lambda i: moe.gather_rows_backward(ds[i], *idx),
+                     k16_bytes, True),
+            plain_ms=device_ms(lambda: moe.gather_rows_backward_reference(
+                ds[0], *idx), calls=2, replays=3))
+        del ds, dx
+
+        k17_bytes = (T * M * 2 + kept * M * 2 + 16 * T + 4 * S + S * M * 2
+                     + 8 * T)
+        n = sets_for(k17_bytes)
+        pairs = [(rand(T, M), rand(S, M)) for _ in range(n)]
+        maps = (r.g1, r.g2, r.dest1, r.dest2, r.slot_tok)
+        got = moe.combine_rows_backward(*pairs[0], *maps)
+        want = moe.combine_rows_backward_reference(*pairs[0], *maps)
+        _bitwise(f"K17 {case}", list(zip(got, want)) + list(zip(
+            got, moe.combine_rows_backward(*pairs[0], *maps))))
+        rows["K17"][case] = dict(
+            bound_ms=bytes_ms(k17_bytes),
+            ms=timed(lambda i: moe.combine_rows_backward(*pairs[i], *maps),
+                     k17_bytes, True),
+            plain_ms=device_ms(lambda: moe.combine_rows_backward_reference(
+                *pairs[0], *maps), calls=2, replays=3))
+        del pairs, got, want
+
+        k18_bytes = T * E * 2 * 2 + 16 * T + 4
+        n = sets_for(k18_bytes)
+        grads = [(logits.clone(),
+                  torch.randn(T, generator=gen, device="cuda"),
+                  torch.randn(T, generator=gen, device="cuda"),
+                  torch.randn(1, generator=gen, device="cuda"))
+                 for _ in range(n)]
+
+        def k18(i, plain=False):
+            lg, dg1, dg2, daux = grads[i]
+            fn = moe.route_backward_reference if plain else moe.route_backward
+            return fn(lg, r.dest1, r.dest2, dg1, dg2, daux, 1, C)
+
+        dl = k18(0)
+        _bitwise(f"K18 {case}", [(dl, k18(0, plain=True)), (dl, k18(0))])
+        rows["K18"][case] = dict(
+            bound_ms=bytes_ms(k18_bytes), ms=timed(k18, k18_bytes),
+            plain_ms=device_ms(lambda: k18(0, plain=True), calls=2,
+                               replays=3))
+        del grads, dl
+        for tag in ("K16", "K17", "K18"):
+            row = rows[tag][case]
+            row.update(max_abs_err=0.0, library_ms=None, bound_by="bytes",
+                       kept=kept)
+            log(f"{tag} {case} (T={T}, E={E}, C={C}, M={M}, {kept} of "
+                f"{2 * T} choices kept): bitwise twice, kernel "
+                f"{row['ms']:.5f} ms cold, plain {row['plain_ms']:.5f}, "
+                f"bound {row['bound_ms']:.6f} (bytes); library n/a (no "
+                "single call)")
+        torch.cuda.empty_cache()
+    return rows
+
+
 def int8_experts_bound_ms(e, r, n, k):
     """Least time of K15 on this card: the larger of the bytes it must move
     (each int8 weight and its shared bf16 scale read once, x read once, y
@@ -2814,8 +2943,8 @@ def extend_timings(engine, tag, starts, reps=7):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         out["prefill_graphed_ms"] = float(np.median(times[1:]))
-        wall, busy, kernels = profiled(
-            lambda: engine._run_extend(tokens, starts[-1], C, 1, samp))
+        extend = lambda: engine._run_extend(tokens, starts[-1], C, 1, samp)
+        wall, busy, kernels = profiled(extend, warm=extend)
     finally:
         engine._graphed = was
         if engine._paged:
@@ -3349,33 +3478,47 @@ def serve_paged_phase():
     return res
 
 
-def profiled(fn):
+def profiled(fn, warm=None):
     """``fn()`` under torch.profiler, between device synchronisations:
     (wall ms, device busy ms, the device kernels' events). Busy time is
     the sum of the device-side kernel events only (the CPU ops that
     launched them carry the same time again); one stream, so their sum
-    is the busy time. Late in a long run a session can lose one kernel
-    event (see ``kernels_per_call``)."""
+    is the busy time.
+
+    ``warm``: work run first, in the profiler's warm-up cycle, whose
+    events are dropped. Without it, late in a long run, a profiler
+    session lost the records of the first kernels a graph ran after the
+    profiler turned device tracing on (the first 4 or 5 kernels of a
+    decode chunk's graph, in 5 of 12 profiled chunks of one run, by
+    their timelines); with tracing on a chunk earlier, none of the 14
+    of the next run lost one."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    cycle = (None if warm is None
+             else torch.profiler.schedule(wait=0, warmup=1, active=1))
+    with torch.profiler.profile(activities=acts, schedule=cycle) as prof:
+        if warm is not None:
+            warm()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if _is_kernel(e) and not e.key.startswith("ProfilerStep")]
     return wall_ms, sum(e.device_time_total for e in kernels) / 1e3, kernels
 
 
 def kernels_per_call(tag: str, kernels: int, calls: int) -> None:
     """One device kernel a call: a profiled session's kernel count of a
-    kernel against the calls that launched it. The profiler loses up to
-    one kernel event a session late in a long run (PR 13's runs: 4127 of
-    4128 K4 kernels, 1031 of 1032 in two sessions in a row, 7 of 8 K6 in
-    two more; a fresh process lost none in 11 sessions), so one short is
-    taken; more kernels than calls, or two short, is a fault."""
+    kernel against the calls that launched it. Late in a long run,
+    profiler sessions lost the first kernel events of a graph (4127 of
+    4128 K4 kernels, 1031 of 1032 twice in a row, 7 of 8 K6 twice more,
+    518 of 520 K4), which ``profiled``'s warm-up cycle prevents; one
+    short is still taken; more kernels than calls, or two short, is a
+    fault."""
     if not calls - 1 <= kernels <= calls:
         raise AssertionError(f"{tag} launched {kernels} kernels in the "
                              f"profiled chunk, want {calls} (one a call)")
@@ -3383,26 +3526,32 @@ def kernels_per_call(tag: str, kernels: int, calls: int) -> None:
 
 def decode_breakdown(engine, rs, named=()):
     """One decode chunk (decode_chunk steps for every slot, all slots
-    busy) under torch.profiler: wall time, device busy time (the sum of
+    busy) under torch.profiler, after a warm-up chunk whose events are
+    dropped (``profiled``): wall time, device busy time (the sum of
     the device kernels' own times) and the device's idle share; then the
     wall time of three more chunks without the profiler. ``named``: kernel
     names whose (kernels, device ms) in the chunk it also returns."""
     from kubeflow_tpu_torch.models.llama import int8_launches_per_pass
 
     V = engine.model.cfg.vocab_size
-    new = max(64, 5 * engine.cfg.decode_chunk)      # outlasts the 5 chunks
+    new = max(64, 6 * engine.cfg.decode_chunk)      # outlasts the 6 chunks
     for _ in range(engine.cfg.max_batch):
         engine.submit(rs.randint(0, V, 100).tolist(), max_new_tokens=new)
     engine.step()                       # admit + prefill + first chunk
     from kubeflow_tpu_torch.ops.norms import add_rms_norm, rms_norm
 
-    rows_before = rms_norm.rows_launches, add_rms_norm.rows_launches
-    counts_before = read_serving_counters()
-    wall_ms, busy_ms, kernels = profiled(engine.step)
-    rows_counts = (rms_norm.rows_launches - rows_before[0],
-                   add_rms_norm.rows_launches - rows_before[1])
+    before = {}
+
+    def warm():             # a chunk whose events are dropped, then counts
+        engine.step()
+        before["rows"] = rms_norm.rows_launches, add_rms_norm.rows_launches
+        before["counts"] = read_serving_counters()
+
+    wall_ms, busy_ms, kernels = profiled(engine.step, warm=warm)
+    rows_counts = (rms_norm.rows_launches - before["rows"][0],
+                   add_rms_norm.rows_launches - before["rows"][1])
     chunk_counts = [a - b for a, b in zip(read_serving_counters(),
-                                          counts_before)]
+                                          before["counts"])]
     steps = engine.cfg.decode_chunk
     plain = []
     for _ in range(3):                  # each step ends in a host fetch
@@ -3884,10 +4033,11 @@ def range_spans(events, ranges=TRAIN_RANGES) -> dict:
     return out
 
 
-def train_breakdown(trainer, state, batch):
+def train_breakdown(trainer, state, batch, tags=None):
     """One train step under torch.profiler: wall time, device busy time
     (the sum of the device kernels' own times), idle share, top kernels,
-    and the device ms attributed by range, autograd node and op
+    the share of each of ``tags``' kernels (TRAIN_KERNELS by default), and
+    the device ms attributed by range, autograd node and op
     (``attribute``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -3906,7 +4056,7 @@ def train_breakdown(trainer, state, batch):
         log(f"  {e.key[:70]}: {e.device_time_total / 1e3:.2f} ms over "
             f"{e.count} calls")
     by_kernel = {}
-    for tag, names in TRAIN_KERNELS.items():      # the port's kernels' share
+    for tag, names in (tags or TRAIN_KERNELS).items():  # each's share
         own = [e for e in kernels if any(n in e.key for n in names)]
         by_kernel[tag] = (sum(e.device_time_total for e in own) / 1e3,
                           sum(e.count for e in own))
@@ -3930,7 +4080,8 @@ def train_breakdown(trainer, state, batch):
             f"{k} {v:.2f}" for k, v in sorted(ops.items(),
                                               key=lambda kv: -kv[1])[:12]))
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, by_range=by_range,
-                by_span=by_span, by_node=by_node, by_kernel=by_kernel)
+                by_span=by_span, by_node=by_node, by_kernel=by_kernel,
+                by_op=by_op)
 
 
 # The train fused/policies phase: the train phase's model with both fused
@@ -4232,10 +4383,12 @@ def plain_combine_add(x, c, weight, *, eps):
 class plain_moe:
     """Within the block, the MoE layer runs K12-K15's plain versions
     (ops/moe.py, ops/int8_experts.py) in place of the kernels (K13 where
-    the dispatch and a deferred gather's ``materialize`` call it, K15's
-    fused gate/up launch as the plain chain), its closing add + norm the
-    plain combine then K10 (plain_combine_add) in place of K10's combine
-    mode: the check's swap, never the served path's."""
+    a deferred gather's ``materialize`` calls it, K15's fused gate/up
+    launch as the plain chain), its closing add + norm the plain combine
+    then K10 (plain_combine_add) in place of K10's combine mode: the
+    check's swap, never the served path's. The dispatch's gather and
+    combine pass the maps their backward reads (dest1, dest2; slot_tok),
+    which the plain forwards drop."""
 
     def swaps(self):
         from kubeflow_tpu_torch.models import mixtral
@@ -4243,10 +4396,15 @@ class plain_moe:
         from kubeflow_tpu_torch.ops import moe
         from kubeflow_tpu_torch.parallel import moe as dispatch
 
+        def gather(x, slot_tok, slot_valid, dest1=None, dest2=None):
+            return moe.gather_rows_reference(x, slot_tok, slot_valid)
+
+        def combine(*c, slot_tok=None):
+            return moe.combine_rows_reference(*c)
+
         return ((dispatch, "route", moe.route_reference),
-                (dispatch, "gather_rows", moe.gather_rows_reference),
-                (moe, "gather_rows", moe.gather_rows_reference),
-                (dispatch, "combine_rows", moe.combine_rows_reference),
+                (moe, "gather_rows", gather),
+                (dispatch, "combine_rows", combine),
                 (mixtral, "combine_add_rms_norm", plain_combine_add),
                 (mixtral, "int8_experts", ie.int8_experts_reference),
                 (mixtral, "int8_experts_swiglu",
@@ -4777,6 +4935,191 @@ def feed_idle(trainer, state, corpus: str) -> dict:
     return out
 
 
+# The Mixtral train phase: mixtral-8x7b at its published width (the
+# registry's entry) cut to 4 of its 32 layers, with ``bench.py mixtral``'s
+# settings: capacity 1.0, aux weight 0.02, remat "minimal", adamw with
+# bf16 mu, bf16 params and logits; batch 2 x 2048 (one 4096-token
+# dispatch group, C = 1024).
+MIXTRAL_TRAIN_KW = {"num_layers": 4, "param_dtype": "bfloat16",
+                    "capacity_factor": 1.0, "remat": True,
+                    "remat_policy": "minimal", "logits_f32": False,
+                    "max_seq_len": 2048}
+MIXTRAL_TRAIN_BATCH, MIXTRAL_TRAIN_SEQ, MIXTRAL_TRAIN_STEPS = 2, 2048, 6
+MIXTRAL_TRAIN_KERNELS = dict(
+    TRAIN_KERNELS, K12=("::moe_route_group", "::moe_route_warp"),
+    K13=("::moe_gather",), **{"K14+K16": ("::moe_combine<",)},
+    K17=("::moe_combine_bwd",), K18=("::moe_route_bwd",))
+
+
+def moe_train_counters():
+    """fused_counters() and the MoE dispatch's: K12-K14, their backward
+    K16-K18, and K10's combine mode (none under grad)."""
+    from kubeflow_tpu_torch.ops import moe
+    from kubeflow_tpu_torch.ops.norms import add_rms_norm
+
+    return fused_counters() + (
+        ("K12", moe.route, "launches"), ("K13", moe.gather_rows, "launches"),
+        ("K14", moe.combine_rows, "launches"),
+        ("K16", moe.gather_rows_backward, "launches"),
+        ("K17", moe.combine_rows_backward, "launches"),
+        ("K18", moe.route_backward, "launches"),
+        ("K10 combine", add_rms_norm, "combine_launches"))
+
+
+def mixtral_train_launches_per_step(layers: int, policy: str) -> dict:
+    """Each kernel's launches a train step of a ``layers``-layer Mixtral
+    under remat ``policy``: ``train_launches_per_step``'s (the attention
+    block and the norms are the Llama layer's, SwiGLU runs once a layer
+    on the expert buffers) and the dispatch's. Under every policy the
+    routing (K12) and the gather (K13) sit in a segment whose last saved
+    tensor is gate/up's input, and the combine (K14) in one whose last is
+    its own inputs (an autograd Function saves after its forward ran), so
+    each replays once: twice a layer; K16, K17 and K18 once a layer; K10's
+    combine mode never (it has no backward)."""
+    want = train_launches_per_step(layers, policy)
+    want.update({"K12": 2 * layers, "K13": 2 * layers, "K14": 2 * layers,
+                 "K16": layers, "K17": layers, "K18": layers,
+                 "K10 combine": 0})
+    return want
+
+
+def train_mixtral_phase():
+    """mixtral-8x7b (MIXTRAL_TRAIN_KW) through the runner from seed 0: one
+    step under remat "full", then MIXTRAL_TRAIN_STEPS under "minimal".
+    Every step's loss and aux finite and its launches (counts zeroed just
+    before it, read just after) as mixtral_train_launches_per_step says;
+    the loss falls from step 1 to the last; step 1's loss and gradient
+    norm under "minimal" bitwise "full"'s. Prints the median synchronised
+    step of steps 2 on, tokens/s, MFU (train_flops_per_token(moe=True)),
+    the peak device memory (< 80 GB) and one profiled step by kernel, with
+    the share of torch.bmm (the expert products, cuBLAS)."""
+    import tempfile
+
+    from kubeflow_tpu_torch.models.mixtral import MixtralConfig
+    from kubeflow_tpu_torch.train import runner
+    from kubeflow_tpu_torch.train.flops import train_flops_per_token
+    from kubeflow_tpu_torch.train.trainer import Trainer
+
+    layers = MIXTRAL_TRAIN_KW["num_layers"]
+    work = tempfile.mkdtemp(prefix="kftpu-smoke-mixtral-train-")
+    plain_step = Trainer.step
+    record = []
+    last = {}
+
+    def timed_step(self, state, batch):
+        for _, obj, attr in moe_train_counters():
+            setattr(obj, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = plain_step(self, state, batch)
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        record.append(dict(
+            ms=(time.perf_counter() - t0) * 1e3, loss=loss, grad_norm=norm,
+            aux=float(metrics["aux_loss"]), launches={
+                name: getattr(obj, attr)
+                for name, obj, attr in moe_train_counters()}))
+        last["run"] = (self, state, batch)
+        return state, metrics
+
+    for key in ("KFTPU_LOADER", "KFTPU_DATA_PATH", "KFTPU_EVAL_DATA_PATH",
+                "KFTPU_EVAL_EVERY", "KFTPU_PLATFORM"):       # cuda
+        os.environ.pop(key, None)
+    os.environ.update({
+        "KFTPU_MODEL": "mixtral-8x7b",
+        "KFTPU_HPARAMS": json.dumps({"warmup_steps": 2,
+                                     "mu_dtype": "bfloat16",
+                                     "aux_loss_weight": 0.02}),
+        "KFTPU_BATCH_PER_HOST": str(MIXTRAL_TRAIN_BATCH),
+        "KFTPU_SEQ_LEN": str(MIXTRAL_TRAIN_SEQ), "KFTPU_ATTN_IMPL": "flash",
+        "KFTPU_CHECKPOINT_DIR": "", "KFTPU_SEED": "0",
+        "KFTPU_TERMINATION_LOG": os.path.join(work, "termination.json"),
+    })
+    runs = {}
+    Trainer.step = timed_step
+    try:
+        for policy, steps in (("full", 1), ("minimal", MIXTRAL_TRAIN_STEPS)):
+            os.environ["KFTPU_MODEL_KW"] = json.dumps(dict(
+                MIXTRAL_TRAIN_KW, remat_policy=policy))
+            os.environ["KFTPU_TRAIN_STEPS"] = str(steps)
+            record.clear()
+            last.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            runner.run(runner.env_config())
+            peak = torch.cuda.max_memory_allocated()
+            if len(record) != steps:
+                raise AssertionError(f"mixtral {policy}: ran {len(record)} "
+                                     f"steps, want {steps}")
+            want = mixtral_train_launches_per_step(layers, policy)
+            for i, r in enumerate(record):
+                if not (np.isfinite(r["loss"]) and np.isfinite(r["aux"])
+                        and np.isfinite(r["grad_norm"])):
+                    raise AssertionError(f"mixtral {policy} step {i + 1}: "
+                                         f"{r}")
+                if r["launches"] != want:
+                    raise AssertionError(
+                        f"mixtral {policy} step {i + 1} launches "
+                        f"{r['launches']}, want {want}")
+            runs[policy] = dict(record=list(record), peak=peak)
+            log(f"train mixtral [{policy}]: losses "
+                + " ".join(f"{r['loss']!r}" for r in record) + "; aux "
+                + " ".join(f"{r['aux']:.5f}" for r in record) + "; grad "
+                "norms " + " ".join(f"{r['grad_norm']:.4f}" for r in record)
+                + "; step ms " + " ".join(f"{r['ms']:.1f}" for r in record)
+                + f"; peak device memory {peak / 1e9:.2f} GB; launches a "
+                "step (asserted each step): " + ", ".join(
+                    f"{k} {v}" for k, v in want.items() if v))
+        full, minimal = runs["full"]["record"][0], runs["minimal"]["record"]
+        if (minimal[0]["loss"], minimal[0]["grad_norm"]) != (
+                full["loss"], full["grad_norm"]):
+            raise AssertionError(
+                f"mixtral minimal step 1 loss {minimal[0]['loss']!r}, grad "
+                f"norm {minimal[0]['grad_norm']!r}; full's {full['loss']!r}"
+                f", {full['grad_norm']!r}")
+        if not minimal[-1]["loss"] < minimal[0]["loss"]:
+            raise AssertionError(f"mixtral loss did not fall: "
+                                 f"{[r['loss'] for r in minimal]}")
+        peak = runs["minimal"]["peak"]
+        if peak >= 80e9:
+            raise AssertionError(f"mixtral peak {peak / 1e9:.2f} GB")
+        trainer, state, batch = last["run"]
+    finally:
+        Trainer.step = plain_step
+        record.clear()
+        shutil.rmtree(work, ignore_errors=True)
+    cfg = MixtralConfig.mixtral_8x7b(**MIXTRAL_TRAIN_KW)
+    step_ms = float(np.median([r["ms"] for r in minimal[1:]]))
+    tokens = MIXTRAL_TRAIN_BATCH * MIXTRAL_TRAIN_SEQ
+    tok_s = tokens / (step_ms / 1e3)
+    flops = train_flops_per_token(cfg, MIXTRAL_TRAIN_SEQ, moe=True)
+    mfu = flops * tok_s / PEAK_BF16_FLOPS
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"train mixtral: {n_params / 1e9:.4f} B parameters, {tokens} "
+        f"tokens/step, step 1 bitwise full's (loss {full['loss']!r}, grad "
+        f"norm {full['grad_norm']!r}); median synchronised step "
+        f"{step_ms:.1f} ms (steps 2-{MIXTRAL_TRAIN_STEPS}), {tok_s:.0f} "
+        f"tokens/s, MFU {mfu:.4f} ({flops} FLOP/token, moe=True), peak "
+        f"device memory {peak / 1e9:.2f} GB (full: "
+        f"{runs['full']['peak'] / 1e9:.2f})")
+    breakdown = train_breakdown(trainer, state, batch,
+                                tags=MIXTRAL_TRAIN_KERNELS)
+    bmm = sum(ops.get("aten::bmm", 0.0)
+              for ops in breakdown["by_op"].values())
+    log(f"  torch.bmm (cuBLAS, the expert products and their backward): "
+        f"{bmm:.2f} ms of {breakdown['busy_ms']:.2f} busy"
+        + (f", share {bmm / breakdown['busy_ms']:.4f}"
+           if breakdown["busy_ms"] > 0 else ""))
+    launches = {k: v * MIXTRAL_TRAIN_STEPS for k, v in
+                mixtral_train_launches_per_step(layers, "minimal").items()}
+    del trainer, state, batch, last
+    return dict(step_ms=step_ms, tok_s=tok_s, mfu=mfu, peak=peak,
+                full_peak=runs["full"]["peak"], launches=launches,
+                losses=[r["loss"] for r in minimal],
+                aux=[r["aux"] for r in minimal], breakdown=breakdown,
+                bmm_ms=bmm, params=n_params)
+
+
 def grad_check():
     """One step's grads of a 2-layer model of the training width, flash
     attention (K1 + K2) against the plain attention, same bf16 weights and
@@ -4909,6 +5252,7 @@ def main() -> int:
     k11_row = phase("K11", adafactor_phase)
     moe_rows = phase("K12-K14", moe_phase)
     k15_rows = phase("K15", int8_experts_phase)
+    moe_bwd_rows = phase("K16-K18", moe_backward_phase)
     serve = phase("serve bf16", serve_phase, "", "", True)
     serve_int8 = phase("serve int8 KV", serve_phase, "int8")
     serve_w8 = phase("serve int8 weights", serve_phase, "", "int8")
@@ -4943,6 +5287,7 @@ def main() -> int:
     train = phase("train", train_phase)
     policies = phase("train fused/policies", train_policies_phase)
     ada = phase("train adafactor", adafactor_train_phase, train["peak"])
+    moe_train = phase("train mixtral", train_mixtral_phase)
     phase("grad check", grad_check)
     log("train summary [unfused, qkv_attn]: median step "
         f"{train['step_ms_median']:.1f} ms, MFU {train['mfu']:.4f}, peak "
@@ -4965,6 +5310,16 @@ def main() -> int:
         + "; loader-fed windows' idle share, pageable copy "
         + share(feed["pageable"]) + ", pinned DeviceFeed "
         + share(feed["pinned"]))
+    bd = moe_train["breakdown"]
+    log(f"train summary [mixtral-8x7b, {MIXTRAL_TRAIN_KW['num_layers']} "
+        f"layers, minimal]: median step {moe_train['step_ms']:.1f} ms, "
+        f"{moe_train['tok_s']:.0f} tokens/s, MFU {moe_train['mfu']:.4f}, peak "
+        f"{moe_train['peak'] / 1e9:.2f} GB (full: "
+        f"{moe_train['full_peak'] / 1e9:.2f}), profiled step idle share "
+        + share(1 - bd["busy_ms"] / bd["wall_ms"] if bd["busy_ms"] > 0
+                else None)
+        + f", torch.bmm {moe_train['bmm_ms']:.2f} of {bd['busy_ms']:.2f} ms "
+        "busy")
     log("serve summary [fused, int8 weights]: decode "
         f"{serve_fused['fused']['step_ms']:.3f} ms/step (unfused, same "
         f"weights: {serve_fused['unfused']['step_ms']:.3f}); burst "
@@ -5223,8 +5578,35 @@ def main() -> int:
         serve_moe8["chunk_kernels"]["K15 fused"]
     k15["fused_launches"] = serve_moe8["k15_fused"]
     k15["chunk_busy_ms"] = serve_moe8["chunk_busy_ms"]
+    # K16-K18 at the Mixtral train step's shape (T 4096, C 1024, M 4096),
+    # the odd case under odd_; launches over the train mixtral phase's
+    # "minimal" run; their kernels and device ms in its profiled step (K16
+    # is K14's kernel: the two share moe_combine's row there).
+    step_k = moe_train["breakdown"]["by_kernel"]
+    bwd_entries = []
+    for tag, name, line in (("K16", "moe_gather_backward", 172),
+                            ("K17", "moe_combine_backward", 206),
+                            ("K18", "moe_route_backward", 57)):
+        row = moe_bwd_rows[tag]["train"]
+        e = {"name": name, "route": "cuda",
+             "source": "kubeflow_tpu_torch/ops/csrc/moe.cu",
+             "replaces": f"kubeflow_tpu/parallel/moe.py:{line}",
+             "launches": moe_train["launches"][tag],
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        e.update({f"odd_{key}": v
+                  for key, v in moe_bwd_rows[tag]["odd"].items()})
+        e["step_ms"], e["step_kernels"] = step_k[
+            "K14+K16" if tag == "K16" else tag]
+        bwd_entries.append(e)
+    for e in moe_entries[:3]:                 # K12-K14 in the train step
+        tag = {"moe_route": "K12", "moe_gather": "K13",
+               "moe_combine": "K14"}[e["name"]]
+        e["train_launches"] = moe_train["launches"][tag]
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k7, k8, k9,
-                                  k10, k11, *moe_entries, k15]}), flush=True)
+                                  k10, k11, *moe_entries, k15,
+                                  *bwd_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -89,6 +89,7 @@ from kubeflow_tpu_torch.ops.rope import (
     rope_stage_fused,
 )
 from kubeflow_tpu_torch.ops.swiglu import swiglu, swiglu_fused
+from kubeflow_tpu_torch.parallel.moe import aux_losses
 
 LayerCache = Dict[str, torch.Tensor]
 DtypeLike = Union[str, torch.dtype]
@@ -740,7 +741,7 @@ class DecoderLayer(nn.Module):
 
     def _post_attention(self, x, out):
         r, *products = self._mlp_inputs_of_out(x, out)
-        return r + self.mlp.reduce(*products)
+        return r + self.mlp.reduce(*products).view_as(r)
 
     def forward_remat(self, x, positions, cos, sin, policy: str, *,
                       attn_impl="flash") -> torch.Tensor:
@@ -776,7 +777,7 @@ class DecoderLayer(nn.Module):
             r, *mlp_in = _ckpt(self._mlp_inputs, x, h)
         else:
             raise ValueError(f"unknown remat_policy {policy!r}")
-        return r + _ckpt(self.mlp.reduce, *mlp_in)
+        return r + _ckpt(self.mlp.reduce, *mlp_in).view_as(r)
 
 
 def _ckpt(fn, *args, **kwargs):
@@ -789,12 +790,9 @@ class Llama(nn.Module):
     """Decoder-only LM. Parameters are created uninitialised in
     ``param_dtype`` on the current default device; :meth:`init_weights`
     fills them from a generator, or a state dict is loaded. ``LAYER_CLS``
-    is the layer a subclass swaps (the JAX ``Llama``'s hook; Mixtral).
-    ``TRAINING_UNPORTED`` says why the trainer refuses a subclass (None:
-    it takes it)."""
+    is the layer a subclass swaps (the JAX ``Llama``'s hook; Mixtral)."""
 
     LAYER_CLS = DecoderLayer
-    TRAINING_UNPORTED: Optional[str] = None
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -889,13 +887,30 @@ class Llama(nn.Module):
         attn_impl: str = "flash",
         stage_step: Optional[int] = None,
         paging: Optional[Paging] = None,
+        return_aux: bool = False,
     ):
         """tokens [B, S] -> logits [B, S, V] (or the final hidden state
         [B, S, E] with ``return_hidden``). With ``decode`` (True or
         "prefill") the cache is required and ``(out, cache)`` returns;
         ``stage_step`` makes a decode step a staged one (see
         ``Attention._staged_attention``); a paged cache needs ``paging``
-        (see ``Attention._paged_decode_attention``)."""
+        (see ``Attention._paged_decode_attention``). ``return_aux``:
+        ``(out, aux)``, aux the mean over the MoE layers of their
+        load-balancing losses (a differentiable f32 scalar; the JAX
+        trainer's mean of the sown "losses"), None for a model without
+        one."""
+        if return_aux:
+            with aux_losses() as sown:
+                out = self.forward(
+                    tokens, positions=positions, cache=cache, decode=decode,
+                    return_hidden=return_hidden, attn_impl=attn_impl,
+                    stage_step=stage_step, paging=paging)
+            if not sown:
+                return out, None
+            total = sown[0]
+            for a in sown[1:]:
+                total = total + a
+            return out, total / total.new_tensor(float(len(sown)))
         cfg = self.cfg
         B, S = tokens.shape
         if decode and cache is None:

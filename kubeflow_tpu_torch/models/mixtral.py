@@ -28,10 +28,14 @@ int8 gate and up run as one launch that gathers the token rows and ends
 in SwiGLU (:func:`~kubeflow_tpu_torch.ops.int8_experts.
 int8_experts_swiglu`), in place of K13, two K15 launches and K9.
 
-Serving only, in this slice: the remat policies and the trainer raise
-NotImplementedError on a Mixtral model (their aux-loss term, jitter and
-the kernels' backward are the Mixtral training slice, ROADMAP Queue 1
-item 6c).
+Training runs through the same layers: the dispatch's ops have backward
+kernels (K16-K18, ``ops/moe.py``), each layer's aux loss leaves
+``Llama.forward(return_aux=True)`` as their mean, and :class:`MoeMlp`
+splits into :meth:`MoeMlp.products` (the routing, the gather and gate/up:
+the JAX tags "moe_route", "mlp_gate", "mlp_up") and :meth:`MoeMlp.reduce`
+(SwiGLU, down and the combine), so ``DecoderLayer.forward_remat`` serves
+every remat policy on a :class:`MixtralLayer`. Router jitter
+(``router_jitter > 0``) is not ported: the trainer raises on it.
 """
 
 from __future__ import annotations
@@ -54,12 +58,17 @@ from kubeflow_tpu_torch.ops.int8_experts import (
     int8_experts,
     int8_experts_swiglu,
 )
-from kubeflow_tpu_torch.ops.moe import Gather, combine_add_rms_norm
+from kubeflow_tpu_torch.ops.moe import (
+    Gather,
+    combine_add_rms_norm,
+    combine_rows,
+)
 from kubeflow_tpu_torch.ops.swiglu import swiglu
 from kubeflow_tpu_torch.parallel.moe import (
     Top2GateConfig,
     expert_rows,
     moe_dispatch,
+    route_tokens,
 )
 
 
@@ -203,29 +212,46 @@ class MoeMlp(nn.Module):
                               defer_gather=True)
         return out if defer else out.view(x.shape)
 
+    def products(self, x: torch.Tensor):
+        """What the JAX "minimal" policy saves of the layer on x [..., M]:
+        the routing ("moe_route": dest1, dest2, slot_tok, g1, g2) and gate,
+        up [E, C, F] ("mlp_gate", "mlp_up"; ``torch.bmm`` over the
+        gathered buffers, K13). :meth:`reduce` finishes the layer."""
+        M = x.shape[-1]
+        x2 = x.reshape(-1, M)
+        d = route_tokens(x2, self.router(x).reshape(x2.shape[0], -1),
+                         self.gate)
+        e_in = d.gather(x2).materialize().view(d.shape)
+        r = d.routing
+        return (r.dest1, r.dest2, r.slot_tok, r.g1, r.g2,
+                _expert_product(e_in, self.w_gate),
+                _expert_product(e_in, self.w_up))
+
+    def reduce(self, dest1, dest2, slot_tok, g1, g2, gate, up):
+        """The tokens' outputs [T, M] of :meth:`products`' tensors:
+        down(silu(gate) * up) (K9, ``torch.bmm``), combined (K14)."""
+        y = _expert_product(swiglu(gate, up), self.w_down)
+        return combine_rows(y.reshape(-1, y.shape[-1]), g1, g2, dest1,
+                            dest2, slot_tok)
+
 
 class MixtralLayer(DecoderLayer):
     """The Llama decoder layer with :class:`MoeMlp` as its MLP (the residual
-    adds stay fused with the norms, K10; the closing one takes the MoE
-    combine's inputs, ``ops/moe.py::combine_add_rms_norm``)."""
+    adds stay fused with the norms, K10; without grad the closing one
+    takes the MoE combine's inputs, ``ops/moe.py::combine_add_rms_norm``)."""
 
     MLP_CLS = MoeMlp
 
     def close(self, r, n, norm):
+        if torch.is_grad_enabled():
+            # K10's combine mode has no backward: the combine (K14), then
+            # the add + norm (K10).
+            return super().close(r, n, norm)
         return combine_add_rms_norm(r, self.mlp(n, defer=True), norm.weight,
                                     eps=norm.eps)
-
-    def forward_remat(self, *args, **kwargs):
-        raise NotImplementedError(
-            "remat policies on a MoE layer are not ported yet (the Mixtral "
-            "training slice, ROADMAP Queue 1 item 6c)")
 
 
 class Mixtral(Llama):
     """Mixtral LM: the Llama backbone with MoE layers."""
 
     LAYER_CLS = MixtralLayer
-    TRAINING_UNPORTED = (
-        "training a MoE model is not ported yet: its aux-loss term, router "
-        "jitter and the dispatch kernels' backward are the Mixtral training "
-        "slice (ROADMAP Queue 1 item 6c)")

@@ -6,7 +6,12 @@
 //   K12 moe_route    top2_routing (:57-114) with the index maps of
 //                    _moe_dispatch_gather (:253-290);
 //   K13 moe_gather   _gather_in (:159-165);
-//   K14 moe_combine  _combine_out (:187-198).
+//   K14 moe_combine  _combine_out (:187-198);
+// and their backward (the training step's):
+//   K16 the gather's backward, _gather_in_bwd (:172-180): K14's kernel with
+//                    unit weights (no code of its own);
+//   K17 moe_combine_bwd  _combine_out_bwd (:206-226);
+//   K18 moe_route_bwd    autodiff of top2_routing's g1, g2 and aux (:57-114).
 // Slot s = e * G * C + q * C + c holds capacity position c of expert e in
 // group q; S = E * G * C is the trash row a dropped choice points at.
 //
@@ -78,6 +83,29 @@
 // block or cluster barriers at a prefill group). Up to ops/norms.py's
 // ROWS_MAX rows the served path leaves K14's work to K10's combine mode
 // (rms_norm.cu; ops/moe.py::combine_add_rms_norm), which saves its launch.
+//
+// K17, one launch of two kinds of blocks: the first write dy, a thread per
+// 8 elements of a slot's row: t = slot_tok[s], w = (dest1[t] == s ? g1[t] :
+// 0) + (dest2[t] == s ? g2[t] : 0), dy[s] = w dout[t] in f32, rounded once;
+// the others a warp a token: dg_k[t] = sum_m dout[t, m] y[dest_k[t], m]
+// (y[S] read as 0), lane l summing the 8-element chunks l, l + 32, .. in
+// order (8 partial sums, zeros past M), then the 8 folded by halves, then
+// the lanes by an xor fold: ops/moe.py::row_dot_reference's order. Bound:
+// bytes (dout and the kept y rows read, dy written).
+// K18, per group: the gates, e1 and e2 recomputed as K12 computes them
+// (gates_top2), count1 (first choices before the capacity mask) by
+// match_any and shared atomics (integers: exact in any order), then per
+// token with kept_k = dest_k < S, a_k = kept_k gate[e_k], d = a1 + a2 (1
+// where 0), w_k = a_k / d:
+//   da_k = kept_k ? (dg_k - (dg1 w1 + dg2 w2)) / d : 0,
+//   dgate_e = ([e == e1] da1 + [e == e2] da2) + (daux E (count1_e / g)) / g,
+//   dl_e = gate_e (dgate_e - sum_j dgate_j gate_j), the sum left to right,
+// rounded to the logits' dtype (route_backward_reference). A cluster of
+// blocks a group as K12's group form (about 512 tokens a block, the counts
+// over distributed shared memory), a thread a token, its gates kept in
+// registers from the counting pass. Bound: bytes, under a microsecond at
+// a train step's 4096 tokens at the H100's 3.35 TB/s; a launch is its
+// latency.
 // The measured times are in PERF.md.
 
 #include <cooperative_groups.h>
@@ -552,6 +580,235 @@ __global__ void __launch_bounds__(kRowThreads)
 
 long long blocks_for(long long items) { return (items + kRowThreads - 1) / kRowThreads; }
 
+// K17: blocks below dy_blocks write dy [S, M]; the rest take a token a warp
+// for dg1, dg2 [T].
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    moe_combine_bwd(const T* __restrict__ dout, const T* __restrict__ y,
+                    const float* __restrict__ g1, const float* __restrict__ g2,
+                    const int* __restrict__ dest1, const int* __restrict__ dest2,
+                    const int* __restrict__ slot_tok, T* __restrict__ dy, float* __restrict__ dg1,
+                    float* __restrict__ dg2, long long tokens, long long S, int M,
+                    long long dy_blocks) {
+  const int per_row = M / 8;
+  if (blockIdx.x < dy_blocks) {
+    const long long i = static_cast<long long>(blockIdx.x) * kRowThreads + threadIdx.x;
+    if (i >= S * per_row) return;
+    const long long s = i / per_row;
+    const int col = static_cast<int>(i % per_row) * 8;
+    const int t = slot_tok[s];
+    const float w = __fadd_rn(dest1[t] == s ? g1[t] : 0.f, dest2[t] == s ? g2[t] : 0.f);
+    float a[8];
+    load8(dout + static_cast<long long>(t) * M + col, a);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a[j] = __fmul_rn(w, a[j]);
+    store8(dy + s * M + col, a);
+    return;
+  }
+  const int lane = threadIdx.x % 32;
+  const long long t =
+      (static_cast<long long>(blockIdx.x) - dy_blocks) * (kRowThreads / 32) + threadIdx.x / 32;
+  if (t >= tokens) return;                // the whole warp
+  const long long d1 = dest1[t], d2 = dest2[t];
+  const int rounds = (per_row + 31) / 32;
+  float a1[8], a2[8];
+  for (int k = 0; k < rounds; ++k) {
+    const int c = k * 32 + lane;
+    float o[8], p[8], q[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) p[j] = q[j] = 0.f;
+    if (c < per_row) {
+      load8(dout + t * M + c * 8, o);
+      if (d1 < S) load8(y + d1 * M + c * 8, p);
+      if (d2 < S) load8(y + d2 * M + c * 8, q);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        p[j] = __fmul_rn(o[j], p[j]);     // the trash row's products too
+        q[j] = __fmul_rn(o[j], q[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      a1[j] = k ? __fadd_rn(a1[j], p[j]) : p[j];
+      a2[j] = k ? __fadd_rn(a2[j], q[j]) : q[j];
+    }
+  }
+#pragma unroll
+  for (int h = 4; h >= 1; h >>= 1) {
+#pragma unroll
+    for (int j = 0; j < h; ++j) {
+      a1[j] = __fadd_rn(a1[j], a1[j + h]);
+      a2[j] = __fadd_rn(a2[j], a2[j + h]);
+    }
+  }
+#pragma unroll
+  for (int h = 16; h >= 1; h >>= 1) {
+    a1[0] = __fadd_rn(a1[0], __shfl_xor_sync(kAll, a1[0], h));
+    a2[0] = __fadd_rn(a2[0], __shfl_xor_sync(kAll, a2[0], h));
+  }
+  if (lane == 0) {
+    dg1[t] = a1[0];
+    dg2[t] = a2[0];
+  }
+}
+
+// Threads a block of moe_route_bwd: a thread's kE gates in registers.
+template <int kE>
+__host__ __device__ constexpr int bwd_threads() {
+  return kE <= 16 ? 512 : 256;
+}
+
+// K18: nb blocks a group (a cluster of nb when nb > 1), block rank b =
+// blockIdx.x % nb of group blockIdx.x / nb taking a contiguous run of the
+// group's tokens, a thread a token a round.
+template <typename L, int kE>
+__global__ void __launch_bounds__(bwd_threads<kE>(), 1)
+    moe_route_bwd(const L* __restrict__ logits, int g, int E, int nb, int trash,
+                  const int* __restrict__ dest1, const int* __restrict__ dest2,
+                  const float* __restrict__ dg1, const float* __restrict__ dg2,
+                  const float* __restrict__ daux, L* __restrict__ dl) {
+  constexpr int kThreads = bwd_threads<kE>();
+  __shared__ int count[kE];               // this block's first choices, read by the cluster
+  __shared__ float aux_grad[kE];
+  const int lane = threadIdx.x % 32;
+  const int rank = blockIdx.x % nb, q = blockIdx.x / nb;
+  const long long t0 = static_cast<long long>(q) * g;
+  const int per = (g + nb - 1) / nb;
+  const int lo = rank * per, hi = min(g, lo + per);
+  for (int j = threadIdx.x; j < kE; j += kThreads) count[j] = 0;
+  __syncthreads();
+
+  // Pass 1: the first choices' counts; the first round's token stays in
+  // registers, its per-token inputs loaded before the barrier.
+  float gt0[kE], ge1_0 = 0.f, ge2_0 = 0.f, dg1_0 = 0.f, dg2_0 = 0.f;
+  int e1_0 = -1, e2_0 = -1;
+  bool kept1_0 = false, kept2_0 = false;
+  for (int base = lo; base < hi; base += kThreads) {
+    const int t = base + threadIdx.x;
+    const bool live = t < hi;
+    float gt[kE], ge1 = 0.f, ge2 = 0.f;
+    int e1 = -1, e2 = -1;
+    if (live) gates_top2<kE>(logits + (t0 + t) * E, E, gt, e1, e2, ge1, ge2);
+    if (base == lo && live) {
+      kept1_0 = dest1[t0 + t] < trash;
+      kept2_0 = dest2[t0 + t] < trash;
+      dg1_0 = dg1[t0 + t];
+      dg2_0 = dg2[t0 + t];
+#pragma unroll
+      for (int j = 0; j < kE; ++j) gt0[j] = gt[j];
+      e1_0 = e1;
+      e2_0 = e2;
+      ge1_0 = ge1;
+      ge2_0 = ge2;
+    }
+    const unsigned m = __match_any_sync(kAll, e1);
+    if (live && (m >> lane) == 1u) atomicAdd(&count[e1], __popc(m));
+  }
+  if (nb > 1) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+
+  // The aux's term of each expert's gate gradient, from the group's counts.
+  const float n = static_cast<float>(g);
+  const float coef = __fmul_rn(daux[q], static_cast<float>(E));
+  for (int j = threadIdx.x; j < E; j += kThreads) {
+    int total = 0;
+#pragma unroll
+    for (int b = 0; b < kMaxCluster; ++b)
+      if (b < nb) total += in_block(count, b, nb)[j];
+    aux_grad[j] = __fdiv_rn(__fmul_rn(coef, __fdiv_rn(static_cast<float>(total), n)), n);
+  }
+  if (nb > 1) cluster_arrive_release();   // done reading the cluster's blocks
+  __syncthreads();
+
+  // Pass 2: each token's gradient of its logits.
+  for (int base = lo; base < hi; base += kThreads) {
+    const int t = base + threadIdx.x;
+    if (t >= hi) continue;
+    float gt[kE], ge1 = ge1_0, ge2 = ge2_0, d1 = dg1_0, d2 = dg2_0;
+    int e1 = e1_0, e2 = e2_0;
+    bool kept1 = kept1_0, kept2 = kept2_0;
+    if (base == lo) {
+#pragma unroll
+      for (int j = 0; j < kE; ++j) gt[j] = gt0[j];
+    } else {                              // recomputed: deterministic
+      gates_top2<kE>(logits + (t0 + t) * E, E, gt, e1, e2, ge1, ge2);
+      kept1 = dest1[t0 + t] < trash;
+      kept2 = dest2[t0 + t] < trash;
+      d1 = dg1[t0 + t];
+      d2 = dg2[t0 + t];
+    }
+    const float a1 = kept1 ? ge1 : 0.f, a2 = kept2 ? ge2 : 0.f;
+    float den = __fadd_rn(a1, a2);
+    den = den > 0.f ? den : 1.f;
+    const float w1 = __fdiv_rn(a1, den), w2 = __fdiv_rn(a2, den);
+    const float dot = __fadd_rn(__fmul_rn(d1, w1), __fmul_rn(d2, w2));
+    const float da1 = kept1 ? __fdiv_rn(__fsub_rn(d1, dot), den) : 0.f;
+    const float da2 = kept2 ? __fdiv_rn(__fsub_rn(d2, dot), den) : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      if (j < E) {
+        const float dg = __fadd_rn(__fadd_rn(j == e1 ? da1 : 0.f, j == e2 ? da2 : 0.f), aux_grad[j]);
+        const float p = __fmul_rn(dg, gt[j]);
+        s = j ? __fadd_rn(s, p) : p;
+      }
+    }
+    L* out = dl + (t0 + t) * E;
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      if (j < E) {
+        const float dg = __fadd_rn(__fadd_rn(j == e1 ? da1 : 0.f, j == e2 ? da2 : 0.f), aux_grad[j]);
+        store1(out + j, __fmul_rn(gt[j], __fsub_rn(dg, s)));
+      }
+    }
+  }
+  if (nb > 1) cluster_wait_acquire();     // no block leaves while another reads it
+}
+
+// K18 at the compile-time bound kE of E: nb blocks a group, about 512
+// tokens a block (1 up to 512 tokens, 2 up to 1024, 4 up to 2048, 8 above).
+template <typename L, int kE>
+cudaError_t launch_route_bwd(const L* lg, int g, int E, int G, int trash, const int* d1,
+                             const int* d2, const float* dg1, const float* dg2, const float* daux,
+                             L* dl, cudaStream_t st) {
+  constexpr int kThreads = bwd_threads<kE>();
+  int nb = 1;
+  while (nb < kMaxCluster && nb * 512 < g) nb *= 2;
+  if (static_cast<long long>(G) * nb >= (1LL << 31)) return cudaErrorInvalidValue;
+  if (nb == 1) {
+    moe_route_bwd<L, kE><<<G, kThreads, 0, st>>>(lg, g, E, 1, trash, d1, d2, dg1, dg2, daux, dl);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nb;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(G * nb));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, moe_route_bwd<L, kE>, lg, g, E, nb, trash, d1,
+                                             d2, dg1, dg2, daux, dl);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename L>
+cudaError_t route_bwd_bound(const L* lg, int g, int E, int G, int trash, const int* d1,
+                            const int* d2, const float* dg1, const float* dg2, const float* daux,
+                            L* dl, cudaStream_t st) {
+  if (E <= 8) return launch_route_bwd<L, 8>(lg, g, E, G, trash, d1, d2, dg1, dg2, daux, dl, st);
+  if (E <= 16) return launch_route_bwd<L, 16>(lg, g, E, G, trash, d1, d2, dg1, dg2, daux, dl, st);
+  if (E <= 32) return launch_route_bwd<L, 32>(lg, g, E, G, trash, d1, d2, dg1, dg2, daux, dl, st);
+  return launch_route_bwd<L, 64>(lg, g, E, G, trash, d1, d2, dg1, dg2, daux, dl, st);
+}
+
 // K12 at the compile-time bound kE of E: the warp form at g <= 32, else the
 // group form over nb blocks a group, about 512 tokens a block (1 up to 512
 // tokens, 2 up to 1024, 4 up to 2048, 8 above), at most Lw = P / 32.
@@ -686,4 +943,66 @@ extern "C" int kftpu_moe_combine(int dtype, const void* y, const void* g1, const
                                                         items);
   }
   return cudaGetLastError();
+}
+
+// K17: the combine's backward for dout [T, M] and y [S, M] (dtype 0 f32, 1
+// bf16 for both and dy; contiguous, 16-byte aligned rows, M a multiple of
+// 8): dy [S, M] and dg1, dg2 [T] f32, in one launch. Returns the CUDA error
+// code of the launch.
+extern "C" int kftpu_moe_combine_backward(int dtype, const void* dout, const void* y,
+                                          const void* g1, const void* g2, const void* dest1,
+                                          const void* dest2, const void* slot_tok, void* dy,
+                                          void* dg1, void* dg2, long long T, long long S, int M,
+                                          void* stream) {
+  if ((dtype != kF32 && dtype != kBF16) || T < 1 || S < 1 || M < 8 || M % 8 != 0)
+    return cudaErrorInvalidValue;
+  const long long dy_blocks = blocks_for(S * (M / 8));
+  const long long blocks = dy_blocks + (T + kRowThreads / 32 - 1) / (kRowThreads / 32);
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float *a = static_cast<const float*>(g1), *b = static_cast<const float*>(g2);
+  const int *d1 = static_cast<const int*>(dest1), *d2 = static_cast<const int*>(dest2);
+  const int* tok = static_cast<const int*>(slot_tok);
+  float *o1 = static_cast<float*>(dg1), *o2 = static_cast<float*>(dg2);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (dtype == kBF16) {
+    using B = __nv_bfloat16;
+    moe_combine_bwd<B><<<grid, kRowThreads, 0, st>>>(
+        static_cast<const B*>(dout), static_cast<const B*>(y), a, b, d1, d2, tok,
+        static_cast<B*>(dy), o1, o2, T, S, M, dy_blocks);
+  } else {
+    moe_combine_bwd<float><<<grid, kRowThreads, 0, st>>>(
+        static_cast<const float*>(dout), static_cast<const float*>(y), a, b, d1, d2, tok,
+        static_cast<float*>(dy), o1, o2, T, S, M, dy_blocks);
+  }
+  return cudaGetLastError();
+}
+
+// K18: the gradient dl [T, E] (logits_dtype: 0 f32, 1 bf16, as the logits)
+// of the routing's g1, g2 [T] and aux [G] with respect to the logits [T, E]
+// (contiguous), from their cotangents dg1, dg2 [T] and daux [G] f32, the
+// forward's dest1, dest2 [T] int32 and its G groups of C slots an expert.
+// Returns the CUDA error code of the launch.
+extern "C" int kftpu_moe_route_backward(const void* logits, int logits_dtype, long long T, int E,
+                                        int G, int C, const void* dest1, const void* dest2,
+                                        const void* dg1, const void* dg2, const void* daux,
+                                        void* dl, void* stream) {
+  if (E < 2 || E > kMaxExperts || G < 1 || C < 1 || T < G || T % G != 0 ||
+      (logits_dtype != kF32 && logits_dtype != kBF16) ||
+      static_cast<long long>(E) * G * C >= (1LL << 31) || T >= (1LL << 31) ||
+      T / G > kMaxGroupTokens)
+    return cudaErrorInvalidValue;
+  const int g = static_cast<int>(T / G);
+  const int trash = E * G * C;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int *d1 = static_cast<const int*>(dest1), *d2 = static_cast<const int*>(dest2);
+  const float *a = static_cast<const float*>(dg1), *b = static_cast<const float*>(dg2);
+  const float* ax = static_cast<const float*>(daux);
+  if (logits_dtype == kBF16) {
+    using B = __nv_bfloat16;
+    return route_bwd_bound(static_cast<const B*>(logits), g, E, G, trash, d1, d2, a, b, ax,
+                           static_cast<B*>(dl), st);
+  }
+  return route_bwd_bound(static_cast<const float*>(logits), g, E, G, trash, d1, d2, a, b, ax,
+                         static_cast<float*>(dl), st);
 }

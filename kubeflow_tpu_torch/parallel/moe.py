@@ -19,6 +19,13 @@ Routing depends on the whole batch: every row fed to the layer takes
 capacity, so two callers agree on a token's output only when they feed
 the same rows.
 
+Training differentiates the dispatch as the JAX package's custom VJPs
+and autodiff do (``ops/moe.py``'s backward kernels K16-K18): the output
+in x and in the experts' outputs, and the routing weights and the aux
+loss in the router logits. The aux loss is returned (the groups' mean,
+a differentiable scalar) and, inside :func:`aux_losses`, also collected,
+as the JAX ``MoeMlp`` sows it into its "losses" collection.
+
 What this port leaves out, each raising NotImplementedError: the
 ``einsum`` dispatch (GShard's dense one-hot products, the regime of
 experts sharded over a mesh: ROADMAP Queue 1 item 5) and router jitter
@@ -28,16 +35,18 @@ has no mesh, so ``dispatch="auto"`` means gather.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Callable, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from kubeflow_tpu_torch.ops.moe import (
     Combine,
     Gather,
+    Routing,
     combine_rows,
-    gather_rows,
     route,
     route_groups_reference,
 )
@@ -69,8 +78,75 @@ class Top2GateConfig:
 def _no_jitter(cfg: Top2GateConfig, rng) -> None:
     if rng is not None and cfg.jitter_eps > 0.0:
         raise NotImplementedError(
-            "router jitter is a training option, not ported yet (the "
-            "Mixtral training slice, ROADMAP Queue 1 item 6c)")
+            "router jitter is a training option, not ported yet (ROADMAP "
+            "Queue 1 item 6c, open for jitter alone)")
+
+
+_SOWN: contextvars.ContextVar[Optional[List[torch.Tensor]]] = \
+    contextvars.ContextVar("moe_aux_losses", default=None)
+
+
+@contextlib.contextmanager
+def aux_losses():
+    """Collect the aux loss of every dispatch routed inside the block, in
+    order: the list it yields (the JAX ``MoeMlp``'s ``sow("losses",
+    "moe_aux_loss", aux)``). ``Llama.forward(return_aux=True)`` opens it
+    around its layers only: the backward's replays of checkpointed
+    segments run after it closed, so they add nothing."""
+    sown: List[torch.Tensor] = []
+    token = _SOWN.set(sown)
+    try:
+        yield sown
+    finally:
+        _SOWN.reset(token)
+
+
+class Dispatch(NamedTuple):
+    """What :func:`route_tokens` gives: the routing of T tokens, the
+    expert buffers' shape (E, G * C, M) and the aux loss (the groups'
+    mean)."""
+
+    routing: Routing
+    shape: Tuple[int, int, int]
+    aux: torch.Tensor
+
+    def gather(self, x: torch.Tensor) -> Gather:
+        """K13's inputs for the tokens x [T, M]."""
+        r = self.routing
+        return Gather(x, r.slot_tok, r.slot_valid, r.dest1, r.dest2)
+
+    def combine(self, expert_out: torch.Tensor) -> Combine:
+        """K14's inputs for the experts' outputs [E, G * C, M]."""
+        r = self.routing
+        return Combine(expert_out.reshape(-1, self.shape[2]), r.g1, r.g2,
+                       r.dest1, r.dest2)
+
+
+def route_tokens(x: torch.Tensor, router_logits: torch.Tensor,
+                 cfg: Top2GateConfig, *, rng=None) -> Dispatch:
+    """The routing of tokens x [T, M] by ``router_logits`` [T, E] (K12),
+    in groups as :func:`moe_dispatch` forms them. Its aux loss joins an
+    open :func:`aux_losses` list."""
+    T, M = x.shape
+    if cfg.dispatch == "einsum":
+        raise NotImplementedError(
+            "einsum MoE dispatch (the expert-sharded mesh regime) is not "
+            "ported yet (the multi-GPU slice, ROADMAP Queue 1 item 5)")
+    if cfg.dispatch not in ("auto", "gather"):
+        raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r} (auto, "
+                         "gather or einsum)")
+    _no_jitter(cfg, rng)
+    E = router_logits.shape[-1]
+    g = group_tokens(T, cfg)
+    g = g if 0 < g < T else T
+    G = T // g
+    C = cfg.capacity(g)
+    r = route(router_logits.contiguous(), G, C, x.dtype)
+    aux = r.aux.mean() if G > 1 else r.aux[0]
+    sown = _SOWN.get()
+    if sown is not None:
+        sown.append(aux)
+    return Dispatch(r, (E, G * C, M), aux)
 
 
 def top2_routing_reference(logits: torch.Tensor, cfg: Top2GateConfig, *,
@@ -103,38 +179,6 @@ def top2_gating(logits: torch.Tensor, cfg: Top2GateConfig, *, rng=None):
     return combine, combine > 0.0, aux
 
 
-def _moe_dispatch_gather(
-    x: torch.Tensor,
-    router_logits: torch.Tensor,
-    expert_fn: Callable[[torch.Tensor], torch.Tensor],
-    cfg: Top2GateConfig,
-    group: int,
-    defer: bool = False,
-    defer_gather: bool = False,
-) -> Tuple[Union[torch.Tensor, Combine], torch.Tensor]:
-    """Index dispatch in groups of ``group`` tokens (0 or >= T: one
-    group), each with its own capacity; the expert buffers are laid out
-    [E, G * C, M]. ``defer``: the combine's inputs in place of its
-    output; ``defer_gather``: ``expert_fn(Gather, (E, G * C, M))`` in
-    place of ``expert_fn`` on the gathered buffers."""
-    T, M = x.shape
-    E = router_logits.shape[-1]
-    g = group if 0 < group < T else T
-    G = T // g
-    C = cfg.capacity(g)
-    r = route(router_logits.contiguous(), G, C, x.dtype)
-    if defer_gather:
-        expert_out = expert_fn(Gather(x, r.slot_tok, r.slot_valid),
-                               (E, G * C, M))
-    else:
-        expert_out = expert_fn(
-            gather_rows(x, r.slot_tok, r.slot_valid).view(E, G * C, M))
-    expert_out = expert_out.reshape(E * G * C, M)
-    combine = Combine(expert_out, r.g1, r.g2, r.dest1, r.dest2)
-    out = combine if defer else combine_rows(*combine)
-    return out, (r.aux.mean() if G > 1 else r.aux[0])
-
-
 def moe_dispatch(
     x: torch.Tensor,
     router_logits: torch.Tensor,
@@ -148,22 +192,20 @@ def moe_dispatch(
     """Route tokens x [T, M] through the experts by ``router_logits`` [T,
     E] (routed in f32); ``expert_fn`` maps [E, C, M] -> [E, C, M] in x's
     dtype. Returns ([T, M] outputs in x's dtype, aux loss: the groups'
-    mean). Groups as the JAX
-    package forms them (:func:`group_tokens`). ``defer``: a
-    :class:`Combine` in place of the outputs; ``defer_gather``:
-    ``expert_fn`` takes a :class:`Gather` and the buffers' shape (E, C,
-    M) in place of the buffers (K13's launch left to it)."""
-    T, _ = x.shape
-    if cfg.dispatch == "einsum":
-        raise NotImplementedError(
-            "einsum MoE dispatch (the expert-sharded mesh regime) is not "
-            "ported yet (the multi-GPU slice, ROADMAP Queue 1 item 5)")
-    if cfg.dispatch not in ("auto", "gather"):
-        raise ValueError(f"unknown MoE dispatch {cfg.dispatch!r} (auto, "
-                         "gather or einsum)")
-    _no_jitter(cfg, rng)
-    return _moe_dispatch_gather(x, router_logits, expert_fn, cfg,
-                                group_tokens(T, cfg), defer, defer_gather)
+    mean). Groups as the JAX package forms them (:func:`group_tokens`),
+    each with its own capacity; the expert buffers are laid out [E, G * C,
+    M]. ``defer`` (inference): a :class:`Combine` in place of the outputs;
+    ``defer_gather``: ``expert_fn`` takes a :class:`Gather` and the
+    buffers' shape (E, C, M) in place of the buffers (K13's launch left
+    to it)."""
+    d = route_tokens(x, router_logits, cfg, rng=rng)
+    g = d.gather(x)
+    expert_out = (expert_fn(g, d.shape) if defer_gather
+                  else expert_fn(g.materialize().view(d.shape)))
+    combine = d.combine(expert_out)
+    if defer:
+        return combine, d.aux
+    return combine_rows(*combine, slot_tok=d.routing.slot_tok), d.aux
 
 
 def expert_rows(num_tokens: int, cfg: Top2GateConfig) -> int:

@@ -28,14 +28,16 @@ def llama_matmul_params(cfg: Any) -> int:
 
 
 def moe_matmul_params_active(cfg: Any) -> int:
-    """Mixtral-style MoE: only the per-token *active* experts count."""
+    """Mixtral-style MoE: only the per-token *active* experts count,
+    ``experts_per_token`` of them where the config names it, else 2 (the
+    top-2 router of ``parallel/moe.py``; no ported config names it)."""
     E, H, Hkv, Dh, M = (
         cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
         cfg.mlp_dim,
     )
     attn = E * H * Dh + 2 * E * Hkv * Dh + H * Dh * E
     router = E * cfg.num_experts
-    mlp_active = cfg.experts_per_token * 3 * E * M
+    mlp_active = getattr(cfg, "experts_per_token", 2) * 3 * E * M
     per_layer = attn + router + mlp_active
     return cfg.num_layers * per_layer + cfg.vocab_size * cfg.embed_dim
 

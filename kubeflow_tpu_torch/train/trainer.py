@@ -16,7 +16,12 @@ indexes steps and clips differently):
   package's ``_f32_moments``): updates come from f32 casts of grads and
   params, nu is f32, mu is stored in ``mu_dtype`` but bias-corrected from
   its f32 value before the cast, and ``p + u`` is formed in f32 and cast
-  back to p's dtype.
+  back to p's dtype;
+- a MoE model's load-balancing loss joins the loss as the JAX trainer
+  adds it: ``aux_loss_weight`` (the TrainConfig's, else the model
+  config's) times the layers' mean aux (``Llama.forward(return_aux=
+  True)``), per microbatch; ``aux_loss`` reports the mean, and eval
+  leaves it out.
 
 The port updates the model's parameters IN PLACE (no second copy of the
 parameters or of the updates is held): on the card every tensor in one
@@ -101,7 +106,7 @@ class TrainConfig:
     z_loss_weight: float = 1e-4
     # "lm" (next-token); "image" waits for the image-model slice.
     task: str = "lm"
-    # MoE aux loss weight (no ported model sows one yet).
+    # MoE aux loss weight; 0 takes the model config's (Mixtral's 0.02).
     aux_loss_weight: float = 0.0
     attn_impl: str = "full"
     # Adam first-moment dtype ("bfloat16" halves mu's memory; "" keeps
@@ -246,8 +251,11 @@ class Trainer:
             raise NotImplementedError(
                 f"TrainConfig.task={train_cfg.task!r} is not ported yet "
                 "(the image-model slice); the port trains LMs")
-        if getattr(model, "TRAINING_UNPORTED", None):
-            raise NotImplementedError(model.TRAINING_UNPORTED)
+        model_cfg = getattr(model, "cfg", None)
+        if getattr(model_cfg, "router_jitter", 0.0) > 0:
+            raise NotImplementedError(
+                "router jitter (router_jitter > 0) is not ported yet "
+                "(ROADMAP Queue 1 item 6c, open for jitter alone)")
         if train_cfg.attn_impl not in _ONE_DEVICE_ATTN:
             raise ValueError(f"unknown attn_impl {train_cfg.attn_impl!r} "
                              f"({' | '.join(_ONE_DEVICE_ATTN)})")
@@ -255,8 +263,11 @@ class Trainer:
         self.model = model.to(self.device)
         self.cfg = train_cfg
         self.attn_impl = _ONE_DEVICE_ATTN[train_cfg.attn_impl]
+        # The MoE aux weight: the TrainConfig's, else the model config's
+        # (the JAX trainer's rule, so a default TrainConfig keeps it).
+        self.aux_loss_weight = train_cfg.aux_loss_weight or float(
+            getattr(model_cfg, "aux_loss_weight", 0.0) or 0.0)
         # adafactor factors and blocks by the JAX leaves of the model.
-        model_cfg = getattr(model, "cfg", None)
         self.optimizer = train_cfg.make_optimizer(
             jax_leaves(model_cfg) if train_cfg.optimizer == "adafactor"
             and model_cfg is not None else None)
@@ -282,39 +293,47 @@ class Trainer:
         return m.embed if m.cfg.tie_embeddings else m.lm_head.weight
 
     def _lm_ce(self, batch: Dict[str, torch.Tensor], *,
-               z_loss_weight: float):
+               z_loss_weight: float, with_aux: bool = False):
         """LM forward + cross-entropy shared by the train loss and eval:
-        (loss, accuracy)."""
+        (loss, accuracy, aux). aux: with ``with_aux``, the MoE layers' mean
+        aux loss (``Llama.forward(return_aux=True)``), else None."""
         tokens = batch["inputs"].to(self.device)
         inputs, labels = tokens[:, :-1], tokens[:, 1:].long()
         mask = batch.get("mask")
         if mask is not None:
             mask = mask.to(self.device)[:, 1:]
-        if self.cfg.loss_chunk > 0:
-            with record_function("forward"):
-                hidden = self.model(inputs, return_hidden=True,
-                                    attn_impl=self.attn_impl)
-            B, S, E = hidden.shape
-            with record_function("loss"):
+        chunked = self.cfg.loss_chunk > 0
+        with record_function("forward"):
+            out = self.model(inputs, return_hidden=chunked,
+                             attn_impl=self.attn_impl, return_aux=with_aux)
+        out, aux = out if with_aux else (out, None)
+        with record_function("loss"):
+            if chunked:
+                B, S, E = out.shape
                 loss, count, hits = chunked_cross_entropy(
-                    hidden.reshape(B * S, E), self._lm_head_kernel(),
+                    out.reshape(B * S, E), self._lm_head_kernel(),
                     labels.reshape(B * S),
                     mask=None if mask is None else mask.reshape(B * S),
                     z_loss_weight=z_loss_weight, block=self.cfg.loss_chunk)
-            return loss, hits / count
-        with record_function("forward"):
-            logits = self.model(inputs, attn_impl=self.attn_impl)
-        with record_function("loss"):
-            loss, count, hits = cross_entropy_stats(
-                logits, labels, mask=mask, z_loss_weight=z_loss_weight)
-        return loss, hits / count
+            else:
+                loss, count, hits = cross_entropy_stats(
+                    out, labels, mask=mask, z_loss_weight=z_loss_weight)
+        return loss, hits / count, aux
 
     def _grads(self, params: Dict[str, torch.Tensor], batch):
-        loss, accuracy = self._lm_ce(batch,
-                                     z_loss_weight=self.cfg.z_loss_weight)
+        """(loss, accuracy, aux, grads). As the JAX trainer's ``_loss_lm``:
+        with a positive aux weight the loss gains weight x the layers' mean
+        aux loss, which is reported (0 without one)."""
+        loss, accuracy, aux = self._lm_ce(
+            batch, z_loss_weight=self.cfg.z_loss_weight,
+            with_aux=self.aux_loss_weight > 0)
+        if aux is None:
+            aux = torch.zeros((), device=self.device)
+        else:
+            loss = loss + self.aux_loss_weight * aux
         with record_function("backward"):
             grads = torch.autograd.grad(loss, list(params.values()))
-        return loss.detach(), accuracy, dict(zip(params, grads))
+        return loss.detach(), accuracy, aux.detach(), dict(zip(params, grads))
 
     def _token_weight(self, mb: Dict[str, torch.Tensor]) -> torch.Tensor:
         if mb.get("mask") is not None:
@@ -330,7 +349,7 @@ class Trainer:
         K = self.cfg.grad_accum_steps
         params = state.params
         if K <= 1:
-            loss, accuracy, grads = self._grads(params, batch)
+            loss, accuracy, aux, grads = self._grads(params, batch)
         else:
             # Microbatches one after another; grads accumulate in f32,
             # each microbatch (and its metrics) weighted by its count of
@@ -342,24 +361,24 @@ class Trainer:
             acc = {name: torch.zeros(p.shape, dtype=torch.float32,
                                      device=p.device)
                    for name, p in params.items()}
-            wsum = loss = accuracy = torch.zeros((), device=self.device)
+            wsum = loss = accuracy = aux = torch.zeros((), device=self.device)
             for i in range(K):
                 mb = {k: v[i * n // K:(i + 1) * n // K]
                       for k, v in batch.items()}
-                mb_loss, mb_acc, g = self._grads(params, mb)
+                mb_loss, mb_acc, mb_aux, g = self._grads(params, mb)
                 w = self._token_weight(mb)
                 for name, gi in g.items():
                     acc[name].add_(w * gi.float())
                 wsum, loss = wsum + w, loss + w * mb_loss
                 accuracy = accuracy + w * mb_acc
+                aux = aux + w * mb_aux
             wsum = wsum.clamp_min(1e-9)
             grads = {name: a.div_(wsum) for name, a in acc.items()}
-            loss, accuracy = loss / wsum, accuracy / wsum
+            loss, accuracy, aux = loss / wsum, accuracy / wsum, aux / wsum
         opt_state, grad_norm = self.optimizer.step(params, grads,
                                                    state.opt_state)
         metrics = {"loss": loss, "grad_norm": grad_norm,
-                   "accuracy": accuracy,
-                   "aux_loss": torch.zeros((), device=self.device)}
+                   "accuracy": accuracy, "aux_loss": aux}
         return TrainState(step=state.step + 1, params=params,
                           opt_state=opt_state), metrics
 
@@ -368,9 +387,9 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, state: TrainState,
                   batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Cross-entropy without z-loss (an optimisation term, not model
-        quality) and accuracy; nothing is updated."""
-        loss, accuracy = self._lm_ce(batch, z_loss_weight=0.0)
+        """Cross-entropy without z-loss or the aux term (optimisation
+        terms, not model quality) and accuracy; nothing is updated."""
+        loss, accuracy, _ = self._lm_ce(batch, z_loss_weight=0.0)
         return {"loss": loss, "accuracy": accuracy}
 
     def evaluate(self, state: TrainState,

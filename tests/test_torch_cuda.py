@@ -50,7 +50,13 @@ leaf dequantized to bf16, then ``torch.bmm``): max |got - plain| <= 1e-2 *
 max |plain|, K4's bound; two calls and a graph replay bitwise. K15's
 fused gate/up launch (the rows gathered by slot_tok, SwiGLU as its
 epilogue) bitwise K13, K15's gate and up launches and K9, within 1e-2 x
-max |plain| of that chain's plain version.
+max |plain| of that chain's plain version. The dispatch's backward
+(K16 the gather's, K17 the combine's, K18 the router's) bitwise their
+plain versions, drops included; a mixtral-tiny train step on the card
+against the CPU step from the same weights (f32: loss, aux and grad norm
+within 1e-4 relative, the sums run in other orders), every policy's
+gradients on the card bitwise "full"'s, and no launch of K10's combine
+mode under grad.
 """
 
 import functools
@@ -2410,7 +2416,7 @@ def test_moe_kernels_replay_in_a_graph_and_refuse():
         moe.gather_rows(x[:, :100], r.slot_tok, r.slot_valid)
     with pytest.raises(ValueError, match="slot_valid"):
         moe.gather_rows(x, r.slot_tok, r.slot_valid.float())
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(ValueError, match="backward"):   # no dest1, dest2
         moe.gather_rows(x.float().requires_grad_(), r.slot_tok,
                         r.slot_valid.float())
     assert (moe.route.launches, moe.gather_rows.launches,
@@ -2810,3 +2816,129 @@ def test_int8_experts_swiglu_refusals():
     assert fn(*ptrs, 64, E, 17, F, K, stream) != 0
     assert fn(*ptrs, 257, E, 4, F, K, stream) != 0
     assert fn(*ptrs, 64, E, 4, F - 8, K, stream) != 0
+
+
+# The MoE dispatch's backward: (T, E, G, C) as MOE_CASES, with M.
+MOE_BWD_CASES = [(4096, 8, 1, 1024, 4096), (96, 8, 2, 12, 136),
+                 (1000, 8, 1, 252, 1024), (300, 64, 1, 8, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,E,G,C,M", MOE_BWD_CASES)
+def test_moe_backward_kernels_match_plain_bitwise(T, E, G, C, M, dtype):
+    """K16, K17 and K18 against their plain versions on the same inputs,
+    bitwise, at the train shape (T 4096, C 1024, M 4096), two groups, an
+    odd T with drops and E 64."""
+    from kubeflow_tpu_torch.ops import moe
+
+    logits = _moe_logits(T, E, 41).to(dtype)
+    r = moe.route(logits, G, C, dtype)
+    S = E * G * C
+    assert (r.dest1 == S).any() or (r.dest2 == S).any()
+    g = torch.Generator(device="cuda").manual_seed(42)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    d, y, dout = rand(S, M), rand(S, M), rand(T, M)
+    counts = (moe.gather_rows_backward.launches,
+              moe.combine_rows_backward.launches,
+              moe.route_backward.launches)
+    dx = moe.gather_rows_backward(d, r.dest1, r.dest2)
+    assert torch.equal(dx, moe.gather_rows_backward_reference(
+        d, r.dest1, r.dest2))
+    got = moe.combine_rows_backward(dout, y, r.g1, r.g2, r.dest1, r.dest2,
+                                    r.slot_tok)
+    want = moe.combine_rows_backward_reference(dout, y, r.g1, r.g2, r.dest1,
+                                               r.dest2, r.slot_tok)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    dg1, dg2 = (torch.randn(T, generator=g, device="cuda") for _ in range(2))
+    daux = torch.randn(G, generator=g, device="cuda")
+    for _ in range(2):
+        dl = moe.route_backward(logits, r.dest1, r.dest2, dg1, dg2, daux, G,
+                                C)
+        assert dl.dtype == dtype and torch.equal(
+            dl, moe.route_backward_reference(logits, r.dest1, r.dest2, dg1,
+                                             dg2, daux, G, C))
+    assert (moe.gather_rows_backward.launches,
+            moe.combine_rows_backward.launches,
+            moe.route_backward.launches) == (counts[0] + 1, counts[1] + 1,
+                                             counts[2] + 2)
+
+
+def _mixtral_tiny(**kw):
+    from kubeflow_tpu_torch.models.mixtral import Mixtral, MixtralConfig
+
+    cfg = MixtralConfig.tiny(dtype=torch.float32, capacity_factor=0.75, **kw)
+    model = Mixtral(cfg)
+    model.init_weights(torch.Generator().manual_seed(47))
+    return model
+
+
+def test_mixtral_tiny_train_step_on_the_card_matches_the_cpu():
+    """One Trainer.step of mixtral-tiny (f32, capacity drops) on the card
+    and on the CPU from the same weights and batch: loss, aux and grad
+    norm within 1e-4 relative; the card launched K12-K14 and K16-K18 once
+    a layer and K10's combine mode never."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.ops import moe, norms
+    from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    tokens = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 256, (4, 33)))
+    sd = _mixtral_tiny().state_dict()
+    metrics = {}
+    counters = ((moe.route, "launches"), (moe.gather_rows, "launches"),
+                (moe.combine_rows, "launches"),
+                (moe.gather_rows_backward, "launches"),
+                (moe.combine_rows_backward, "launches"),
+                (moe.route_backward, "launches"),
+                (norms.add_rms_norm, "combine_launches"))
+    for device in ("cpu", "cuda"):
+        trainer = Trainer(_mixtral_tiny(), TrainConfig(
+            learning_rate=1e-2, warmup_steps=1), device=device)
+        state = trainer.init_state(0)
+        trainer.model.load_state_dict(sd)
+        before = [getattr(o, a) for o, a in counters]
+        _, m = trainer.step(state, {"inputs": tokens})
+        metrics[device] = {k: float(v) for k, v in m.items()}
+        launched = [getattr(o, a) - b for (o, a), b in zip(counters, before)]
+    layers = trainer.model.cfg.num_layers
+    assert launched == [layers] * 6 + [0]
+    for k in ("loss", "aux_loss", "grad_norm"):
+        np.testing.assert_allclose(metrics["cuda"][k], metrics["cpu"][k],
+                                   rtol=1e-4, err_msg=k)
+
+
+def test_mixtral_every_remat_policy_gives_full_grads():
+    """mixtral-tiny with head_dim 64 (the flash kernels' width) in bf16
+    on the card: the loss (aux term included) and every gradient under
+    each policy bitwise "full"'s."""
+    from kubeflow_tpu_torch.models.llama import REMAT_POLICIES
+    from kubeflow_tpu_torch.models.mixtral import Mixtral, MixtralConfig
+    from kubeflow_tpu_torch.train.losses import cross_entropy_loss
+
+    tokens = torch.randint(0, 256, (4, 65), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(48))
+    sd = _mixtral_tiny(head_dim=64).state_dict()
+    results = {}
+    for policy in REMAT_POLICIES:
+        cfg = MixtralConfig.tiny(dtype=torch.bfloat16, capacity_factor=0.75,
+                                 head_dim=64, remat=True, remat_policy=policy)
+        with torch.device("cuda"):
+            model = Mixtral(cfg)
+        model.load_state_dict(sd)
+        logits, aux = model(tokens[:, :-1], return_aux=True)
+        loss, _ = cross_entropy_loss(logits, tokens[:, 1:],
+                                     z_loss_weight=1e-4)
+        loss = loss + 0.02 * aux
+        results[policy] = (loss.detach(), torch.autograd.grad(
+            loss, list(model.parameters())))
+    want_loss, want_grads = results["full"]
+    for policy, (loss, grads) in results.items():
+        assert torch.equal(loss, want_loss), policy
+        for a, b in zip(grads, want_grads):
+            assert torch.equal(a, b), policy
