@@ -9,7 +9,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    RMSNorm and the residual add + RMSNorm (K6, K10: one source), RoPE
    (K7), the cross-entropy (K8), SwiGLU (K9), the adafactor update
    (K11), the MoE routing, gather and combine and their backward
-   (K12-K14, K17, K18: one source; K16 is K14's kernel) and
+   (K12-K14, K17, K18: one source; K16 is K14's kernel), BatchNorm
+   (K19), LayerNorm (K20), the bias add + GELU (K21) and
    the int8 expert product (K15) from kubeflow_tpu_torch/ops/csrc with
    nvcc (sm_90a), one nvcc per source, and the native token loader
    (kubeflow_tpu_torch/train/csrc, g++, into
@@ -193,6 +194,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    expert: drops): bitwise, twice; each timed (CUDA-graph replays, cold
    over sets past twice the L2 where a call is smaller) beside its plain
    version and its byte bound; no library call;
+7f. kernel (K19-K21, the image slice's) — K19 (BatchNorm with flax's
+   semantics, with the residual add and ReLU in the same call) at
+   ResNet-50's BatchNorm shapes at batch 256 (RESNET_BN_CASES: the stem,
+   each stage's width and its expanded width with the residual, a
+   projection's, the eval apply), K20 (LayerNorm, eps 1e-6) at ViT-B/16's
+   [64 x 197, 768] and K21 (bias add + tanh GELU) at its [64 x 197, 3072],
+   forward and backward, against their plain versions: y and dx within
+   one bf16 ulp (K19's y bitwise the plain apply given its statistics,
+   which with a residual is the bound: the add can cancel), K19's
+   statistics and running buffers within 1e-6 of their scale from their
+   f64 values, K20's mean and rstd 1e-6 relative, dscale and dbias 1e-5
+   of their max (K21's dbias one ulp), K19's residual gradient bitwise,
+   every call twice bitwise; each timed (CUDA-graph replays, cold over
+   sets past twice the L2 where a call is smaller) beside its plain
+   version, its byte bound and a yardstick the port never calls
+   (F.batch_norm(training=True) then F.relu, with the add before it for
+   a residual: two or three calls; F.layer_norm(eps=1e-6); the add then
+   F.gelu(approximate="tanh")) and their autograd backward; K1 and K2 at
+   ViT-B/16's attention (B 64, S 197, 12 heads of 64, no mask) beside
+   SDPA and its backward, K8 at [256, 1000] f32 beside F.cross_entropy;
+   then a resnet-tiny and a head_dim-64 ViT, f32, two adamw steps on the
+   card against the CPU from the same weights (cuDNN's TF32 off): loss and
+   gradient norm within 1e-4 relative, the card's launches as
+   image_train_launches_per_step derives them;
 8. serve — builds the llama3-8b server from the KFTPU_SERVING_* env
    (full width, random bf16 weights made on the card; staged decode and
    CUDA graphs, as the server runs by default) and sends 9 concurrent
@@ -360,6 +385,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    tokens/s, MFU (train_flops_per_token(moe=True)), the peak, and one
    profiled step by kernel (K12-K18 by name) with torch.bmm's device ms
    (the expert products, cuBLAS);
+12d. train images — ResNet-50 (batch 256) and ViT-B/16 (batch 64) at
+   224 x 224 from the registry at full width, random weights from seed 0,
+   through Trainer(task="image") with bench.py's TrainConfig (adamw,
+   warmup 10, 1000 steps) on one batch of synthetic_images (seed 0) put
+   on the card once and reused, 8 steps each: every step's loss and
+   gradient norm finite, its launches of K1, K2, K5-K11 and K19-K21 as
+   image_train_launches_per_step derives them (every other kernel none),
+   a ResNet's running statistics moved; the loss falls; one evaluate
+   batch. Prints the median synchronised step, images/s, MFU (FLOPs an
+   image from the shapes the Conv and Dense products see, a ViT's
+   attention products added, x 3 trained, over 989 TFLOP/s), peak device
+   memory, one profiled step by kernel (cuDNN's convolutions summed by
+   op, max-pool, K1, K2, K5, K8, K19-K21) and K5 over the model's f32
+   parameters beside its plain version and bound; then ViT-L/16 (batch
+   32, 3 steps, no profile) when the phase has spent under
+   IMAGE_TRAIN_BUDGET_S, saying which it ran;
 13. prints each phase's seconds and the total, the {"kernels": [...]}
    line (K1's entry at the serving prefill shape, with its training-shape
    ms, SDPA ms and bound under train_ keys and the extend's shapes and
@@ -398,7 +439,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    shape (the odd case under odd_), their launches over the train
    mixtral phase's 6 steps and their device ms in its profiled step (K16
    shares moe_combine's kernel with K14 there), and K12-K14's launches
-   there under train_launches; then the result line.
+   there under train_launches; K19 at ResNet-50's stem (its other cases
+   under <case>_, backward under bwd_), K20 and K21 at ViT-B/16's shapes,
+   each with its launches over its train phase's 8 steps and its device ms
+   in that phase's profiled step; K1, K2 and K8 at the image shapes under
+   image_ keys with their launches there, K5 over each image model's
+   parameters under image_<model>_; then the result line.
 """
 
 from __future__ import annotations
@@ -5120,6 +5166,807 @@ def train_mixtral_phase():
                 bmm_ms=bmm, params=n_params)
 
 
+# ---------------------------------------------------------------- image slice
+
+#: K19's cases at ResNet-50's BatchNorm shapes at batch 256 (224 x 224): the
+#: stem, and a stage's bn1/bn2 width and its expanded bn3 width (with the
+#: residual) for each stage; bn_proj's (no ReLU) at stage 0; the eval
+#: apply at the stem. (case, B, H, W, C, mode, train)
+RESNET_BN_CASES = (
+    ("stem", 256, 112, 112, 64, "relu", True),
+    ("s0", 256, 56, 56, 64, "relu", True),
+    ("s0x", 256, 56, 56, 256, "residual_relu", True),
+    ("s0proj", 256, 56, 56, 256, "plain", True),
+    ("s1", 256, 28, 28, 128, "relu", True),
+    ("s1x", 256, 28, 28, 512, "residual_relu", True),
+    ("s2", 256, 14, 14, 256, "relu", True),
+    ("s2x", 256, 14, 14, 1024, "residual_relu", True),
+    ("s3", 256, 7, 7, 512, "relu", True),
+    ("s3x", 256, 7, 7, 2048, "residual_relu", True),
+    ("stem_eval", 256, 112, 112, 64, "relu", False))
+VIT_B, VIT_S = 64, 197          # ViT-B/16's batch and tokens (196 + cls)
+#: Tolerances the image kernels are held to against their plain versions:
+#: y and dx one bf16 ulp (ulps), the statistics IMAGE_STATS_TOL of their
+#: scale (mean of sqrt E[x^2], var of E[x^2]), dscale/dbias relative.
+IMAGE_STATS_TOL = 1e-6
+IMAGE_DPARAM_TOL = 1e-5
+
+
+def image_counters():
+    """fused_counters() and the image slice's: K19-K21."""
+    from kubeflow_tpu_torch.ops.batch_norm import batch_norm
+    from kubeflow_tpu_torch.ops.gelu import bias_gelu
+    from kubeflow_tpu_torch.ops.layer_norm import layer_norm
+
+    return fused_counters() + (
+        ("K19 forward", batch_norm, "fwd_launches"),
+        ("K19 backward", batch_norm, "bwd_launches"),
+        ("K20 forward", layer_norm, "fwd_launches"),
+        ("K20 backward", layer_norm, "bwd_launches"),
+        ("K21 forward", bias_gelu, "fwd_launches"),
+        ("K21 backward", bias_gelu, "bwd_launches"))
+
+
+def image_train_launches_per_step(cfg) -> dict:
+    """Each kernel's launches an image train step (no remat, one
+    microbatch): K5's norm and update and K8 once each; a ResNet's K19 once
+    a BatchNorm forward and backward (models/resnet.py::batch_norm_calls:
+    53 at ResNet-50); a ViT's K1 and K2 once a layer (nothing replays), K20
+    once a LayerNorm (2L + 1) and K21 once a layer, forward and backward.
+    Every other kernel none."""
+    from kubeflow_tpu_torch.models.resnet import ResNetConfig, batch_norm_calls
+    from kubeflow_tpu_torch.models.vit import layer_norm_calls
+
+    want = {name: 0 for name, _, _ in image_counters()}
+    want.update({"K5 norm": 1, "K5 update": 1, "K8 forward": 1,
+                 "K8 backward": 1})
+    if isinstance(cfg, ResNetConfig):
+        n = batch_norm_calls(cfg)
+        want.update({"K19 forward": n, "K19 backward": n})
+    else:
+        L, n = cfg.num_layers, layer_norm_calls(cfg)
+        want.update({"K1 forward": L, "K1 backward": L, "K20 forward": n,
+                     "K20 backward": n, "K21 forward": L, "K21 backward": L})
+    return want
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def _check_stats(tag, got, x, ra=None) -> None:
+    """K19's batch statistics of x (or, given the running buffers ``ra``
+    before the call, the updated ones) against their f64 values, channel
+    by channel: mean within IMAGE_STATS_TOL sqrt E[x^2], var within it
+    times E[x^2]."""
+    xd = x.double().reshape(-1, x.shape[-1])
+    mean, m2 = xd.mean(0), (xd * xd).mean(0)
+    want = (mean, (m2 - mean * mean).clamp_min(0.0))
+    if ra is not None:
+        want = tuple(0.9 * r.double() + 0.1 * w for r, w in zip(ra, want))
+    for g, w, scale in zip(got, want, (m2.sqrt(), m2)):
+        err = float(((g.double() - w).abs() / scale.clamp_min(1e-30)).max())
+        if err > IMAGE_STATS_TOL:
+            raise AssertionError(f"{tag}: statistics {err:.3e} of their "
+                                 f"scale from f64, bound {IMAGE_STATS_TOL}")
+
+
+def _check_ulp(tag, got, want) -> float:
+    err = ulps(got, want)
+    if err > 1.0:
+        raise AssertionError(f"{tag}: {err:.2f} bf16 ulp from the plain "
+                             "version, bound 1")
+    return float((got.float() - want.float()).abs().max())
+
+
+def batch_norm_rows(gen) -> dict:
+    """K19 against its plain version at RESNET_BN_CASES: training
+    statistics and running buffers (against f64), y (bitwise the plain apply given the
+    kernel's statistics; within one ulp of the plain version without a
+    residual), dx, dscale, dbias and the residual's gradient within the
+    stated tolerances, each call twice bitwise; timed (CUDA-graph
+    replays, cold over sets past twice the L2 where a call is smaller)
+    beside its plain version, its byte bound and,
+    as a yardstick the port never calls, F.batch_norm(training=True) then
+    F.relu (and the residual add before it: two or three calls) on the
+    NCHW channels-last view, forward and its autograd backward."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import batch_norm as bn
+
+    rows = {}
+    for case, B, Hh, W, C, mode, train in RESNET_BN_CASES:
+        relu, with_res = mode != "plain", mode == "residual_relu"
+        n_rows = B * Hh * W
+        elt = n_rows * C * 2
+        fwd_bytes = elt * (2 + with_res)
+        bwd_bytes = elt * (3 + relu + with_res)
+        n = sets_for(min(fwd_bytes, bwd_bytes))
+
+        def rand(scale=1.0):
+            return (torch.randn(B, Hh, W, C, generator=gen, device="cuda")
+                    * scale).bfloat16()
+
+        shift = torch.randn(C, generator=gen, device="cuda")
+        xs = [(rand(2.0).float() + shift).bfloat16() for _ in range(n)]
+        res = [rand() if with_res else None for _ in range(n)]
+        dys = [rand() for _ in range(n)]
+        scale = 1 + 0.3 * torch.randn(C, generator=gen, device="cuda")
+        bias = 0.2 * torch.randn(C, generator=gen, device="cuda")
+        ra = (0.1 * torch.randn(C, generator=gen, device="cuda"),
+              1 + 0.2 * torch.rand(C, generator=gen, device="cuda"))
+        kra, pra = [t.clone() for t in ra], [t.clone() for t in ra]
+        x, r, dy = xs[0], res[0], dys[0]
+        y, mean, var = bn._fwd_kernel(x, scale, bias, *kra, r, train, relu)
+        again = bn._fwd_kernel(x, scale, bias, *(t.clone() for t in ra), r,
+                               train, relu)
+        _bitwise(f"K19 {case} twice", [(y, again[0])])
+        want, _, _ = bn.batch_norm_reference(
+            x, scale, bias, *pra, train=train, residual=r, relu=relu)
+        # y bitwise the plain apply given the kernel's statistics (the
+        # residual add can cancel: one ulp of the normalised value is many
+        # of the sum), and within one ulp of the plain version without a
+        # residual.
+        given, _, _ = bn.batch_norm_reference(
+            x, scale, bias, mean, var, train=False, residual=r, relu=relu)
+        _bitwise(f"K19 {case} y given the statistics", [(y, given)])
+        err = (float((y.float() - want.float()).abs().max()) if with_res
+               else _check_ulp(f"K19 {case} y", y, want))
+        if train:
+            _check_stats(f"K19 {case}", (mean, var), x)
+            _check_stats(f"K19 {case} running", kra, x, ra)
+        else:
+            _bitwise(f"K19 {case} buffers", list(zip(kra, ra)))
+        del again, want, given
+        dx, ds, db, dres = bn._bwd_kernel(x, y, dy, mean, var, scale, train,
+                                          relu, with_res)
+        again = bn._bwd_kernel(x, y, dy, mean, var, scale, train, relu,
+                               with_res)
+        _bitwise(f"K19 {case} backward twice",
+                 [(a, b) for a, b in zip((dx, ds, db, dres), again)
+                  if a is not None])
+        pdx, pds, pdb, pdres = bn.batch_norm_backward_reference(
+            x, y, dy, mean, var, scale, train=train, relu=relu,
+            residual=with_res)
+        err = max(err, _check_ulp(f"K19 {case} dx", dx, pdx))
+        for name, a, b in (("dscale", ds, pds), ("dbias", db, pdb)):
+            e = _rel_err(a, b)
+            if e > IMAGE_DPARAM_TOL:
+                raise AssertionError(f"K19 {case} {name}: {e:.3e} relative,"
+                                     f" bound {IMAGE_DPARAM_TOL}")
+        if with_res:
+            _bitwise(f"K19 {case} residual gradient", [(dres, pdres)])
+        del again, pdx, pds, pdb, pdres, dx, ds, db, dres
+        ys = [y] + [bn._fwd_kernel(xi, scale, bias, *kra, ri, train, relu)[0]
+                    for xi, ri in zip(xs[1:], res[1:])]
+        big = elt > 100e6
+        row = dict(rows=n_rows, C=C, mode=mode, train=train,
+                   max_abs_err=err, bound_by="bytes",
+                   bound_ms=bytes_ms(fwd_bytes))
+        row["ms"] = timed(lambda i: bn._fwd_kernel(
+            xs[i], scale, bias, *kra, res[i], train, relu), fwd_bytes, big)
+        row["plain_ms"] = device_ms(lambda: bn.batch_norm_reference(
+            x, scale, bias, *pra, train=train, residual=r, relu=relu),
+            calls=1, replays=2)
+        lrm, lrv = ra[0].clone(), ra[1].clone()
+
+        def lib(i, xi=None, s=scale, b=bias):
+            out = F.batch_norm((xs[i] if xi is None else xi).permute(
+                0, 3, 1, 2), lrm, lrv, s, b, training=True, momentum=0.1,
+                eps=bn.EPS)
+            if with_res:
+                out = out + res[i].permute(0, 3, 1, 2)
+            return F.relu(out) if relu else out
+
+        row["library_ms"] = (timed(lib, fwd_bytes, big) if train else None)
+        if train:
+            row["bwd_ms"] = timed(lambda i: bn._bwd_kernel(
+                xs[i], ys[i], dys[i], mean, var, scale, train, relu,
+                with_res), bwd_bytes, big)
+            row["bwd_plain_ms"] = device_ms(
+                lambda: bn.batch_norm_backward_reference(
+                    x, y, dy, mean, var, scale, train=train, relu=relu,
+                    residual=with_res), calls=1, replays=2)
+            row["bwd_bound_ms"] = bytes_ms(bwd_bytes)
+            leaves = [x.clone().requires_grad_(), scale.clone()
+                      .requires_grad_(), bias.clone().requires_grad_()]
+            row["bwd_library_ms"] = library_bwd_ms(
+                lambda xi, s, b: lib(0, xi, s, b), leaves,
+                dy.permute(0, 3, 1, 2))
+            del leaves
+        rows[case] = row
+        log(f"K19 {case} [{B}x{Hh}x{W}, {C}] {mode}"
+            f"{'' if train else ' (eval)'}: y bitwise the plain apply given "
+            f"its statistics (and within one bf16 ulp of the plain version "
+            f"without a residual), dx within one ulp, statistics within "
+            f"{IMAGE_STATS_TOL} of their scale from f64, twice bitwise; "
+            f"forward "
+            f"kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f}, F.batch_norm+relu "
+            + (f"{row['library_ms']:.4f}" if train else "n/a")
+            + f", bound {row['bound_ms']:.4f} (bytes)"
+            + (f"; backward kernel {row['bwd_ms']:.4f}, plain "
+               f"{row['bwd_plain_ms']:.4f}, library "
+               f"{row['bwd_library_ms']:.4f}, bound "
+               f"{row['bwd_bound_ms']:.4f}" if train else ""))
+        del xs, res, dys, ys, x, r, dy, y
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _k20_calls(gen, n, width):
+    """K20 at [n, width]: checked against its plain version; returns (error,
+    the calls to time: fwd(i), bwd(i), plain(), plain_bwd(), lib(i),
+    lib_fn(*leaves), leaves) over sets of inputs."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import layer_norm as ln
+
+    sets = sets_for(2 * n * width * 2)
+    xs = [(torch.randn(n, width, generator=gen, device="cuda") * 2
+           + 0.5).bfloat16() for _ in range(sets)]
+    dys = [torch.randn(n, width, generator=gen, device="cuda").bfloat16()
+           for _ in range(sets)]
+    x, dy = xs[0], dys[0]
+    scale = 1 + 0.3 * torch.randn(width, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(width, generator=gen, device="cuda")
+    y, mean, rstd = ln._fwd_kernel(x, scale, bias)
+    _bitwise("K20 twice", [(y, ln._fwd_kernel(x, scale, bias)[0])])
+    want, pm, pr = ln.layer_norm_reference(x, scale, bias)
+    for name, a, b in (("mean", mean, pm), ("rstd", rstd, pr)):
+        e = float(((a - b).abs() / b.abs().clamp_min(1e-6)).max())
+        if e > IMAGE_STATS_TOL:
+            raise AssertionError(f"K20 {name}: {e:.3e} relative")
+    err = _check_ulp("K20 y", y, want)
+    dx, ds, db = ln._bwd_kernel(x, scale, dy, mean, rstd)
+    _bitwise("K20 backward twice", list(zip(
+        (dx, ds, db), ln._bwd_kernel(x, scale, dy, mean, rstd))))
+    pdx, pds, pdb = ln.layer_norm_backward_reference(x, scale, dy, mean,
+                                                     rstd)
+    err = max(err, _check_ulp("K20 dx", dx, pdx))
+    for name, a, b in (("dscale", ds, pds), ("dbias", db, pdb)):
+        if _rel_err(a, b) > IMAGE_DPARAM_TOL:
+            raise AssertionError(f"K20 {name}: {_rel_err(a, b):.3e}")
+
+    def lib_fn(xi, s, b):
+        return F.layer_norm(xi, (width,), s, b, eps=ln.EPS)
+
+    # F.layer_norm takes weights of x's dtype: the yardstick's are bf16.
+    ws = [t.bfloat16() for t in (scale, bias)]
+    return err, dict(
+        fwd=lambda i: ln._fwd_kernel(xs[i], scale, bias),
+        bwd=lambda i: ln._bwd_kernel(xs[i], scale, dys[i], mean, rstd),
+        plain=lambda: ln.layer_norm_reference(x, scale, bias),
+        plain_bwd=lambda: ln.layer_norm_backward_reference(
+            x, scale, dy, mean, rstd),
+        lib=lambda i: lib_fn(xs[i], *ws), lib_fn=lib_fn,
+        leaves=[t.clone().requires_grad_() for t in (x, *ws)], dy=dy)
+
+
+def _k21_calls(gen, n, width):
+    """K21 at [n, width], as _k20_calls."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import gelu
+
+    sets = sets_for(2 * n * width * 2)
+    xs = [(torch.randn(n, width, generator=gen, device="cuda") * 2
+           ).bfloat16() for _ in range(sets)]
+    dys = [torch.randn(n, width, generator=gen, device="cuda").bfloat16()
+           for _ in range(sets)]
+    x, dy = xs[0], dys[0]
+    b = (0.5 * torch.randn(width, generator=gen, device="cuda")).bfloat16()
+    y = gelu._fwd_kernel(x, b)
+    _bitwise("K21 twice", [(y, gelu._fwd_kernel(x, b))])
+    err = _check_ulp("K21 y", y, gelu.bias_gelu_reference(x, b))
+    dx, db = gelu._bwd_kernel(x, b, dy)
+    _bitwise("K21 backward twice", list(zip((dx, db),
+                                            gelu._bwd_kernel(x, b, dy))))
+    pdx, pdb = gelu.bias_gelu_backward_reference(x, b, dy)
+    err = max(err, _check_ulp("K21 dx", dx, pdx))
+    _check_ulp("K21 dbias", db, pdb)
+
+    def lib_fn(xi, bi):
+        return F.gelu(xi + bi, approximate="tanh")
+
+    return err, dict(
+        fwd=lambda i: gelu._fwd_kernel(xs[i], b),
+        bwd=lambda i: gelu._bwd_kernel(xs[i], b, dys[i]),
+        plain=lambda: gelu.bias_gelu_reference(x, b),
+        plain_bwd=lambda: gelu.bias_gelu_backward_reference(x, b, dy),
+        lib=lambda i: lib_fn(xs[i], b), lib_fn=lib_fn,
+        leaves=[t.clone().requires_grad_() for t in (x, b)], dy=dy)
+
+
+def layer_norm_gelu_rows(gen) -> dict:
+    """K20 at ViT-B/16's [64 x 197, 768] and K21 at its mlp_in [64 x 197,
+    3072], forward and backward, against their plain versions (y, dx
+    within one bf16 ulp; mean, rstd 1e-6 relative; dscale, dbias 1e-5 of
+    their max; K21's dbias one ulp), twice bitwise; timed beside the plain
+    version, the byte bound and a yardstick the port never calls:
+    F.layer_norm(eps=1e-6) and the bias add then F.gelu(approximate=
+    "tanh") (two calls), with their autograd backward."""
+    rows = {}
+    n = VIT_B * VIT_S
+    for tag, width, calls in (("K20", 768, _k20_calls),
+                              ("K21", 3072, _k21_calls)):
+        fwd_bytes, bwd_bytes = 2 * n * width * 2, 3 * n * width * 2
+        err, c = calls(gen, n, width)
+        row = dict(rows=n, width=width, max_abs_err=err, bound_by="bytes",
+                   bound_ms=bytes_ms(fwd_bytes),
+                   ms=timed(c["fwd"], fwd_bytes),
+                   plain_ms=device_ms(c["plain"], calls=2, replays=3),
+                   library_ms=timed(c["lib"], fwd_bytes),
+                   bwd_bound_ms=bytes_ms(bwd_bytes),
+                   bwd_ms=timed(c["bwd"], bwd_bytes),
+                   bwd_plain_ms=device_ms(c["plain_bwd"], calls=2,
+                                          replays=3),
+                   bwd_library_ms=library_bwd_ms(c["lib_fn"], c["leaves"],
+                                                 c["dy"]))
+        rows[tag] = row
+        log(f"{tag} [{n}, {width}] bf16: y, dx within one bf16 ulp, twice "
+            f"bitwise; forward kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound "
+            f"{row['bound_ms']:.4f} (bytes); backward kernel "
+            f"{row['bwd_ms']:.4f}, plain {row['bwd_plain_ms']:.4f}, library "
+            f"{row['bwd_library_ms']:.4f}, bound {row['bwd_bound_ms']:.4f}")
+        del c
+        torch.cuda.empty_cache()
+    return rows
+
+
+def image_attention_ce_rows(gen) -> dict:
+    """K1 and K2 at ViT-B/16's attention (B 64, S 197, 12 heads of 64, no
+    mask) against their plain versions (o within 2e-2, each grad within
+    2e-2 x max |plain|), timed beside SDPA and its backward; K8 at the
+    image step's [256, 1000] f32 logits (loss 1e-5 relative, dlogits 2e-2 x
+    max |plain|), timed beside F.cross_entropy and its backward."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import cross_entropy as ce
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = VIT_B, VIT_S, 12, 64
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+               .bfloat16() for _ in range(3))
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention(*leaves, causal=False)
+    grads = torch.autograd.grad(o, leaves, do)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=False,
+                                                  scale=D ** -0.5)
+    err = float((o.float() - o_ref.float()).abs().max())
+    if err > 2e-2 * (1 + float(o_ref.float().abs().max())):
+        raise AssertionError(f"K1 at ViT's shape: {err}")
+    want = fa.flash_attention_backward_reference(
+        q, k, v, o_ref, lse_ref, do, None, causal=False, scale=D ** -0.5)
+    bwd_err = 0.0
+    for g, w in zip(grads, want):
+        e = _rel_err(g, w)
+        if e > BWD_TOL[torch.bfloat16]:
+            raise AssertionError(f"K2 at ViT's shape: {e}")
+        bwd_err = max(bwd_err, float((g.float() - w.float()).abs().max()))
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2))
+
+    with torch.no_grad():
+        k1 = dict(max_abs_err=err,
+                  ms=device_ms(lambda: fa.flash_attention(q, k, v)),
+                  plain_ms=device_ms(lambda: fa.flash_attention_reference(
+                      q, k, v, causal=False, scale=D ** -0.5), calls=2,
+                      replays=3),
+                  library_ms=device_ms(lambda: sdpa(q, k, v)))
+    k1["bound_ms"], k1["bound_by"] = attention_bound_ms(B, S, S, H, H, D,
+                                                        False, 0)
+    # K2 alone (its two kernels), as the K2 phase times it.
+    o2, lse2 = fa.flash_attention_lse(*leaves, causal=False)
+    o2, lse2 = o2.detach(), lse2.detach()
+    delta, off_t = fa._delta(o2, do, None), fa._offset_tensor(0, q.device)
+    k2 = dict(max_abs_err=bwd_err,
+              ms=device_ms(lambda: fa._bwd_kernel(
+                  q, k, v, do, lse2, delta, off_t, False, D ** -0.5),
+                  calls=2, replays=3),
+              plain_ms=device_ms(lambda: fa.flash_attention_backward_reference(
+                  q, k, v, o_ref, lse_ref, do, None, causal=False,
+                  scale=D ** -0.5), calls=1, replays=2),
+              # Fresh leaves: the checked graph's are bound to the
+              # default stream, which a capture may not wait on.
+              library_ms=library_bwd_ms(
+                  sdpa, [t.clone().requires_grad_() for t in (q, k, v)],
+                  do.transpose(1, 2)))
+    k2["bound_ms"], k2["bound_by"] = backward_bound_ms(B, S, S, H, H, D,
+                                                       False, 0)
+    log(f"K1 at ViT-B/16 (B {B}, S {S}, {H} heads of {D}, full): within "
+        f"{err:.4f} of plain; kernel {k1['ms']:.4f} ms, plain "
+        f"{k1['plain_ms']:.4f}, SDPA {k1['library_ms']:.4f}, bound "
+        f"{k1['bound_ms']:.4f} ({k1['bound_by']}); K2 {k2['ms']:.4f} ms, "
+        f"plain {k2['plain_ms']:.4f}, SDPA backward "
+        f"{k2['library_ms']:.4f}, bound {k2['bound_ms']:.4f} "
+        f"({k2['bound_by']})")
+    del q, k, v, do, leaves, o, grads, o_ref, lse_ref, want, o2, lse2
+    N, V = 256, 1000
+    logits = torch.randn(N, V, generator=gen, device="cuda") * 3
+    labels = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    sums, logz = ce._fwd_kernel(logits, labels, None, 0.0, 0.0)
+    psums, plogz = ce.cross_entropy_reference(logits, labels, None, 0.0, 0.0)
+    if _rel_err(sums[:1], psums[:1]) > 1e-5 or not torch.equal(
+            sums[1:], psums[1:]):
+        raise AssertionError(f"K8 at [256, 1000]: {sums} vs {psums}")
+    g = torch.ones((), device="cuda")
+    d = ce._bwd_kernel(logits, labels, None, logz, g, 0.0, 0.0)
+    pd = ce.cross_entropy_backward_reference(logits, labels, None, plogz, g,
+                                             0.0, 0.0)
+    if _rel_err(d, pd) > 2e-2:
+        raise AssertionError(f"K8 backward at [256, 1000]: {_rel_err(d, pd)}")
+    leaf = logits.clone().requires_grad_()
+    k8 = dict(max_abs_err=float((d - pd).abs().max()),
+              ms=device_ms(lambda: ce._fwd_kernel(logits, labels, None, 0.0,
+                                                  0.0)),
+              plain_ms=device_ms(lambda: ce.cross_entropy_reference(
+                  logits, labels, None, 0.0, 0.0)),
+              library_ms=device_ms(lambda: F.cross_entropy(logits, labels,
+                                                           reduction="sum")),
+              bound_ms=bytes_ms(N * V * 4), bound_by="bytes",
+              bwd_ms=device_ms(lambda: ce._bwd_kernel(
+                  logits, labels, None, logz, g, 0.0, 0.0)),
+              bwd_plain_ms=device_ms(
+                  lambda: ce.cross_entropy_backward_reference(
+                      logits, labels, None, plogz, g, 0.0, 0.0)),
+              bwd_library_ms=library_bwd_ms(
+                  lambda z: F.cross_entropy(z, labels, reduction="sum"),
+                  [leaf], torch.ones((), device="cuda")),
+              bwd_bound_ms=bytes_ms(2 * N * V * 4))
+    log(f"K8 at [{N}, {V}] f32: loss within 1e-5, dlogits within 2e-2 of "
+        f"plain; forward {k8['ms']:.5f} ms, plain {k8['plain_ms']:.5f}, "
+        f"F.cross_entropy {k8['library_ms']:.5f}, bound "
+        f"{k8['bound_ms']:.5f}; backward {k8['bwd_ms']:.5f}, plain "
+        f"{k8['bwd_plain_ms']:.5f}, library {k8['bwd_library_ms']:.5f}, "
+        f"bound {k8['bwd_bound_ms']:.5f}")
+    return {"K1": k1, "K2": k2, "K8": k8}
+
+
+def image_reference_check() -> None:
+    """A resnet-tiny and a ViT of head_dim 64 (K1/K2's width), f32, two
+    adamw train steps on the card against the same steps on the CPU (the
+    plain versions) from the same weights: loss and grad_norm within 1e-4
+    relative, and the card's launches twice image_train_launches_per_step.
+    cuDNN's TF32 is off for it (an f32 convolution runs in TF32 by
+    default) and restored after."""
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    gen = torch.Generator().manual_seed(23)
+    batch = {"inputs": torch.randn(4, 32, 32, 3, generator=gen),
+             "labels": torch.randint(0, 10, (4,), generator=gen)}
+    kw = dict(task="image", learning_rate=1e-2, warmup_steps=1,
+              total_steps=10)
+    counters = image_counters()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, model_kw in (("resnet-tiny", {}), (
+                "vit-tiny", dict(embed_dim=128, num_heads=2, mlp_dim=256))):
+            got, sd = [], None
+            for device in ("cuda", "cpu"):
+                model, cfg = get_model(name, dtype=torch.float32, **model_kw)
+                trainer = Trainer(model, TrainConfig(**kw), device=device)
+                state = trainer.init_state(0)
+                if sd is None:
+                    sd = {k: v.cpu() for k, v in
+                          trainer.model.state_dict().items()}
+                trainer.model.load_state_dict(sd)
+                for _, obj, attr in counters:
+                    setattr(obj, attr, 0)
+                for _ in range(2):
+                    state, m = trainer.step(state, batch)
+                got.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+                if device == "cuda":
+                    launched = {n: getattr(obj, attr)
+                                for n, obj, attr in counters}
+            want = {k: 2 * v for k, v in
+                    image_train_launches_per_step(cfg).items()}
+            if launched != want:
+                raise AssertionError(f"{name} on the card: launches "
+                                     f"{launched}, want {want}")
+            for key in ("loss", "grad_norm"):
+                if abs(got[0][key] - got[1][key]) > 1e-4 * abs(got[1][key]):
+                    raise AssertionError(f"{name} on the card {got[0]}, on "
+                                         f"the CPU {got[1]}")
+            log(f"reference [{name}, f32, 2 adamw steps]: card {got[0]}, "
+                f"CPU {got[1]}: within 1e-4; launches as derived")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def image_kernels_phase():
+    """K19-K21 against their plain versions at ResNet-50's and ViT-B/16's
+    shapes, K1/K2 and K8 at the image shapes, and the small f32 train
+    steps against the CPU (image_reference_check)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = {"K19": batch_norm_rows(gen)}
+    rows.update(layer_norm_gelu_rows(gen))
+    rows.update(image_attention_ce_rows(gen))
+    image_reference_check()
+    return rows
+
+
+#: (registry name, batch, steps) of the image train phases: bench.py's
+#: resnet and vit benches (batch 256 and 64 at 224 x 224).
+IMAGE_TRAIN = (("resnet50", 256, 8), ("vit-b16", 64, 8))
+#: ViT-L/16 (BASELINE config 4's model), run after ViT-B/16 when the
+#: phase has spent under IMAGE_TRAIN_BUDGET_S seconds.
+VIT_L = ("vit-l16", 32, 3)
+IMAGE_TRAIN_BUDGET_S = 60.0
+IMAGE_TRAIN_KW = dict(task="image", warmup_steps=10, total_steps=1000)
+IMAGE_KERNELS = dict(
+    TRAIN_KERNELS, K19=("::bn_",), K20=("::ln_",),
+    K21=("::gelu_fwd", "::gelu_bwd", "::gelu_dbias"))
+
+
+def forward_flops(model, images) -> float:
+    """Model FLOPs of one forward pass (2 a multiply-add) from the shapes
+    the Conv and Dense products see (output elements times the weight's
+    inputs an output element): a forward hook on each Conv, and each
+    Dense's ``product`` wrapped for the call, since a ViT's mlp_in calls
+    ``product`` without ``forward`` (K21 adds its bias). Plus a ViT's
+    attention products (2 x 2 S^2 Dh a head a layer)."""
+    from kubeflow_tpu_torch.models.vision import Conv, Dense
+    from kubeflow_tpu_torch.models.vit import ViT
+
+    total = [0.0]
+
+    def count(mod, args, out):
+        total[0] += 2.0 * out.numel() * mod.weight[0].numel()
+
+    def counted(mod):
+        product = mod.product
+
+        def wrapped(x):
+            out = product(x)
+            total[0] += 2.0 * out.numel() * mod.weight.shape[1]
+            return out
+        return wrapped
+
+    convs = [m for m in model.modules() if isinstance(m, Conv)]
+    denses = [m for m in model.modules() if isinstance(m, Dense)]
+    hooks = [m.register_forward_hook(count) for m in convs]
+    for m in denses:
+        m.product = counted(m)
+    try:
+        with torch.no_grad():
+            model(images, train=False)
+    finally:
+        for h in hooks:
+            h.remove()
+        for m in denses:
+            del m.product
+    if isinstance(model, ViT):
+        c = model.cfg
+        S = c.num_patches + 1
+        total[0] += c.num_layers * 2 * 2.0 * images.shape[0] * S * S \
+            * c.embed_dim
+    return total[0]
+
+
+def train_image_phase(name: str, batch_size: int, steps: int,
+                      profile: bool = True) -> dict:
+    """``name`` from the registry at its published width, random weights
+    from seed 0, through Trainer(task="image") (bench.py's TrainConfig)
+    on one batch of synthetic_images (seed 0, 224 x 224) moved to the
+    card once and reused, as bench.py does, for ``steps`` steps: every
+    step's loss and gradient norm finite, its launches (counts zeroed just
+    before it, read just after) as image_train_launches_per_step derives
+    them, and the model's buffers (a ResNet's running statistics) moved;
+    the loss falls (from 3 steps on: step 1 updates at lr 0); then one
+    evaluate batch (finite loss). Prints the
+    median synchronised step of steps 2 on, images/s, MFU (FLOPs from
+    forward_flops, x 3 for training, over 989 TFLOP/s), the FLOPs an
+    image and the peak device memory; with ``profile`` one profiled step
+    by kernel (cuDNN's convolutions summed by op, K19-K21, max-pool, K1,
+    K2, K5, K8)."""
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.train.data import (
+        SyntheticImageConfig,
+        synthetic_images,
+    )
+    from kubeflow_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.device("cuda"):
+        model, cfg = get_model(name)
+    trainer = Trainer(model, TrainConfig(**IMAGE_TRAIN_KW))
+    state = trainer.init_state(0)
+    host = next(synthetic_images(SyntheticImageConfig(
+        batch_size=batch_size, image_size=224, num_classes=1000, seed=0)))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    want = image_train_launches_per_step(cfg)
+    counters = image_counters()
+    record = []
+    for i in range(steps):
+        before = {n: b.clone() for n, b in state.extra_vars.items()}
+        for _, obj, attr in counters:
+            setattr(obj, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {n: getattr(obj, attr) for n, obj, attr in counters}
+        if not (np.isfinite(loss) and np.isfinite(norm)):
+            raise AssertionError(f"{name} step {i + 1}: loss {loss}, grad "
+                                 f"norm {norm}")
+        if got != want:
+            raise AssertionError(f"{name} step {i + 1} launches {got}, want "
+                                 f"{want}")
+        if any(torch.equal(b, state.extra_vars[n])
+               for n, b in before.items()):
+            raise AssertionError(f"{name} step {i + 1}: a running statistic "
+                                 "did not move")
+        record.append(dict(ms=ms, loss=loss, grad_norm=norm,
+                           accuracy=float(m["accuracy"])))
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in record]
+    # Step 1 updates at the warmup's lr(0) = 0, so step 2's loss is step
+    # 1's: a falling loss shows from step 3 on.
+    if steps >= 3 and not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    ev = trainer.evaluate(state, [host])
+    if not np.isfinite(ev["loss"]):
+        raise AssertionError(f"{name} evaluate: {ev}")
+    flops = forward_flops(trainer.model, batch["inputs"]) / batch_size
+    step_ms = float(np.median([r["ms"] for r in record[1:]]))
+    img_s = batch_size / (step_ms / 1e3)
+    mfu = 3 * flops * img_s / PEAK_BF16_FLOPS
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"train {name}: {n_params / 1e6:.2f} M parameters, batch "
+        f"{batch_size} x 224 x 224; losses " + " ".join(
+            f"{x!r}" for x in losses) + "; grad norms " + " ".join(
+            f"{r['grad_norm']:.4f}" for r in record) + "; step ms "
+        + " ".join(f"{r['ms']:.1f}" for r in record)
+        + "; launches a step (asserted each step): " + ", ".join(
+            f"{k} {v}" for k, v in want.items() if v)
+        + f"; evaluate {ev}")
+    log(f"train {name}: median synchronised step {step_ms:.2f} ms (steps "
+        f"2-{steps}), {img_s:.1f} images/s, MFU {mfu:.4f} ({flops / 1e9:.3f}"
+        f" GFLOP an image forward, x 3 trained), peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    out = dict(step_ms=step_ms, img_s=img_s, mfu=mfu, peak=peak,
+               flops_per_image=flops, losses=losses, params=n_params,
+               batch=batch_size,
+               launches={k: v * steps for k, v in want.items()})
+    if profile:
+        bd = train_breakdown(trainer, state, batch, tags=IMAGE_KERNELS)
+        ops = {}
+        for by in bd["by_op"].values():
+            for op, v in by.items():
+                ops[op] = ops.get(op, 0.0) + v
+        conv = sum(v for op, v in ops.items() if "convolution" in op)
+        pool = sum(v for op, v in ops.items() if "max_pool" in op)
+        log(f"  {name} profiled step: cuDNN convolutions (forward and "
+            f"backward, by op) {conv:.2f} ms, max-pool {pool:.2f} ms, "
+            + ", ".join(f"{t} {bd['by_kernel'][t][0]:.2f} ms over "
+                        f"{bd['by_kernel'][t][1]} kernels"
+                        for t in ("K1", "K2", "K5", "K8", "K19", "K20",
+                                  "K21")))
+        out.update(breakdown=bd, conv_ms=conv, pool_ms=pool)
+    out["k5"] = k5_image_row(trainer, state)
+    del trainer, state, batch, model
+    return out
+
+
+def k5_image_row(trainer, state) -> dict:
+    """K5 (norm, then the clipped adamw update) over the model's f32
+    parameters with random f32 gradients and its optimizer state: timed
+    (CUDA-graph replays; the parameters move, which the phase no longer
+    reads) beside its plain version and its byte bound (the norm reads g:
+    4 bytes a parameter; the update reads g and reads and writes p, mu and
+    nu, all f32: 28)."""
+    from kubeflow_tpu_torch.ops import optimizer as fused
+
+    params = list(state.params.values())
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    grads = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+             for p in params]
+    mu = list(state.opt_state["mu"].values())
+    nu = list(state.opt_state["nu"].values())
+    hyper = fused.Hyper(max_norm=1.0, b1=0.9, b2=0.95, bc1=0.1, bc2=0.05,
+                        weight_decay=0.1, lr=1e-4)
+    norm = fused.global_norm(grads)
+    n = sum(p.numel() for p in params)
+
+    @torch.no_grad()
+    def kernel():
+        fused.update("adamw", params, grads, mu, nu,
+                     fused.global_norm(grads), hyper)
+
+    @torch.no_grad()
+    def plain():
+        fused.update_reference("adamw", params, grads, mu, nu,
+                               fused.global_norm_reference(grads), hyper)
+
+    row = dict(tensors=len(params), params=n, ms=device_ms(kernel, calls=2,
+                                                          replays=3),
+               plain_ms=device_ms(plain, calls=1, replays=2),
+               bound_ms=bytes_ms(32 * n), bound_by="bytes")
+    log(f"  K5 over {len(params)} f32 tensors ({n / 1e6:.2f} M parameters):"
+        f" norm + adamw update {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} (bytes); norm "
+        f"{float(norm):.5f}")
+    del grads
+    return row
+
+
+def train_images_phase() -> dict:
+    """train_image_phase for IMAGE_TRAIN, then ViT-L/16 (VIT_L) when the
+    phase has spent under IMAGE_TRAIN_BUDGET_S seconds (it says which it
+    ran)."""
+    t0 = time.time()
+    out = {name: train_image_phase(name, b, steps)
+           for name, b, steps in IMAGE_TRAIN}
+    spent = time.time() - t0
+    if spent < IMAGE_TRAIN_BUDGET_S:
+        name, b, steps = VIT_L
+        out[name] = train_image_phase(name, b, steps, profile=False)
+        log(f"train images: ran {name} (batch {b}, {steps} steps) after "
+            f"{spent:.1f} s")
+    else:
+        log(f"train images: did not run {VIT_L[0]} ({spent:.1f} s spent, "
+            f"budget {IMAGE_TRAIN_BUDGET_S} s)")
+    return out
+
+
+
+def image_kernel_entries(rows, images, k1, k2, k5, k8) -> list:
+    """K19-K21's entries of the kernels line (K19 at ResNet-50's stem, its
+    other cases under <case>_ keys; K20 and K21 at ViT-B/16's shapes; each
+    with its backward under bwd_ keys, its launches over its train phase's
+    steps and its device ms in that phase's profiled step), and the image
+    shapes' figures of K1, K2, K5 and K8 under image_ keys."""
+    res, vit = images["resnet50"], images["vit-b16"]
+
+    def entry(tag, name, source, replaces, row, run):
+        e = {"name": name, "route": "cuda",
+             "source": f"kubeflow_tpu_torch/ops/csrc/{source}",
+             "replaces": replaces,
+             "launches": run["launches"][f"{tag} forward"]
+             + run["launches"][f"{tag} backward"],
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        e.update({k: v for k, v in row.items() if k not in e})
+        e["step_ms"], e["step_kernels"] = run["breakdown"]["by_kernel"][tag]
+        return e
+
+    k19 = entry("K19", "batch_norm", "batch_norm.cu",
+                "kubeflow_tpu/models/resnet.py:66", rows["K19"]["stem"], res)
+    for case, row in rows["K19"].items():
+        if case != "stem":
+            k19.update({f"{case}_{k}": v for k, v in row.items()})
+    k20 = entry("K20", "layer_norm", "layer_norm.cu",
+                "kubeflow_tpu/models/vit.py:80", rows["K20"], vit)
+    k21 = entry("K21", "bias_gelu", "gelu.cu",
+                "kubeflow_tpu/models/vit.py:96", rows["K21"], vit)
+    for tag, e in (("K1", k1), ("K2", k2), ("K8", k8)):
+        e.update({f"image_{k}": v for k, v in rows[tag].items()})
+    k1["image_launches"] = vit["launches"]["K1 forward"]
+    k2["image_launches"] = vit["launches"]["K1 backward"]
+    k8["image_launches"] = sum(r["launches"]["K8 forward"]
+                               + r["launches"]["K8 backward"]
+                               for r in images.values())
+    for name, r in images.items():
+        k5.update({f"image_{name}_{k}": v for k, v in r["k5"].items()})
+        k5[f"image_{name}_launches"] = (r["launches"]["K5 norm"]
+                                        + r["launches"]["K5 update"])
+        if "breakdown" in r:
+            k5[f"image_{name}_step_ms"] = r["breakdown"]["by_kernel"]["K5"][0]
+    return [k19, k20, k21]
+
+
 def grad_check():
     """One step's grads of a 2-layer model of the training width, flash
     attention (K1 + K2) against the plain attention, same bf16 weights and
@@ -5181,7 +6028,8 @@ def main() -> int:
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                "decode_attention.cu", "int8_linear.cu", "optimizer.cu",
                "rms_norm.cu", "rope.cu", "cross_entropy.cu", "swiglu.cu",
-               "adafactor.cu", "moe.cu", "int8_experts.cu")
+               "adafactor.cu", "moe.cu", "batch_norm.cu", "layer_norm.cu",
+               "gelu.cu", "int8_experts.cu")
     # The native loader's library goes beside the kernels (an ignored
     # directory of the checkout), built by g++ alongside them.
     native_cache = os.path.join(_build.BUILD_DIR, "native")
@@ -5229,8 +6077,8 @@ def main() -> int:
                 required=("UTMALDG", "HMMA"), forbidden=("LDGSTS",))
     check_build(libs["int8_experts.cu"], {"int8_experts_tiled": 3},
                 forbidden=("LDGSTS",))
-    # K5-K14: element-wise, row and index kernels (no tensor cores); no
-    # spills.
+    # K5-K14 and K19-K21: element-wise, row and index kernels (no tensor
+    # cores); no spills.
     for src in sources[4:-1]:
         check_build(libs[src], {})
     seconds = {"build": time.time() - t0}
@@ -5253,6 +6101,7 @@ def main() -> int:
     moe_rows = phase("K12-K14", moe_phase)
     k15_rows = phase("K15", int8_experts_phase)
     moe_bwd_rows = phase("K16-K18", moe_backward_phase)
+    image_rows = phase("K19-K21", image_kernels_phase)
     serve = phase("serve bf16", serve_phase, "", "", True)
     serve_int8 = phase("serve int8 KV", serve_phase, "int8")
     serve_w8 = phase("serve int8 weights", serve_phase, "", "int8")
@@ -5288,6 +6137,7 @@ def main() -> int:
     policies = phase("train fused/policies", train_policies_phase)
     ada = phase("train adafactor", adafactor_train_phase, train["peak"])
     moe_train = phase("train mixtral", train_mixtral_phase)
+    images = phase("train images", train_images_phase)
     phase("grad check", grad_check)
     log("train summary [unfused, qkv_attn]: median step "
         f"{train['step_ms_median']:.1f} ms, MFU {train['mfu']:.4f}, peak "
@@ -5320,6 +6170,11 @@ def main() -> int:
                 else None)
         + f", torch.bmm {moe_train['bmm_ms']:.2f} of {bd['busy_ms']:.2f} ms "
         "busy")
+    for name, r in images.items():
+        log(f"train summary [{name}, batch {r['batch']}]: median step "
+            f"{r['step_ms']:.2f} ms, {r['img_s']:.1f} images/s, MFU "
+            f"{r['mfu']:.4f}, peak {r['peak'] / 1e9:.2f} GB, "
+            f"{r['flops_per_image'] / 1e9:.3f} GFLOP an image forward")
     log("serve summary [fused, int8 weights]: decode "
         f"{serve_fused['fused']['step_ms']:.3f} ms/step (unfused, same "
         f"weights: {serve_fused['unfused']['step_ms']:.3f}); burst "
@@ -5604,9 +6459,12 @@ def main() -> int:
         tag = {"moe_route": "K12", "moe_gather": "K13",
                "moe_combine": "K14"}[e["name"]]
         e["train_launches"] = moe_train["launches"][tag]
+    image_entries = image_kernel_entries(image_rows, images, fwd, bwd, k5,
+                                         k8)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k7, k8, k9,
                                   k10, k11, *moe_entries, k15,
-                                  *bwd_entries]}), flush=True)
+                                  *bwd_entries, *image_entries]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

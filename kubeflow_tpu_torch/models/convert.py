@@ -25,6 +25,23 @@ embed, norms   as they are            as they are
 subtree ``moe`` and the port's module ``mlp`` (``MoeMlp``):
 :func:`mixtral_params_from_jax` and :func:`mixtral_params_to_jax`.
 
+The image models keep the JAX module names (``stage0_block0.conv1``,
+``block_0.q``, ...) and convert leaf by leaf
+(:func:`resnet_params_from_jax`, :func:`vit_params_from_jax` and their
+inverses):
+
+=================  =====================  ======================
+parameter          JAX                    port
+=================  =====================  ======================
+conv kernels       [kh, kw, in, out]      [out, in, kh, kw]
+Dense kernels      [in, out]              [out, in]
+ViT q/k/v          [E, H, Dh]             [H*Dh, E]; bias [H*Dh]
+ViT out            [H, Dh, E]             [E, H*Dh]
+BN scale, bias     [C]                    parameters [C]
+BN mean, var       batch_stats [C]        buffers [C]
+cls, pos_embed     as they are            as they are
+=================  =====================  ======================
+
 ``qkv_proj`` (``fused_qkv`` with H % Hkv == 0, G = H / Hkv) and
 ``gate_up_proj`` (``fused_gate_up``) take the place of the projections
 they fuse; their rows keep the JAX kernel's output order.
@@ -232,3 +249,104 @@ def quantized_params_from_jax(q_tree, scale_tree,
                 sd[f"{name}.{key}"] = _tensor(
                     np.ascontiguousarray(np.swapaxes(np.asarray(a), 1, 2)))
     return sd
+
+
+def _flat(tree, prefix=()):
+    """(path, leaf) of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _nest(flat) -> dict:
+    out: dict = {}
+    for path, v in flat:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def _image_leaf(module: str, leaf: str, a: np.ndarray) -> np.ndarray:
+    """A JAX image-model leaf in the port's layout (the table above)."""
+    if leaf == "kernel":
+        if a.ndim == 4:                                   # conv
+            return a.transpose(3, 2, 0, 1)
+        if a.ndim == 3 and module.endswith("out"):        # [H, Dh, E]
+            return a.reshape(-1, a.shape[-1]).T
+        return a.reshape(a.shape[0], -1).T                # [E, ...]
+    if leaf == "bias":
+        return a.reshape(-1)
+    return a
+
+
+def _image_from_jax(tree, stats=None) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for path, a in _flat(tree["params"] if "params" in tree else tree):
+        module, leaf = ".".join(path[:-1]), path[-1]
+        name = (f"{module}.weight" if leaf == "kernel" else
+                ".".join(path))
+        sd[name] = _tensor(np.ascontiguousarray(
+            _image_leaf(module, leaf, np.asarray(a))))
+    if stats is not None:
+        for path, a in _flat(stats.get("batch_stats", stats)):
+            sd[".".join(path)] = _tensor(np.asarray(a))
+    return sd
+
+
+def resnet_params_from_jax(params, batch_stats=None
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX ResNet ``params`` (and ``batch_stats``) trees -> the port's
+    state_dict (CPU tensors; the running statistics as buffers)."""
+    return _image_from_jax(params, batch_stats)
+
+
+def vit_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX ViT ``params`` tree -> the port's state_dict (CPU tensors)."""
+    return _image_from_jax(params)
+
+
+def resnet_params_to_jax(state_dict: Dict[str, torch.Tensor]):
+    """The port's ResNet state_dict -> ({"params": ...}, {"batch_stats":
+    ...}) in the JAX layouts (numpy)."""
+    params, stats = [], []
+    for name, t in state_dict.items():
+        a = _array(t)
+        *module, leaf = name.split(".")
+        if leaf in ("mean", "var"):
+            stats.append((tuple(name.split(".")), a))
+        elif leaf == "weight":
+            params.append((tuple(module) + ("kernel",), np.ascontiguousarray(
+                a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T)))
+        else:
+            params.append((tuple(module) + (leaf,), a))
+    return {"params": _nest(params)}, {"batch_stats": _nest(stats)}
+
+
+def vit_params_to_jax(state_dict: Dict[str, torch.Tensor], cfg) -> dict:
+    """The port's ViT state_dict -> {"params": ...} in the JAX layouts
+    (numpy; ``cfg`` gives the heads of the DenseGeneral kernels)."""
+    H, E = cfg.num_heads, cfg.embed_dim
+    heads = {"q", "k", "v"}
+    params = []
+    for name, t in state_dict.items():
+        a = _array(t)
+        *module, leaf = name.split(".")
+        last = module[-1] if module else ""
+        if leaf == "weight":
+            if a.ndim == 4:
+                a = a.transpose(2, 3, 1, 0)
+            elif last in heads:
+                a = a.T.reshape(E, H, -1)
+            elif last == "out":
+                a = a.T.reshape(H, -1, E)
+            else:
+                a = a.T
+            leaf = "kernel"
+        elif leaf == "bias" and last in heads:
+            a = a.reshape(H, -1)
+        params.append((tuple(module) + (leaf,), np.ascontiguousarray(a)))
+    return {"params": _nest(params)}

@@ -2,8 +2,10 @@
 same surface and the port's own on-disk format.
 
 Layout under ``directory``: one numeric directory per saved step holding
-``params.pt`` (the model's state dict), ``opt_state.pt`` (the optimizer's
-moments) and ``meta.json`` (step and optimizer count), written
+``params.pt`` (the model's parameters), ``opt_state.pt`` (the optimizer's
+moments), ``extra_vars.pt`` where the state has any (an image model's
+BatchNorm running statistics, so a resumed ResNet keeps them) and
+``meta.json`` (step and optimizer count), written
 (``torch.save``) into a temporary directory that is renamed into place
 only after a ``COMPLETE`` marker is written last. A save torn by a crash
 leaves a temporary directory or a step directory without the marker, and
@@ -85,6 +87,9 @@ class CheckpointService:
             "params": _to_host(state.params),
             "opt_state": _to_host({k: v for k, v in state.opt_state.items()
                                    if k != "count"}),
+            # A state without extra variables (an LM's; any object with
+            # params, opt_state and step) saves none.
+            "extra_vars": _to_host(getattr(state, "extra_vars", {})),
             "meta": {"step": int(state.step),
                      "count": int(state.opt_state.get("count", state.step))},
         }
@@ -101,6 +106,9 @@ class CheckpointService:
             os.makedirs(tmp)
             torch.save(payload["params"], os.path.join(tmp, "params.pt"))
             torch.save(payload["opt_state"], os.path.join(tmp, "opt_state.pt"))
+            if payload["extra_vars"]:
+                torch.save(payload["extra_vars"],
+                           os.path.join(tmp, "extra_vars.pt"))
             with open(os.path.join(tmp, "meta.json"), "w") as f:
                 json.dump(payload["meta"], f)
             with open(os.path.join(tmp, _MARKER), "w") as f:
@@ -146,9 +154,9 @@ class CheckpointService:
 
     def restore_latest(self, state: TrainState) -> Optional[TrainState]:
         """Restore the newest complete checkpoint INTO ``state``'s tensors
-        (the model's parameters and the optimizer moments, in place, on
-        their devices) and return it with the saved step; None when there
-        is none."""
+        (the model's parameters, the optimizer moments and the extra
+        variables, in place, on their devices) and return it with the
+        saved step; None when there is none."""
         self.wait()
         step = self.latest_step()
         if step is None:
@@ -158,9 +166,13 @@ class CheckpointService:
         _copy_into(state.params, self._load(step, "params.pt"))
         moments = {k: v for k, v in state.opt_state.items() if k != "count"}
         _copy_into(moments, self._load(step, "opt_state.pt"))
+        extra = getattr(state, "extra_vars", {})
+        if extra:
+            _copy_into(extra, self._load(step, "extra_vars.pt"))
         log.info("checkpoint restored", kv={"step": step})
         return TrainState(step=meta["step"], params=state.params,
-                          opt_state={**moments, "count": meta["count"]})
+                          opt_state={**moments, "count": meta["count"]},
+                          extra_vars=extra)
 
     def restore_params_latest(self) -> Optional[Dict[str, Any]]:
         """{"params": state dict (CPU tensors), "step": int} of the newest

@@ -1,6 +1,6 @@
 """Data pipelines, the port's copy of ``kubeflow_tpu.train.data``'s
-numpy-only synthetic token stream (``synthetic_images`` waits for the
-image-model slice).
+numpy-only synthetic streams: tokens (``synthetic_text``) and labelled
+images (``synthetic_images``), the same numpy calls in the same order.
 
 Deterministic synthetic data keeps training, benchmarking and HPO
 self-contained and reproducible: the same seed gives the same batches as
@@ -41,3 +41,29 @@ def synthetic_text(cfg: SyntheticTextConfig) -> Iterator[Dict[str, np.ndarray]]:
             cur = nxt
         batch = np.concatenate(toks, axis=1).astype(np.int32)
         yield {"inputs": batch[:, : cfg.seq_len + 1]}
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticImageConfig:
+    batch_size: int = 32
+    image_size: int = 224
+    num_classes: int = 1000
+    seed: int = 0
+
+
+def synthetic_images(cfg: SyntheticImageConfig
+                     ) -> Iterator[Dict[str, np.ndarray]]:
+    """Labelled synthetic images with a class-dependent mean (a learnable
+    signal). Each batch is {"inputs": float32 [batch_size, image_size,
+    image_size, 3] (NHWC, the JAX layout), "labels": int32 [batch_size]}."""
+    rng = np.random.default_rng(cfg.seed)
+    while True:
+        labels = rng.integers(0, cfg.num_classes, size=cfg.batch_size)
+        base = (labels[:, None, None, None] % 16) / 16.0 - 0.5
+        imgs = base + rng.normal(
+            0, 0.5, size=(cfg.batch_size, cfg.image_size, cfg.image_size, 3)
+        )
+        yield {
+            "inputs": imgs.astype(np.float32),
+            "labels": labels.astype(np.int32),
+        }

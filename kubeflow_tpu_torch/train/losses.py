@@ -11,6 +11,9 @@ from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.ops.cross_entropy import cross_entropy_sums
 
+#: The logit of a padded class (finite in bf16 and f32; exp underflows).
+_NO_CLASS = -1e30
+
 
 def cross_entropy_stats(
     logits: torch.Tensor,
@@ -26,8 +29,15 @@ def cross_entropy_stats(
     ``ops/cross_entropy.py``): ``hits / count`` is
     :func:`softmax_accuracy`."""
     V = logits.shape[-1]
+    logits = logits.reshape(-1, V)
+    if logits.is_cuda and V % 8 and label_smoothing == 0.0:
+        # K8 reads rows in 16-byte chunks (V a multiple of 8): pad the
+        # classes with a logit whose exp underflows to 0 and that is never
+        # the argmax nor a label. Without smoothing (its mean runs over V)
+        # nothing else reads them; the pad's backward drops their gradient.
+        logits = F.pad(logits, (0, -V % 8), value=_NO_CLASS)
     s_nll, s_w, s_hit = cross_entropy_sums(
-        logits.reshape(-1, V), labels,
+        logits, labels,
         None if mask is None else mask.float(),
         z_loss_weight=z_loss_weight, label_smoothing=label_smoothing)
     count = s_w.clamp_min(1.0)

@@ -21,7 +21,14 @@ indexes steps and clips differently):
   adds it: ``aux_loss_weight`` (the TrainConfig's, else the model
   config's) times the layers' mean aux (``Llama.forward(return_aux=
   True)``), per microbatch; ``aux_loss`` reports the mean, and eval
-  leaves it out.
+  leaves it out;
+- ``task="image"`` trains a classifier (``models/resnet.py``,
+  ``models/vit.py``) on {"inputs": [B, H, W, 3], "labels": [B]}
+  batches: the cross-entropy of ``model(images, train=True)`` without
+  z-loss, accumulated weighted by rows; the model's buffers (a ResNet's
+  BatchNorm running statistics, the JAX ``batch_stats``) are the state's
+  ``extra_vars``, updated in place by each microbatch's forward in turn,
+  and eval normalises with them (``train=False``).
 
 The port updates the model's parameters IN PLACE (no second copy of the
 parameters or of the updates is held): on the card every tensor in one
@@ -104,7 +111,7 @@ class TrainConfig:
     b1: float = 0.9
     b2: float = 0.95
     z_loss_weight: float = 1e-4
-    # "lm" (next-token); "image" waits for the image-model slice.
+    # "lm" (next-token) or "image" (classification) step semantics.
     task: str = "lm"
     # MoE aux loss weight; 0 takes the model config's (Mixtral's 0.02).
     aux_loss_weight: float = 0.0
@@ -236,10 +243,15 @@ class Optimizer:
 @dataclasses.dataclass
 class TrainState:
     """step: updates applied so far; params: the model's own parameters by
-    state-dict name (updated in place); opt_state: the optimizer's."""
+    state-dict name (updated in place); opt_state: the optimizer's;
+    extra_vars: the model's non-parameter state by buffer name (an image
+    model's BatchNorm running statistics; the JAX ``extra_vars``), empty
+    for LMs, updated in place by the training forward."""
     step: int
     params: Dict[str, torch.Tensor]
     opt_state: OptState
+    extra_vars: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
 
 
 class Trainer:
@@ -247,11 +259,20 @@ class Trainer:
 
     def __init__(self, model: torch.nn.Module, train_cfg: TrainConfig,
                  device: DeviceLike = None):
-        if train_cfg.task != "lm":
-            raise NotImplementedError(
-                f"TrainConfig.task={train_cfg.task!r} is not ported yet "
-                "(the image-model slice); the port trains LMs")
+        if train_cfg.task not in ("lm", "image"):
+            raise ValueError(f"unknown task {train_cfg.task!r} (lm | image)")
         model_cfg = getattr(model, "cfg", None)
+        if train_cfg.task == "image":
+            if train_cfg.optimizer == "adafactor":
+                raise NotImplementedError(
+                    "adafactor on an image model: models/layout.py::"
+                    "jax_leaves describes the LM leaves only, and optax "
+                    "factors a JAX [E, H, Dh] kernel otherwise than the "
+                    "port's [H*Dh, E] (ROADMAP Queue 1 item 6e)")
+            if getattr(model_cfg, "dropout", 0.0) > 0:
+                raise ValueError(
+                    "dropout > 0: the JAX trainer passes no dropout rng, so "
+                    "flax refuses the step; train with dropout=0")
         if getattr(model_cfg, "router_jitter", 0.0) > 0:
             raise NotImplementedError(
                 "router jitter (router_jitter > 0) is not ported yet "
@@ -283,8 +304,11 @@ class Trainer:
         params = dict(self.model.named_parameters())
         n = sum(p.numel() for p in params.values())
         log.info("initialised model", kv={"params": f"{n / 1e6:.1f}M"})
+        extra = (dict(self.model.named_buffers())
+                 if self.cfg.task == "image" else {})
         return TrainState(step=0, params=params,
-                          opt_state=self.optimizer.init(params))
+                          opt_state=self.optimizer.init(params),
+                          extra_vars=extra)
 
     # ---------------- step ----------------
 
@@ -320,25 +344,48 @@ class Trainer:
                     out, labels, mask=mask, z_loss_weight=z_loss_weight)
         return loss, hits / count, aux
 
+    def _image_ce(self, batch: Dict[str, torch.Tensor], *, train: bool):
+        """Image forward + cross-entropy (no z-loss) shared by the train
+        loss and eval: (loss, accuracy, None). ``train``: batch statistics,
+        the running ones updated; else the running ones."""
+        images = batch["inputs"].to(self.device, non_blocking=True)
+        labels = batch["labels"].to(self.device).long()
+        with record_function("forward"):
+            logits = self.model(images, train=train)
+        with record_function("loss"):
+            loss, count, hits = cross_entropy_stats(logits, labels)
+        return loss, hits / count, None
+
     def _grads(self, params: Dict[str, torch.Tensor], batch):
         """(loss, accuracy, aux, grads). As the JAX trainer's ``_loss_lm``:
         with a positive aux weight the loss gains weight x the layers' mean
-        aux loss, which is reported (0 without one)."""
-        loss, accuracy, aux = self._lm_ce(
-            batch, z_loss_weight=self.cfg.z_loss_weight,
-            with_aux=self.aux_loss_weight > 0)
+        aux loss, which is reported (0 without one); ``_loss_image``: the
+        classifier's cross-entropy."""
+        if self.cfg.task == "image":
+            loss, accuracy, aux = self._image_ce(batch, train=True)
+        else:
+            loss, accuracy, aux = self._lm_ce(
+                batch, z_loss_weight=self.cfg.z_loss_weight,
+                with_aux=self.aux_loss_weight > 0)
         if aux is None:
             aux = torch.zeros((), device=self.device)
         else:
             loss = loss + self.aux_loss_weight * aux
         with record_function("backward"):
             grads = torch.autograd.grad(loss, list(params.values()))
+        # cuDNN returns a convolution's weight gradient channels-last; the
+        # optimizer reads every gradient in its parameter's contiguous
+        # layout (a no-op for the rest).
+        grads = [g.contiguous() for g in grads]
         return loss.detach(), accuracy, aux.detach(), dict(zip(params, grads))
 
     def _token_weight(self, mb: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """A microbatch's weight: its valid tokens, or (image) its rows."""
+        x = mb["inputs"]
+        if self.cfg.task == "image":
+            return torch.tensor(float(x.shape[0]), device=self.device)
         if mb.get("mask") is not None:
             return mb["mask"][:, 1:].to(self.device).float().sum()
-        x = mb["inputs"]
         return torch.tensor(float(x.shape[0] * (x.shape[1] - 1)),
                             device=self.device)
 
@@ -353,7 +400,9 @@ class Trainer:
         else:
             # Microbatches one after another; grads accumulate in f32,
             # each microbatch (and its metrics) weighted by its count of
-            # valid tokens, so the result is the full batch's masked mean.
+            # valid tokens (image: rows), so the result is the full batch's
+            # masked mean; a BatchNorm's running statistics thread through
+            # the microbatches in order.
             n = batch["inputs"].shape[0]
             if n % K:
                 raise ValueError(f"batch dim {n} not divisible by "
@@ -380,7 +429,8 @@ class Trainer:
         metrics = {"loss": loss, "grad_norm": grad_norm,
                    "accuracy": accuracy, "aux_loss": aux}
         return TrainState(step=state.step + 1, params=params,
-                          opt_state=opt_state), metrics
+                          opt_state=opt_state,
+                          extra_vars=state.extra_vars), metrics
 
     # ---------------- eval ----------------
 
@@ -388,14 +438,18 @@ class Trainer:
     def eval_step(self, state: TrainState,
                   batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Cross-entropy without z-loss or the aux term (optimisation
-        terms, not model quality) and accuracy; nothing is updated."""
-        loss, accuracy, _ = self._lm_ce(batch, z_loss_weight=0.0)
+        terms, not model quality) and accuracy; nothing is updated (an
+        image model normalises with its running statistics)."""
+        if self.cfg.task == "image":
+            loss, accuracy, _ = self._image_ce(batch, train=False)
+        else:
+            loss, accuracy, _ = self._lm_ce(batch, z_loss_weight=0.0)
         return {"loss": loss, "accuracy": accuracy}
 
     def evaluate(self, state: TrainState,
                  batches: Iterable[Dict[str, Any]]) -> Dict[str, float]:
         """Mean metrics over host batches (numpy or tensors), plus
-        perplexity."""
+        perplexity for the LM task."""
         sums: Dict[str, float] = {}
         n = 0
         for b in batches:
@@ -407,6 +461,7 @@ class Trainer:
         if n == 0:
             return {}
         out = {k: v / n for k, v in sums.items()}
-        out["perplexity"] = math.exp(min(out["loss"], 30.0))
+        if self.cfg.task == "lm":
+            out["perplexity"] = math.exp(min(out["loss"], 30.0))
         return out
 

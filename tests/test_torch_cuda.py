@@ -56,7 +56,18 @@ plain versions, drops included; a mixtral-tiny train step on the card
 against the CPU step from the same weights (f32: loss, aux and grad norm
 within 1e-4 relative, the sums run in other orders), every policy's
 gradients on the card bitwise "full"'s, and no launch of K10's combine
-mode under grad.
+mode under grad. The image slice's kernels against their plain versions
+(flax semantics): K19 (BatchNorm, with the residual add and ReLU) y
+bitwise the plain apply given its statistics and, without a residual,
+within one bf16 ulp of the plain version, dx within one ulp, the
+statistics and running buffers within 1e-6 of E[x^2] (mean: of its square
+root) from their f64 values, dscale and dbias within 1e-5 x max |plain|, the residual's gradient bitwise; K20 (LayerNorm) y and dx within
+one ulp, mean and rstd within 1e-6 relative, dscale and dbias within 1e-5 x
+max |plain|; K21 (bias + tanh GELU) y and dx within one ulp, dbias within
+one ulp; each twice bitwise, at small and odd shapes (C not a multiple of
+8, rows not a multiple of a block); a resnet-tiny and a ViT (head_dim 64)
+train step on the card against the CPU step from the same weights (f32:
+loss and grad_norm within 1e-4 relative), their launches counted.
 """
 
 import functools
@@ -2942,3 +2953,193 @@ def test_mixtral_every_remat_policy_gives_full_grads():
         assert torch.equal(loss, want_loss), policy
         for a, b in zip(grads, want_grads):
             assert torch.equal(a, b), policy
+
+
+# ---------------------------------------------------------------- K19-K21
+
+
+def _stats_ok(got, x, ra=None):
+    """K19's batch statistics of x (or, given the running buffers ``ra``
+    before the call, the updated ones) against their f64 values, per
+    channel: mean within 1e-6 sqrt(E[x^2]), var within 1e-6 E[x^2] (the
+    scale of both statistics)."""
+    xd = x.double().reshape(-1, x.shape[-1])
+    mean, m2 = xd.mean(0), (xd * xd).mean(0)
+    want = (mean, (m2 - mean * mean).clamp_min(0.0))
+    if ra is not None:
+        want = tuple(0.9 * r.double() + 0.1 * w for r, w in zip(ra, want))
+    for g, w, scale in zip(got, want, (m2.sqrt(), m2)):
+        assert bool(((g.double() - w).abs() <= 1e-6 * scale + 1e-30).all())
+
+
+def _rel_ok(got, want, tol):
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * max(float(want.float().abs().max()), 1e-30), err
+
+
+@pytest.mark.parametrize("rows,C", [(1000, 64), (777, 12), (4099, 256),
+                                    (50, 2048), (3, 40), (12544, 2048)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", ["plain", "relu", "residual_relu"])
+@pytest.mark.parametrize("train", [True, False])
+def test_batch_norm_kernel_matches_plain(rows, C, dtype, mode, train):
+    from kubeflow_tpu_torch.ops import batch_norm as bn
+
+    g = torch.Generator(device="cuda").manual_seed(rows + C)
+    x = (torch.randn(rows, C, generator=g, device="cuda") * 2
+         + torch.randn(C, generator=g, device="cuda")).to(dtype)
+    res = torch.randn(rows, C, generator=g, device="cuda").to(dtype)
+    dy = torch.randn(rows, C, generator=g, device="cuda").to(dtype)
+    scale = 1 + 0.3 * torch.randn(C, generator=g, device="cuda")
+    bias = 0.2 * torch.randn(C, generator=g, device="cuda")
+    ra = (0.1 * torch.randn(C, generator=g, device="cuda"),
+          1 + 0.2 * torch.rand(C, generator=g, device="cuda"))
+    relu, with_res = mode != "plain", mode == "residual_relu"
+    r = res if with_res else None
+    kra = tuple(t.clone() for t in ra)
+    pra = tuple(t.clone() for t in ra)
+    before = bn.batch_norm.fwd_launches, bn.batch_norm.bwd_launches
+    y, mean, var = bn._fwd_kernel(x, scale, bias, *kra, r, train, relu)
+    y2, _, _ = bn._fwd_kernel(x, scale, bias, *(t.clone() for t in ra), r,
+                              train, relu)
+    want, _, _ = bn.batch_norm_reference(
+        x, scale, bias, *pra, train=train, residual=r, relu=relu)
+    given, _, _ = bn.batch_norm_reference(
+        x, scale, bias, mean, var, train=False, residual=r, relu=relu)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    # Bitwise the plain apply given the kernel's statistics; within one
+    # ulp of the plain version only without a residual (the add can
+    # cancel: one ulp of the normalised value is many of the sum).
+    assert torch.equal(y, given)
+    if not with_res:
+        _ulp_ok(y, want)
+    if train:
+        _stats_ok((mean, var), x)
+        _stats_ok(kra, x, ra)
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(kra, ra))
+    dx, ds, db, dres = bn._bwd_kernel(x, y, dy, mean, var, scale, train,
+                                      relu, with_res)
+    again = bn._bwd_kernel(x, y, dy, mean, var, scale, train, relu,
+                           with_res)
+    pdx, pds, pdb, pdres = bn.batch_norm_backward_reference(
+        x, y, dy, mean, var, scale, train=train, relu=relu,
+        residual=with_res)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((dx, ds, db), again))
+    _ulp_ok(dx, pdx)
+    _rel_ok(ds, pds, 1e-5)
+    _rel_ok(db, pdb, 1e-5)
+    if with_res:
+        assert torch.equal(dres, pdres)
+    assert (bn.batch_norm.fwd_launches, bn.batch_norm.bwd_launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_batch_norm_kernel_refusals():
+    from kubeflow_tpu_torch.ops.batch_norm import batch_norm
+
+    x = torch.randn(2, 8, 8, 64, device="cuda").bfloat16()
+    one, zero = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    with pytest.raises(ValueError, match="channels-last"):
+        batch_norm(x.transpose(1, 2), one, zero, zero.clone(), one.clone(),
+                   train=True)
+    with pytest.raises(ValueError, match="channels-last"):
+        batch_norm(x, one, zero, zero.clone(), one.clone(), train=True,
+                   residual=x.transpose(1, 2))
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        batch_norm(x.half(), one, zero, zero.clone(), one.clone(),
+                   train=True)
+    with pytest.raises(ValueError, match="f32"):
+        batch_norm(x, one.bfloat16(), zero, zero.clone(), one.clone(),
+                   train=True)
+    # A gradient that is not channels-last contiguous raises too.
+    leaf = x.clone().requires_grad_()
+    y = batch_norm(leaf, one, zero, zero.clone(), one.clone(), train=True)
+    with pytest.raises(ValueError, match="channels-last"):
+        y.backward(torch.ones(2, 8, 64, 8, device="cuda").bfloat16()
+                   .transpose(2, 3))
+
+
+@pytest.mark.parametrize("rows,E", [(1, 64), (7, 40), (1000, 768),
+                                    (12608, 768), (333, 1024), (65, 520)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_kernel_matches_plain(rows, E, dtype):
+    from kubeflow_tpu_torch.ops import layer_norm as ln
+
+    g = torch.Generator(device="cuda").manual_seed(rows + E)
+    x = (torch.randn(rows, E, generator=g, device="cuda") * 2 + 0.5).to(
+        dtype)
+    dy = torch.randn(rows, E, generator=g, device="cuda").to(dtype)
+    scale = 1 + 0.3 * torch.randn(E, generator=g, device="cuda")
+    bias = 0.2 * torch.randn(E, generator=g, device="cuda")
+    y, mean, rstd = ln._fwd_kernel(x, scale, bias)
+    y2, _, _ = ln._fwd_kernel(x, scale, bias)
+    want, pmean, prstd = ln.layer_norm_reference(x, scale, bias)
+    dx, ds, db = ln._bwd_kernel(x, scale, dy, mean, rstd)
+    again = ln._bwd_kernel(x, scale, dy, mean, rstd)
+    pdx, pds, pdb = ln.layer_norm_backward_reference(x, scale, dy, mean,
+                                                     rstd)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    assert all(torch.equal(a, b) for a, b in zip((dx, ds, db), again))
+    _ulp_ok(y, want)
+    torch.testing.assert_close(mean, pmean, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(rstd, prstd, rtol=1e-6, atol=0)
+    _ulp_ok(dx, pdx)
+    _rel_ok(ds, pds, 1e-5)
+    _rel_ok(db, pdb, 1e-5)
+
+
+def test_layer_norm_kernel_refusals():
+    from kubeflow_tpu_torch.ops.layer_norm import layer_norm
+
+    one = torch.ones(12, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layer_norm(torch.randn(4, 12, device="cuda"), one, one)
+    wide = torch.ones(2048, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layer_norm(torch.randn(4, 2048, device="cuda"), wide, wide)
+    x = torch.randn(4, 64, device="cuda")
+    s = torch.ones(64, device="cuda")
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        layer_norm(x.half(), s, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        layer_norm(torch.randn(64, 4, device="cuda").t(), s, s)
+
+
+@pytest.mark.parametrize("rows,F", [(1, 8), (333, 40), (12608, 3072),
+                                    (100, 4096)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bias_gelu_kernel_matches_plain(rows, F, dtype):
+    from kubeflow_tpu_torch.ops import gelu
+
+    g = torch.Generator(device="cuda").manual_seed(rows + F)
+    x = (torch.randn(rows, F, generator=g, device="cuda") * 2).to(dtype)
+    dy = torch.randn(rows, F, generator=g, device="cuda").to(dtype)
+    b = (0.5 * torch.randn(F, generator=g, device="cuda")).to(dtype)
+    y = gelu._fwd_kernel(x, b)
+    dx, db = gelu._bwd_kernel(x, b, dy)
+    again = gelu._bwd_kernel(x, b, dy)
+    want = gelu.bias_gelu_reference(x, b)
+    pdx, pdb = gelu.bias_gelu_backward_reference(x, b, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(y, gelu._fwd_kernel(x, b))
+    assert torch.equal(dx, again[0]) and torch.equal(db, again[1])
+    _ulp_ok(y, want)
+    _ulp_ok(dx, pdx)
+    _ulp_ok(db, pdb)
+
+
+def test_bias_gelu_kernel_refusals():
+    from kubeflow_tpu_torch.ops.gelu import bias_gelu
+
+    x = torch.randn(4, 64, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bias_gelu(x[:, :60].contiguous(), torch.zeros(60, device="cuda")
+                  .bfloat16())
+    with pytest.raises(ValueError, match="bias"):
+        bias_gelu(x, torch.zeros(64, device="cuda"))
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        bias_gelu(x.half(), torch.zeros(64, device="cuda").half())

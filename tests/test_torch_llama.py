@@ -162,7 +162,9 @@ def test_scanned_tree_raises():
 
 def test_registry_names():
     assert list_models() == ["llama-tiny", "llama3-70b", "llama3-8b",
-                             "mixtral-8x7b", "mixtral-tiny"]
+                             "mixtral-8x7b", "mixtral-tiny", "resnet-tiny",
+                             "resnet101", "resnet50", "vit-b16", "vit-l16",
+                             "vit-tiny"]
     model, cfg = get_model("llama-tiny", param_dtype="bfloat16")
     assert cfg.param_dtype == torch.bfloat16
     assert model.embed.dtype == torch.bfloat16
@@ -170,4 +172,4 @@ def test_registry_names():
     assert (cfg8b.num_layers, cfg8b.embed_dim, cfg8b.vocab_size,
             cfg8b.num_heads, cfg8b.num_kv_heads) == (32, 4096, 128256, 32, 8)
     with pytest.raises(KeyError, match="unknown model"):
-        get_model("resnet-tiny")
+        get_model("bert-tiny")

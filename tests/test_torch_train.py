@@ -201,9 +201,6 @@ def test_first_update_is_zero_and_adafactor_decays():
         assert np.array_equal(tparams[k].numpy(), want)
         assert np.array_equal(np.asarray(optax.apply_updates(jparams, upd)[k]),
                               want)
-    with pytest.raises(NotImplementedError, match="image"):
-        Trainer(Llama(LlamaConfig.tiny()), TrainConfig(task="image"),
-                device="cpu")
 
 
 # ---------------------------------------------------------------- accumulation
